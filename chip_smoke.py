@@ -21,11 +21,16 @@ Phases, each of which raises (exit code 1) on failure:
      separate process (python -m nice_tpu.server, seeded with b40 fields of
      1e9), one single-shot client run on the card against it; the submit
      must be accepted and the server's spot check must pass;
-  7. timing at the main path's shapes: K1 over one 2^18 x 8 segment and K2
-     over one 2^18 rare-scan sub-batch at b40, each beside its plain version
-     and an operation-count bound; then the kernels' estimated share of each
-     main-path field's time (launches x kernel time / field time);
-  8. profile: the mid-range field once more under torch.profiler, for the
+  7. main-path shapes: K1 over one whole 2^18 x 8 segment and K2 (with the
+     survivor compaction) over one 2^18 rare-scan sub-batch at b40, against
+     their plain versions, exact, from extra-large's start and from the
+     segment and sub-batch that hold the mid-range field's first near miss;
+  8. timing at those shapes: each kernel beside its plain version, and a
+     bound from the instructions one lane issues in the compiled code
+     (csrc/op_count.cu built with the b40 plan as a constant, counted with
+     cuobjdump); then the kernels' estimated share of each main-path
+     field's time (launches x kernel time / field time);
+  9. profile: the mid-range field once more under torch.profiler, for the
      device's busy and idle share of its wall time.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
@@ -54,20 +59,20 @@ DEVICE = "cuda"
 SERVER_BASE = 40
 SERVER_FIELD_SIZE = 1_000_000_000  # the server's default --field-size
 
-# Cost model of the kernels' per-lane arithmetic, in 32-bit integer
-# operations (nice_tpu_torch/csrc/nice_kernels.cuh), for the bound. Each
-# constant is a floor for what the source asks of the card, so the bound
-# errs low.
-OPS_ADD_LIMB = 4      # n = start + g: 64-bit add, carry split
-OPS_MAD = 6           # a*b + o + carry: wide multiply (2) + two 64-bit adds (4)
-OPS_DIVMOD_WIDE = 16  # chunk step (rem << 32 | limb) / chunk_div: 64x64
-                      # multiply-high (11), multiply back, subtract, correct (5)
-OPS_DIVMOD_NARROW = 8  # digit split of a 32-bit remainder: 32x64 multiply-high
-                       # (4), multiply back, subtract, compare and correct (4)
-OPS_SET_DIGIT = 4     # shift, and, word select, or
-OPS_POPC = 2          # popcount + add, per mask word
-OPS_HIST = 2          # compare with the cutoff + shared-memory atomic
-INT32_LANES_PER_SM_CLK = 64
+# Lanes one H100 SM can serve per clock: its four schedulers each issue one
+# warp instruction (32 lanes) a clock, and per class of integer instruction
+# the rates of the CUDA C++ Programming Guide's throughput table for compute
+# capability 9.0. A class may have a pipe of its own, so the bound takes the
+# busiest class or the issue slots, whichever is slower, never their sum.
+ISSUE_LANES_PER_SM_CLK = 128
+CLASS_LANES_PER_SM_CLK = {"add": 64, "multiply-add": 64, "shift": 64,
+                          "compare": 64, "logic": 64, "popc": 16}
+SASS_CLASS = {"IADD3": "add", "IADD": "add", "IADD32I": "add",
+              "IMAD": "multiply-add", "IMUL": "multiply-add",
+              "SHF": "shift", "SHL": "shift", "SHR": "shift",
+              "ISETP": "compare", "IMNMX": "compare",
+              "LOP3": "logic", "LOP": "logic", "LOP32I": "logic",
+              "POPC": "popc"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
 
@@ -96,34 +101,84 @@ def nvidia_smi(query: str) -> str:
 # Bounds
 # --------------------------------------------------------------------------
 
-def _products(la: int, lb: int, lo: int) -> int:
-    return sum(1 for i in range(la) for j in range(lb + 1) if i + j < lo and j < lb)
+def sass_counts(plan) -> dict:
+    """Instructions one lane of each kernel issues at this base, read from
+    the compiled code: nvcc builds csrc/op_count.cu with the plan as a
+    compile-time constant (every loop unrolls, so each function there is
+    straight-line) and cuobjdump lists its SASS (see parse_sass)."""
+    from nice_tpu_torch.ops import cuda_build
+    from nice_tpu_torch.ops import cuda_engine as ce
+
+    nvcc = cuda_build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory(prefix="nice-op-count-") as tmp:
+        with open(os.path.join(tmp, "op_count_plan.h"), "w") as f:
+            words = ", ".join(f"{w}ull" for w in ce.plan_words(plan))
+            f.write(f"#define NICE_PLAN {words}\n")
+        cubin = os.path.join(tmp, "op_count.cubin")
+        subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-cubin", "-I", tmp, "-o", cubin,
+             os.path.join(cuda_build.CSRC_DIR, "op_count.cu")],
+            check=True, capture_output=True, text=True)
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+    funcs = parse_sass(sass)
+    check({"k1_lane", "k2_lane"} <= set(funcs), f"op_count functions: {list(funcs)}")
+    return funcs
 
 
-def int_ops_per_lane(plan) -> int:
-    """32-bit integer operations one lane issues, following the kernel's
-    loops (chunk divisions over the shrinking dividend included)."""
-    from nice_tpu_torch.ops.limbs import digit_chunk, log2_fx, quotient_limbs
+def parse_sass(sass: str) -> dict:
+    """Per function of a cuobjdump -sass listing of straight-line code: the
+    instruction count (padding NOPs and the self-loop after EXIT left out),
+    the count per integer class of SASS_CLASS and per opcode, and the
+    forward branches (code a lane may skip, counted all the same). A
+    backward branch, a loop that did not unroll, fails."""
+    funcs: dict = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = {"instructions": 0, "classes": {}, "opcodes": {},
+                           "forward_branches": 0}
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if not (m and name):
+            continue
+        addr, toks = int(m.group(1), 16), m.group(2).split()
+        if toks[0].startswith("@"):
+            toks = toks[1:]
+        op = toks[0].split(".")[0]
+        if op == "NOP":
+            continue
+        f = funcs[name]
+        if op == "BRA":
+            target = int(re.findall(r"0x([0-9a-f]+)", m.group(2))[-1], 16)
+            if target == addr:
+                continue
+            check(target > addr, f"{name}: a loop at {addr:#x} did not unroll")
+            f["forward_branches"] += 1
+        f["instructions"] += 1
+        f["opcodes"][toks[0]] = f["opcodes"].get(toks[0], 0) + 1
+        cls = SASS_CLASS.get(op)
+        if cls:
+            f["classes"][cls] = f["classes"].get(cls, 0) + 1
+    return funcs
 
-    e, _ = digit_chunk(plan.base)
-    lfx = log2_fx(plan.base)
-    ops = plan.limbs_n * OPS_ADD_LIMB
-    ops += _products(plan.limbs_n, plan.limbs_n, plan.limbs_sq) * OPS_MAD
-    ops += _products(plan.limbs_sq, plan.limbs_n, plan.limbs_cu) * OPS_MAD
-    for nl, rem in ((plan.limbs_sq, plan.d_sq), (plan.limbs_cu, plan.d_cu)):
-        while rem > e:
-            rem -= e
-            ops += nl * OPS_DIVMOD_WIDE
-            nl = min(nl, quotient_limbs(rem, lfx))
-            ops += (e - 1) * (OPS_DIVMOD_NARROW + OPS_SET_DIGIT) + OPS_SET_DIGIT
-        ops += max(rem - 1, 0) * (OPS_DIVMOD_NARROW + OPS_SET_DIGIT)
-        ops += OPS_SET_DIGIT if rem > 0 else 0
-    return ops + plan.n_masks * OPS_POPC
+
+def lane_cycles(counts: dict) -> float:
+    """Least SM clock cycles one lane's instructions need: the issue slots,
+    or the busiest integer class at its own rate, whichever is more."""
+    t = counts["instructions"] / ISSUE_LANES_PER_SM_CLK
+    for cls, k in counts["classes"].items():
+        t = max(t, k / CLASS_LANES_PER_SM_CLK[cls])
+    return t
 
 
-def bound_ms(lanes: int, ops_per_lane: int, nbytes: int, sms: int,
+def bound_ms(lanes: int, cycles_per_lane: float, nbytes: int, sms: int,
              clk_mhz: float) -> tuple[float, str]:
-    t_ops = lanes * ops_per_lane / (sms * INT32_LANES_PER_SM_CLK * clk_mhz * 1e6)
+    t_ops = lanes * cycles_per_lane / (sms * clk_mhz * 1e6)
     t_bytes = nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -334,6 +389,7 @@ def phase_full_width(report: dict) -> None:
             "numbers": data.range_size, "elapsed_secs": elapsed,
             "numbers_per_sec": data.range_size / elapsed,
             "launches": launches, "near_misses": _check_field(data, results),
+            "near_miss_numbers": [n.number for n in results.nice_numbers],
         })
     total = dict(ce.LAUNCHES)
     report["full_width"] = {"fields": runs, "launches": total}
@@ -427,24 +483,93 @@ def _tail(path: str) -> str:
         return f.read()[-2000:].decode(errors="replace")
 
 
-def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
+def _main_shape_starts(report: dict) -> dict:
+    """Starts of the main path's launches to hold the kernels to: the
+    extra-large field's first segment, and the mid-range field's segment and
+    rare-scan sub-batch that hold its first near miss (so K1's near-miss
+    count and K2's survivors are not all zero)."""
+    from nice_tpu_torch.ops import engine
+
+    lanes = engine.DEFAULT_BATCH_SIZE * engine.MEGALOOP_SEGMENT_DEFAULT
+    sub = min(engine.RARE_SCAN_BATCH, engine.DEFAULT_BATCH_SIZE)
+    xl, mid = report["full_width"]["fields"]
+    hit = mid["near_miss_numbers"][0]
+    seg = mid["range_start"] + (hit - mid["range_start"]) // lanes * lanes
+    return {"range_start": xl["range_start"], "near_miss_segment": seg,
+            "near_miss_sub_batch": seg + (hit - seg) // sub * sub}
+
+
+def phase_main_shapes(report: dict) -> None:
+    """K1 and K2 against their plain versions at the shapes the main path
+    gives them: K1 over a whole 2^18 x 8 segment with every lane valid, K2
+    (and the survivor compaction after it) over one rare-scan sub-batch;
+    exact equality."""
+    import numpy as np
     import torch
 
-    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
     from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops import engine
     from nice_tpu_torch.ops import vector_engine as ve
     from nice_tpu_torch.ops.limbs import get_plan
 
     dev = torch.device(DEVICE)
-    data = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
-    plan = get_plan(data.base)
+    plan = get_plan(SERVER_BASE)
+    batch, seg = engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT
+    sub = min(engine.RARE_SCAN_BATCH, batch)
+    cap = min(engine.SURVIVOR_CAP, sub)
+    rng = np.random.default_rng(SEED)
+    starts = _main_shape_starts(report)
+    diff = {"detailed_megaloop": 0, "uniques": 0}
+    cases = []
+    for name in ("range_start", "near_miss_segment"):
+        st = ve.start_limbs_tensor(starts[name], plan, dev)
+        acc0 = torch.from_numpy(
+            rng.integers(0, 1000, plan.base + 2, dtype=np.int32)).to(dev)
+        h_k, nm_k = ce.detailed_accum_megaloop(plan, batch, seg, acc0.clone(),
+                                               st, batch * seg)
+        h_p, nm_p = ve.detailed_accum_megaloop(plan, batch, seg, acc0.clone(),
+                                               st, batch * seg)
+        d = max(int((h_k - h_p).abs().max()), abs(int(nm_k) - int(nm_p)))
+        diff["detailed_megaloop"] = max(diff["detailed_megaloop"], d)
+        cases.append({"kernel": "detailed_megaloop", "start": starts[name],
+                      "lanes": batch * seg, "near_misses": int(nm_k)})
+    for name in ("range_start", "near_miss_sub_batch"):
+        st = ve.start_limbs_tensor(starts[name], plan, dev)
+        u_k = ce.uniques_batch(plan, sub, st)
+        d = int((u_k - ve.uniques_batch(plan, sub, st)).abs().max())
+        s_k = ce.survivors_batch(plan, sub, plan.near_miss_cutoff, cap, st, sub)
+        s_p = ve.survivors_batch(plan, sub, plan.near_miss_cutoff, cap, st, sub)
+        for a, b in zip(s_k, s_p):
+            d = max(d, int((a.long() - b.long()).abs().max()))
+        diff["uniques"] = max(diff["uniques"], d)
+        cases.append({"kernel": "uniques", "start": starts[name], "lanes": sub,
+                      "survivors": int(s_k[0])})
+    torch.cuda.synchronize()
+    report["main_shapes"] = {"base": plan.base, "max_abs_diff": diff,
+                             "cases": cases}
+    emit({"phase": "main_shapes", **report["main_shapes"]})
+    check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
+    check(cases[1]["near_misses"] > 0 and cases[3]["survivors"] > 0,
+          f"the near-miss segment found none: {cases}")
+
+
+def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops import vector_engine as ve
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    dev = torch.device(DEVICE)
+    plan = get_plan(SERVER_BASE)
     batch, seg = engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT
     lanes_k1 = batch * seg
     lanes_k2 = min(engine.RARE_SCAN_BATCH, batch)
-    st = ve.start_limbs_tensor(data.range_start, plan, dev)
+    st = ve.start_limbs_tensor(_main_shape_starts(report)["range_start"],
+                               plan, dev)
     acc = torch.zeros(plan.base + 2, dtype=torch.int32, device=dev)
-    ops = int_ops_per_lane(plan)
+    counts = sass_counts(plan)
 
     def k1():
         ce.detailed_accum_megaloop(plan, batch, seg, acc, st, lanes_k1)
@@ -469,14 +594,17 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
     p2_b = time_cuda(p2, reps=3, warmup=0)
     # K1 reads the start limbs and the accumulator, writes the accumulator
     # and the count; K2 reads the start limbs and writes 4 bytes a lane.
-    b1 = bound_ms(lanes_k1, ops + OPS_HIST,
-                  8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4, sms, clk_mhz)
-    b2 = bound_ms(lanes_k2, ops, 8 * plan.limbs_n + 4 * lanes_k2, sms, clk_mhz)
+    c1, c2 = lane_cycles(counts["k1_lane"]), lane_cycles(counts["k2_lane"])
+    b1 = bound_ms(lanes_k1, c1, 8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4,
+                  sms, clk_mhz)
+    b2 = bound_ms(lanes_k2, c2, 8 * plan.limbs_n + 4 * lanes_k2, sms, clk_mhz)
     report["timing"] = {
-        "base": plan.base, "ops_per_lane": ops, "sms": sms, "clk_max_mhz": clk_mhz,
+        "base": plan.base, "sms": sms, "clk_max_mhz": clk_mhz,
         "k1": {"lanes": lanes_k1, "ms": [k1_a, k1_b], "plain_ms": [p1_a, p1_b],
+               "sass": counts["k1_lane"], "lane_cycles": c1,
                "bound_ms": b1[0], "bound_by": b1[1]},
         "k2": {"lanes": lanes_k2, "ms": [k2_a, k2_b], "plain_ms": [p2_a, p2_b],
+               "sass": counts["k2_lane"], "lane_cycles": c2,
                "bound_ms": b2[0], "bound_by": b2[1]},
     }
     emit({"phase": "timing", **report["timing"]})
@@ -547,6 +675,7 @@ def main() -> int:
     phase_golden(report)
     phase_full_width(report)
     phase_server(report)
+    phase_main_shapes(report)
     timed = phase_timing(report, sms, clk_mhz)
     phase_profile(report)
     kernel_ms = {name: ms for name, _, ms, _, _ in timed}
@@ -565,8 +694,8 @@ def main() -> int:
             "source": "nice_tpu_torch/csrc/nice_kernels.cu",
             "replaces": replaces,
             "launches": report["main_path_launches"][name],
-            "max_abs_err": report["kernel_vs_plain"]["max_abs_diff"][name],
-            "max_abs_diff": report["kernel_vs_plain"]["max_abs_diff"][name],
+            "max_abs_err": max(report["kernel_vs_plain"]["max_abs_diff"][name],
+                               report["main_shapes"]["max_abs_diff"][name]),
             "bases": list(BASES),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,

@@ -5,9 +5,9 @@
   * --benchmark <mode>: process a built-in benchmark field offline and print
     one JSON summary line (the JAX client's keys).
 
-Flags also read NICE_* environment variables, CLI first. The default device
-is cuda; --device cpu runs the kernels' plain PyTorch versions, and
---backend scalar the Python-int oracle. Niceonly mode is not ported yet.
+The default device is cuda; --device cpu runs the kernels' plain PyTorch
+versions, and --backend scalar the Python-int oracle. Niceonly mode is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import argparse
 import hashlib
 import json
 import logging
-import os
 import sys
 import time
 from typing import Optional
@@ -36,44 +35,27 @@ from nice_tpu_torch.ops import engine
 log = logging.getLogger("nice_tpu_torch.client")
 
 
-def _env(name: str, default):
-    return os.environ.get(f"NICE_{name}", default)
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nice-tpu-torch-client",
         description="Distributed search client for square-cube pandigitals "
         "(PyTorch/CUDA)",
     )
-    p.add_argument("mode", nargs="?", default=_env("MODE", "detailed"),
+    p.add_argument("mode", nargs="?", default="detailed",
                    choices=["detailed", "niceonly"],
-                   help="search mode (env NICE_MODE); niceonly is not ported yet")
-    p.add_argument("--api-base",
-                   default=_env("API_BASE", "https://api.nicenumbers.net"),
-                   help="API base URL (env NICE_API_BASE)")
-    p.add_argument("--username", default=_env("USERNAME", "anonymous"),
-                   help="username credited with submissions (env NICE_USERNAME)")
-    p.add_argument("--max-retries", type=int,
-                   default=int(_env("MAX_RETRIES", api_client.DEFAULT_MAX_RETRIES)),
-                   help="HTTP retry ceiling (env NICE_MAX_RETRIES)")
-    p.add_argument("--backend", default=_env("BACKEND", "device"),
-                   choices=list(engine.BACKENDS),
+                   help="search mode; niceonly is not ported yet")
+    p.add_argument("--api-base", default="https://api.nicenumbers.net",
+                   help="API base URL")
+    p.add_argument("--username", default="anonymous",
+                   help="username credited with submissions")
+    p.add_argument("--backend", default="device", choices=list(engine.BACKENDS),
                    help="device: the kernels (or their plain versions with "
-                   "--device cpu); scalar: the Python-int oracle "
-                   "(env NICE_BACKEND)")
-    p.add_argument("--device", default=_env("DEVICE", "cuda"),
-                   choices=["cuda", "cpu"],
-                   help="where the device backend runs (env NICE_DEVICE)")
-    p.add_argument("--batch-size", type=int,
-                   default=int(_env("BATCH_SIZE", engine.DEFAULT_BATCH_SIZE)),
-                   help="lanes per batch (env NICE_BATCH_SIZE)")
-    p.add_argument("--benchmark", default=_env("BENCHMARK", None),
+                   "--device cpu); scalar: the Python-int oracle")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the device backend runs")
+    p.add_argument("--benchmark", default=None,
                    choices=[m.value for m in BenchmarkMode],
-                   help="process a benchmark field offline (env NICE_BENCHMARK)")
-    p.add_argument("--log-level", default=_env("LOG_LEVEL", "info"),
-                   choices=["debug", "info", "warning", "error"],
-                   help="log verbosity (env NICE_LOG_LEVEL)")
+                   help="process a benchmark field offline")
     return p
 
 
@@ -82,7 +64,7 @@ def process_field(data: DataToClient, args) -> tuple[FieldResults, float]:
     t0 = time.monotonic()
     results = engine.process_range_detailed(
         data.to_field_size(), data.base, device=args.device,
-        backend=args.backend, batch_size=args.batch_size,
+        backend=args.backend,
     )
     elapsed = time.monotonic() - t0
     rate = data.range_size / elapsed if elapsed > 0 else float("inf")
@@ -139,14 +121,13 @@ def run_single_iteration(args) -> tuple[DataToClient, DataToServer, dict]:
     """Claim one detailed field, process it, submit it; returns the claimed
     field, the submission and the server's reply."""
     data = api_client.get_field_from_server(
-        SearchMode.DETAILED, args.api_base, args.username, args.max_retries
+        SearchMode.DETAILED, args.api_base, args.username
     )
     log.info("claimed field (claim %d): base %d, range [%d, %d)",
              data.claim_id, data.base, data.range_start, data.range_end)
     results, _ = process_field(data, args)
     submission = compile_results(data, results, args.username)
-    resp = api_client.submit_field_to_server(args.api_base, submission,
-                                             args.max_retries)
+    resp = api_client.submit_field_to_server(args.api_base, submission)
     log.info("submitted claim %d%s", submission.claim_id,
              " (duplicate)" if resp.get("duplicate") else "")
     return data, submission, resp
@@ -155,7 +136,7 @@ def run_single_iteration(args) -> tuple[DataToClient, DataToServer, dict]:
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
-        level=getattr(logging, args.log_level.upper()),
+        level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         stream=sys.stderr,
     )

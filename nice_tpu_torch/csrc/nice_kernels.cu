@@ -24,7 +24,7 @@
 // write little (K1: base+2 bins; K2: 4 bytes a lane), so they are bound by
 // integer operations — wide multiplies for n^2 and n^3 and the
 // multiply-high divisions of the digit extraction. The design keeps every
-// intermediate of the small tiers in registers, replaces each division by a
+// intermediate of the small tier in registers, replaces each division by a
 // multiply-high with a host-computed reciprocal, and keeps atomics off the
 // global histogram except for one flush per block.
 
@@ -121,9 +121,8 @@ int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
   int32_t* n = (int32_t*)nm;
   cudaStream_t s = (cudaStream_t)stream;
   switch (pick_tier(p)) {
-    case 0: launch_megaloop<TierA>(p, st, valid_total, pad, h, n, s); break;
-    case 1: launch_megaloop<TierB>(p, st, valid_total, pad, h, n, s); break;
-    case 2: launch_megaloop<TierC>(p, st, valid_total, pad, h, n, s); break;
+    case 0: launch_megaloop<SmallTier>(p, st, valid_total, pad, h, n, s); break;
+    case 1: launch_megaloop<GenericTier>(p, st, valid_total, pad, h, n, s); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
@@ -137,9 +136,8 @@ int nice_uniques(const uint64_t* plan_words, const void* start,
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (pick_tier(p)) {
-    case 0: launch_uniques<TierA>(p, st, lanes, o, s); break;
-    case 1: launch_uniques<TierB>(p, st, lanes, o, s); break;
-    case 2: launch_uniques<TierC>(p, st, lanes, o, s); break;
+    case 0: launch_uniques<SmallTier>(p, st, lanes, o, s); break;
+    case 1: launch_uniques<GenericTier>(p, st, lanes, o, s); break;
     default: return -1;
   }
   return (int)cudaGetLastError();

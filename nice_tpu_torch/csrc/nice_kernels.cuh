@@ -19,30 +19,27 @@
 //
 // Everything per base is a runtime value (struct Plan), so one build serves
 // every base. Array capacities are template parameters of a tier: in the
-// small tiers every loop runs to the constant capacity under a guard, is
+// small tier every loop runs to the constant capacity under a guard, is
 // fully unrolled, and the limb arrays stay in registers; the generic tier
 // loops to the runtime counts over arrays in local memory (slow, but right
 // for every base up to 2046).
-//
-// The header has no CUDA-only construct outside NICE_HD bodies, so a plain
-// C++ compiler can build it too (the intrinsics fall back to builtins).
 
 #pragma once
 
 #include <stdint.h>
 
-#if defined(__CUDACC__)
-#define NICE_HD __host__ __device__ __forceinline__
-#else
-#define NICE_HD inline
-#endif
+#define NICE_D __device__ __forceinline__
 
-#if defined(__CUDA_ARCH__)
 // Unrolls a loop whose trip count is a compile-time constant; leaves a loop
 // with a runtime trip count alone.
 #define NICE_UNROLL _Pragma("unroll")
-#else
-#define NICE_UNROLL
+
+// Marks the loops whose trip count is a plan value (the digit chunks). The
+// kernels leave them to the compiler; op_count.cu, which builds one base's
+// plan as a constant to count the instructions a lane issues, defines it as
+// NICE_UNROLL so that they unroll fully.
+#ifndef NICE_PLAN_UNROLL
+#define NICE_PLAN_UNROLL
 #endif
 
 namespace nice {
@@ -81,28 +78,12 @@ struct Plan {
   uint64_t log2_fx;                 // >= log2(base) * 2^kLog2FxBits
 };
 
-NICE_HD uint64_t mulhi64(uint64_t a, uint64_t b) {
-#if defined(__CUDA_ARCH__)
-  return __umul64hi(a, b);
-#else
-  return (uint64_t)(((unsigned __int128)a * b) >> 64);
-#endif
-}
-
-NICE_HD int popc32(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return __popc(x);
-#else
-  return __builtin_popcount(x);
-#endif
-}
-
 // Returns x / c and stores x % c in *r, for x < c * 2^32 and 2 <= c < 2^32,
-// given m = floor((2^64 - 1) / c). mulhi64(x, m) never over-estimates the
+// given m = floor((2^64 - 1) / c). __umul64hi(x, m) never over-estimates the
 // quotient and under-estimates it by at most one (the error term x * (1 + c)
 // / (c * 2^64) stays below 1 in that domain), so one correction is exact.
-NICE_HD uint32_t divmod_magic(uint64_t x, uint32_t c, uint64_t m, uint32_t* r) {
-  uint64_t q = mulhi64(x, m);
+NICE_D uint32_t divmod_magic(uint64_t x, uint32_t c, uint64_t m, uint32_t* r) {
+  uint64_t q = __umul64hi(x, m);
   uint64_t rr = x - q * c;
   if (rr >= c) {
     q += 1;
@@ -114,7 +95,7 @@ NICE_HD uint32_t divmod_magic(uint64_t x, uint32_t c, uint64_t m, uint32_t* r) {
 
 // Upper bound on the u32 limbs of base^rem_digits (ops/limbs.py
 // quotient_limbs): the dividend shrinks to it as digits are peeled.
-NICE_HD int quotient_limbs(int rem_digits, uint64_t log2_fx) {
+NICE_D int quotient_limbs(int rem_digits, uint64_t log2_fx) {
   return (int)((((uint64_t)rem_digits * log2_fx) >> kLog2FxBits) / 32) + 1;
 }
 
@@ -123,14 +104,14 @@ NICE_HD int quotient_limbs(int rem_digits, uint64_t log2_fx) {
 // runtime counts (local-memory arrays).
 template <int NL, int SQL, int CUL, int NM, bool UNROLL>
 struct Lane {
-  static NICE_HD bool fits(const Plan& p) {
+  static bool fits(const Plan& p) {
     return p.limbs_n <= NL && p.limbs_sq <= SQL && p.limbs_cu <= CUL &&
            p.n_masks <= NM;
   }
 
   // n = start + g, truncated to limbs_n limbs. start holds u32 values in
   // int64 words (the port's limb carrier).
-  static NICE_HD void load_n(uint32_t (&n)[NL], const int64_t* start,
+  static NICE_D void load_n(uint32_t (&n)[NL], const int64_t* start,
                              uint64_t g, const Plan& p) {
     uint64_t carry = g;
     NICE_UNROLL
@@ -148,7 +129,7 @@ struct Lane {
   // o = a * b mod 2^(32 * lo): one row of a at a time, the row's carry kept
   // in a 64-bit register; a[i]*b[j] + o[k] + carry < 2^64 always.
   template <int LA, int LB, int LO>
-  static NICE_HD void mul(const uint32_t (&a)[LA], int la,
+  static NICE_D void mul(const uint32_t (&a)[LA], int la,
                           const uint32_t (&b)[LB], int lb, uint32_t (&o)[LO],
                           int lo) {
     NICE_UNROLL
@@ -174,7 +155,7 @@ struct Lane {
 
   // OR digit d's presence bit into word d >> 5; words past n_masks (a lane
   // outside the base's range can yield such digits) are dropped.
-  static NICE_HD void set_digit(uint32_t (&m)[NM], uint32_t d, const Plan& p) {
+  static NICE_D void set_digit(uint32_t (&m)[NM], uint32_t d, const Plan& p) {
     const uint32_t bit = 1u << (d & 31u);
     const uint32_t w = d >> 5;
     if constexpr (UNROLL) {
@@ -190,9 +171,10 @@ struct Lane {
   // Peel ndig digits off the value in v[0..nl), destroying it. Inside the
   // base's valid range the value has exactly ndig digits.
   template <int L>
-  static NICE_HD void digits(uint32_t (&v)[L], int nl, int ndig, const Plan& p,
+  static NICE_D void digits(uint32_t (&v)[L], int nl, int ndig, const Plan& p,
                              uint32_t (&m)[NM]) {
     int rem = ndig;
+    NICE_PLAN_UNROLL
     while (rem > p.chunk_e) {
       rem -= p.chunk_e;
       uint32_t r = 0;
@@ -205,6 +187,7 @@ struct Lane {
       }
       const int bound = quotient_limbs(rem, p.log2_fx);
       nl = nl < bound ? nl : bound;
+      NICE_PLAN_UNROLL
       for (int t = 1; t < p.chunk_e; ++t) {
         uint32_t d;
         r = divmod_magic(r, p.base, p.base_magic, &d);
@@ -213,6 +196,7 @@ struct Lane {
       set_digit(m, r, p);
     }
     uint32_t r = v[0];
+    NICE_PLAN_UNROLL
     for (int t = 1; t < rem; ++t) {
       uint32_t d;
       r = divmod_magic(r, p.base, p.base_magic, &d);
@@ -221,7 +205,7 @@ struct Lane {
     if (rem > 0) set_digit(m, r, p);
   }
 
-  static NICE_HD int uniques(const int64_t* start, uint64_t g, const Plan& p) {
+  static NICE_D int uniques(const int64_t* start, uint64_t g, const Plan& p) {
     uint32_t n[NL], sq[SQL], cu[CUL], m[NM];
     load_n(n, start, g, p);
     mul(n, p.limbs_n, n, p.limbs_n, sq, p.limbs_sq);
@@ -233,20 +217,19 @@ struct Lane {
     int u = 0;
     NICE_UNROLL
     for (int i = 0; i < (UNROLL ? NM : p.n_masks); ++i) {
-      if (!UNROLL || i < p.n_masks) u += popc32(m[i]);
+      if (!UNROLL || i < p.n_masks) u += __popc(m[i]);
     }
     return u;
   }
 };
 
 // The tiers, smallest first; the launcher takes the first that fits.
-// TierA: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
-// holds every benchmark base except hi-base. TierB: up to b122. TierC: any
-// base whose histogram the TPU kernels accept (base + 2 <= 2048; at b2046,
-// n/n^2/n^3 take 141/282/422 limbs).
-typedef Lane<2, 4, 6, 2, true> TierA;
-typedef Lane<6, 11, 16, 4, true> TierB;
-typedef Lane<144, 288, 424, 64, false> TierC;
+// SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
+// holds the main path's b40 and every benchmark base except hi-base.
+// GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;
+// at b2046, n/n^2/n^3 take 141/282/422 limbs).
+typedef Lane<2, 4, 6, 2, true> SmallTier;
+typedef Lane<144, 288, 424, 64, false> GenericTier;
 
 inline Plan plan_from_words(const uint64_t* w) {
   Plan p;
@@ -266,11 +249,10 @@ inline Plan plan_from_words(const uint64_t* w) {
   return p;
 }
 
-// 0, 1, 2 for TierA/B/C; -1 when no tier holds the plan.
+// 0 for SmallTier, 1 for GenericTier; -1 when no tier holds the plan.
 inline int pick_tier(const Plan& p) {
-  if (TierA::fits(p)) return 0;
-  if (TierB::fits(p)) return 1;
-  if (TierC::fits(p)) return 2;
+  if (SmallTier::fits(p)) return 0;
+  if (GenericTier::fits(p)) return 1;
   return -1;
 }
 

@@ -20,6 +20,7 @@ from nice_tpu.server import app as server_app
 from nice_tpu.server.db import Db
 import nice_tpu_torch
 from nice_tpu_torch.client import main as client
+from nice_tpu_torch.ops import engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = [
@@ -68,11 +69,13 @@ def server(tmp_path):
     httpd.shutdown()
 
 
-def test_single_shot_round_matches_jax_client(server):
+def test_single_shot_round_matches_jax_client(server, monkeypatch):
     api, db_path = server
+    # Small batches keep the plain rare-path re-scan short on the CPU.
+    monkeypatch.setattr(engine, "DEFAULT_BATCH_SIZE", 512)
     args = client.build_parser().parse_args(
         ["detailed", "--api-base", api, "--username", "torch-test",
-         "--device", "cpu", "--batch-size", "512", "--max-retries", "2"])
+         "--device", "cpu"])
     data, sub, resp = client.run_single_iteration(args)
     assert resp.get("status") == "OK" and not resp.get("duplicate")
     assert data.base == 17 and data.range_size <= 4_000
