@@ -4,34 +4,60 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc builds the kernels from csrc/ at first use, timed;
+  2. build, all started together: nvcc builds the kernels from csrc/, g++ the
+     host library of the niceonly path (native/), and nvcc -cubin the
+     op-count source whose SASS bounds the kernels (see 9);
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
      range_start and from a start straddling a 2^32 limb carry;
-  4. golden and oracle fields: base-ten must give [(69, 10)] and the scalar
+  4. strided vs plain: K3 (stride-descriptor niceonly counts) against its
+     plain version, exact, at b10, b17, b40, b50 and b80 with each base's
+     main-path stride shape: ragged runs, padded rows past n_real,
+     candidates across multiples of 2^32, 2^64 and 2^96, and at b10 the
+     descriptor holding 69, repeated, plus spans past the range's end. Each
+     table runs at the nice test (min_uniques = base) and at a threshold
+     about the median of num_uniques (check_min_uniques), where every row
+     counts many lanes: no number but 69 is nice, so only the second makes
+     a lost carry or a wrong range mask show;
+  5. golden and oracle fields: base-ten must give [(69, 10)] and the scalar
      oracle's histogram; default (1e6 @ b40) on the card must equal the same
-     field through the plain path on the CPU;
-  5. full width (the main path, launch counts read around it): the
-     extra-large field (1e9 numbers @ b40) and a seeded mid-range b40 field
-     of 1e9, through the client's process_field; bins 1..40 must sum to 1e9,
-     the scalar oracle must confirm every near miss, a seeded slice must
-     agree with the oracle, and both K1 and K2 must have been launched;
-  6. claim -> process -> submit: the repository's coordination server in a
+     field through the plain path on the CPU; in niceonly mode base-ten must
+     give [69] through K3 (its hit re-scanned on the host), and default on
+     the card must equal the plain path on the CPU;
+  6. full width, detailed (the main path, launch counts read around it):
+     the extra-large field (1e9 numbers @ b40) and a seeded mid-range b40
+     field of 1e9, through the client's process_field; bins 1..40 must sum
+     to 1e9, the scalar oracle must confirm every near miss, a seeded slice
+     must agree with the oracle, and both K1 and K2 must have been launched;
+  7. full width, niceonly (the niceonly main path, counts read around it):
+     extra-large, the same mid-range b40 field, hi-base (1e9 @ b80) and a
+     seeded b80 field of 1e9 that the MSD filter does not prune whole (it
+     prunes hi-base whole), through process_field in niceonly mode with the
+     default audit; K3 must launch once per descriptor group, a seeded 1e7
+     slice of each field must equal the host library's scan, and each base
+     must have launched K3;
+  8. claim -> process -> submit: the repository's coordination server in a
      separate process (python -m nice_tpu.server, seeded with b40 fields of
-     1e9), one single-shot client run on the card against it; the submit
-     must be accepted and the server's spot check must pass;
-  7. main-path shapes: K1 over one whole 2^18 x 8 segment and K2 (with the
-     survivor compaction) over one 2^18 rare-scan sub-batch at b40, against
-     their plain versions, exact, from extra-large's start and from the
-     segment and sub-batch that hold the mid-range field's first near miss;
-  8. timing at those shapes: each kernel beside its plain version, and a
+     1e9), one detailed and one niceonly single-shot client run on the card
+     against it; both submits must be accepted and the server's spot check
+     must pass;
+  9. main-path shapes: K1 over one whole 2^18 x 8 segment and K2 (with the
+     survivor compaction) over one 2^18 rare-scan sub-batch at b40, from
+     extra-large's start and from the segment and sub-batch that hold the
+     mid-range field's first near miss; K3 over the first descriptor group
+     of the mid-range b40 field (1024 rows) and of the b80 field, as the
+     main path launched them, at both thresholds; each against its plain
+     version, exact;
+ 10. timing at those shapes: each kernel beside its plain version, and a
      bound from the instructions one lane issues in the compiled code
-     (csrc/op_count.cu built with the b40 plan as a constant, counted with
-     cuobjdump); then the kernels' estimated share of each main-path
-     field's time (launches x kernel time / field time);
-  9. profile: the mid-range field once more under torch.profiler, for the
-     device's busy and idle share of its wall time.
+     (csrc/op_count.cu built with the b40 plan and stride table as
+     constants, counted with cuobjdump); then the kernels' estimated share
+     of each main-path field's time (launches x kernel time / field time),
+     and each niceonly field's split into MSD filter, collector and
+     dispatch time;
+ 11. profile: the mid-range field once more in each mode under
+     torch.profiler, for the device's busy and idle share of its wall time.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -54,10 +80,16 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 BASES = (10, 17, 40, 50, 80, 97, 510)
+NICEONLY_BASES = (10, 17, 40, 50, 80)
+SLICE_WIDTH = 10_000_000  # the niceonly fields' slice held to the host scan
 SEED = 20261016
 DEVICE = "cuda"
 SERVER_BASE = 40
 SERVER_FIELD_SIZE = 1_000_000_000  # the server's default --field-size
+
+# The first descriptor group of each niceonly main-path field, as the
+# pipeline launched it (engine.LAST_NICEONLY_STATS["first_group"]).
+FIRST_GROUPS: dict = {}
 
 # Lanes one H100 SM can serve per clock: its four schedulers each issue one
 # warp instruction (32 lanes) a clock, and per class of integer instruction
@@ -101,11 +133,12 @@ def nvidia_smi(query: str) -> str:
 # Bounds
 # --------------------------------------------------------------------------
 
-def sass_counts(plan) -> dict:
-    """Instructions one lane of each kernel issues at this base, read from
-    the compiled code: nvcc builds csrc/op_count.cu with the plan as a
-    compile-time constant (every loop unrolls, so each function there is
-    straight-line) and cuobjdump lists its SASS (see parse_sass)."""
+def sass_counts(plan, table) -> dict:
+    """Instructions one lane of each kernel issues at this base (K3 with
+    this stride table), read from the compiled code: nvcc builds
+    csrc/op_count.cu with the plan as a compile-time constant (every loop
+    unrolls, so each function there is straight-line) and cuobjdump lists
+    its SASS (see parse_sass)."""
     from nice_tpu_torch.ops import cuda_build
     from nice_tpu_torch.ops import cuda_engine as ce
 
@@ -114,7 +147,9 @@ def sass_counts(plan) -> dict:
     with tempfile.TemporaryDirectory(prefix="nice-op-count-") as tmp:
         with open(os.path.join(tmp, "op_count_plan.h"), "w") as f:
             words = ", ".join(f"{w}ull" for w in ce.plan_words(plan))
-            f.write(f"#define NICE_PLAN {words}\n")
+            f.write(f"#define NICE_PLAN {words}\n"
+                    f"#define NICE_K3_R {table.num_residues}u\n"
+                    f"#define NICE_K3_M {table.modulus}u\n")
         cubin = os.path.join(tmp, "op_count.cubin")
         subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,7 +159,8 @@ def sass_counts(plan) -> dict:
         sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                               capture_output=True, text=True).stdout
     funcs = parse_sass(sass)
-    check({"k1_lane", "k2_lane"} <= set(funcs), f"op_count functions: {list(funcs)}")
+    check({"k1_lane", "k2_lane", "k3_lane"} <= set(funcs),
+          f"op_count functions: {list(funcs)}")
     return funcs
 
 
@@ -206,11 +242,29 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 # Phases
 # --------------------------------------------------------------------------
 
-def phase_build(report: dict) -> None:
-    from nice_tpu_torch.ops import cuda_build
+def phase_build(report: dict) -> dict:
+    """The builds, all started together: the kernels (nvcc), the niceonly
+    path's host library (g++) and the op-count source (nvcc -cubin, counted
+    with cuobjdump). Returns the op counts per lane for phase_timing."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from nice_tpu_torch import native
+    from nice_tpu_torch.ops import cuda_build, engine
+
+    def timed(fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        return out, time.monotonic() - t0
+
+    s = engine.strided_setup(SERVER_BASE, SERVER_FIELD_SIZE)
     t0 = time.monotonic()
-    cuda_build.load()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        kernels = pool.submit(timed, cuda_build.load)
+        host = pool.submit(timed, native.load)
+        counted = pool.submit(timed, sass_counts, s.plan, s.table)
+        (_, t_kernels), (_, t_host) = kernels.result(), host.result()
+        counts, t_counted = counted.result()
+    wall = time.monotonic() - t0
     info = cuda_build.BUILD_INFO
     resources = []
     name = None
@@ -228,10 +282,13 @@ def phase_build(report: dict) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and resources and resources[-1]["kernel"] == name:
             resources[-1]["registers"] = int(m.group(1))
-    report["build"] = {"nvcc_secs": info["seconds"],
-                       "load_secs": time.monotonic() - t0,
+    report["build"] = {"nvcc_secs": info["seconds"], "kernels_secs": t_kernels,
+                       "gxx_secs": native.BUILD_INFO["seconds"],
+                       "host_library_secs": t_host,
+                       "op_count_secs": t_counted, "wall_secs": wall,
                        "ptxas": resources}
     emit({"phase": "build", **report["build"]})
+    return counts
 
 
 def _straddle_start(plan, lanes: int) -> int:
@@ -292,8 +349,127 @@ def phase_kernel_vs_plain(report: dict) -> None:
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
 
 
+def _desc_tensor(rows, n_pad: int, rng, dev):
+    """int64 [len(rows) + n_pad, 12] descriptor table (n0, lo, hi as four
+    u32 limbs each) on dev; the n_pad rows past the real ones hold junk the
+    kernels must not count."""
+    import numpy as np
+    import torch
+
+    from nice_tpu_torch.ops.limbs import int_to_limbs
+
+    desc = np.zeros((len(rows) + n_pad, 12), dtype=np.int64)
+    for i, (n0, lo, hi) in enumerate(rows):
+        desc[i, 0:4] = int_to_limbs(n0, 4)
+        desc[i, 4:8] = int_to_limbs(lo, 4)
+        desc[i, 8:12] = int_to_limbs(hi, 4)
+    desc[len(rows):] = [[rng.randrange(1 << 32) for _ in range(12)]
+                        for _ in range(n_pad)]
+    return torch.from_numpy(desc).to(dev)
+
+
+def check_min_uniques(base: int) -> int:
+    """A K3 threshold about the median of num_uniques over stride
+    candidates (5/8 of the base): a check at it counts many lanes of every
+    descriptor, where the nice test (min_uniques = base) counts none."""
+    return (5 * base + 7) // 8
+
+
+def _k3_pair(s, desc, n_real: int, dev, min_uniques: int):
+    """K3 and its plain version on one descriptor table at one threshold:
+    (kernel counts, max abs difference)."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops import vector_engine as ve
+
+    res = engine._device_residues(s.plan.base, s.k, str(dev))
+    m = s.table.modulus
+    got = ce.strided_niceonly_batch(s.plan, m, res, s.periods, desc, n_real,
+                                    min_uniques)
+    want = ve.niceonly_strided_counts(s.plan, m, res, s.periods, desc, n_real,
+                                      min_uniques)
+    return got, int((got - want).abs().max())
+
+
+def _strided_rows(s, rng) -> tuple[list, int]:
+    """(n0, lo, hi) rows of the kernel-vs-plain cases at one base, with the
+    base's main-path stride shape, and how many of them (the last) cross a
+    multiple of 2^32, 2^64 or 2^96."""
+    plan, m = s.plan, s.table.modulus
+    span = s.periods * m
+    start, end = plan.range_start, plan.range_end
+    if plan.base == 10:
+        # 69 (the only nice number of a small range) in 64 rows, and spans
+        # past the range's end, where the fixed-width digits can hit too.
+        rows = [(0, 47, 100)] * 64
+        for _ in range(16):
+            lo = end + rng.randrange(10**6)
+            rows.append((lo // m * m, lo, lo + span))
+        return rows, 0
+    rows = []
+    room = end - start - 3 * span
+    if room <= 0:  # a range narrower than three spans (b17)
+        room = (end - start) // 2
+    for _ in range(8):  # ragged runs, cut into spans
+        lo = start + rng.randrange(room)
+        hi = min(end, lo + rng.randrange(1, 3 * span))
+        n0 = lo // m * m
+        while n0 < hi:
+            rows.append((n0, lo, hi))
+            n0 += span
+    n_carry = 0
+    for width in (32, 64, 96):  # candidates across a multiple of 2^width
+        boundary = ((start >> width) + 1) << width
+        if start < boundary < end - span:
+            n0 = (boundary - span // 2) // m * m
+            rows.append((n0, max(n0, start), n0 + span))
+            n_carry += 1
+    return rows, n_carry
+
+
+def phase_strided_vs_plain(report: dict) -> None:
+    import torch
+
+    from nice_tpu_torch.ops import engine
+
+    dev = torch.device(DEVICE)
+    rng = random.Random(SEED)
+    cases, diff, hits = [], 0, 0
+    t0 = time.monotonic()
+    for base in NICEONLY_BASES:
+        s = engine.strided_setup(base, SERVER_FIELD_SIZE)
+        rows, n_carry = _strided_rows(s, rng)
+        desc = _desc_tensor(rows, 2, rng, dev)
+        case = {"base": base, "k": s.k, "periods": s.periods,
+                "rows": len(rows), "carry_rows": n_carry}
+        for key, min_u in (("nice", base), ("median", check_min_uniques(base))):
+            got, d = _k3_pair(s, desc, len(rows), dev, min_u)
+            diff = max(diff, d)
+            case[key] = {"min_uniques": min_u, "counted": int(got.sum()),
+                         "max_abs_diff": d,
+                         "zero_rows": int((got[:len(rows)] == 0).sum()),
+                         "carry_counts": got[len(rows) - n_carry:len(rows)].tolist(),
+                         "padding": got[len(rows):].tolist()}
+        hits += case["nice"]["counted"]
+        cases.append(case)
+    torch.cuda.synchronize()
+    report["strided_vs_plain"] = {"cases": cases, "max_abs_diff": diff,
+                                  "hits": hits, "secs": time.monotonic() - t0}
+    emit({"phase": "strided_vs_plain", **report["strided_vs_plain"]})
+    check(diff == 0, f"K3 != plain: {cases}")
+    check(cases[0]["nice"]["counted"] >= 64, f"b10 rows lost 69: {cases[0]}")
+    for c in cases:
+        # The median threshold must make the comparison see real counts: in
+        # every table, and in every row that crosses a limb boundary.
+        check(c["median"]["counted"] > 0
+              and all(x > 0 for x in c["median"]["carry_counts"])
+              and c["median"]["padding"] == [0, 0],
+              f"b{c['base']}: the median threshold counted too little: {c}")
+
+
 def phase_golden(report: dict) -> None:
     from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops import engine, scalar
 
     ten = get_benchmark_field(BenchmarkMode.BASE_TEN)
@@ -317,6 +493,27 @@ def phase_golden(report: dict) -> None:
                         "default_card_secs": t_card,
                         "default_cpu_plain_secs": t_cpu}
     emit({"phase": "golden", **report["golden"]})
+
+    # Niceonly: base-ten through K3, its one hit re-scanned on the host by
+    # the collector; default on the card against the plain path on the CPU.
+    ce.reset_launches()
+    r = engine.process_range_niceonly(ten.to_field_size(), ten.base,
+                                      device=DEVICE)
+    stats = dict(engine.LAST_NICEONLY_STATS)
+    nice = [n.number for n in r.nice_numbers]
+    check(nice == [69], f"base-ten niceonly gives {nice}")
+    check(ce.LAUNCHES["strided_niceonly"] >= 1 and stats.get("nice") == 1,
+          f"base-ten niceonly did not find 69 through K3: {ce.LAUNCHES}, {stats}")
+    card = engine.process_range_niceonly(default.to_field_size(),
+                                         default.base, device=DEVICE)
+    cpu = engine.process_range_niceonly(default.to_field_size(),
+                                        default.base, device="cpu")
+    check(card == cpu, "default niceonly: card differs from the CPU plain path")
+    report["golden_niceonly"] = {
+        "base_ten": nice, "base_ten_k3_launches": ce.LAUNCHES["strided_niceonly"],
+        "base_ten_descriptors": stats["descriptors"],
+        "default_nice": len(card.nice_numbers)}
+    emit({"phase": "golden_niceonly", **report["golden_niceonly"]})
 
 
 def _check_field(data, results) -> int:
@@ -403,6 +600,95 @@ def phase_full_width(report: dict) -> None:
     check(total["uniques"] > 0, "the main path never reached K2")
 
 
+def _surviving_field(base: int):
+    """The first field of a seeded draw from the server's 1e9 grid over the
+    base's range that the MSD filter does not prune whole, as the niceonly
+    pipeline itself finds (a pruned field forms no descriptor group). At
+    b80 it prunes about 19 fields in 20 (hi-base, the range's first, among
+    them), so this is the field that takes the niceonly main path through
+    K3 there."""
+    from nice_tpu_torch.core.types import DataToClient
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    plan = get_plan(base)
+    n_fields = (plan.range_end - plan.range_start) // SERVER_FIELD_SIZE
+    rng = random.Random(SEED)
+    for _ in range(200):
+        start = plan.range_start + rng.randrange(n_fields) * SERVER_FIELD_SIZE
+        data = DataToClient(claim_id=0, base=base, range_start=start,
+                            range_end=start + SERVER_FIELD_SIZE,
+                            range_size=SERVER_FIELD_SIZE)
+        engine.process_range_niceonly(data.to_field_size(), base,
+                                      device=DEVICE)
+        if engine.LAST_NICEONLY_STATS["groups"]:
+            return data
+    raise SmokeFailure(f"no b{base} field of 200 survives the MSD filter")
+
+
+def _check_niceonly(data, results) -> dict:
+    """Every reported number is nice and in the field, and a seeded
+    SLICE_WIDTH slice of the field holds exactly the numbers the host
+    library's scan finds there."""
+    from nice_tpu_torch.core.types import FieldSize
+    from nice_tpu_torch.ops import engine, scalar
+
+    check(results.distribution == (), "niceonly results carry a distribution")
+    for n in results.nice_numbers:
+        check(data.range_start <= n.number < data.range_end, f"{n} outside field")
+        check(n.num_uniques == data.base
+              and scalar.get_num_unique_digits(n.number, data.base) == data.base,
+              f"{n} is not nice")
+    rng = random.Random(SEED + data.range_start)
+    width = min(SLICE_WIDTH, data.range_size)
+    lo = rng.randrange(data.range_start, data.range_end - width + 1)
+    want = engine.host_niceonly(FieldSize(lo, lo + width), data.base)
+    got = [n.number for n in results.nice_numbers if lo <= n.number < lo + width]
+    check(got == want, f"slice [{lo}, {lo + width}): device {got}, host {want}")
+    return {"slice_start": lo, "slice_width": width, "slice_nice": len(want)}
+
+
+def phase_full_width_niceonly(report: dict) -> None:
+    """The niceonly main path: a client processing four full-width fields in
+    niceonly mode (extra-large, the mid-range b40 field, hi-base, and the
+    surviving b80 field), with the launch counts set to 0 just before and
+    read just after."""
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+
+    fields = [("extra-large", get_benchmark_field(BenchmarkMode.EXTRA_LARGE)),
+              ("mid-range", _mid_range_field(SERVER_BASE)),
+              ("hi-base", get_benchmark_field(BenchmarkMode.HI_BASE)),
+              ("b80-surviving", _surviving_field(80))]
+    args = client.build_parser().parse_args(["niceonly", "--device", DEVICE])
+    runs = []
+    ce.reset_launches()
+    for name, data in fields:
+        before = ce.LAUNCHES["strided_niceonly"]
+        results, elapsed = client.process_field(data, args)
+        launches = ce.LAUNCHES["strided_niceonly"] - before
+        stats = dict(engine.LAST_NICEONLY_STATS)
+        FIRST_GROUPS[name] = stats.pop("first_group")
+        check(launches == stats["groups"],
+              f"{name}: {launches} K3 launches for {stats['groups']} groups")
+        runs.append({"field": name, "base": data.base,
+                     "range_start": data.range_start, "numbers": data.range_size,
+                     "elapsed_secs": elapsed,
+                     "numbers_per_sec": data.range_size / elapsed,
+                     "k3_launches": launches, "nice": len(results.nice_numbers),
+                     **_check_niceonly(data, results), "stats": stats})
+    total = dict(ce.LAUNCHES)
+    report["full_width_niceonly"] = {"fields": runs, "launches": total}
+    report["main_path_launches"]["strided_niceonly"] = total["strided_niceonly"]
+    for run in runs:
+        emit({"phase": "full_width_niceonly", **run})
+    for base in (SERVER_BASE, 80):
+        check(sum(r["k3_launches"] for r in runs if r["base"] == base) > 0,
+              f"the niceonly main path never reached K3 at b{base}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -464,6 +750,20 @@ def phase_server(report: dict) -> None:
                 time.sleep(1.0)
                 spot = _get_json(api + "/status")["fleet"]["trust"]["spot_checks"]
             check(spot.get("fail", 0) == 0, f"spot check failed: {spot}")
+            # A niceonly round against the same server.
+            args = client.build_parser().parse_args(
+                ["niceonly", "--api-base", api, "--username", "chip-smoke",
+                 "--device", DEVICE])
+            ce.reset_launches()
+            t0 = time.monotonic()
+            n_data, n_sub, n_resp = client.run_single_iteration(args)
+            n_elapsed = time.monotonic() - t0
+            check(n_resp.get("status") == "OK" and not n_resp.get("duplicate"),
+                  f"niceonly submit not accepted: {n_resp}")
+            check(n_data.base == SERVER_BASE and n_sub.unique_distribution is None,
+                  f"niceonly round: claimed {n_data}, sent {n_sub}")
+            _check_niceonly(n_data, FieldResults((), tuple(n_sub.nice_numbers)))
+            n_launches = dict(ce.LAUNCHES)
         finally:
             server.terminate()
             try:
@@ -474,7 +774,14 @@ def phase_server(report: dict) -> None:
     report["server"] = {"claim_id": data.claim_id, "numbers": data.range_size,
                         "client_secs": elapsed, "launches": launches,
                         "near_misses": len(sub.nice_numbers), "reply": resp,
-                        "spot_checks": spot}
+                        "spot_checks": spot,
+                        "niceonly": {"claim_id": n_data.claim_id,
+                                     "range_start": n_data.range_start,
+                                     "numbers": n_data.range_size,
+                                     "client_secs": n_elapsed,
+                                     "launches": n_launches,
+                                     "nice": len(n_sub.nice_numbers),
+                                     "reply": n_resp}}
     emit({"phase": "server", **report["server"]})
 
 
@@ -499,6 +806,28 @@ def _main_shape_starts(report: dict) -> dict:
             "near_miss_sub_batch": seg + (hit - seg) // sub * sub}
 
 
+def _main_path_group(name: str, report: dict, dev):
+    """The first descriptor group the niceonly main path launched on a
+    field: (its stride shape, columns, int64 desc table on dev)."""
+    import numpy as np
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine, stride_filter
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    stats = next(r for r in report["full_width_niceonly"]["fields"]
+                 if r["field"] == name)["stats"]
+    cols = FIRST_GROUPS[name]
+    check(cols is not None, f"{name}: the main path launched no group")
+    s = engine.StridedSetup(
+        get_plan(stats["base"]), None, stats["floor"], stats["k"],
+        stats["periods"], stride_filter.get_stride_table(stats["base"], stats["k"]))
+    desc = torch.from_numpy(engine.pack_descriptors(
+        cols, ce.STRIDED_DESC_MAX).astype(np.int64)).to(dev)
+    return s, cols, desc
+
+
 def phase_main_shapes(report: dict) -> None:
     """K1 and K2 against their plain versions at the shapes the main path
     gives them: K1 over a whole 2^18 x 8 segment with every lane valid, K2
@@ -519,7 +848,7 @@ def phase_main_shapes(report: dict) -> None:
     cap = min(engine.SURVIVOR_CAP, sub)
     rng = np.random.default_rng(SEED)
     starts = _main_shape_starts(report)
-    diff = {"detailed_megaloop": 0, "uniques": 0}
+    diff = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0}
     cases = []
     for name in ("range_start", "near_miss_segment"):
         st = ve.start_limbs_tensor(starts[name], plan, dev)
@@ -544,6 +873,19 @@ def phase_main_shapes(report: dict) -> None:
         diff["uniques"] = max(diff["uniques"], d)
         cases.append({"kernel": "uniques", "start": starts[name], "lanes": sub,
                       "survivors": int(s_k[0])})
+    for name in ("mid-range", "b80-surviving"):
+        st, cols, desc = _main_path_group(name, report, dev)
+        case = {"kernel": "strided_niceonly", "field": name,
+                "base": st.plan.base, "rows": len(cols[0]),
+                "k": st.k, "periods": st.periods,
+                "lanes": len(cols[0]) * st.periods * st.table.num_residues}
+        for key, min_u in (("nice", st.plan.base),
+                           ("median", check_min_uniques(st.plan.base))):
+            got, d = _k3_pair(st, desc, len(cols[0]), dev, min_u)
+            diff["strided_niceonly"] = max(diff["strided_niceonly"], d)
+            case[key] = {"min_uniques": min_u, "counted": int(got.sum()),
+                         "zero_rows": int((got[:len(cols[0])] == 0).sum())}
+        cases.append(case)
     torch.cuda.synchronize()
     report["main_shapes"] = {"base": plan.base, "max_abs_diff": diff,
                              "cases": cases}
@@ -551,11 +893,14 @@ def phase_main_shapes(report: dict) -> None:
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
     check(cases[1]["near_misses"] > 0 and cases[3]["survivors"] > 0,
           f"the near-miss segment found none: {cases}")
+    check(all(c["median"]["counted"] > 0 for c in cases[4:]),
+          f"the median threshold counted nothing in a main-path group: {cases}")
 
 
-def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
+def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
     import torch
 
+    from nice_tpu_torch.core.types import FieldSize
     from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops import engine
     from nice_tpu_torch.ops import vector_engine as ve
@@ -569,7 +914,14 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
     st = ve.start_limbs_tensor(_main_shape_starts(report)["range_start"],
                                plan, dev)
     acc = torch.zeros(plan.base + 2, dtype=torch.int32, device=dev)
-    counts = sass_counts(plan)
+    # K3: the mid-range b40 field's first group (1024 descriptors); the b80
+    # field's first group (generic tier) is timed beside it.
+    s3, cols, desc = _main_path_group("mid-range", report, dev)
+    n_real = len(cols[0])
+    res = engine._device_residues(s3.plan.base, s3.k, str(dev))
+    m3 = s3.table.modulus
+    s8, cols8, desc8 = _main_path_group("b80-surviving", report, dev)
+    res8 = engine._device_residues(s8.plan.base, s8.k, str(dev))
 
     def k1():
         ce.detailed_accum_megaloop(plan, batch, seg, acc, st, lanes_k1)
@@ -583,6 +935,16 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
     def p2():
         ve.uniques_batch(plan, lanes_k2, st)
 
+    def k3():
+        ce.strided_niceonly_batch(s3.plan, m3, res, s3.periods, desc, n_real)
+
+    def p3():
+        ve.niceonly_strided_counts(s3.plan, m3, res, s3.periods, desc, n_real)
+
+    def k3_b80():
+        ce.strided_niceonly_batch(s8.plan, s8.table.modulus, res8, s8.periods,
+                                  desc8, len(cols8[0]))
+
     # Plain, kernel, kernel, plain: both versions see the same card state.
     p1_a = time_cuda(p1, reps=2, warmup=1)
     k1_a = time_cuda(k1, reps=20)
@@ -592,12 +954,31 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
     k2_a = time_cuda(k2, reps=50)
     k2_b = time_cuda(k2, reps=50)
     p2_b = time_cuda(p2, reps=3, warmup=0)
+    p3_a = time_cuda(p3, reps=2, warmup=1)
+    k3_a = time_cuda(k3, reps=20)
+    k3_b = time_cuda(k3, reps=20)
+    p3_b = time_cuda(p3, reps=2, warmup=0)
+    k3_b80_ms = time_cuda(k3_b80, reps=10)
     # K1 reads the start limbs and the accumulator, writes the accumulator
-    # and the count; K2 reads the start limbs and writes 4 bytes a lane.
+    # and the count; K2 reads the start limbs and writes 4 bytes a lane; K3
+    # reads the descriptors and the residues and writes a count a row.
     c1, c2 = lane_cycles(counts["k1_lane"]), lane_cycles(counts["k2_lane"])
+    c3 = lane_cycles(counts["k3_lane"])
     b1 = bound_ms(lanes_k1, c1, 8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4,
                   sms, clk_mhz)
     b2 = bound_ms(lanes_k2, c2, 8 * plan.limbs_n + 4 * lanes_k2, sms, clk_mhz)
+    # K3's work depends on the data: only candidates inside [lo, hi) reach
+    # the digit work, so the bound counts those (the stride table's count
+    # over each row's clipped span) at the full lane's instructions.
+    span = s3.periods * m3
+    in_range = 0
+    for g in range(n_real):
+        n0, lo, hi = (engine.desc_value(cols, j, g) for j in range(3))
+        a, b = max(lo, n0), min(hi, n0 + span)
+        if a < b:
+            in_range += s3.table.count_candidates(FieldSize(a, b))
+    b3 = bound_ms(in_range, c3, 8 * 12 * n_real + 8 * s3.table.num_residues
+                  + 4 * desc.shape[0], sms, clk_mhz)
     report["timing"] = {
         "base": plan.base, "sms": sms, "clk_max_mhz": clk_mhz,
         "k1": {"lanes": lanes_k1, "ms": [k1_a, k1_b], "plain_ms": [p1_a, p1_b],
@@ -606,6 +987,14 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
         "k2": {"lanes": lanes_k2, "ms": [k2_a, k2_b], "plain_ms": [p2_a, p2_b],
                "sass": counts["k2_lane"], "lane_cycles": c2,
                "bound_ms": b2[0], "bound_by": b2[1]},
+        "k3": {"rows": n_real, "k": s3.k, "periods": s3.periods,
+               "lanes": n_real * s3.periods * s3.table.num_residues,
+               "lanes_in_range": in_range, "ms": [k3_a, k3_b],
+               "plain_ms": [p3_a, p3_b], "sass": counts["k3_lane"],
+               "lane_cycles": c3, "bound_ms": b3[0], "bound_by": b3[1]},
+        "k3_b80": {"rows": len(cols8[0]), "k": s8.k, "periods": s8.periods,
+                   "lanes": len(cols8[0]) * s8.periods * s8.table.num_residues,
+                   "ms": k3_b80_ms},
     }
     emit({"phase": "timing", **report["timing"]})
     return [
@@ -613,23 +1002,21 @@ def phase_timing(report: dict, sms: int, clk_mhz: float) -> list:
          min(k1_a, k1_b), min(p1_a, p1_b), b1),
         ("uniques", "nice_tpu/ops/pallas_engine.py:466",
          min(k2_a, k2_b), min(p2_a, p2_b), b2),
+        ("strided_niceonly", "nice_tpu/ops/pallas_engine.py:410",
+         min(k3_a, k3_b), min(p3_a, p3_b), b3),
     ]
 
 
-def phase_profile(report: dict) -> None:
-    """One mid-range field again under torch.profiler: the device's busy
-    and idle share of the field's wall time, and device time by kernel."""
+def _profiled(run_field) -> dict:
+    """run_field() under torch.profiler: wall time, device time and the
+    device's idle share of the wall, and device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nice_tpu_torch.client import main as client
-
-    data = _mid_range_field(SERVER_BASE)
-    args = client.build_parser().parse_args(["--device", DEVICE])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        client.process_field(data, args)
+        run_field()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_kernel: dict = {}
@@ -641,11 +1028,23 @@ def phase_profile(report: dict) -> None:
     busy_ms = sum(by_kernel.values())
     check(busy_ms > 0, "the profiler saw no device time")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    report["profile"] = {"field": "mid-range", "wall_ms": wall_ms,
-                         "device_busy_ms": busy_ms,
-                         "device_idle_share": 1.0 - busy_ms / wall_ms,
-                         "device_ms_by_kernel": dict(top)}
-    emit({"phase": "profile", **report["profile"]})
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ms_by_kernel": dict(top)}
+
+
+def phase_profile(report: dict) -> None:
+    """The mid-range field once more in each mode under torch.profiler: the
+    device's busy and idle share of the field's wall time."""
+    from nice_tpu_torch.client import main as client
+
+    data = _mid_range_field(SERVER_BASE)
+    for mode in ("detailed", "niceonly"):
+        args = client.build_parser().parse_args([mode, "--device", DEVICE])
+        key = "profile" if mode == "detailed" else "profile_niceonly"
+        report[key] = {"field": "mid-range", "mode": mode,
+                       **_profiled(lambda: client.process_field(data, args))}
+        emit({"phase": "profile", **report[key]})
 
 
 def main() -> int:
@@ -670,13 +1069,15 @@ def main() -> int:
                     "clk_max_mhz": clk_mhz}
     emit(f"card: {card} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
-    phase_build(report)
+    counts = phase_build(report)
     phase_kernel_vs_plain(report)
+    phase_strided_vs_plain(report)
     phase_golden(report)
     phase_full_width(report)
+    phase_full_width_niceonly(report)
     phase_server(report)
     phase_main_shapes(report)
-    timed = phase_timing(report, sms, clk_mhz)
+    timed = phase_timing(report, counts, sms, clk_mhz)
     phase_profile(report)
     kernel_ms = {name: ms for name, _, ms, _, _ in timed}
     for run in report["full_width"]["fields"]:
@@ -686,7 +1087,30 @@ def main() -> int:
         emit({"phase": "where_time_goes", "field": run["field"],
               "elapsed_ms": run["elapsed_secs"] * 1e3, "kernel_ms_est": est,
               "kernel_share_est": run["kernel_share_est"]})
+    k3_group_ms = {SERVER_BASE: kernel_ms["strided_niceonly"],
+                   80: report["timing"]["k3_b80"]["ms"]}
+    for run in report["full_width_niceonly"]["fields"]:
+        # The pipeline's stages overlap: wall ~ the slowest of the MSD pool
+        # (msd_busy over its threads), the dispatcher (gen + disp + put) and
+        # the collector. K3's share is at most launches x a full group's time.
+        st = run["stats"]
+        emit({"phase": "where_time_goes", "field": run["field"],
+              "mode": "niceonly", "base": run["base"],
+              "elapsed_ms": run["elapsed_secs"] * 1e3,
+              "pipeline_wall_ms": st["wall"] * 1e3,
+              "msd_busy_ms": st["msd_busy"] * 1e3,
+              "filter_threads": st["filter_threads"],
+              "collect_busy_ms": st["collect_busy"] * 1e3,
+              "dispatch_gen_ms": st["gen"] * 1e3,
+              "dispatch_disp_ms": st["disp"] * 1e3,
+              "dispatch_put_ms": st["put"] * 1e3,
+              "descriptors": st["descriptors"], "k3_launches": run["k3_launches"],
+              "k3_ms_at_most": run["k3_launches"] * k3_group_ms[run["base"]]})
 
+    kernel_bases = {"detailed_megaloop": BASES, "uniques": BASES,
+                    "strided_niceonly": NICEONLY_BASES}
+    vs_plain = dict(report["kernel_vs_plain"]["max_abs_diff"],
+                    strided_niceonly=report["strided_vs_plain"]["max_abs_diff"])
     kernels = []
     for name, replaces, ms, plain_ms, (b_ms, b_by) in timed:
         kernels.append({
@@ -694,9 +1118,9 @@ def main() -> int:
             "source": "nice_tpu_torch/csrc/nice_kernels.cu",
             "replaces": replaces,
             "launches": report["main_path_launches"][name],
-            "max_abs_err": max(report["kernel_vs_plain"]["max_abs_diff"][name],
+            "max_abs_err": max(vs_plain[name],
                                report["main_shapes"]["max_abs_diff"][name]),
-            "bases": list(BASES),
+            "bases": list(kernel_bases[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })

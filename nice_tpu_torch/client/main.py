@@ -1,13 +1,12 @@
 """nice-tpu-torch search client CLI (the port's cut of nice_tpu/client/main.py).
 
-  * single shot: claim one detailed field from --api-base, process it on the
-    card, submit it;
-  * --benchmark <mode>: process a built-in benchmark field offline and print
-    one JSON summary line (the JAX client's keys).
+  * single shot: claim one field (detailed or niceonly) from --api-base,
+    process it on the card, submit it;
+  * --benchmark <field>: process a built-in benchmark field offline and
+    print one JSON summary line (the JAX client's keys).
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
-versions, and --backend scalar the Python-int oracle. Niceonly mode is not
-ported yet.
+versions, and --backend scalar the Python-int oracle.
 """
 
 from __future__ import annotations
@@ -43,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("mode", nargs="?", default="detailed",
                    choices=["detailed", "niceonly"],
-                   help="search mode; niceonly is not ported yet")
+                   help="search mode: detailed (histogram and near misses) or "
+                   "niceonly (nice numbers only)")
     p.add_argument("--api-base", default="https://api.nicenumbers.net",
                    help="API base URL")
     p.add_argument("--username", default="anonymous",
@@ -60,12 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def process_field(data: DataToClient, args) -> tuple[FieldResults, float]:
-    """Process one detailed field; returns results and elapsed seconds."""
+    """Process one field in args.mode; returns results and elapsed seconds."""
+    process = (engine.process_range_detailed if args.mode == "detailed"
+               else engine.process_range_niceonly)
     t0 = time.monotonic()
-    results = engine.process_range_detailed(
-        data.to_field_size(), data.base, device=args.device,
-        backend=args.backend,
-    )
+    results = process(data.to_field_size(), data.base, device=args.device,
+                      backend=args.backend)
     elapsed = time.monotonic() - t0
     rate = data.range_size / elapsed if elapsed > 0 else float("inf")
     log.info("processed %s numbers in %.2fs (%s numbers/sec)",
@@ -74,14 +74,16 @@ def process_field(data: DataToClient, args) -> tuple[FieldResults, float]:
 
 
 def compile_results(data: DataToClient, results: FieldResults,
-                    username: str) -> DataToServer:
-    """The submission payload, stamped with the exactly-once submit_id
-    (claim id + content hash), computed as the JAX client computes it."""
+                    mode: SearchMode, username: str) -> DataToServer:
+    """The submission payload (no distribution in niceonly mode), stamped
+    with the exactly-once submit_id (claim id + content hash), computed as
+    the JAX client computes it."""
     payload = DataToServer(
         claim_id=data.claim_id,
         username=username,
         client_version=CLIENT_VERSION,
-        unique_distribution=list(results.distribution),
+        unique_distribution=(list(results.distribution)
+                             if mode == SearchMode.DETAILED else None),
         nice_numbers=list(results.nice_numbers),
     )
     content = json.dumps(payload.to_json(), sort_keys=True).encode()
@@ -118,15 +120,15 @@ def run_benchmark(args) -> int:
 
 
 def run_single_iteration(args) -> tuple[DataToClient, DataToServer, dict]:
-    """Claim one detailed field, process it, submit it; returns the claimed
-    field, the submission and the server's reply."""
-    data = api_client.get_field_from_server(
-        SearchMode.DETAILED, args.api_base, args.username
-    )
+    """Claim one field of args.mode, process it, submit it; returns the
+    claimed field, the submission and the server's reply."""
+    mode = (SearchMode.DETAILED if args.mode == "detailed"
+            else SearchMode.NICEONLY)
+    data = api_client.get_field_from_server(mode, args.api_base, args.username)
     log.info("claimed field (claim %d): base %d, range [%d, %d)",
              data.claim_id, data.base, data.range_start, data.range_end)
     results, _ = process_field(data, args)
-    submission = compile_results(data, results, args.username)
+    submission = compile_results(data, results, mode, args.username)
     resp = api_client.submit_field_to_server(args.api_base, submission)
     log.info("submitted claim %d%s", submission.claim_id,
              " (duplicate)" if resp.get("duplicate") else "")
@@ -140,10 +142,6 @@ def main(argv: Optional[list[str]] = None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         stream=sys.stderr,
     )
-    if args.mode != "detailed":
-        log.error("mode %r is not ported yet: nice_tpu_torch runs detailed "
-                  "mode only", args.mode)
-        return 2
     if args.benchmark:
         return run_benchmark(args)
     run_single_iteration(args)

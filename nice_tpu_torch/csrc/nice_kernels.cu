@@ -1,6 +1,7 @@
-// The two CUDA kernels of the detailed-mode path, with a plain C interface
-// for ctypes (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc
-// for sm_90a; ops/cuda_engine.py wraps it).
+// The three CUDA kernels of the port, with a plain C interface for ctypes
+// (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc for sm_90a;
+// ops/cuda_engine.py wraps it): K1 and K2 on the detailed path, K3 on the
+// niceonly path.
 //
 // K1 detailed_megaloop_kernel replaces the TPU's detailed stats kernel:
 // nice_tpu/ops/pallas_engine.py _stats_callable (pallas_call at :181, body
@@ -20,13 +21,28 @@
 // every lane of a batch, one int32 per lane. The survivor compaction after
 // it stays plain tensor code, as it stayed outside the pallas_call in JAX.
 //
-// What bounds them on an H100: both take no input but a few start limbs and
-// write little (K1: base+2 bins; K2: 4 bytes a lane), so they are bound by
+// K3 strided_niceonly_kernel replaces the TPU's stride-descriptor niceonly
+// kernel: pallas_engine.py _strided_callable (pallas_call at :410, body
+// _make_strided_kernel). Each descriptor row (n0, lo, hi as four u32 limbs)
+// covers candidates n = n0 + (i / R) * M + residues[i % R], i < periods * R,
+// and the kernel counts those with lo <= n < hi and num_uniques(n) == base
+// (or, for a check, min_uniques <= num_uniques(n) <= base).
+// The TPU expanded the offsets on the host into a VMEM table and walked the
+// descriptors as a sequential grid axis, skipping padded rows with
+// pl.when(d < n_real); here the grid is (lane chunks, n_real): only real
+// rows are launched, each thread derives its candidate's offset from the
+// residue table (R u32 words, resident in L1) with one u32 division, and
+// each block reduces its count per warp, then across warps, and adds it to
+// counts[row] with one atomic.
+//
+// What bounds them on an H100: they take no input but a few start limbs (K3:
+// 96 bytes a descriptor and the residue table) and write little (K1: base+2
+// bins; K2: 4 bytes a lane; K3: 4 bytes a descriptor), so they are bound by
 // integer operations — wide multiplies for n^2 and n^3 and the
 // multiply-high divisions of the digit extraction. The design keeps every
 // intermediate of the small tier in registers, replaces each division by a
 // multiply-high with a host-computed reciprocal, and keeps atomics off the
-// global histogram except for one flush per block.
+// global outputs except for one flush per block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +53,7 @@ namespace nice {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
+constexpr int kDescWidth = 12;  // int64 words of a stride descriptor row
 
 template <class L>
 __global__ void __launch_bounds__(kThreads)
@@ -78,6 +95,31 @@ uniques_kernel(const int64_t* __restrict__ start, int64_t lanes, Plan p,
   }
 }
 
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+strided_niceonly_kernel(const int64_t* __restrict__ desc,
+                        const int64_t* __restrict__ residues, uint32_t num_res,
+                        uint32_t modulus, int64_t lanes, int min_u, Plan p,
+                        int32_t* __restrict__ counts) {
+  __shared__ int32_t warp_sums[kThreads / 32];
+  const int64_t* row = desc + (int64_t)blockIdx.y * kDescWidth;
+  int c = 0;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
+       i += stride) {
+    c += L::strided_nice(row, residues, num_res, modulus, (uint32_t)i, min_u,
+                         p);
+  }
+  c = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
+    if (s) atomicAdd(&counts[blockIdx.y], s);
+  }
+}
+
 // Enough blocks to fill every SM, capped so the grid-stride loop (and not a
 // huge grid) covers large segments.
 static int grid_for(int64_t lanes) {
@@ -103,6 +145,18 @@ template <class L>
 static void launch_uniques(const Plan& p, const int64_t* start, int64_t lanes,
                            int32_t* out, cudaStream_t s) {
   uniques_kernel<L><<<grid_for(lanes), kThreads, 0, s>>>(start, lanes, p, out);
+}
+
+// One block per kThreads lanes of a descriptor (lanes <= 2^20, so at most
+// 4096), times the n_real real descriptors (<= 1024) on the grid's y axis.
+template <class L>
+static void launch_strided(const Plan& p, const int64_t* desc, int n_real,
+                           const int64_t* residues, uint32_t num_res,
+                           uint32_t modulus, int64_t lanes, int min_u,
+                           int32_t* counts, cudaStream_t s) {
+  const dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads), (unsigned)n_real);
+  strided_niceonly_kernel<L><<<grid, kThreads, 0, s>>>(
+      desc, residues, num_res, modulus, lanes, min_u, p, counts);
 }
 
 }  // namespace nice
@@ -138,6 +192,35 @@ int nice_uniques(const uint64_t* plan_words, const void* start,
   switch (pick_tier(p)) {
     case 0: launch_uniques<SmallTier>(p, st, lanes, o, s); break;
     case 1: launch_uniques<GenericTier>(p, st, lanes, o, s); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3 over desc rows [0, n_real): counts[row] += candidates of the row with
+// min_uniques <= num_uniques <= base (the caller zeroes counts; the search
+// passes min_uniques = base). periods * num_res lanes per row.
+int nice_strided_niceonly(const uint64_t* plan_words, const void* desc,
+                          long long n_real, const void* residues,
+                          long long num_res, long long modulus,
+                          long long periods, int min_uniques, void* counts,
+                          void* stream) {
+  using namespace nice;
+  const Plan p = plan_from_words(plan_words);
+  const int64_t* d = (const int64_t*)desc;
+  const int64_t* r = (const int64_t*)residues;
+  const int64_t lanes = (int64_t)periods * num_res;
+  int32_t* c = (int32_t*)counts;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (pick_tier(p)) {
+    case 0:
+      launch_strided<SmallTier>(p, d, (int)n_real, r, (uint32_t)num_res,
+                                (uint32_t)modulus, lanes, min_uniques, c, s);
+      break;
+    case 1:
+      launch_strided<GenericTier>(p, d, (int)n_real, r, (uint32_t)num_res,
+                                  (uint32_t)modulus, lanes, min_uniques, c, s);
+      break;
     default: return -1;
   }
   return (int)cudaGetLastError();

@@ -1,10 +1,10 @@
-// Per-lane arithmetic shared by the two kernels in nice_kernels.cu.
+// Per-lane arithmetic shared by the three kernels in nice_kernels.cu.
 //
 // For a candidate n this computes num_uniques: the count of distinct base-b
 // digits across n^2 and n^3. It is the body of the TPU's Pallas kernels
-// (nice_tpu/ops/pallas_engine.py: _make_kernel and _uniques_callable, which
-// trace nice_tpu/ops/vector_engine.py:num_uniques_lanes) thought through
-// again for Hopper:
+// (nice_tpu/ops/pallas_engine.py: _make_kernel, _uniques_callable and
+// _make_strided_kernel, which trace nice_tpu/ops/vector_engine.py:
+// num_uniques_lanes) thought through again for Hopper:
 //   * n = start + lane is a multi-limb add of a 64-bit lane index;
 //   * n^2 and n^3 are schoolbook products with native 32x32->64 multiplies
 //     and an in-row carry (the TPU's 16-bit-half carry-save scheme only
@@ -205,9 +205,52 @@ struct Lane {
     if (rem > 0) set_digit(m, r, p);
   }
 
+  // a < b on the low limbs_n limbs, most significant limb first; b holds
+  // u32 values in int64 words.
+  static NICE_D bool less(const uint32_t (&a)[NL], const int64_t* b,
+                          const Plan& p) {
+    bool lt = false, eq = true;
+    NICE_UNROLL
+    for (int k = 0; k < (UNROLL ? NL : p.limbs_n); ++k) {
+      const int i = (UNROLL ? NL : p.limbs_n) - 1 - k;
+      if (UNROLL && i >= p.limbs_n) continue;
+      const uint32_t bi = (uint32_t)b[i];
+      lt = lt || (eq && a[i] < bi);
+      eq = eq && a[i] == bi;
+    }
+    return lt;
+  }
+
   static NICE_D int uniques(const int64_t* start, uint64_t g, const Plan& p) {
-    uint32_t n[NL], sq[SQL], cu[CUL], m[NM];
+    uint32_t n[NL];
     load_n(n, start, g, p);
+    return uniques_of(n, p);
+  }
+
+  // K3's lane: candidate i of one stride descriptor. row holds the
+  // descriptor's n0, lo and hi as four u32 limbs each (int64 words, LSW
+  // first); residues holds the stride table's num_res residues modulo
+  // `modulus`. n = n0 + (i / num_res) * modulus + residues[i % num_res] in
+  // u32 (the caller keeps periods * modulus < 2^32), carried through limbs_n
+  // limbs; 1 when lo <= n < hi and min_u <= num_uniques(n) <= base, else 0.
+  // With min_u = base this is the TPU kernel's nice test, num_uniques(n) ==
+  // base; a lower min_u (a check's, never the search's) makes the count
+  // sensitive to every step of a lane where nice numbers are absent. Lanes
+  // outside [lo, hi) skip the digit work.
+  static NICE_D int strided_nice(const int64_t* row, const int64_t* residues,
+                                 uint32_t num_res, uint32_t modulus,
+                                 uint32_t i, int min_u, const Plan& p) {
+    const uint32_t q = i / num_res;
+    const uint32_t off = q * modulus + (uint32_t)residues[i - q * num_res];
+    uint32_t n[NL];
+    load_n(n, row, off, p);
+    if (less(n, row + 4, p) || !less(n, row + 8, p)) return 0;
+    const int u = uniques_of(n, p);
+    return u >= min_u && u <= (int)p.base;
+  }
+
+  static NICE_D int uniques_of(const uint32_t (&n)[NL], const Plan& p) {
+    uint32_t sq[SQL], cu[CUL], m[NM];
     mul(n, p.limbs_n, n, p.limbs_n, sq, p.limbs_sq);
     mul(sq, p.limbs_sq, n, p.limbs_n, cu, p.limbs_cu);
     NICE_UNROLL
@@ -225,7 +268,8 @@ struct Lane {
 
 // The tiers, smallest first; the launcher takes the first that fits.
 // SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
-// holds the main path's b40 and every benchmark base except hi-base.
+// holds the main path's b40 and every benchmark base except hi-base (b80,
+// whose niceonly fields K3 runs in the generic tier).
 // GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;
 // at b2046, n/n^2/n^3 take 141/282/422 limbs).
 typedef Lane<2, 4, 6, 2, true> SmallTier;

@@ -1,9 +1,11 @@
-// The per-lane work of the two kernels at one base, built only to be
+// The per-lane work of the three kernels at one base, built only to be
 // counted: chip_smoke.py compiles this file with nvcc -cubin and counts the
 // SASS instructions of each function here with cuobjdump.
 //
 // op_count_plan.h, which the caller generates, defines NICE_PLAN as the 13
-// words of the base's Plan (the order of struct Plan). With the plan a
+// words of the base's Plan (the order of struct Plan), and NICE_K3_R and
+// NICE_K3_M as the residue count and modulus of K3's stride table. With the
+// plan a
 // compile-time constant, every loop of the per-lane arithmetic has a
 // constant trip count and unrolls fully, so each function is straight-line
 // code and its instruction count is what one lane issues, give or take the
@@ -36,4 +38,16 @@ extern "C" __global__ void k1_lane(const int64_t* __restrict__ start,
   const int u = nice::SmallTier::uniques(start, g, p);
   if (u < (int)p.base + 2) atomicAdd(&sh[u], 1);
   nm_out[g] = u > p.cutoff;
+}
+
+// One lane of K3 (strided_niceonly_kernel): the candidate's offset from the
+// residue table, its limbs and range test, num_uniques, the nice test
+// (min_uniques = base, as the search runs it).
+extern "C" __global__ void k3_lane(const int64_t* __restrict__ desc,
+                                   const int64_t* __restrict__ residues,
+                                   int32_t* __restrict__ out) {
+  constexpr nice::Plan p = {NICE_PLAN};
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = nice::SmallTier::strided_nice(desc, residues, NICE_K3_R, NICE_K3_M,
+                                         i, (int)p.base, p);
 }

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels (csrc/nice_kernels.cu) at first use.
+"""Build and load the CUDA kernels (csrc/nice_kernels.cu: K1, K2, K3) at
+first use.
 
 nvcc compiles the sources into a shared library with a plain C interface,
 which ctypes loads; no PyTorch header is involved, so the build takes
@@ -7,8 +8,8 @@ where the key hashes the sources and the nvcc command: an edited kernel or
 flag rebuilds, an unchanged one loads what is there. The build directory is
 not part of the repository.
 
-nvcc is found through $CUDA_HOME, then $PATH, then the toolkit's default
-install prefix /usr/local/cuda.
+nvcc is found on PATH, else under the toolkit's default install prefix
+/usr/local/cuda.
 """
 
 from __future__ import annotations
@@ -44,20 +45,12 @@ BUILD_INFO: dict = {}
 
 
 def find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = []
-    if home:
-        candidates.append(os.path.join(home, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(found)
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
+    for c in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA kernels "
-        "are built from source at first use"
+        "nvcc not found (put it on PATH); the CUDA kernels are built from "
+        "source at first use"
     )
 
 
@@ -79,6 +72,11 @@ def _bind(lib) -> None:
     lib.nice_detailed_megaloop.restype = c_int
     lib.nice_uniques.argtypes = [words, c_void_p, c_longlong, c_void_p, c_void_p]
     lib.nice_uniques.restype = c_int
+    lib.nice_strided_niceonly.argtypes = [
+        words, c_void_p, c_longlong, c_void_p, c_longlong, c_longlong,
+        c_longlong, c_int, c_void_p, c_void_p,
+    ]
+    lib.nice_strided_niceonly.restype = c_int
     lib.nice_error_string.argtypes = [c_int]
     lib.nice_error_string.restype = ctypes.c_char_p
 

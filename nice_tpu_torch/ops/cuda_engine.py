@@ -1,4 +1,4 @@
-"""Wrappers of the two CUDA kernels (csrc/nice_kernels.cu), with launch
+"""Wrappers of the three CUDA kernels (csrc/nice_kernels.cu), with launch
 counters — the port's counterpart of nice_tpu/ops/pallas_engine.py's entry
 points.
 
@@ -7,9 +7,10 @@ K1 `detailed_accum_megaloop` replaces the TPU's detailed stats kernel
 _detailed_megaloop_callable's lax.scan). K2 `uniques_batch` replaces the
 per-lane uniques kernel (_uniques_callable, pallas_call at :466);
 `survivors_batch` follows it with the plain-tensor compaction, as JAX left
-that outside the pallas_call. Both kernels are bound by integer operations
-(no input beyond the start limbs, little output); see the source note in
-nice_kernels.cu for what the design does about it.
+that outside the pallas_call. K3 `strided_niceonly_batch` replaces the
+stride-descriptor niceonly kernel (_strided_callable, pallas_call at :410).
+All three are bound by integer operations (little input, little output); see
+the source note in nice_kernels.cu for what the design does about it.
 
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
@@ -31,7 +32,16 @@ from nice_tpu_torch.ops.limbs import BasePlan, digit_chunk, log2_fx
 # kernels accept (pallas_engine.supports_base); every kernel tier covers them.
 MAX_HIST_BINS = 2048
 
-LAUNCHES = {"detailed_megaloop": 0, "uniques": 0}
+# The strided niceonly pipeline's shapes (nice_tpu/ops/pallas_engine.py
+# :274-278): descriptors per launch, the planner's cap on stride periods, the
+# cap on candidate lanes per descriptor (periods * residues), and the u32
+# words of a descriptor row (n0, lo, hi as four limbs each).
+STRIDED_DESC_MAX = 1024
+STRIDED_PERIODS_MAX = 1024
+STRIDED_OFFS_LANES_MAX = 1 << 20
+DESC_WIDTH = 12
+
+LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0}
 
 _U64_MAX = (1 << 64) - 1
 
@@ -140,3 +150,56 @@ def survivors_batch(plan: BasePlan, batch_size: int, thresh: int, cap: int,
         uniques_batch(plan, batch_size, start_limbs), valid_count, thresh, cap
     )
 
+
+
+def strided_niceonly_batch(plan: BasePlan, modulus: int,
+                           residues: torch.Tensor, periods: int,
+                           desc: torch.Tensor, n_real: int,
+                           min_uniques: int | None = None) -> torch.Tensor:
+    """K3: per-descriptor nice counts, int32[rows] on desc's device.
+
+    desc: int64 [rows, 12] (rows <= STRIDED_DESC_MAX), u32 values: n0, lo and
+    hi as four limbs each, LSW first. Row d counts the candidates
+    n = n0 + (i // R) * M + residues[i % R], i < periods * R, with
+    lo <= n < hi and min_uniques <= num_uniques(n) <= base; rows at or past
+    n_real are padding, are not launched, and count 0. min_uniques defaults
+    to base, the nice test the search runs; a check passes a lower one so
+    that the counts are not all zero where nice numbers are absent."""
+    device = desc.device
+    rows = desc.shape[0]
+    _check(desc, "desc", torch.int64, (rows, DESC_WIDTH), device)
+    num_res = residues.shape[0]
+    _check(residues, "residues", torch.int64, (num_res,), device)
+    if not 1 <= rows <= STRIDED_DESC_MAX or not 0 <= n_real <= rows:
+        raise ValueError(f"{rows} descriptor rows (at most {STRIDED_DESC_MAX}), "
+                         f"n_real {n_real}")
+    if plan.limbs_n > 4:
+        raise ValueError(f"base {plan.base} needs {plan.limbs_n} limbs; "
+                         "descriptors carry 4")
+    if (num_res < 1 or periods < 1 or periods * modulus >= 1 << 32
+            or periods * num_res > STRIDED_OFFS_LANES_MAX):
+        raise ValueError(f"stride shape out of range: {periods} periods of "
+                         f"{num_res} residues modulo {modulus}")
+    if min_uniques is None:
+        min_uniques = plan.base
+    if not 0 <= min_uniques <= plan.base:
+        raise ValueError(f"min_uniques {min_uniques} outside [0, {plan.base}]")
+    if device.type == "cpu":
+        return ve.niceonly_strided_counts(plan, modulus, residues, periods,
+                                          desc, n_real, min_uniques)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    words = plan_words(plan)
+    lib = cuda_build.load()
+    counts = torch.zeros(rows, dtype=torch.int32, device=device)
+    if n_real == 0:
+        return counts
+    with torch.cuda.device(device):
+        rc = lib.nice_strided_niceonly(
+            words, desc.data_ptr(), n_real, residues.data_ptr(), num_res,
+            modulus, periods, min_uniques, counts.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, rc, "strided_niceonly")
+    LAUNCHES["strided_niceonly"] += 1
+    return counts

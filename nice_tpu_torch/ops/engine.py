@@ -1,7 +1,8 @@
-"""Field engine: one detailed-mode field on one device (the port's
-counterpart of nice_tpu/ops/engine.py process_range_detailed).
+"""Field engine: detailed and niceonly fields on one device (the port's
+counterpart of nice_tpu/ops/engine.py process_range_detailed and
+process_range_niceonly).
 
-Per field:
+Detailed, per field:
   * out-of-range slivers go to the scalar oracle (the kernels' fixed-width
     digit extraction holds only inside the base's valid range);
   * the core is dispatched one megaloop segment (batch_size * segment lanes)
@@ -12,19 +13,35 @@ Per field:
     falling back to the dense per-lane array when the compaction overflows;
   * checkpoint_cb fires at every segment boundary with the JAX engine's
     state dict, and resume= accepts such a state from either engine.
+  The loop is synchronous (one segment in flight).
 
-The loop is synchronous (one segment in flight). A kernel failure raises:
-there is no downgrade to another backend.
+Niceonly, per field (bases of at most 4 u32 limbs, b10-b97): the strided
+pipeline of three threads. MSD filter threads (the host library) turn the
+core into surviving ranges; the dispatcher packs them into stride
+descriptors, 1024 to a group, and launches K3 on each group; the collector
+reads each group's counts back, re-scans the descriptors with hits on the
+host (a count that disagrees is an error) and audits a sample of the
+zero-count ones.
+
+A kernel failure raises: there is no downgrade to another backend.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import os
+import queue
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from nice_tpu_torch import native
 from nice_tpu_torch.core import base_range
 from nice_tpu_torch.core.types import (
     FieldResults,
@@ -32,6 +49,7 @@ from nice_tpu_torch.core.types import (
     NiceNumberSimple,
     UniquesDistributionSimple,
 )
+from nice_tpu_torch.ops import adaptive_floor, msd_filter, stride_filter
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
 from nice_tpu_torch.ops import vector_engine as ve
@@ -258,3 +276,584 @@ def process_range_detailed(
         for i in range(1, base + 1)
     )
     return FieldResults(distribution=distribution, nice_numbers=tuple(nice_numbers))
+
+
+# ---------------------------------------------------------------------------
+# Niceonly: the strided pipeline
+# ---------------------------------------------------------------------------
+
+# Descriptor groups in flight between the dispatcher and the collector: each
+# holds one int32 count per row and six u64 columns, so memory stays small.
+STRIDE_WINDOW = 16
+
+# The collector re-scans every STRIDE_AUDIT_EVERY'th zero-count descriptor
+# on the host (0 disables). Descriptors with hits are always re-scanned, so
+# an overcount fails at once; the sample catches an undercount to zero.
+STRIDE_AUDIT_EVERY = 1024
+
+# Threads of the MSD filter pool: one per CPU.
+FILTER_THREADS = os.cpu_count() or 1
+
+# The last niceonly field's phase split (what its log line prints), for a
+# caller that reports where the time went, and its first descriptor group's
+# columns ("first_group", None when it had none): the inputs of the field's
+# first K3 launch. The last field wins.
+LAST_NICEONLY_STATS: dict = {}
+
+
+class _Collector:
+    """Bounded-queue worker thread applying `fn` to put() items (the count
+    readback and host re-scan run off the dispatch thread).
+
+    On worker failure the queue is drained so producers' put() calls never
+    block forever; shutdown() joins without raising (safe in a finally) and
+    raise_if_failed() re-raises the worker's exception on the caller. As a
+    context manager, __exit__ always shuts the worker down."""
+
+    def __init__(self, fn, maxsize: int, name: str, on_fail=None):
+        self._fn = fn
+        self._err: list = [None]
+        self._on_fail = on_fail
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._t = threading.Thread(target=self._run, name=name, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        try:
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                self._fn(*item)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+            self._err[0] = e
+            if self._on_fail is not None:
+                self._on_fail()  # lets the producer stop at its next chunk
+            while self._q.get() is not None:
+                pass  # drain so producers' puts never block forever
+
+    def __enter__(self) -> "_Collector":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+    def failed(self) -> bool:
+        return self._err[0] is not None
+
+    def put(self, item) -> None:
+        self._q.put(item)
+
+    def shutdown(self) -> None:
+        self._q.put(None)
+        self._t.join()
+
+    def raise_if_failed(self) -> None:
+        if self._err[0] is not None:
+            raise self._err[0]
+
+
+def _pick_stride_depth(base: int, typical: int, max_k: int = 3) -> tuple[int, int]:
+    """The CRT stride depth k and the periods per descriptor.
+
+    Deeper k (modulus (b-1) * b^k filters k low digits of n^2 and n^3)
+    trades a bigger modulus (coarser descriptor spans, more masked lanes on
+    narrow MSD ranges) for fewer candidate lanes per number. The score is
+    the expected device lanes per covered number on a surviving range of
+    width `typical`; a deeper k must beat the shallower by more than 5 %.
+    Callers derive `typical` from the MSD floor alone (1.5 x floor: leaves
+    lie in (floor, 2 * floor]), so the choice is fixed per (base, floor).
+    Depths are scored by stride_residue_count (no table build); periods is
+    a power of two."""
+    typical = max(1, typical)
+    best: tuple[float, int, int] | None = None
+    for k in range(1, max_k + 1):
+        modulus = (base - 1) * base**k
+        if modulus >= 1 << 32:
+            break  # the kernel's offset arithmetic is u32
+        num_res = stride_filter.stride_residue_count(base, k)
+        if num_res == 0:
+            return k, 1  # provably nothing to search at any depth
+        if num_res > ce.STRIDED_OFFS_LANES_MAX:
+            continue  # one period alone exceeds the lanes of a descriptor
+        cap = min(
+            ce.STRIDED_PERIODS_MAX,
+            ((1 << 32) - 1) // modulus,  # u32 span
+            max(1, ce.STRIDED_OFFS_LANES_MAX // num_res),  # lanes/descriptor
+        )
+        raw = max(1, min(cap, typical // modulus))
+        periods = 1 << (raw.bit_length() - 1)
+        span = periods * modulus
+        descs = -(-typical // span)
+        score = descs * periods * num_res / typical
+        if best is None or score < best[0] * 0.95:
+            best = (score, k, periods)
+    if best is None:
+        raise ValueError(f"base {base}: no stride depth fits a descriptor")
+    return best[1], best[2]
+
+
+def _msd_depth_for(size: int, floor: int) -> int:
+    """Recursion depth that reaches `floor`-sized leaves: the filter's fixed
+    depth cap grows with the field (1e13 / 2^22 leaves would exceed any
+    floor)."""
+    need = max(0, (max(1, size) // max(1, floor)).bit_length()) + 1
+    return max(msd_filter.MSD_RECURSIVE_MAX_DEPTH, need)
+
+
+def _host_strided_scan(table, base: int, start: int, end: int) -> list[int]:
+    """Exact nice numbers among stride candidates in [start, end), through
+    the host library."""
+    if start >= end:
+        return []
+    first, idx = table.first_valid_at_or_after(start)
+    if first >= end:
+        return []
+    return native.iterate_range_strided(first, idx, end, base, table.gap_array)
+
+
+def host_niceonly(range_: FieldSize, base: int) -> list[int]:
+    """Nice numbers of a range on the host alone: the library's MSD filter at
+    its default floor, then its stride iteration over each surviving range
+    (the depth-1 table). The yardstick a device field's slice is held to."""
+    table = stride_filter.get_stride_table(base, 1)
+    if table.num_residues == 0:
+        return []
+    found: list[int] = []
+    for r in msd_filter.get_valid_ranges(range_, base):
+        found.extend(_host_strided_scan(table, base, r.start(), r.end()))
+    return found
+
+
+def _strided_floor(ctrl, field_size: int) -> int:
+    """Effective MSD floor of a field: the controller's floor, raised so a
+    field never spans more than ~2^21 recursion leaves (a 1e13 field at a
+    floor tuned for 1e9 fields would make ~5e5 leaves whose boundaries waste
+    half of each descriptor). A pinned floor is honoured exactly."""
+    if ctrl.pinned:
+        return ctrl.current()
+    return max(ctrl.current(), min(field_size >> 21, adaptive_floor.FLOOR_MAX))
+
+
+class StridedSetup(NamedTuple):
+    plan: BasePlan
+    ctrl: adaptive_floor.AdaptiveFloor
+    floor: int
+    k: int
+    periods: int
+    table: stride_filter.StrideTable
+
+
+def strided_setup(base: int, field_size: int) -> StridedSetup | None:
+    """The shapes of a field's strided run: MSD floor (from the process's
+    floor controller), stride depth, periods and table, as the JAX engine
+    derives them on one device. None when the base needs more than 4 limbs
+    or provably holds no nice number."""
+    plan = get_plan(base)
+    if plan.limbs_n > 4 or stride_filter.stride_residue_count(base, 1) == 0:
+        return None
+    ctrl = adaptive_floor.get_floor_controller("strided")
+    floor = _strided_floor(ctrl, field_size)
+    k, periods = _pick_stride_depth(base, floor + floor // 2)
+    table = stride_filter.get_stride_table(base, k)
+    if table.num_residues == 0:
+        return None  # a deeper refinement emptied out: nothing can be nice
+    return StridedSetup(plan, ctrl, floor, k, periods, table)
+
+
+# Descriptors travel as numpy columns, two u64 halves per value (strided
+# bases reach four u32 limbs, and b60-b95 have range ends above 2^64):
+# (n0_lo, n0_hi, lo_lo, lo_hi, hi_lo, hi_hi).
+_M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def coalesce_runs(ranges, flush_limit: int):
+    """Merge ascending (lo, hi) ranges that touch into maximal runs, each
+    flushed once it spans flush_limit numbers: every run boundary costs
+    about half a descriptor of masked lanes, and the flush keeps a gap-free
+    field streaming instead of held back whole."""
+    cur_lo = cur_hi = None
+    for lo, hi in ranges:
+        if cur_hi == lo:
+            cur_hi = hi
+        else:
+            if cur_lo is not None:
+                yield cur_lo, cur_hi
+            cur_lo, cur_hi = lo, hi
+        if cur_hi - cur_lo >= flush_limit:
+            yield cur_lo, cur_hi
+            cur_lo = cur_hi = None
+    if cur_lo is not None:
+        yield cur_lo, cur_hi
+
+
+def _halves(x: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    return (np.full(k, x & 0xFFFFFFFFFFFFFFFF, dtype=np.uint64),
+            np.full(k, x >> 64, dtype=np.uint64))
+
+
+def desc_columns(runs, modulus: int, span: int):
+    """Per run [lo, hi): descriptors n0 = first + i * span from the run's
+    modulus-aligned start, each covering [n0, n0 + span) clipped to the
+    run, as six u64 columns."""
+    for lo, hi in runs:
+        first = (lo // modulus) * modulus
+        k = -(-(hi - first) // span)
+        if k <= 0:
+            continue
+        offs = np.arange(k, dtype=np.uint64) * np.uint64(span)
+        n0_lo = (np.uint64(first & 0xFFFFFFFFFFFFFFFF) + offs) & _M64
+        carry = (n0_lo < offs).astype(np.uint64)
+        n0_hi = np.uint64(first >> 64) + carry
+        yield (n0_lo, n0_hi, *_halves(lo, k), *_halves(hi, k))
+
+
+def grouped_columns(columns, group_cap: int):
+    """Re-chunk per-run columns into groups of group_cap descriptors (the
+    last group ragged)."""
+    bufs: list[list[np.ndarray]] = [[] for _ in range(6)]
+    buffered = 0
+    for cols in columns:
+        for b, c in zip(bufs, cols):
+            b.append(c)
+        buffered += len(cols[0])
+        while buffered >= group_cap:
+            cat = [np.concatenate(b) for b in bufs]
+            yield tuple(c[:group_cap] for c in cat)
+            bufs = [[c[group_cap:]] for c in cat]
+            buffered = len(bufs[0][0])
+    if buffered:
+        yield tuple(np.concatenate(b) for b in bufs)
+
+
+def pack_descriptors(cols, group_cap: int) -> np.ndarray:
+    """u32[group_cap, 12] rows (n0, lo, hi as four LSW-first limbs each),
+    zero past the group's descriptors: the TPU kernel's descriptor table."""
+    arr = np.zeros((group_cap, ce.DESC_WIDTH), dtype=np.uint32)
+    k = len(cols[0])
+    for j in range(6):  # u64 half j fills u32 limb pair (2j, 2j + 1)
+        arr[:k, 2 * j] = (cols[j] & _MASK32).astype(np.uint32)
+        arr[:k, 2 * j + 1] = (cols[j] >> np.uint64(32)).astype(np.uint32)
+    return arr
+
+
+def desc_value(cols, j: int, g: int) -> int:
+    """Value j (0 n0, 1 lo, 2 hi) of descriptor g of a group's columns."""
+    return int(cols[2 * j][g]) | (int(cols[2 * j + 1][g]) << 64)
+
+
+def _filter_chunks(core: FieldSize, floor: int):
+    """The producer's chunks of a field: enough leaves that each library
+    call amortizes its overhead, and at most ~256 chunks per field."""
+    chunk = max(floor * 256, core.size() // 256)
+    pos = core.start()
+    while pos < core.end():
+        end = min(pos + chunk, core.end())
+        yield pos, end
+        pos = end
+
+
+@functools.lru_cache(maxsize=None)
+def _device_residues(base: int, k: int, device: str) -> torch.Tensor:
+    """The (base, k) stride table's residues on a device, uploaded once."""
+    table = stride_filter.get_stride_table(base, k)
+    return torch.from_numpy(table.residues_u32.astype(np.int64)).to(device)
+
+
+def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
+                      progress, checkpoint) -> list[int]:
+    """Nice numbers of the core through the three-thread pipeline.
+
+    producer (a pool of FILTER_THREADS): the MSD filter over the field's
+        chunks, results kept in chunk order, into a bounded queue;
+    dispatcher (this thread): coalesced runs -> descriptor columns ->
+        groups of STRIDED_DESC_MAX -> one K3 launch per group;
+    collector: each group's counts back to the host; re-scan of every
+        descriptor with hits (a disagreeing count raises), the zero-count
+        audit, and checkpoint(watermark, found) after every group, where
+        `found` holds every nice number below the watermark (groups are
+        collected in order and the filters' gaps hold none)."""
+    plan, table, periods = s.plan, s.table, s.periods
+    modulus = table.modulus
+    span = periods * modulus
+    group_cap = ce.STRIDED_DESC_MAX
+    filter_threads, audit_every = FILTER_THREADS, STRIDE_AUDIT_EVERY
+    residues = _device_residues(base, s.k, str(dev))
+    nice: list[int] = []
+
+    host_busy = [0.0]  # filter seconds, summed over the pool's threads
+    dev_busy = [0.0]   # collector seconds: readback and re-scans
+    prod_err: list = [None]
+    stop = threading.Event()
+    q_ranges: queue.Queue = queue.Queue(maxsize=8)
+    n_ranges = [0]
+
+    def produce():
+        def filt(span_):
+            t0 = time.monotonic()
+            rs = msd_filter.get_valid_ranges(
+                FieldSize(span_[0], span_[1]), base, min_range_size=s.floor,
+                max_depth=_msd_depth_for(span_[1] - span_[0], s.floor),
+            )
+            return rs, time.monotonic() - t0
+
+        try:
+            with ThreadPoolExecutor(max_workers=filter_threads,
+                                    thread_name_prefix="niceonly-msd") as pool:
+                pending: deque = deque()
+                it = _filter_chunks(core, s.floor)
+                done = False
+                while not stop.is_set():
+                    while not done and len(pending) < filter_threads + 2:
+                        span_ = next(it, None)
+                        if span_ is None:
+                            done = True
+                            break
+                        pending.append((span_, pool.submit(filt, span_)))
+                    if not pending:
+                        break
+                    span_, fut = pending.popleft()
+                    rs, secs = fut.result()
+                    host_busy[0] += secs
+                    while not stop.is_set():
+                        try:
+                            q_ranges.put(rs, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
+                    if progress is not None:
+                        # The filter front: dispatch and device trail it by
+                        # at most the bounded queues.
+                        progress(span_[1] - core.start(), core.size())
+                if stop.is_set():
+                    for _, fut in pending:
+                        fut.cancel()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+            prod_err[0] = e
+        finally:
+            while True:
+                try:
+                    q_ranges.put(None, timeout=0.2)  # sentinel
+                    break
+                except queue.Full:
+                    if stop.is_set():
+                        break  # the dispatcher has left; nobody waits
+
+    def range_stream():
+        while True:
+            rs = q_ranges.get()
+            if rs is None:
+                if prod_err[0] is not None:
+                    raise prod_err[0]
+                return
+            n_ranges[0] += len(rs)
+            for r in rs:
+                yield r.start(), r.end()
+
+    audit_seen = [0]  # zero-count descriptors seen so far
+
+    def collect(cols, counts_dev, launched):
+        t0 = time.monotonic()
+        if launched is not None:
+            launched.synchronize()  # the group's kernel has finished
+        k = len(cols[0])
+        flat = counts_dev.cpu().numpy()[:k]
+        for g in np.nonzero(flat)[0].tolist():
+            n0, lo, hi = (desc_value(cols, j, g) for j in range(3))
+            count = int(flat[g])
+            found = _host_strided_scan(table, base, max(lo, n0),
+                                       min(hi, n0 + span))
+            if len(found) != count:
+                raise RuntimeError(
+                    f"device/host nice-count mismatch in descriptor "
+                    f"(n0={n0}, [{lo},{hi})): device {count}, host {len(found)}"
+                )
+            nice.extend(found)
+        if audit_every:
+            zeros = np.nonzero(flat == 0)[0]
+            for j in range((-audit_seen[0]) % audit_every, len(zeros),
+                           audit_every):
+                g = int(zeros[j])
+                n0, lo, hi = (desc_value(cols, j2, g) for j2 in range(3))
+                found = _host_strided_scan(table, base, max(lo, n0),
+                                           min(hi, n0 + span))
+                if found:
+                    raise RuntimeError(
+                        f"device undercount: descriptor (n0={n0}, "
+                        f"[{lo},{hi})) counted 0 on device but host found "
+                        f"{len(found)} nice numbers (audit)"
+                    )
+            audit_seen[0] += len(zeros)
+        if checkpoint is not None:
+            # The coverage frontier of this group: the end of its last
+            # descriptor.
+            watermark = min(desc_value(cols, 2, k - 1),
+                            desc_value(cols, 0, k - 1) + span)
+            checkpoint(watermark, list(nice))
+        dev_busy[0] += time.monotonic() - t0
+
+    producer = threading.Thread(target=produce, name="niceonly-msd",
+                                daemon=True)
+    t_wall0 = time.monotonic()
+    producer.start()
+    n_desc = n_groups = 0
+    first_group = None
+    # Dispatcher time: gen (descriptor columns and waiting on the filter),
+    # disp (packing, upload and launch), put (waiting on the collector).
+    t_gen = t_disp = t_put = 0.0
+    try:
+        with _Collector(collect, STRIDE_WINDOW, "niceonly-collect",
+                        on_fail=stop.set) as collector:
+            try:
+                runs = coalesce_runs(range_stream(), span * 64)
+                t0 = time.monotonic()
+                for cols in grouped_columns(desc_columns(runs, modulus, span),
+                                            group_cap):
+                    t1 = time.monotonic()
+                    t_gen += t1 - t0
+                    if collector.failed():
+                        break
+                    k_real = len(cols[0])
+                    n_desc += k_real
+                    n_groups += 1
+                    if first_group is None:
+                        first_group = cols
+                    desc = torch.from_numpy(
+                        pack_descriptors(cols, group_cap).astype(np.int64)
+                    ).to(dev)
+                    counts = ce.strided_niceonly_batch(
+                        plan, modulus, residues, periods, desc, k_real)
+                    launched = None
+                    if dev.type == "cuda":
+                        launched = torch.cuda.Event()
+                        launched.record(torch.cuda.current_stream(dev))
+                    t2 = time.monotonic()
+                    t_disp += t2 - t1
+                    collector.put((cols, counts, launched))
+                    t0 = time.monotonic()
+                    t_put += t0 - t2
+            finally:
+                # Stop the producer before the collector drains, so a failed
+                # run does not filter on for a whole chunk.
+                stop.set()
+    finally:
+        producer.join()
+    if prod_err[0] is not None:
+        raise prod_err[0]
+    collector.raise_if_failed()
+    wall = time.monotonic() - t_wall0
+    # The controller balances the two stages' wall times: the pool's busy
+    # seconds over its real parallelism against the collector's. A floor the
+    # huge-field guard raised was not the controller's, so it learns nothing.
+    if s.floor == s.ctrl.current():
+        eff = max(1, min(filter_threads, os.cpu_count() or 1))
+        s.ctrl.observe(host_busy[0] / eff, dev_busy[0], core.size())
+    LAST_NICEONLY_STATS.clear()
+    LAST_NICEONLY_STATS.update(
+        base=base, start=core.start(), end=core.end(), wall=wall,
+        msd_busy=host_busy[0], floor=s.floor, ranges=n_ranges[0],
+        collect_busy=dev_busy[0], k=s.k, periods=periods,
+        descriptors=n_desc, groups=n_groups, gen=t_gen, disp=t_disp,
+        put=t_put, nice=len(nice), filter_threads=filter_threads,
+        first_group=first_group,
+    )
+    log.info(
+        "niceonly b%d [%d, %d): wall %.3fs | msd %.3fs busy (floor %d, %d "
+        "ranges) | collect %.3fs busy (k=%d periods=%d, %d descriptors, %d "
+        "groups) | dispatch gen %.3fs disp %.3fs put %.3fs | %d nice",
+        base, core.start(), core.end(), wall, host_busy[0], s.floor,
+        n_ranges[0], dev_busy[0], s.k, periods, n_desc, n_groups,
+        t_gen, t_disp, t_put, len(nice),
+    )
+    return nice
+
+
+def process_range_niceonly(
+    range_: FieldSize,
+    base: int,
+    *,
+    device="cuda",
+    backend: str = "device",
+    progress=None,
+    checkpoint_cb=None,
+    resume=None,
+) -> FieldResults:
+    """The nice numbers of a field (distribution empty), exact.
+
+    device: "cuda" (the default) runs K3; "cpu" runs its plain PyTorch
+    version. backend "scalar" runs the Python-int oracle instead (no
+    checkpoints). Out-of-range slivers go to the oracle. Bases above 4 u32
+    limbs (b98 and up) raise: their dense path is not ported.
+
+    progress(done, total) reports the filter front, from a worker thread.
+    checkpoint_cb(state) fires after every descriptor group with
+    {"cursor", "hist": None, "nice_numbers" [(number, base)]}: every nice
+    number below the cursor is listed. resume takes such a state (from this
+    engine or the JAX engine, whose "remaining" segments collapse to their
+    lowest start) and finishes the field without recomputing slivers."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+    if backend == "scalar":
+        if checkpoint_cb is not None or resume is not None:
+            raise ValueError("backend 'scalar' neither checkpoints nor resumes")
+        return scalar.process_range_niceonly(range_, base)
+    dev = resolve_device(device)
+    pre, core, post = _clamp_to_base_range(range_, base)
+    if core is None:
+        if resume is not None or checkpoint_cb is not None:
+            raise ValueError(
+                f"range {range_} lies outside base {base}'s valid range; "
+                "only the scalar oracle scans it (no checkpoints)"
+            )
+        return scalar.process_range_niceonly(range_, base)
+    plan = get_plan(base)
+    if plan.limbs_n > 4:
+        raise ValueError(
+            f"base {base} needs {plan.limbs_n} u32 limbs; the strided niceonly "
+            "path carries 4 and the dense one is not ported: use backend "
+            "'scalar' (--backend scalar)"
+        )
+
+    nice_numbers: list[NiceNumberSimple] = []
+    if resume is None:
+        for part in (pre, post):
+            if part is not None:
+                nice_numbers.extend(
+                    scalar.process_range_niceonly(part, base).nice_numbers)
+    else:
+        nice_numbers = [
+            NiceNumberSimple(number=int(n), num_uniques=int(u))
+            for n, u in resume["nice_numbers"]
+        ]
+        segments = _resume_segments(resume, core.start(), core.end())
+        if not segments:
+            nice_numbers.sort(key=lambda n: n.number)
+            return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+        # The pipeline scans one contiguous core: resume from the lowest
+        # uncovered number, dropping restored numbers the rescan will find
+        # again (slivers and numbers past the core stay).
+        pos, core_end = segments[0][0], core.end()
+        nice_numbers = [n for n in nice_numbers
+                        if n.number < pos or n.number >= core_end]
+        core = FieldSize(pos, core_end)
+
+    found: list[int] = []
+    s = strided_setup(base, core.size())
+    if s is not None:
+        ckpt = None
+        if checkpoint_cb is not None:
+            prior = [(n.number, n.num_uniques) for n in nice_numbers]
+
+            def ckpt(watermark, nice_so_far):
+                checkpoint_cb({
+                    "cursor": watermark,
+                    "hist": None,
+                    "nice_numbers": prior + [(n, base) for n in nice_so_far],
+                })
+
+        found = _niceonly_strided(core, base, s, dev, progress, ckpt)
+    nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
+                        for n in found)
+    nice_numbers.sort(key=lambda n: n.number)
+    return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the two CUDA kernels (the port's counterpart of
-nice_tpu/ops/vector_engine.py).
+"""Plain PyTorch versions of the three CUDA kernels (the port's counterpart
+of nice_tpu/ops/vector_engine.py).
 
 Each function here computes exactly what its kernel in csrc/nice_kernels.cu
 computes, on tensors of any device: the CPU tests use them as the kernels'
@@ -125,6 +125,23 @@ def add_u32(limbs: list, x) -> list:
         out.append(s & MASK32)
         carry = s >> 32
     return out
+
+
+def limbs_lt(a: list, b: list):
+    """Elementwise a < b for equal-length LSW-first limb lists (entries
+    broadcast)."""
+    if len(a) != len(b):
+        raise ValueError(f"limb lists of lengths {len(a)} and {len(b)}")
+    lt = a[-1] < b[-1]
+    eq = a[-1] == b[-1]
+    for i in range(len(a) - 2, -1, -1):
+        lt = lt | (eq & (a[i] < b[i]))
+        eq = eq & (a[i] == b[i])
+    return lt
+
+
+def limbs_ge(a: list, b: list):
+    return ~limbs_lt(a, b)
 
 
 def popcount32(x):
@@ -269,3 +286,55 @@ def survivors_batch(plan: BasePlan, batch_size: int, thresh: int, cap: int,
     return compact_survivors(
         uniques_batch(plan, batch_size, start_limbs), valid_count, thresh, cap
     )
+
+
+# Candidate lanes per chunk of the plain strided count: a 1024-descriptor
+# group at b40 (17,408 lanes a descriptor) is walked in pieces of this size
+# instead of as one 17.8M-lane set of int64 limb tensors.
+STRIDED_CHUNK_LANES = 1 << 18
+
+
+def strided_offsets(modulus: int, residues: torch.Tensor, periods: int):
+    """Candidate offsets (i // R) * M + residues[i % R] of one descriptor,
+    i < periods * R, as int64."""
+    r = residues.shape[0]
+    i = torch.arange(periods * r, dtype=torch.int64, device=residues.device)
+    return (i // r) * modulus + residues[i % r]
+
+
+def niceonly_strided_counts(plan: BasePlan, modulus: int,
+                            residues: torch.Tensor, periods: int,
+                            desc: torch.Tensor, n_real: int,
+                            min_uniques: int | None = None):
+    """Plain twin of the strided niceonly kernel (K3).
+
+    desc: int64 [rows, 12], u32 values: n0, lo and hi as four limbs each,
+    LSW first. residues: the stride table's residues modulo `modulus`, int64.
+    Row d counts the candidates n = n0 + (i // R) * M + residues[i % R],
+    i < periods * R, with n carried through limbs_n limbs (and lo, hi read on
+    limbs_n limbs, as the TPU kernel reads them), lo <= n < hi and
+    min_uniques <= num_uniques(n) <= base (min_uniques defaults to base:
+    num_uniques(n) == base). Returns int32[rows]; rows at or past n_real are
+    padding and stay 0. Descriptors go in chunks of about
+    STRIDED_CHUNK_LANES candidates, and only the candidates inside [lo, hi)
+    reach the digit work."""
+    rows = desc.shape[0]
+    if min_uniques is None:
+        min_uniques = plan.base
+    counts = torch.zeros(rows, dtype=torch.int32, device=desc.device)
+    offs = strided_offsets(modulus, residues, periods)
+    step = max(1, STRIDED_CHUNK_LANES // offs.shape[0])
+    nl = plan.limbs_n
+    for d0 in range(0, n_real, step):
+        d = desc[d0:min(n_real, d0 + step)]
+        n = add_u32([d[:, i:i + 1] for i in range(nl)], offs[None, :])
+        valid = (limbs_ge(n, [d[:, 4 + i:5 + i] for i in range(nl)])
+                 & limbs_lt(n, [d[:, 8 + i:9 + i] for i in range(nl)]))
+        row, lane = torch.nonzero(valid, as_tuple=True)
+        if row.numel() == 0:
+            continue
+        u = num_uniques_lanes(plan, [x[row, lane] for x in n])
+        hit = (u >= min_uniques) & (u <= plan.base)
+        counts[d0:d0 + d.shape[0]] = torch.bincount(
+            row[hit], minlength=d.shape[0]).to(torch.int32)
+    return counts

@@ -1,7 +1,7 @@
 """The port's client (nice_tpu_torch/client) on the CPU: the offline benchmark
-summary, one claim -> process -> submit round against the JAX package's
-coordination server, and the import rules of the port (no jax, nothing of
-nice_tpu) checked in a clean subprocess and by an AST scan.
+summaries, claim -> process -> submit rounds (detailed and niceonly) against
+the JAX package's coordination server, and the import rules of the port (no
+jax, nothing of nice_tpu) checked in a clean subprocess and by an AST scan.
 """
 
 import ast
@@ -23,11 +23,20 @@ from nice_tpu_torch.client import main as client
 from nice_tpu_torch.ops import engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_FILES = [
-    os.path.join(root, f)
-    for root, _, files in os.walk(os.path.dirname(nice_tpu_torch.__file__))
-    for f in files if f.endswith(".py")
-] + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _port_files() -> list[str]:
+    """The port's Python sources: everything under nice_tpu_torch/ but
+    _build/, which holds what the port builds at run time (and may hold an
+    unpacked copy of the whole repository), and chip_smoke.py."""
+    out = []
+    for root, dirs, files in os.walk(os.path.dirname(nice_tpu_torch.__file__)):
+        dirs[:] = [d for d in dirs if d != "_build"]
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out + [os.path.join(REPO, "chip_smoke.py")]
+
+
+PORT_FILES = _port_files()
 
 
 def _run_port(*argv, code=None):
@@ -50,23 +59,54 @@ def test_benchmark_base_ten_prints_summary():
     assert summary["device"] == "cpu"
 
 
-def test_niceonly_is_refused():
+def test_niceonly_benchmark_runs_on_cpu():
     proc = _run_port("niceonly", "--benchmark", "base-ten", "--device", "cpu")
-    assert proc.returncode == 2
-    assert "not ported yet" in proc.stderr
-    assert proc.stdout == ""
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["mode"] == "niceonly"
+    assert summary["nice_count"] == 1 and summary["near_misses"] == 1
+    assert summary["range_size"] == 53 and summary["device"] == "cpu"
+
+
+def _serve(tmp_path, base: int, field_size: int):
+    db_path = str(tmp_path / "nice.db")
+    db = Db(db_path)
+    db.seed_base(base, field_size=field_size)
+    db.close()
+    httpd = server_app.serve(db_path, host="127.0.0.1", port=0, prefill=False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", db_path
 
 
 @pytest.fixture
 def server(tmp_path):
-    db_path = str(tmp_path / "nice.db")
-    db = Db(db_path)
-    db.seed_base(17, field_size=4_000)
-    db.close()
-    httpd = server_app.serve(db_path, host="127.0.0.1", port=0, prefill=False)
-    threading.Thread(target=httpd.serve_forever, daemon=True).start()
-    yield f"http://127.0.0.1:{httpd.server_address[1]}", db_path
+    httpd, api, db_path = _serve(tmp_path, 17, 4_000)
+    yield api, db_path
     httpd.shutdown()
+
+
+def test_niceonly_round_matches_jax_client(tmp_path):
+    # b10's one field, [47, 100), holds 69.
+    httpd, api, db_path = _serve(tmp_path, 10, 1_000)
+    try:
+        args = client.build_parser().parse_args(
+            ["niceonly", "--api-base", api, "--username", "torch-test",
+             "--device", "cpu"])
+        data, sub, resp = client.run_single_iteration(args)
+    finally:
+        httpd.shutdown()
+    assert resp.get("status") == "OK" and not resp.get("duplicate")
+    assert (data.base, data.range_start, data.range_end) == (10, 47, 100)
+
+    # The JAX package's client on the same field: the same payload, byte
+    # for byte (one client version, so one submit_id).
+    jdata = JDataToClient.from_json(data.to_json())
+    jres, _ = jclient.process_field(jdata, JSearchMode.NICEONLY, "scalar", None)
+    jsub = jclient.compile_results(jdata, jres, JSearchMode.NICEONLY,
+                                   "torch-test").to_json()
+    assert sub.to_json() == jsub
+    assert jsub["unique_distribution"] is None
+    assert jsub["nice_numbers"] == [{"number": 69, "num_uniques": 10}]
 
 
 def test_single_shot_round_matches_jax_client(server, monkeypatch):
@@ -105,21 +145,32 @@ def test_single_shot_round_matches_jax_client(server, monkeypatch):
 def test_port_imports_neither_jax_nor_nice_tpu():
     # tests/conftest.py imports jax into every test process, so the check
     # runs in a fresh interpreter that imports every module of the port.
+    # It imports every module, then runs a niceonly field (the host
+    # library's build and the strided pipeline) and a detailed one.
     code = (
         "import importlib, pkgutil, sys\n"
         "import nice_tpu_torch\n"
         "for m in pkgutil.walk_packages(nice_tpu_torch.__path__, 'nice_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "from nice_tpu_torch.core.types import FieldSize\n"
+        "from nice_tpu_torch.ops import engine\n"
+        "r = engine.process_range_niceonly(FieldSize(47, 100), 10, device='cpu')\n"
+        "assert [n.number for n in r.nice_numbers] == [69]\n"
+        "engine.process_range_detailed(FieldSize(47, 100), 10, device='cpu')\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'nice_tpu'))\n"
-        "print(len([k for k in sys.modules if k.startswith('nice_tpu_torch')]), bad)\n"
+        "mods = sorted(k for k in sys.modules if k.startswith('nice_tpu_torch'))\n"
+        "print(len(mods), bad, ','.join(mods))\n"
     )
     proc = _run_port(code=code)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.split(" ", 1)
+    count, bad, mods = proc.stdout.split(" ", 2)
     assert bad.strip() == "[]"
-    assert int(count) >= 15  # the walk really imported the package
+    assert int(count) >= 21  # the walk really imported the package
+    for name in ("native", "ops.adaptive_floor", "ops.lsd_filter",
+                 "ops.msd_filter", "ops.residue_filter", "ops.stride_filter"):
+        assert f"nice_tpu_torch.{name}" in mods.strip().split(",")
 
 
 def test_port_sources_have_no_jax_or_nice_tpu_import():
@@ -137,3 +188,18 @@ def test_port_sources_have_no_jax_or_nice_tpu_import():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "nice_tpu"), (path, name)
+
+
+def test_port_reads_no_environment_variables():
+    # Knobs are arguments: no module of the port, and not chip_smoke.py,
+    # reads os.environ or os.getenv.
+    for path in PORT_FILES:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), \
+                    (path, node.lineno)
+            elif isinstance(node, ast.ImportFrom) and node.module == "os":
+                assert not {a.name for a in node.names} & {"environ", "getenv"}, \
+                    (path, node.lineno)

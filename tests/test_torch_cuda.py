@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from nice_tpu_torch.core.types import FieldSize
+from nice_tpu_torch.ops import adaptive_floor
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.ops import vector_engine as ve
-from nice_tpu_torch.ops.limbs import get_plan
+from nice_tpu_torch.ops.limbs import get_plan, int_to_limbs
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +74,68 @@ def test_engine_on_card_equals_cpu(card):
     on_cpu = engine.process_range_detailed(rng, 17, device="cpu",
                                            batch_size=1024, segment=2)
     assert on_card == on_cpu
+
+
+def _desc(rows, n_pad, rng, device):
+    desc = np.zeros((len(rows) + n_pad, 12), dtype=np.int64)
+    for i, (n0, lo, hi) in enumerate(rows):
+        desc[i, 0:4] = int_to_limbs(n0, 4)
+        desc[i, 4:8] = int_to_limbs(lo, 4)
+        desc[i, 8:12] = int_to_limbs(hi, 4)
+    desc[len(rows):] = rng.integers(0, 1 << 32, size=(n_pad, 12))
+    return torch.from_numpy(desc).to(device)
+
+
+@pytest.mark.parametrize("base", [10, 17, 40, 50, 80])
+def test_strided_kernel_equals_plain_version_on_card(card, base):
+    s = engine.strided_setup(base, 10**9)
+    plan, m = s.plan, s.table.modulus
+    span = s.periods * m
+    rng = np.random.default_rng(base)
+    if base == 10:
+        rows = [(0, 47, 100)] * 5  # 69, five times
+    else:
+        lo = plan.range_start + 3
+        rows = [(n0, lo, lo + 2 * span + 7)
+                for n0 in range(lo // m * m, lo + 2 * span + 7, span)]
+        n_ragged = len(rows)
+        for width in (32, 64, 96):  # across a multiple of 2^width
+            b = ((plan.range_start >> width) + 1) << width
+            if plan.range_start < b < plan.range_end - span:
+                n0 = (b - span // 2) // m * m
+                rows.append((n0, n0, n0 + span))
+    desc = _desc(rows, 3, rng, card)
+    res = engine._device_residues(base, s.k, str(card))
+    # The nice test (only b10 holds a nice number here), then one at about
+    # the median of num_uniques, where every real row counts many lanes: a
+    # lost carry or a wrong range mask changes those counts.
+    for min_u in (base, (5 * base + 7) // 8):
+        before = ce.LAUNCHES["strided_niceonly"]
+        got = ce.strided_niceonly_batch(plan, m, res, s.periods, desc,
+                                        len(rows), min_u)
+        assert ce.LAUNCHES["strided_niceonly"] == before + 1
+        want = ve.niceonly_strided_counts(plan, m, res, s.periods, desc,
+                                          len(rows), min_u)
+        assert torch.equal(got, want)
+        assert got[len(rows):].tolist() == [0, 0, 0]
+        if min_u == base and base == 10:
+            assert got[:5].tolist() == [1] * 5
+        if min_u < base and base != 10:
+            assert int(got[:n_ragged].sum()) > 0
+            assert bool((got[n_ragged:len(rows)] > 0).all())  # each carry row
+    torch.cuda.synchronize()
+
+
+def test_niceonly_engine_on_card_equals_cpu(card):
+    for base, s, e, floor in [(10, 40, 130, None),
+                              (40, 3621949012977, 3621949612977, 4096)]:
+        adaptive_floor.reset_for_tests(pinned=floor)
+        ce.reset_launches()
+        on_card = engine.process_range_niceonly(FieldSize(s, e), base,
+                                                device=card)
+        assert ce.LAUNCHES["strided_niceonly"] > 0
+        assert on_card == engine.process_range_niceonly(
+            FieldSize(s, e), base, device="cpu")
+    adaptive_floor.reset_for_tests()
+    assert [n.number for n in engine.process_range_niceonly(
+        FieldSize(47, 100), 10, device=card).nice_numbers] == [69]
