@@ -20,11 +20,17 @@ Phases, each of which raises (exit code 1) on failure:
      about the median of num_uniques (check_min_uniques), where every row
      counts many lanes: no number but 69 is nice, so only the second makes
      a lost carry or a wrong range mask show;
+  4b. dense vs plain: K4 (dense niceonly counts) against its plain version,
+     exact, in both TPU modes (fused: the base's residue classes; unfused:
+     all b-1) and at both thresholds, at b10 (from 47), b40, b98, b100, b510
+     and b99 (no class: no launch, every lane pruned), from range_start and
+     across the largest limb carry inside the range, ragged;
   5. golden and oracle fields: base-ten must give [(69, 10)] and the scalar
      oracle's histogram; default (1e6 @ b40) on the card must equal the same
      field through the plain path on the CPU; in niceonly mode base-ten must
      give [69] through K3 (its hit re-scanned on the host), and default on
-     the card must equal the plain path on the CPU;
+     the card must equal the plain path on the CPU; base-ten through the
+     dense loop must give [69] through K4 and K2;
   6. full width, detailed (the main path, launch counts read around it):
      the extra-large field (1e9 numbers @ b40) and a seeded mid-range b40
      field of 1e9, through the client's process_field; bins 1..40 must sum
@@ -37,6 +43,12 @@ Phases, each of which raises (exit code 1) on failure:
      default audit; K3 must launch once per descriptor group, a seeded 1e7
      slice of each field must equal the host library's scan, and each base
      must have launched K3;
+  7b. full width, dense niceonly (b98's main path, counts read around it):
+     the first 1e9 of b98 (pruned whole: no run) and the first seeded b98
+     field of 1e9 that the MSD filter does not prune whole, through
+     process_field; K4 must launch once per run, every reported number
+     must be nice, and a seeded 2e5 slice must equal the scalar oracle's
+     nice test, number by number;
   8. claim -> process -> submit: the repository's coordination server in a
      separate process (python -m nice_tpu.server, seeded with b40 fields of
      1e9), one detailed and one niceonly single-shot client run on the card
@@ -47,17 +59,21 @@ Phases, each of which raises (exit code 1) on failure:
      extra-large's start and from the segment and sub-batch that hold the
      mid-range field's first near miss; K3 over the first descriptor group
      of the mid-range b40 field (1024 rows) and of the b80 field, as the
-     main path launched them, at both thresholds; each against its plain
+     main path launched them, at both thresholds; K4 over the b98 field's
+     first run in both modes at both thresholds; each against its plain
      version, exact;
- 10. timing at those shapes: each kernel beside its plain version, and a
+ 10. timing at those shapes: each kernel beside its plain version (K4 at
+     the b98 field's median run, and over a full 2^21-lane run), and a
      bound from the instructions one lane issues in the compiled code
-     (csrc/op_count.cu built with the b40 plan and stride table as
-     constants, counted with cuobjdump); then the kernels' estimated share
-     of each main-path field's time (launches x kernel time / field time),
-     and each niceonly field's split into MSD filter, collector and
-     dispatch time;
- 11. profile: the mid-range field once more in each mode under
-     torch.profiler, for the device's busy and idle share of its wall time.
+     (csrc/op_count.cu built with the b40 plan and stride table, and the
+     b98 plan and class table, as constants, counted with cuobjdump); then
+     the kernels' estimated share of each main-path field's time (launches
+     x kernel time / field time), each niceonly field's split into MSD
+     filter, collector and dispatch time, and each b98 field's into MSD
+     filter and loop;
+ 11. profile: the mid-range field once more in each mode, and the b98
+     field in niceonly mode, under torch.profiler, for the device's busy
+     and idle share of each wall time.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -81,7 +97,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 BASES = (10, 17, 40, 50, 80, 97, 510)
 NICEONLY_BASES = (10, 17, 40, 50, 80)
+# K4's checks: b99 keeps no residue class (no launch), the others span the
+# small tier (b10, b40) and the generic one (b98 and up, 5+ limbs).
+DENSE_BASES = (10, 40, 98, 100, 510, 99)
+DENSE_BASE = 98  # the dense niceonly main path's base
 SLICE_WIDTH = 10_000_000  # the niceonly fields' slice held to the host scan
+DENSE_SLICE_WIDTH = 200_000  # the b98 fields' slice held to the oracle
 SEED = 20261016
 DEVICE = "cuda"
 SERVER_BASE = 40
@@ -133,23 +154,31 @@ def nvidia_smi(query: str) -> str:
 # Bounds
 # --------------------------------------------------------------------------
 
-def sass_counts(plan, table) -> dict:
-    """Instructions one lane of each kernel issues at this base (K3 with
-    this stride table), read from the compiled code: nvcc builds
-    csrc/op_count.cu with the plan as a compile-time constant (every loop
-    unrolls, so each function there is straight-line) and cuobjdump lists
-    its SASS (see parse_sass)."""
+def sass_counts(plan, table, dense_plan) -> dict:
+    """Instructions one lane of each kernel issues, read from the compiled
+    code: K1-K3 at `plan`'s base (K3 with this stride table), K4 at
+    dense_plan's (with its fused class table). nvcc builds csrc/op_count.cu
+    with the plans as compile-time constants (every loop unrolls, so each
+    function there is straight-line) and cuobjdump lists its SASS (see
+    parse_sass)."""
     from nice_tpu_torch.ops import cuda_build
     from nice_tpu_torch.ops import cuda_engine as ce
 
     nvcc = cuda_build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    dp = dense_plan
     with tempfile.TemporaryDirectory(prefix="nice-op-count-") as tmp:
         with open(os.path.join(tmp, "op_count_plan.h"), "w") as f:
             words = ", ".join(f"{w}ull" for w in ce.plan_words(plan))
+            dense_words = ", ".join(f"{w}ull" for w in ce.plan_words(dp))
+            n_cls = ce.niceonly_classes(dp, True, "cpu").shape[0]
             f.write(f"#define NICE_PLAN {words}\n"
                     f"#define NICE_K3_R {table.num_residues}u\n"
-                    f"#define NICE_K3_M {table.modulus}u\n")
+                    f"#define NICE_K3_M {table.modulus}u\n"
+                    f"#define NICE_K4_PLAN {dense_words}\n"
+                    f"#define NICE_K4_TIER {dp.limbs_n}, {dp.limbs_sq}, "
+                    f"{dp.limbs_cu}, {dp.n_masks}\n"
+                    f"#define NICE_K4_R {n_cls}u\n")
         cubin = os.path.join(tmp, "op_count.cubin")
         subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -159,7 +188,7 @@ def sass_counts(plan, table) -> dict:
         sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                               capture_output=True, text=True).stdout
     funcs = parse_sass(sass)
-    check({"k1_lane", "k2_lane", "k3_lane"} <= set(funcs),
+    check({"k1_lane", "k2_lane", "k3_lane", "k4_lane"} <= set(funcs),
           f"op_count functions: {list(funcs)}")
     return funcs
 
@@ -250,6 +279,7 @@ def phase_build(report: dict) -> dict:
 
     from nice_tpu_torch import native
     from nice_tpu_torch.ops import cuda_build, engine
+    from nice_tpu_torch.ops.limbs import get_plan
 
     def timed(fn, *args):
         t0 = time.monotonic()
@@ -261,7 +291,8 @@ def phase_build(report: dict) -> dict:
     with ThreadPoolExecutor(max_workers=3) as pool:
         kernels = pool.submit(timed, cuda_build.load)
         host = pool.submit(timed, native.load)
-        counted = pool.submit(timed, sass_counts, s.plan, s.table)
+        counted = pool.submit(timed, sass_counts, s.plan, s.table,
+                              get_plan(DENSE_BASE))
         (_, t_kernels), (_, t_host) = kernels.result(), host.result()
         counts, t_counted = counted.result()
     wall = time.monotonic() - t0
@@ -467,6 +498,98 @@ def phase_strided_vs_plain(report: dict) -> None:
               f"b{c['base']}: the median threshold counted too little: {c}")
 
 
+def _carry_start(plan, lanes: int) -> int:
+    """A start whose lanes cross the largest limb carry inside the base's
+    range: the first multiple of 2^w above range_start for the largest w (a
+    multiple of 32) with one inside the range (2^128 at b98, 7 * 2^128 at
+    b100, a multiple of 2^896 at b510)."""
+    for w in range(32 * (plan.limbs_n - 1), 0, -32):
+        b = ((plan.range_start >> w) + 1) << w
+        if plan.range_start + lanes < b < plan.range_end - lanes:
+            return b - lanes // 2
+    raise SmokeFailure(f"b{plan.base}: no limb carry inside the range")
+
+
+def _k4_pair(plan, fused: bool, start: int, batch: int, n_iters: int,
+             valid: int, min_uniques: int, dev):
+    """K4 and its plain version on one run: (kernel [count, pruned], max abs
+    difference)."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import vector_engine as ve
+
+    classes = ce.niceonly_classes(plan, fused, str(dev))
+    st = ve.start_limbs_tensor(start, plan, dev)
+    got = ce.niceonly_dense_megaloop(plan, batch, n_iters, classes, st, valid,
+                                     min_uniques)
+    want = ve.niceonly_dense_megaloop(plan, batch, n_iters, classes, st, valid,
+                                      min_uniques)
+    return got.tolist(), int((got - want).abs().max())
+
+
+def phase_dense_vs_plain(report: dict) -> None:
+    """K4 against its plain version, exact, in both TPU modes (fused: the
+    base's residue classes; unfused: all b-1) and at both thresholds, at
+    DENSE_BASES, from range_start (b10: 47) and from a start across a limb
+    carry, with a ragged valid_total over three iterations."""
+    import numpy as np
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    cases, diff = [], 0
+    launches0 = ce.LAUNCHES["niceonly_dense"]
+    calls = 0
+    t0 = time.monotonic()
+    for base in DENSE_BASES:
+        plan = get_plan(base)
+        batch = 256 if base == 510 else 1024
+        valid = 3 * batch - int(rng.integers(1, batch))
+        starts = [("range_start", 47 if base == 10 else plan.range_start)]
+        if base != 10:  # b10's one limb holds its whole range
+            starts.append(("carry", _carry_start(plan, 3 * batch)))
+        for where, start in starts:
+            for fused in (True, False):
+                case = {"base": base, "start": where, "fused": fused,
+                        "valid": valid}
+                for key, min_u in (("nice", base),
+                                   ("median", check_min_uniques(base))):
+                    got, d = _k4_pair(plan, fused, start, batch, 3, valid,
+                                      min_u, dev)
+                    diff = max(diff, d)
+                    calls += 1
+                    case[key] = {"min_uniques": min_u, "count": got[0],
+                                 "pruned": got[1], "max_abs_diff": d}
+                cases.append(case)
+    torch.cuda.synchronize()
+    launched = ce.LAUNCHES["niceonly_dense"] - launches0
+    report["dense_vs_plain"] = {"cases": cases, "max_abs_diff": diff,
+                                "launches": launched,
+                                "secs": time.monotonic() - t0}
+    emit({"phase": "dense_vs_plain", **report["dense_vs_plain"]})
+    check(diff == 0, f"K4 != plain: {cases}")
+    empty = [c for c in cases if c["base"] == 99 and c["fused"]]
+    check(launched == calls - 2 * len(empty),
+          f"{launched} K4 launches for {calls} calls ({len(empty)} empty "
+          "tables)")
+    for c in cases:
+        if c in empty:  # no class: every lane pruned, nothing launched
+            check(c["median"]["count"] == 0
+                  and c["median"]["pruned"] == c["valid"], f"b99: {c}")
+        elif c["fused"]:
+            check(c["median"]["pruned"] < c["valid"], f"nothing kept: {c}")
+        elif c["start"] == "carry" or c["base"] == 10:
+            # Unfused, every lane is kept; across a carry (and at b10) the
+            # median threshold must count many. At a range's start the
+            # squares lead with zeros and num_uniques sits lower.
+            check(c["median"]["count"] > 0 and c["median"]["pruned"] == 0,
+                  f"the median threshold counted nothing: {c}")
+    check(all(c["nice"]["count"] >= 1 for c in cases if c["base"] == 10),
+          f"b10 from 47 lost 69: {cases[:2]}")
+
+
 def phase_golden(report: dict) -> None:
     from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
     from nice_tpu_torch.ops import cuda_engine as ce
@@ -514,6 +637,22 @@ def phase_golden(report: dict) -> None:
         "base_ten_descriptors": stats["descriptors"],
         "default_nice": len(card.nice_numbers)}
     emit({"phase": "golden_niceonly", **report["golden_niceonly"]})
+
+    # The dense loop (b98's path) on base-ten: 69 through K4, then K2.
+    import torch
+
+    ce.reset_launches()
+    found = []
+    engine._niceonly_dense(ten.to_field_size(), ten.base, torch.device(DEVICE),
+                           found)
+    dense = [n.number for n in found]
+    check(dense == [69] and ce.LAUNCHES["niceonly_dense"] >= 1
+          and ce.LAUNCHES["uniques"] >= 1,
+          f"base-ten through the dense loop gives {dense}: {ce.LAUNCHES}")
+    report["golden_dense"] = {"base_ten": dense,
+                              "k4_launches": ce.LAUNCHES["niceonly_dense"],
+                              "k2_launches": ce.LAUNCHES["uniques"]}
+    emit({"phase": "golden_dense", **report["golden_dense"]})
 
 
 def _check_field(data, results) -> int:
@@ -603,10 +742,11 @@ def phase_full_width(report: dict) -> None:
 def _surviving_field(base: int):
     """The first field of a seeded draw from the server's 1e9 grid over the
     base's range that the MSD filter does not prune whole, as the niceonly
-    pipeline itself finds (a pruned field forms no descriptor group). At
-    b80 it prunes about 19 fields in 20 (hi-base, the range's first, among
-    them), so this is the field that takes the niceonly main path through
-    K3 there."""
+    pipeline itself finds (a pruned field forms no descriptor group, or at
+    b98 and up no dense run). At b80 it prunes about 19 fields in 20
+    (hi-base, the range's first, among them), at b98 about 99 in 100, so
+    this is the field that takes the niceonly main path through K3 (b80) or
+    K4 (b98) there."""
     from nice_tpu_torch.core.types import DataToClient
     from nice_tpu_torch.ops import engine
     from nice_tpu_torch.ops.limbs import get_plan
@@ -621,7 +761,8 @@ def _surviving_field(base: int):
                             range_size=SERVER_FIELD_SIZE)
         engine.process_range_niceonly(data.to_field_size(), base,
                                       device=DEVICE)
-        if engine.LAST_NICEONLY_STATS["groups"]:
+        stats = engine.LAST_NICEONLY_STATS
+        if stats.get("groups") or stats.get("runs"):
             return data
     raise SmokeFailure(f"no b{base} field of 200 survives the MSD filter")
 
@@ -687,6 +828,75 @@ def phase_full_width_niceonly(report: dict) -> None:
     for base in (SERVER_BASE, 80):
         check(sum(r["k3_launches"] for r in runs if r["base"] == base) > 0,
               f"the niceonly main path never reached K3 at b{base}")
+
+
+def _check_dense(data, results) -> dict:
+    """Every reported number is nice and in the field, and a seeded
+    DENSE_SLICE_WIDTH slice of the field holds exactly the numbers the
+    scalar oracle's nice test finds there, number by number (the host
+    library takes no value above 2^128)."""
+    from nice_tpu_torch.ops import scalar
+
+    check(results.distribution == (), "niceonly results carry a distribution")
+    for n in results.nice_numbers:
+        check(data.range_start <= n.number < data.range_end, f"{n} outside field")
+        check(n.num_uniques == data.base
+              and scalar.get_num_unique_digits(n.number, data.base) == data.base,
+              f"{n} is not nice")
+    rng = random.Random(SEED + data.range_start)
+    width = min(DENSE_SLICE_WIDTH, data.range_size)
+    lo = rng.randrange(data.range_start, data.range_end - width + 1)
+    t0 = time.monotonic()
+    want = [n for n in range(lo, lo + width) if scalar.get_is_nice(n, data.base)]
+    got = [n.number for n in results.nice_numbers if lo <= n.number < lo + width]
+    check(got == want, f"slice [{lo}, {lo + width}): device {got}, oracle {want}")
+    return {"slice_start": lo, "slice_width": width, "slice_nice": len(want),
+            "slice_oracle_secs": time.monotonic() - t0}
+
+
+def phase_full_width_dense(report: dict) -> None:
+    """The dense niceonly main path: a client processing two full-width b98
+    fields in niceonly mode (the range's first 1e9, which the MSD filter
+    prunes whole, and the first seeded field it does not), with the launch
+    counts set to 0 just before and read just after."""
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.types import DataToClient
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    lo = get_plan(DENSE_BASE).range_start
+    fields = [("b98-first", DataToClient(
+                  claim_id=0, base=DENSE_BASE, range_start=lo,
+                  range_end=lo + SERVER_FIELD_SIZE,
+                  range_size=SERVER_FIELD_SIZE)),
+              ("b98-surviving", _surviving_field(DENSE_BASE))]
+    args = client.build_parser().parse_args(["niceonly", "--device", DEVICE])
+    runs = []
+    ce.reset_launches()
+    for name, data in fields:
+        before = dict(ce.LAUNCHES)
+        results, elapsed = client.process_field(data, args)
+        launches = {k: v - before[k] for k, v in ce.LAUNCHES.items()}
+        stats = dict(engine.LAST_NICEONLY_STATS)
+        check(stats["base"] == DENSE_BASE and stats["start"] == data.range_start,
+              f"{name}: the dense loop did not run the field: {stats}")
+        check(launches["niceonly_dense"] == stats["runs"] == stats["launches"],
+              f"{name}: {launches} launches for {stats['runs']} runs")
+        runs.append({"field": name, "base": data.base,
+                     "range_start": data.range_start,
+                     "numbers": data.range_size, "elapsed_secs": elapsed,
+                     "numbers_per_sec": data.range_size / elapsed,
+                     "launches": launches, "nice": len(results.nice_numbers),
+                     **_check_dense(data, results), "stats": stats})
+    total = dict(ce.LAUNCHES)
+    report["full_width_dense"] = {"fields": runs, "launches": total}
+    report["main_path_launches"]["niceonly_dense"] = total["niceonly_dense"]
+    for run in runs:
+        emit({"phase": "full_width_dense", **run})
+    check(runs[0]["stats"]["runs"] == 0, f"b98-first was not pruned whole: {runs[0]}")
+    check(runs[1]["launches"]["niceonly_dense"] > 0,
+          "the dense niceonly main path never reached K4")
 
 
 def _free_port() -> int:
@@ -828,11 +1038,18 @@ def _main_path_group(name: str, report: dict, dev):
     return s, cols, desc
 
 
+def _dense_stats(name: str, report: dict) -> dict:
+    """The dense loop's stats of one b98 main-path field."""
+    return next(r for r in report["full_width_dense"]["fields"]
+                if r["field"] == name)["stats"]
+
+
 def phase_main_shapes(report: dict) -> None:
-    """K1 and K2 against their plain versions at the shapes the main path
-    gives them: K1 over a whole 2^18 x 8 segment with every lane valid, K2
-    (and the survivor compaction after it) over one rare-scan sub-batch;
-    exact equality."""
+    """Each kernel against its plain version at the shapes the main path
+    gives it, exact: K1 over a whole 2^18 x 8 segment with every lane valid,
+    K2 (and the survivor compaction after it) over one rare-scan sub-batch,
+    K3 over the first descriptor groups of two fields, K4 over the b98
+    field's first run."""
     import numpy as np
     import torch
 
@@ -886,15 +1103,34 @@ def phase_main_shapes(report: dict) -> None:
             case[key] = {"min_uniques": min_u, "counted": int(got.sum()),
                          "zero_rows": int((got[:len(cols[0])] == 0).sum())}
         cases.append(case)
+    # K4 over the b98 field's first run, as the main path launched it, in
+    # both modes (the main path runs the fused one).
+    dplan = get_plan(DENSE_BASE)
+    start, valid = _dense_stats("b98-surviving", report)["first_run"]
+    dense_cases = []
+    diff["niceonly_dense"] = 0
+    for fused in (True, False):
+        case = {"kernel": "niceonly_dense", "field": "b98-surviving",
+                "start": start, "valid": valid, "fused": fused}
+        for key, min_u in (("nice", DENSE_BASE),
+                           ("median", check_min_uniques(DENSE_BASE))):
+            got, d = _k4_pair(dplan, fused, start, batch, seg, valid, min_u,
+                              dev)
+            diff["niceonly_dense"] = max(diff["niceonly_dense"], d)
+            case[key] = {"min_uniques": min_u, "count": got[0],
+                         "pruned": got[1]}
+        dense_cases.append(case)
     torch.cuda.synchronize()
     report["main_shapes"] = {"base": plan.base, "max_abs_diff": diff,
-                             "cases": cases}
+                             "cases": cases + dense_cases}
     emit({"phase": "main_shapes", **report["main_shapes"]})
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
     check(cases[1]["near_misses"] > 0 and cases[3]["survivors"] > 0,
           f"the near-miss segment found none: {cases}")
     check(all(c["median"]["counted"] > 0 for c in cases[4:]),
           f"the median threshold counted nothing in a main-path group: {cases}")
+    check(all(c["median"]["count"] > 0 for c in dense_cases),
+          f"the median threshold counted nothing in the first run: {dense_cases}")
 
 
 def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
@@ -945,6 +1181,19 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
         ce.strided_niceonly_batch(s8.plan, s8.table.modulus, res8, s8.periods,
                                   desc8, len(cols8[0]))
 
+    # K4: the b98 field's median run (its typical one), in the fused mode
+    # the main path runs, and a full run of batch * seg lanes from its start.
+    dplan = get_plan(DENSE_BASE)
+    d_start, d_valid = _dense_stats("b98-surviving", report)["median_run"]
+    classes = ce.niceonly_classes(dplan, True, str(dev))
+    st4 = ve.start_limbs_tensor(d_start, dplan, dev)
+
+    def k4(valid=d_valid):
+        return ce.niceonly_dense_megaloop(dplan, batch, seg, classes, st4, valid)
+
+    def p4():
+        ve.niceonly_dense_megaloop(dplan, batch, seg, classes, st4, d_valid)
+
     # Plain, kernel, kernel, plain: both versions see the same card state.
     p1_a = time_cuda(p1, reps=2, warmup=1)
     k1_a = time_cuda(k1, reps=20)
@@ -959,11 +1208,25 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
     k3_b = time_cuda(k3, reps=20)
     p3_b = time_cuda(p3, reps=2, warmup=0)
     k3_b80_ms = time_cuda(k3_b80, reps=10)
+    p4_a = time_cuda(p4, reps=2, warmup=1)
+    k4_a = time_cuda(k4, reps=50)
+    k4_b = time_cuda(k4, reps=50)
+    p4_b = time_cuda(p4, reps=2, warmup=0)
+    k4_full_ms = time_cuda(lambda: k4(lanes_k1), reps=20)
     # K1 reads the start limbs and the accumulator, writes the accumulator
     # and the count; K2 reads the start limbs and writes 4 bytes a lane; K3
-    # reads the descriptors and the residues and writes a count a row.
+    # reads the descriptors and the residues and writes a count a row; K4
+    # reads the start limbs and the class table and writes two counts.
     c1, c2 = lane_cycles(counts["k1_lane"]), lane_cycles(counts["k2_lane"])
     c3 = lane_cycles(counts["k3_lane"])
+    c4 = lane_cycles(counts["k4_lane"])
+    # K4's work depends on the data: only the kept lanes reach the digit
+    # work, so the bound counts those (valid - pruned) at a full lane each.
+    bytes4 = 8 * dplan.limbs_n + 8 * classes.shape[0] + 8
+    kept4 = d_valid - k4()[1].item()
+    kept4_full = lanes_k1 - k4(lanes_k1)[1].item()
+    b4 = bound_ms(kept4, c4, bytes4, sms, clk_mhz)
+    b4_full = bound_ms(kept4_full, c4, bytes4, sms, clk_mhz)
     b1 = bound_ms(lanes_k1, c1, 8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4,
                   sms, clk_mhz)
     b2 = bound_ms(lanes_k2, c2, 8 * plan.limbs_n + 4 * lanes_k2, sms, clk_mhz)
@@ -995,6 +1258,14 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
         "k3_b80": {"rows": len(cols8[0]), "k": s8.k, "periods": s8.periods,
                    "lanes": len(cols8[0]) * s8.periods * s8.table.num_residues,
                    "ms": k3_b80_ms},
+        "k4": {"base": DENSE_BASE, "start": d_start, "valid": d_valid,
+               "kept": kept4, "classes": int(classes.shape[0]),
+               "ms": [k4_a, k4_b], "plain_ms": [p4_a, p4_b],
+               "sass": counts["k4_lane"], "lane_cycles": c4,
+               "bound_ms": b4[0], "bound_by": b4[1]},
+        "k4_full_run": {"valid": lanes_k1, "kept": kept4_full,
+                        "ms": k4_full_ms, "bound_ms": b4_full[0],
+                        "bound_by": b4_full[1]},
     }
     emit({"phase": "timing", **report["timing"]})
     return [
@@ -1004,6 +1275,8 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
          min(k2_a, k2_b), min(p2_a, p2_b), b2),
         ("strided_niceonly", "nice_tpu/ops/pallas_engine.py:410",
          min(k3_a, k3_b), min(p3_a, p3_b), b3),
+        ("niceonly_dense", "nice_tpu/ops/pallas_engine.py:181",
+         min(k4_a, k4_b), min(p4_a, p4_b), b4),
     ]
 
 
@@ -1034,16 +1307,26 @@ def _profiled(run_field) -> dict:
 
 
 def phase_profile(report: dict) -> None:
-    """The mid-range field once more in each mode under torch.profiler: the
-    device's busy and idle share of the field's wall time."""
+    """The mid-range field once more in each mode, and the surviving b98
+    field in niceonly mode (the dense loop), under torch.profiler: the
+    device's busy and idle share of each field's wall time."""
     from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.types import DataToClient
 
     data = _mid_range_field(SERVER_BASE)
-    for mode in ("detailed", "niceonly"):
+    b98 = next(r for r in report["full_width_dense"]["fields"]
+               if r["field"] == "b98-surviving")
+    dense = DataToClient(claim_id=0, base=DENSE_BASE,
+                         range_start=b98["range_start"],
+                         range_end=b98["range_start"] + b98["numbers"],
+                         range_size=b98["numbers"])
+    for key, mode, name, field in (
+            ("profile", "detailed", "mid-range", data),
+            ("profile_niceonly", "niceonly", "mid-range", data),
+            ("profile_dense", "niceonly", "b98-surviving", dense)):
         args = client.build_parser().parse_args([mode, "--device", DEVICE])
-        key = "profile" if mode == "detailed" else "profile_niceonly"
-        report[key] = {"field": "mid-range", "mode": mode,
-                       **_profiled(lambda: client.process_field(data, args))}
+        report[key] = {"field": name, "mode": mode,
+                       **_profiled(lambda: client.process_field(field, args))}
         emit({"phase": "profile", **report[key]})
 
 
@@ -1072,9 +1355,11 @@ def main() -> int:
     counts = phase_build(report)
     phase_kernel_vs_plain(report)
     phase_strided_vs_plain(report)
+    phase_dense_vs_plain(report)
     phase_golden(report)
     phase_full_width(report)
     phase_full_width_niceonly(report)
+    phase_full_width_dense(report)
     phase_server(report)
     phase_main_shapes(report)
     timed = phase_timing(report, counts, sms, clk_mhz)
@@ -1106,11 +1391,25 @@ def main() -> int:
               "dispatch_put_ms": st["put"] * 1e3,
               "descriptors": st["descriptors"], "k3_launches": run["k3_launches"],
               "k3_ms_at_most": run["k3_launches"] * k3_group_ms[run["base"]]})
+    for run in report["full_width_dense"]["fields"]:
+        # One run in flight: wall = MSD filter + the loop (upload, K4,
+        # readback per run); K4's share is about launches x a typical run.
+        st = run["stats"]
+        k4_est = run["launches"]["niceonly_dense"] * kernel_ms["niceonly_dense"]
+        emit({"phase": "where_time_goes", "field": run["field"],
+              "mode": "niceonly", "base": run["base"],
+              "elapsed_ms": run["elapsed_secs"] * 1e3,
+              "msd_ms": st["msd_secs"] * 1e3, "loop_ms": st["loop_secs"] * 1e3,
+              "runs": st["runs"], "k4_launches": run["launches"]["niceonly_dense"],
+              "k4_ms_est": k4_est,
+              "host_loop_ms_est": st["loop_secs"] * 1e3 - k4_est})
 
     kernel_bases = {"detailed_megaloop": BASES, "uniques": BASES,
-                    "strided_niceonly": NICEONLY_BASES}
+                    "strided_niceonly": NICEONLY_BASES,
+                    "niceonly_dense": DENSE_BASES}
     vs_plain = dict(report["kernel_vs_plain"]["max_abs_diff"],
-                    strided_niceonly=report["strided_vs_plain"]["max_abs_diff"])
+                    strided_niceonly=report["strided_vs_plain"]["max_abs_diff"],
+                    niceonly_dense=report["dense_vs_plain"]["max_abs_diff"])
     kernels = []
     for name, replaces, ms, plain_ms, (b_ms, b_by) in timed:
         kernels.append({

@@ -1,7 +1,8 @@
 """nice-tpu-torch search client CLI (the port's cut of nice_tpu/client/main.py).
 
   * single shot: claim one field (detailed or niceonly) from --api-base,
-    process it on the card, submit it;
+    process it on the card, submit it; niceonly takes every base, b10-b97
+    through the strided pipeline and b98 and up through the dense loop;
   * --benchmark <field>: process a built-in benchmark field offline and
     print one JSON summary line (the JAX client's keys).
 
@@ -43,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("mode", nargs="?", default="detailed",
                    choices=["detailed", "niceonly"],
                    help="search mode: detailed (histogram and near misses) or "
-                   "niceonly (nice numbers only)")
+                   "niceonly (nice numbers only: strided up to b97, dense "
+                   "from b98)")
     p.add_argument("--api-base", default="https://api.nicenumbers.net",
                    help="API base URL")
     p.add_argument("--username", default="anonymous",

@@ -33,6 +33,12 @@ class FieldSize:
                 "(half-open interval)"
             )
 
+    def first(self) -> int:
+        return self.range_start
+
+    def last(self) -> int:
+        return self.range_end - 1
+
     def start(self) -> int:
         return self.range_start
 

@@ -1,7 +1,8 @@
-// The three CUDA kernels of the port, with a plain C interface for ctypes
+// The four CUDA kernels of the port, with a plain C interface for ctypes
 // (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc for sm_90a;
 // ops/cuda_engine.py wraps it): K1 and K2 on the detailed path, K3 on the
-// niceonly path.
+// strided niceonly path (bases of at most 4 u32 limbs), K4 on the dense
+// niceonly path (b98 and up).
 //
 // K1 detailed_megaloop_kernel replaces the TPU's detailed stats kernel:
 // nice_tpu/ops/pallas_engine.py _stats_callable (pallas_call at :181, body
@@ -35,14 +36,35 @@
 // each block reduces its count per warp, then across warps, and adds it to
 // counts[row] with one atomic.
 //
+// K4 niceonly_dense_kernel replaces the TPU's dense niceonly kernel in both
+// of its modes: pallas_engine.py _stats_callable (pallas_call at :181) with
+// _make_kernel modes "niceonly" (:155-158, count of lanes with num_uniques ==
+// base) and "niceonly-fused" (:143-154, the residue congruence first, and
+// pruned = valid lanes that fail it), and the jnp megaloops the single-device
+// JAX engine runs in their place (nice_tpu/ops/vector_engine.py
+// niceonly_dense_megaloop :586 and niceonly_filtered_megaloop :608). The TPU
+// evaluated the congruence on every lane of the dense batch and masked; at
+// b98 it keeps 2 residue classes of 97, so one thread per dense lane would
+// leave about half the warps running the full digit work for one or two
+// live lanes. Here a thread derives a kept lane by index arithmetic, as K3
+// derives its offsets: lane j is class classes[j % R] of period j / R, the
+// run offset ((classes[j % R] - start) mod (b - 1)) + (j / R) * (b - 1), so
+// the grid covers R * ceil(valid_total / (b - 1)) lanes, each a candidate
+// but for the ragged last period (masked by i < valid_total). The unfused
+// mode is the same kernel given all b - 1 classes. Each block reduces its
+// nice count and its kept count per warp, then across warps, and flushes
+// them with one atomic each: out[0] += nice, out[1] += -kept (block 0 adds
+// valid_total), so out[1] ends as pruned.
+//
 // What bounds them on an H100: they take no input but a few start limbs (K3:
-// 96 bytes a descriptor and the residue table) and write little (K1: base+2
-// bins; K2: 4 bytes a lane; K3: 4 bytes a descriptor), so they are bound by
-// integer operations — wide multiplies for n^2 and n^3 and the
-// multiply-high divisions of the digit extraction. The design keeps every
-// intermediate of the small tier in registers, replaces each division by a
-// multiply-high with a host-computed reciprocal, and keeps atomics off the
-// global outputs except for one flush per block.
+// 96 bytes a descriptor and the residue table; K4: the class table) and
+// write little (K1: base+2 bins; K2: 4 bytes a lane; K3: 4 bytes a
+// descriptor; K4: 8 bytes), so they are bound by integer operations — wide
+// multiplies for n^2 and n^3 and the multiply-high divisions of the digit
+// extraction. The design keeps every intermediate of the small tier in
+// registers, replaces each division by a multiply-high with a host-computed
+// reciprocal, keeps atomics off the global outputs except for one flush per
+// block, and (K4) spends no lane on a candidate the congruence excludes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +142,40 @@ strided_niceonly_kernel(const int64_t* __restrict__ desc,
   }
 }
 
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+niceonly_dense_kernel(const int64_t* __restrict__ start,
+                      const int64_t* __restrict__ classes, uint32_t num_cls,
+                      uint32_t lanes, uint32_t valid_total, int min_u, Plan p,
+                      int32_t* __restrict__ out) {
+  __shared__ int32_t warp_sums[2][kThreads / 32];
+  const uint32_t s = L::start_residue(start, p);
+  int c = 0, kept = 0;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < lanes;
+       j += stride) {
+    c += L::dense_nice(start, classes, num_cls, s, j, valid_total, min_u, p,
+                       &kept);
+  }
+  c = __reduce_add_sync(0xffffffffu, c);
+  kept = __reduce_add_sync(0xffffffffu, kept);
+  if ((threadIdx.x & 31) == 0) {
+    warp_sums[0][threadIdx.x >> 5] = c;
+    warp_sums[1][threadIdx.x >> 5] = kept;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sc = 0, sk = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      sc += warp_sums[0][w];
+      sk += warp_sums[1][w];
+    }
+    if (blockIdx.x == 0) sk -= (int)valid_total;
+    if (sc) atomicAdd(&out[0], sc);
+    if (sk) atomicAdd(&out[1], -sk);
+  }
+}
+
 // Enough blocks to fill every SM, capped so the grid-stride loop (and not a
 // huge grid) covers large segments.
 static int grid_for(int64_t lanes) {
@@ -157,6 +213,19 @@ static void launch_strided(const Plan& p, const int64_t* desc, int n_real,
   const dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads), (unsigned)n_real);
   strided_niceonly_kernel<L><<<grid, kThreads, 0, s>>>(
       desc, residues, num_res, modulus, lanes, min_u, p, counts);
+}
+
+// num_cls classes times ceil(valid_total / (base - 1)) periods of lanes, in
+// a grid-stride loop.
+template <class L>
+static void launch_dense(const Plan& p, const int64_t* start,
+                         const int64_t* classes, uint32_t num_cls,
+                         uint32_t valid_total, int min_u, int32_t* out,
+                         cudaStream_t s) {
+  const uint32_t m = p.base - 1;
+  const uint32_t lanes = num_cls * ((valid_total + m - 1) / m);
+  niceonly_dense_kernel<L><<<grid_for(lanes), kThreads, 0, s>>>(
+      start, classes, num_cls, lanes, valid_total, min_u, p, out);
 }
 
 }  // namespace nice
@@ -220,6 +289,34 @@ int nice_strided_niceonly(const uint64_t* plan_words, const void* desc,
     case 1:
       launch_strided<GenericTier>(p, d, (int)n_real, r, (uint32_t)num_res,
                                   (uint32_t)modulus, lanes, min_uniques, c, s);
+      break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4 over the valid_total lanes from start: out[0] += the kept lanes with
+// min_uniques <= num_uniques <= base, out[1] += the lanes not kept (the
+// caller zeroes out; the search passes min_uniques = base). The caller keeps
+// 1 <= num_cls <= base - 1, base >= 3 and valid_total + base < 2^31.
+int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
+                        const void* classes, long long num_cls,
+                        long long valid_total, int min_uniques, void* out,
+                        void* stream) {
+  using namespace nice;
+  const Plan p = plan_from_words(plan_words);
+  const int64_t* st = (const int64_t*)start;
+  const int64_t* cl = (const int64_t*)classes;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (pick_tier(p)) {
+    case 0:
+      launch_dense<SmallTier>(p, st, cl, (uint32_t)num_cls,
+                              (uint32_t)valid_total, min_uniques, o, s);
+      break;
+    case 1:
+      launch_dense<GenericTier>(p, st, cl, (uint32_t)num_cls,
+                                (uint32_t)valid_total, min_uniques, o, s);
       break;
     default: return -1;
   }

@@ -1,10 +1,11 @@
-// Per-lane arithmetic shared by the three kernels in nice_kernels.cu.
+// Per-lane arithmetic shared by the four kernels in nice_kernels.cu.
 //
 // For a candidate n this computes num_uniques: the count of distinct base-b
 // digits across n^2 and n^3. It is the body of the TPU's Pallas kernels
-// (nice_tpu/ops/pallas_engine.py: _make_kernel, _uniques_callable and
-// _make_strided_kernel, which trace nice_tpu/ops/vector_engine.py:
-// num_uniques_lanes) thought through again for Hopper:
+// (nice_tpu/ops/pallas_engine.py: _make_kernel in every mode,
+// _uniques_callable and _make_strided_kernel, which trace
+// nice_tpu/ops/vector_engine.py: num_uniques_lanes) thought through again
+// for Hopper:
 //   * n = start + lane is a multi-limb add of a 64-bit lane index;
 //   * n^2 and n^3 are schoolbook products with native 32x32->64 multiplies
 //     and an in-row carry (the TPU's 16-bit-half carry-save scheme only
@@ -59,6 +60,7 @@ enum PlanWord {
   PW_CHUNK_MAGIC,
   PW_BASE_MAGIC,
   PW_LOG2_FX,
+  PW_RES_MAGIC,
   PW_COUNT
 };
 
@@ -76,6 +78,7 @@ struct Plan {
   uint64_t chunk_magic;             // floor((2^64 - 1) / chunk_div)
   uint64_t base_magic;              // floor((2^64 - 1) / base)
   uint64_t log2_fx;                 // >= log2(base) * 2^kLog2FxBits
+  uint64_t res_magic;               // floor((2^64 - 1) / (base - 1))
 };
 
 // Returns x / c and stores x % c in *r, for x < c * 2^32 and 2 <= c < 2^32,
@@ -249,6 +252,47 @@ struct Lane {
     return u >= min_u && u <= (int)p.base;
   }
 
+  // start mod (base - 1), for K4: the limbs most significant first, each
+  // step (r << 32 | limb) mod (base - 1) by divmod_magic (r < base - 1, so
+  // the step stays in its domain).
+  static NICE_D uint32_t start_residue(const int64_t* start, const Plan& p) {
+    const uint32_t m = p.base - 1;
+    uint32_t r = 0;
+    NICE_UNROLL
+    for (int k = 0; k < (UNROLL ? NL : p.limbs_n); ++k) {
+      const int i = (UNROLL ? NL : p.limbs_n) - 1 - k;
+      if (UNROLL && i >= p.limbs_n) continue;
+      divmod_magic(((uint64_t)r << 32) | (uint32_t)start[i], m, p.res_magic,
+                   &r);
+    }
+    return r;
+  }
+
+  // K4's lane: enumerated lane j of a dense run from `start`, whose residue
+  // modulo m = base - 1 is s. classes holds the kept residue classes modulo
+  // m (num_cls of them). Lane j stands for class classes[j % num_cls] in
+  // period j / num_cls, the candidate start + i with
+  // i = ((classes[j % num_cls] - s) mod m) + (j / num_cls) * m, so that
+  // (start + i) mod m is the class. Past valid_total it is no candidate and
+  // returns 0; otherwise it adds 1 to *kept, carries i into the start limbs
+  // and returns 1 when min_u <= num_uniques <= base. With min_u = base this
+  // is the TPU kernel's nice test.
+  static NICE_D int dense_nice(const int64_t* start, const int64_t* classes,
+                               uint32_t num_cls, uint32_t s, uint32_t j,
+                               uint32_t valid_total, int min_u, const Plan& p,
+                               int* kept) {
+    const uint32_t m = p.base - 1;
+    const uint32_t q = j / num_cls;
+    const uint32_t cls = (uint32_t)classes[j - q * num_cls];
+    const uint32_t i = (cls >= s ? cls - s : cls + m - s) + q * m;
+    if (i >= valid_total) return 0;
+    *kept += 1;
+    uint32_t n[NL];
+    load_n(n, start, i, p);
+    const int u = uniques_of(n, p);
+    return u >= min_u && u <= (int)p.base;
+  }
+
   static NICE_D int uniques_of(const uint32_t (&n)[NL], const Plan& p) {
     uint32_t sq[SQL], cu[CUL], m[NM];
     mul(n, p.limbs_n, n, p.limbs_n, sq, p.limbs_sq);
@@ -271,7 +315,8 @@ struct Lane {
 // holds the main path's b40 and every benchmark base except hi-base (b80,
 // whose niceonly fields K3 runs in the generic tier).
 // GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;
-// at b2046, n/n^2/n^3 take 141/282/422 limbs).
+// at b2046, n/n^2/n^3 take 141/282/422 limbs); K4's niceonly fields (b98 and
+// up, 5/9/13 limbs at b98) run here.
 typedef Lane<2, 4, 6, 2, true> SmallTier;
 typedef Lane<144, 288, 424, 64, false> GenericTier;
 
@@ -290,6 +335,7 @@ inline Plan plan_from_words(const uint64_t* w) {
   p.chunk_magic = w[PW_CHUNK_MAGIC];
   p.base_magic = w[PW_BASE_MAGIC];
   p.log2_fx = w[PW_LOG2_FX];
+  p.res_magic = w[PW_RES_MAGIC];
   return p;
 }
 

@@ -1,6 +1,6 @@
-"""Adaptive MSD recursion floor for the strided niceonly pipeline (copy of
-nice_tpu/ops/adaptive_floor.py, with a plain lock and a `pinned` argument in
-place of the NICE_TPU_MSD_FLOOR variable).
+"""Adaptive MSD recursion floor for the niceonly pipelines, strided and
+dense (copy of nice_tpu/ops/adaptive_floor.py, with a plain lock and a
+`pinned` argument in place of the NICE_TPU_MSD_FLOOR variable).
 
 The niceonly device path is a two-phase pipeline per field: the HOST runs the
 MSD prefix filter down to a recursion floor (coarse floor = cheap host work,
@@ -128,9 +128,10 @@ def get_floor_controller(pipeline: str = "strided") -> AdaptiveFloor:
 
 
 def reset_for_tests(pinned: int | None = None) -> None:
-    """Forget every controller; with `pinned`, the strided pipeline's is
-    one fixed at that floor."""
+    """Forget every controller; with `pinned`, the strided and the dense
+    pipelines' are each fixed at that floor."""
     with _CONTROLLERS_LOCK:
         _CONTROLLERS.clear()
         if pinned is not None:
-            _CONTROLLERS["strided"] = AdaptiveFloor(pinned=pinned)
+            for pipeline in ("strided", "dense"):
+                _CONTROLLERS[pipeline] = AdaptiveFloor(pinned=pinned)

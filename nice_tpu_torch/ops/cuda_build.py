@@ -1,5 +1,5 @@
-"""Build and load the CUDA kernels (csrc/nice_kernels.cu: K1, K2, K3) at
-first use.
+"""Build and load the CUDA kernels (csrc/nice_kernels.cu: K1-K4) at first
+use.
 
 nvcc compiles the sources into a shared library with a plain C interface,
 which ctypes loads; no PyTorch header is involved, so the build takes
@@ -77,6 +77,11 @@ def _bind(lib) -> None:
         c_longlong, c_int, c_void_p, c_void_p,
     ]
     lib.nice_strided_niceonly.restype = c_int
+    lib.nice_niceonly_dense.argtypes = [
+        words, c_void_p, c_void_p, c_longlong, c_longlong, c_int, c_void_p,
+        c_void_p,
+    ]
+    lib.nice_niceonly_dense.restype = c_int
     lib.nice_error_string.argtypes = [c_int]
     lib.nice_error_string.restype = ctypes.c_char_p
 

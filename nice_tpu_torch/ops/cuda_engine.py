@@ -1,4 +1,4 @@
-"""Wrappers of the three CUDA kernels (csrc/nice_kernels.cu), with launch
+"""Wrappers of the four CUDA kernels (csrc/nice_kernels.cu), with launch
 counters — the port's counterpart of nice_tpu/ops/pallas_engine.py's entry
 points.
 
@@ -9,8 +9,11 @@ per-lane uniques kernel (_uniques_callable, pallas_call at :466);
 `survivors_batch` follows it with the plain-tensor compaction, as JAX left
 that outside the pallas_call. K3 `strided_niceonly_batch` replaces the
 stride-descriptor niceonly kernel (_strided_callable, pallas_call at :410).
-All three are bound by integer operations (little input, little output); see
-the source note in nice_kernels.cu for what the design does about it.
+K4 `niceonly_dense_megaloop` replaces the stats kernel's two niceonly modes
+(the same pallas_call at :181, entries niceonly_dense_batch and
+niceonly_fused_batch) and the jnp megaloops over them. All four are bound by
+integer operations (little input, little output); see the source note in
+nice_kernels.cu for what the design does about it.
 
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
@@ -41,7 +44,8 @@ STRIDED_PERIODS_MAX = 1024
 STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
 
-LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0}
+LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
+            "niceonly_dense": 0}
 
 _U64_MAX = (1 << 64) - 1
 
@@ -66,7 +70,7 @@ def plan_words(plan: BasePlan):
         plan.base, plan.limbs_n, plan.limbs_sq, plan.limbs_cu,
         plan.d_sq, plan.d_cu, plan.n_masks, plan.near_miss_cutoff,
         e, chunk_div, _U64_MAX // chunk_div, _U64_MAX // plan.base,
-        log2_fx(plan.base),
+        log2_fx(plan.base), _U64_MAX // (plan.base - 1),
     ]
     return (ctypes.c_uint64 * len(words))(*words)
 
@@ -203,3 +207,63 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     _raise_on(lib, rc, "strided_niceonly")
     LAUNCHES["strided_niceonly"] += 1
     return counts
+
+
+@functools.lru_cache(maxsize=None)
+def niceonly_classes(plan: BasePlan, fused: bool, device: str) -> torch.Tensor:
+    """K4's class table for one (base, mode) on a device, uploaded once: the
+    residue classes mod b-1 that a dense run keeps, ascending, as int64.
+    fused (the TPU's "niceonly-fused" mode) keeps the classes the
+    congruence (ve.residue_keep_lanes) keeps; the unfused "niceonly" mode
+    keeps all b-1."""
+    r = torch.arange(plan.base - 1, dtype=torch.int64)
+    if fused:
+        r = r[ve.residue_keep_lanes(plan, [r])]
+    return r.to(device)
+
+
+def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
+                            classes: torch.Tensor, start_limbs: torch.Tensor,
+                            valid_total: int,
+                            min_uniques: int | None = None) -> torch.Tensor:
+    """K4: the candidates start + [0, valid_total) of an n_iters *
+    batch_size megaloop whose n mod (b-1) is one of `classes` (int64, from
+    niceonly_classes) are kept; returns int32 [count, pruned] on the device:
+    the kept lanes with min_uniques <= num_uniques <= base, and the lanes
+    not kept. min_uniques defaults to base, the nice test the search runs; a
+    check passes a lower one. No lane may pass 2^(32 * limbs_n) (no lane of
+    the base's range does). An empty table launches nothing and gives
+    [0, valid_total], what the TPU kernel gives after pruning every lane."""
+    device = start_limbs.device
+    _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
+    num_cls = classes.shape[0]
+    _check(classes, "classes", torch.int64, (num_cls,), device)
+    total = batch_size * n_iters
+    if not 0 <= valid_total <= total or total + plan.base >= 1 << 31:
+        raise ValueError(f"valid_total {valid_total} outside [0, {total}], or "
+                         f"{total} lanes past the kernel's u32 lane index")
+    if plan.base < 3 or num_cls > plan.base - 1:
+        raise ValueError(f"{num_cls} classes modulo base - 1 = {plan.base - 1}")
+    if min_uniques is None:
+        min_uniques = plan.base
+    if not 0 <= min_uniques <= plan.base:
+        raise ValueError(f"min_uniques {min_uniques} outside [0, {plan.base}]")
+    if device.type == "cpu":
+        return ve.niceonly_dense_megaloop(plan, batch_size, n_iters, classes,
+                                          start_limbs, valid_total, min_uniques)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    words = plan_words(plan)
+    lib = cuda_build.load()
+    if num_cls == 0 or valid_total == 0:
+        return torch.tensor([0, valid_total], dtype=torch.int32, device=device)
+    out = torch.zeros(2, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.nice_niceonly_dense(
+            words, start_limbs.data_ptr(), classes.data_ptr(), num_cls,
+            valid_total, min_uniques, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, rc, "niceonly_dense")
+    LAUNCHES["niceonly_dense"] += 1
+    return out

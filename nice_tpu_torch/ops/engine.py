@@ -15,13 +15,19 @@ Detailed, per field:
     state dict, and resume= accepts such a state from either engine.
   The loop is synchronous (one segment in flight).
 
-Niceonly, per field (bases of at most 4 u32 limbs, b10-b97): the strided
+Niceonly, per field, bases of at most 4 u32 limbs (b10-b97): the strided
 pipeline of three threads. MSD filter threads (the host library) turn the
 core into surviving ranges; the dispatcher packs them into stride
 descriptors, 1024 to a group, and launches K3 on each group; the collector
 reads each group's counts back, re-scans the descriptors with hits on the
 host (a count that disagrees is an error) and audits a sample of the
 zero-count ones.
+
+Niceonly, bases above 4 u32 limbs (b98 and up): the dense loop, one run in
+flight. The MSD filter turns the core into surviving ranges, each cut into
+runs of at most batch_size * segment lanes; K4 counts a run's nice lanes
+among the residue classes the congruence keeps, and a run that counts any
+is re-scanned through K2 (a count that disagrees is an error).
 
 A kernel failure raises: there is no downgrade to another backend.
 """
@@ -769,6 +775,108 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
     return nice
 
 
+# ---------------------------------------------------------------------------
+# Niceonly: the dense loop (bases above 4 u32 limbs)
+# ---------------------------------------------------------------------------
+
+def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
+                    progress=None, checkpoint_cb=None, resume=None,
+                    batch_size: int | None = None,
+                    segment: int | None = None) -> None:
+    """Append the nice numbers of the core to nice_numbers: the twin of the
+    JAX engine's single-device dense loop, one run in flight.
+
+    The MSD filter (the "dense" floor controller's floor) turns the core
+    into surviving ranges; each is cut into runs of at most batch_size *
+    segment lanes, and K4 counts each run's nice lanes among the residue
+    classes the congruence keeps (the TPU's fused mode: the count equals
+    the unfused one's, since no other class holds a nice number). A run
+    that counts any goes through rare_scan_survivors (K2 above
+    base - 1), which must find as many. progress(done, total) follows the
+    dispatched lanes. checkpoint_cb fires after every run with the JAX dense
+    loop's state {"cursor", "hist": None, "nice_numbers" (nice_numbers so
+    far, prior entries included), "remaining", "filtered": True}; a resume
+    state marked "filtered" has its remaining segments scanned as they are
+    (the filters' gaps are proven empty), any other is filtered again."""
+    plan = get_plan(base)
+    batch_size = int(batch_size or DEFAULT_BATCH_SIZE)
+    seg = clamp_segment(segment or MEGALOOP_SEGMENT_DEFAULT, batch_size)
+    lanes = batch_size * seg
+    classes = ce.niceonly_classes(plan, True, str(dev))
+    nice0 = len(nice_numbers)
+    ctrl = adaptive_floor.get_floor_controller("dense")
+    floor = ctrl.current()
+    t0 = time.monotonic()
+    ran_filter = resume is None or not resume.get("filtered")
+    segments = ([(core.start(), core.end())] if resume is None
+                else _resume_segments(resume, core.start(), core.end()))
+    if ran_filter:
+        segments = [
+            (r.start(), r.end()) for s, e in segments
+            for r in msd_filter.get_valid_ranges(
+                FieldSize(s, e), base, min_range_size=floor,
+                max_depth=_msd_depth_for(e - s, floor))
+        ]
+    msd_secs = time.monotonic() - t0
+    total = sum(e - s for s, e in segments)
+    done = kept = pruned = 0
+    runs: list[tuple[int, int]] = []
+    launches0 = ce.LAUNCHES["niceonly_dense"]
+    t1 = time.monotonic()
+    for si, (s, e) in enumerate(segments):
+        pos = s
+        while pos < e:
+            valid = min(lanes, e - pos)
+            start = ve.start_limbs_tensor(pos, plan, dev)
+            count, n_pruned = ce.niceonly_dense_megaloop(
+                plan, batch_size, seg, classes, start, valid).tolist()
+            runs.append((pos, valid))
+            kept += valid - n_pruned
+            pruned += n_pruned
+            if count > 0:
+                found = [n for n, _ in rare_scan_survivors(
+                    plan, pos, valid, batch_size, dev, base - 1)]
+                if len(found) != count:
+                    raise RuntimeError(
+                        f"K4 counted {count} nice numbers in [{pos}, "
+                        f"{pos + valid}), the rare scan found {len(found)}")
+                nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
+                                    for n in found)
+            pos += valid
+            done += valid
+            if checkpoint_cb is not None:
+                rem = ([(pos, e)] if pos < e else []) + segments[si + 1:]
+                checkpoint_cb({
+                    "cursor": rem[0][0] if rem else core.end(),
+                    "hist": None,
+                    "nice_numbers": [(n.number, n.num_uniques)
+                                     for n in nice_numbers],
+                    "remaining": [[a, b] for a, b in rem],
+                    "filtered": True,
+                })
+            if progress is not None:
+                progress(done, total)
+    loop_secs = time.monotonic() - t1
+    if ran_filter:
+        ctrl.observe(msd_secs, loop_secs, core.size())
+    median = sorted(runs, key=lambda r: r[1])[len(runs) // 2] if runs else None
+    LAST_NICEONLY_STATS.clear()
+    LAST_NICEONLY_STATS.update(
+        base=base, start=core.start(), end=core.end(), msd_secs=msd_secs,
+        floor=floor, ranges=len(segments), loop_secs=loop_secs, runs=len(runs), lanes=done, kept=kept,
+        pruned=pruned, classes=int(classes.shape[0]),
+        launches=ce.LAUNCHES["niceonly_dense"] - launches0,
+        nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
+        median_run=median,
+    )
+    log.info(
+        "niceonly-dense b%d [%d, %d): msd %.3fs (floor %d, %d ranges) | "
+        "loop %.3fs (%d runs, %d lanes, %d kept, %d pruned) | %d nice",
+        base, core.start(), core.end(), msd_secs, floor, len(segments),
+        loop_secs, len(runs), done, kept, pruned, len(nice_numbers) - nice0,
+    )
+
+
 def process_range_niceonly(
     range_: FieldSize,
     base: int,
@@ -781,17 +889,21 @@ def process_range_niceonly(
 ) -> FieldResults:
     """The nice numbers of a field (distribution empty), exact.
 
-    device: "cuda" (the default) runs K3; "cpu" runs its plain PyTorch
-    version. backend "scalar" runs the Python-int oracle instead (no
-    checkpoints). Out-of-range slivers go to the oracle. Bases above 4 u32
-    limbs (b98 and up) raise: their dense path is not ported.
+    device: "cuda" (the default) runs the kernels; "cpu" runs their plain
+    PyTorch versions. backend "scalar" runs the Python-int oracle instead
+    (no checkpoints). Out-of-range slivers go to the oracle. Bases of at
+    most 4 u32 limbs (b10-b97) take the strided pipeline (K3); bases above
+    (b98 and up) the dense loop (K4, _niceonly_dense).
 
-    progress(done, total) reports the filter front, from a worker thread.
-    checkpoint_cb(state) fires after every descriptor group with
+    Strided: progress(done, total) reports the filter front, from a worker
+    thread; checkpoint_cb(state) fires after every descriptor group with
     {"cursor", "hist": None, "nice_numbers" [(number, base)]}: every nice
-    number below the cursor is listed. resume takes such a state (from this
-    engine or the JAX engine, whose "remaining" segments collapse to their
-    lowest start) and finishes the field without recomputing slivers."""
+    number below the cursor is listed; a resume state's "remaining"
+    segments collapse to their lowest start. Dense: progress follows the
+    dispatched lanes and checkpoint_cb fires after every run with the JAX
+    dense loop's state (see _niceonly_dense). resume takes a state of this
+    engine or of the JAX engine and finishes the field without recomputing
+    slivers."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
     if backend == "scalar":
@@ -807,13 +919,6 @@ def process_range_niceonly(
                 "only the scalar oracle scans it (no checkpoints)"
             )
         return scalar.process_range_niceonly(range_, base)
-    plan = get_plan(base)
-    if plan.limbs_n > 4:
-        raise ValueError(
-            f"base {base} needs {plan.limbs_n} u32 limbs; the strided niceonly "
-            "path carries 4 and the dense one is not ported: use backend "
-            "'scalar' (--backend scalar)"
-        )
 
     nice_numbers: list[NiceNumberSimple] = []
     if resume is None:
@@ -830,6 +935,14 @@ def process_range_niceonly(
         if not segments:
             nice_numbers.sort(key=lambda n: n.number)
             return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
+    if get_plan(base).limbs_n > 4:
+        _niceonly_dense(core, base, dev, nice_numbers, progress=progress,
+                        checkpoint_cb=checkpoint_cb, resume=resume)
+        nice_numbers.sort(key=lambda n: n.number)
+        return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
+    if resume is not None:
         # The pipeline scans one contiguous core: resume from the lowest
         # uncovered number, dropping restored numbers the rescan will find
         # again (slivers and numbers past the core stay).

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels (the port's counterpart
+"""Plain PyTorch versions of the four CUDA kernels (the port's counterpart
 of nice_tpu/ops/vector_engine.py).
 
 Each function here computes exactly what its kernel in csrc/nice_kernels.cu
@@ -338,3 +338,70 @@ def niceonly_strided_counts(plan: BasePlan, modulus: int,
         counts[d0:d0 + d.shape[0]] = torch.bincount(
             row[hit], minlength=d.shape[0]).to(torch.int32)
     return counts
+
+
+# --------------------------------------------------------------------------
+# The residue congruence and the dense niceonly count (K4)
+# --------------------------------------------------------------------------
+
+def lane_residues(plan: BasePlan, n_limbs: list):
+    """n mod (b-1) per lane, by JAX's limb fold: the sum of (limb mod m) *
+    (2^(32i) mod m) over the limbs, then mod m. Each term is below m^2 <
+    2^22, so the sum stays far inside int64."""
+    m = plan.base - 1
+    acc = torch.zeros_like(torch.as_tensor(n_limbs[0]))
+    for i, limb in enumerate(n_limbs):
+        acc = acc + (limb % m) * pow(2, 32 * i, m)
+    return acc % m
+
+
+def residue_keep_lanes(plan: BasePlan, n_limbs: list):
+    """Per-lane residue-filter membership by direct congruence (copy of
+    JAX's residue_keep_lanes): a nice n satisfies n^2 + n^3 == b(b-1)/2
+    (mod b-1), since digit sums are kept mod b-1, so a lane survives iff
+    r = n mod (b-1) does."""
+    m = plan.base - 1
+    target = plan.base * (plan.base - 1) // 2 % m
+    r = lane_residues(plan, n_limbs)
+    t = r * r % m
+    return (t + t * r % m) % m == target
+
+
+# Lanes per chunk of the plain dense count (a full 2^18 x 8 run at b98 would
+# otherwise hold 13-limb int64 tensors of 2^21 lanes at once).
+DENSE_CHUNK_LANES = 1 << 18
+
+
+def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
+                            classes: torch.Tensor, start_limbs: torch.Tensor,
+                            valid_total: int, min_uniques: int | None = None):
+    """Plain twin of the dense niceonly kernel (K4), in both TPU modes.
+
+    Lanes start + [0, valid_total) of an n_iters * batch_size megaloop are
+    the candidates. Every lane's n mod (b-1) is held against `classes` (the
+    kept residue classes mod b-1, int64: those residue_keep_lanes keeps in
+    the fused mode, all b-1 in the unfused one), as JAX masks every lane; a
+    kept lane counts when min_uniques <= num_uniques(n) <= base
+    (min_uniques defaults to base, the nice test). Returns int32 [count,
+    pruned], pruned being the lanes that are not kept. Lanes go in chunks
+    of DENSE_CHUNK_LANES, and only kept lanes reach the digit work."""
+    total = batch_size * n_iters
+    if not 0 <= valid_total <= total:
+        raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
+    if min_uniques is None:
+        min_uniques = plan.base
+    dev = start_limbs.device
+    member = torch.zeros(plan.base - 1, dtype=torch.bool, device=dev)
+    member[classes] = True
+    count = kept = 0
+    for c0 in range(0, valid_total, DENSE_CHUNK_LANES):
+        g = torch.arange(c0, min(valid_total, c0 + DENSE_CHUNK_LANES),
+                         dtype=torch.int64, device=dev)
+        n = add_u32([start_limbs[i] for i in range(plan.limbs_n)], g)
+        idx = torch.nonzero(member[lane_residues(plan, n)]).flatten()
+        kept += idx.numel()
+        if idx.numel():
+            u = num_uniques_lanes(plan, [x[idx] for x in n])
+            count += int(((u >= min_uniques) & (u <= plan.base)).sum())
+    return torch.tensor([count, valid_total - kept], dtype=torch.int32,
+                        device=dev)

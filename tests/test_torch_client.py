@@ -145,8 +145,9 @@ def test_single_shot_round_matches_jax_client(server, monkeypatch):
 def test_port_imports_neither_jax_nor_nice_tpu():
     # tests/conftest.py imports jax into every test process, so the check
     # runs in a fresh interpreter that imports every module of the port.
-    # It imports every module, then runs a niceonly field (the host
-    # library's build and the strided pipeline) and a detailed one.
+    # It imports every module, then runs niceonly fields (the host
+    # library's build, the strided pipeline at b10, the dense loop at b98)
+    # and a detailed one.
     code = (
         "import importlib, pkgutil, sys\n"
         "import nice_tpu_torch\n"
@@ -157,6 +158,9 @@ def test_port_imports_neither_jax_nor_nice_tpu():
         "from nice_tpu_torch.ops import engine\n"
         "r = engine.process_range_niceonly(FieldSize(47, 100), 10, device='cpu')\n"
         "assert [n.number for n in r.nice_numbers] == [69]\n"
+        "lo = 413428759798923141071530212209627033363\n"
+        "engine.process_range_niceonly(FieldSize(lo, lo + 5000), 98, device='cpu')\n"
+        "assert engine.LAST_NICEONLY_STATS['runs'] > 0\n"
         "engine.process_range_detailed(FieldSize(47, 100), 10, device='cpu')\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'nice_tpu'))\n"

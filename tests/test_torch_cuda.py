@@ -126,6 +126,59 @@ def test_strided_kernel_equals_plain_version_on_card(card, base):
     torch.cuda.synchronize()
 
 
+def _carry_start(plan, lanes: int) -> int:
+    """A start whose lanes cross the largest limb carry inside the range."""
+    for w in range(32 * (plan.limbs_n - 1), 0, -32):
+        b = ((plan.range_start >> w) + 1) << w
+        if plan.range_start + lanes < b < plan.range_end - lanes:
+            return b - lanes // 2
+    raise AssertionError(f"b{plan.base}: no limb carry inside the range")
+
+
+@pytest.mark.parametrize("base", [40, 98, 510])
+def test_dense_kernel_equals_plain_version_on_card(card, base):
+    plan = get_plan(base)
+    batch = 256 if base == 510 else 1024
+    valid = 3 * batch - 29
+    min_u = (5 * base + 7) // 8  # about the median of num_uniques
+    for where in ("range_start", "carry"):
+        start = plan.range_start if where == "range_start" else \
+            _carry_start(plan, 3 * batch)
+        st = ve.start_limbs_tensor(start, plan, card)
+        for fused in (True, False):
+            classes = ce.niceonly_classes(plan, fused, str(card))
+            for mu in (base, min_u):
+                before = ce.LAUNCHES["niceonly_dense"]
+                got = ce.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                 valid, mu)
+                assert ce.LAUNCHES["niceonly_dense"] == before + 1
+                want = ve.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                  valid, mu)
+                assert torch.equal(got, want)
+                count, pruned = got.tolist()
+                assert (pruned > 0) == fused and pruned < valid
+                # Unfused, across the carry, the median threshold counts
+                # many lanes (at a range's start num_uniques sits lower).
+                if mu == min_u and not fused and where == "carry":
+                    assert count > 0
+    torch.cuda.synchronize()
+
+
+def test_dense_engine_on_card_equals_cpu(card):
+    adaptive_floor.reset_for_tests(pinned=4096)
+    start = 413428759798923141071530212209627033363  # a b98 field, > 2^128
+    field = FieldSize(start, start + 200_000)
+    ce.reset_launches()
+    on_card = engine.process_range_niceonly(field, 98, device=card)
+    runs = engine.LAST_NICEONLY_STATS["runs"]
+    assert ce.LAUNCHES["niceonly_dense"] == runs > 0
+    assert on_card == engine.process_range_niceonly(field, 98, device="cpu")
+    adaptive_floor.reset_for_tests()
+    found = []
+    engine._niceonly_dense(FieldSize(47, 100), 10, card, found)
+    assert [n.number for n in found] == [69]  # K4's count, then K2
+
+
 def test_niceonly_engine_on_card_equals_cpu(card):
     for base, s, e, floor in [(10, 40, 130, None),
                               (40, 3621949012977, 3621949612977, 4096)]:

@@ -209,9 +209,10 @@ def test_scalar_backend_limits_and_no_silent_cpu():
         engine.process_range_niceonly(rng, 10, backend="scalar",
                                       checkpoint_cb=print)
     lo98 = base_range.get_base_range(98)[0]
-    with pytest.raises(ValueError, match="scalar"):  # 5 limbs: dense path
-        engine.process_range_niceonly(FieldSize(lo98, lo98 + 100), 98,
-                                      device="cpu")
+    b98 = FieldSize(lo98, lo98 + 100)  # 5 limbs: the dense path
+    assert engine.process_range_niceonly(b98, 98, device="cpu") == \
+        scalar.process_range_niceonly(b98, 98)
+    assert engine.LAST_NICEONLY_STATS["base"] == 98
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             engine.process_range_niceonly(rng, 10)  # the default is cuda
