@@ -5,8 +5,9 @@
 Phases, each of which raises (exit code 1) on failure:
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build, all started together: nvcc builds the kernels from csrc/, g++ the
-     host library of the niceonly path (native/), and nvcc -cubin the
-     op-count source whose SASS bounds the kernels (see 9);
+     host library of the niceonly path (native/), nvcc -cubin the op-count
+     source whose SASS bounds the kernels (see 10), and nvcc the probe of
+     the tensor cores' integer rate (csrc/imma_probe.cu);
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
@@ -25,6 +26,10 @@ Phases, each of which raises (exit code 1) on failure:
      all b-1) and at both thresholds, at b10 (from 47), b40, b98, b100, b510
      and b99 (no class: no launch, every lane pruned), from range_start and
      across the largest limb carry inside the range, ragged;
+  4c. K5 vs plain and vs K1/K4: the tensor-core arm (use_mxu=1) of the
+     detailed megaloop against its plain version and against K1 on the
+     card, as phase 3 runs K1, and of the dense count against its plain
+     version and K4, as phase 4b runs K4; exact, launch counts checked;
   5. golden and oracle fields: base-ten must give [(69, 10)] and the scalar
      oracle's histogram; default (1e6 @ b40) on the card must equal the same
      field through the plain path on the CPU; in niceonly mode base-ten must
@@ -49,6 +54,16 @@ Phases, each of which raises (exit code 1) on failure:
      process_field; K4 must launch once per run, every reported number
      must be nice, and a seeded 2e5 slice must equal the scalar oracle's
      nice test, number by number;
+  7c. the tuned path at full width: autotune.sweep on the card into a
+     temporary winners table (extra-large detailed, a 1e8 slice, batches
+     2^17-2^19 x segments 4/8/16 x K1/K5; the b98 field niceonly, batches
+     2^17/2^18 x K4/K5), then a fresh process pointed at that table runs
+     extra-large and the b98 field through process_field (autotune hits,
+     results equal to phases 6 and 7b); then winners with use_mxu=1 at the
+     default shape, and extra-large, mid-range and the b98 field through
+     process_field with the launch counts set to 0 just before and read
+     just after (K5's main path): K5 in K1's and K4's place, K2 re-scanning
+     mid-range's near misses, results equal to the use_mxu=0 runs;
   8. claim -> process -> submit: the repository's coordination server in a
      separate process (python -m nice_tpu.server, seeded with b40 fields of
      1e9), one detailed and one niceonly single-shot client run on the card
@@ -60,13 +75,16 @@ Phases, each of which raises (exit code 1) on failure:
      mid-range field's first near miss; K3 over the first descriptor group
      of the mid-range b40 field (1024 rows) and of the b80 field, as the
      main path launched them, at both thresholds; K4 over the b98 field's
-     first run in both modes at both thresholds; each against its plain
-     version, exact;
+     first run in both modes at both thresholds; K5 at K1's segments and
+     K4's first run; each against its plain version (K5 also against
+     K1/K4), exact;
  10. timing at those shapes: each kernel beside its plain version (K4 at
-     the b98 field's median run, and over a full 2^21-lane run), and a
-     bound from the instructions one lane issues in the compiled code
+     the b98 field's median run, and over a full 2^21-lane run; K5 at K1's
+     and K4's shapes beside K1/K4; K1 and K5 over one segment at b510), and
+     a bound from the instructions one lane issues in the compiled code
      (csrc/op_count.cu built with the b40 plan and stride table, and the
-     b98 plan and class table, as constants, counted with cuobjdump); then
+     b98 plan and class table, as constants, counted with cuobjdump; K5's
+     IMMAs at the rate the probe measures); then
      the kernels' estimated share of each main-path field's time (launches
      x kernel time / field time), each niceonly field's split into MSD
      filter, collector and dispatch time, and each b98 field's into MSD
@@ -86,6 +104,7 @@ import json
 import os
 import random
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -112,6 +131,10 @@ SERVER_FIELD_SIZE = 1_000_000_000  # the server's default --field-size
 # pipeline launched it (engine.LAST_NICEONLY_STATS["first_group"]).
 FIRST_GROUPS: dict = {}
 
+# The main-path fields and their results at the default shape, by (mode,
+# name): what the tuned runs (phase_tuned) must reproduce exactly.
+FIELD_RESULTS: dict = {}
+
 # Lanes one H100 SM can serve per clock: its four schedulers each issue one
 # warp instruction (32 lanes) a clock, and per class of integer instruction
 # the rates of the CUDA C++ Programming Guide's throughput table for compute
@@ -125,7 +148,11 @@ SASS_CLASS = {"IADD3": "add", "IADD": "add", "IADD32I": "add",
               "SHF": "shift", "SHL": "shift", "SHR": "shift",
               "ISETP": "compare", "IMNMX": "compare",
               "LOP3": "logic", "LOP": "logic", "LOP32I": "logic",
-              "POPC": "popc"}
+              "POPC": "popc", "IMMA": "tensor"}
+# The tensor class (K5's integer MMAs, IMMA) has no row in the Programming
+# Guide's table: its rate is measured in this run by csrc/imma_probe.cu
+# (phase_timing sets it, in IMMA instructions x 32 lanes per SM clock).
+CLASS_LANES_PER_SM_CLK["tensor"] = None
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
 
@@ -188,9 +215,72 @@ def sass_counts(plan, table, dense_plan) -> dict:
         sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                               capture_output=True, text=True).stdout
     funcs = parse_sass(sass)
-    check({"k1_lane", "k2_lane", "k3_lane", "k4_lane"} <= set(funcs),
-          f"op_count functions: {list(funcs)}")
+    check({"k1_lane", "k2_lane", "k3_lane", "k4_lane", "k5_detailed_lane",
+           "k5_dense_lane"} <= set(funcs), f"op_count functions: {list(funcs)}")
     return funcs
+
+
+def build_imma_probe(out_dir: str) -> str:
+    """nvcc builds csrc/imma_probe.cu into a shared library in out_dir."""
+    from nice_tpu_torch.ops import cuda_build
+
+    lib = os.path.join(out_dir, "libimma_probe.so")
+    subprocess.run(
+        [cuda_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib,
+         os.path.join(cuda_build.CSRC_DIR, "imma_probe.cu")],
+        check=True, capture_output=True, text=True)
+    return lib
+
+
+def imma_per_product(lib_path: str) -> float:
+    """IMMA instructions one 16x16x16 u8 product compiles to: those of the
+    probe kernel (its loop body, not unrolled, holds its 4 products)."""
+    from nice_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = 0
+        elif name and re.search(r"\bIMMA\.", line):
+            funcs[name] += 1
+    counts = [n for f, n in funcs.items() if "imma_probe_kernel" in f]
+    check(len(counts) == 1 and counts[0] > 0, f"probe SASS: {funcs}")
+    return counts[0] / 4
+
+
+def imma_rate(lib_path: str, sms: int, clk_mhz: float) -> dict:
+    """16x16x16 u8 wmma products (mma_sync) one SM completes per clock, from
+    one timed launch of the probe (4 blocks an SM, 8 warps each, 4 chains
+    of `iters` products a warp), and IMMA instructions per SM clock."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(lib_path)
+    lib.nice_imma_probe.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p]
+    lib.nice_imma_probe.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    blocks, iters = 4 * sms, 8192
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(lib.nice_imma_probe(blocks, iters, out.data_ptr(), stream) == 0,
+              "the IMMA probe did not launch")
+
+    ms = time_cuda(run, reps=3, warmup=1)
+    products = blocks * 8 * 4 * iters
+    rate = products / (ms * 1e-3 * clk_mhz * 1e6 * sms)
+    per = imma_per_product(lib_path)
+    return {"ms": ms, "products": products, "mma_per_sm_clk": rate,
+            "imma_per_mma": per, "imma_per_sm_clk": rate * per}
 
 
 def parse_sass(sass: str) -> dict:
@@ -234,7 +324,9 @@ def parse_sass(sass: str) -> dict:
 
 def lane_cycles(counts: dict) -> float:
     """Least SM clock cycles one lane's instructions need: the issue slots,
-    or the busiest integer class at its own rate, whichever is more."""
+    or the busiest integer class at its own rate, whichever is more. (A
+    lane of K5 counts its warp's instructions, as every lane does: the
+    warp's MMAs serve its 32 lanes together.)"""
     t = counts["instructions"] / ISSUE_LANES_PER_SM_CLK
     for cls, k in counts["classes"].items():
         t = max(t, k / CLASS_LANES_PER_SM_CLK[cls])
@@ -271,10 +363,12 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 # Phases
 # --------------------------------------------------------------------------
 
-def phase_build(report: dict) -> dict:
+def phase_build(report: dict, tmp: str) -> tuple[dict, str]:
     """The builds, all started together: the kernels (nvcc), the niceonly
-    path's host library (g++) and the op-count source (nvcc -cubin, counted
-    with cuobjdump). Returns the op counts per lane for phase_timing."""
+    path's host library (g++), the op-count source (nvcc -cubin, counted
+    with cuobjdump) and the tensor-core rate probe (nvcc, into tmp).
+    Returns the op counts per lane and the probe's library for
+    phase_timing."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nice_tpu_torch import native
@@ -288,13 +382,15 @@ def phase_build(report: dict) -> dict:
 
     s = engine.strided_setup(SERVER_BASE, SERVER_FIELD_SIZE)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         kernels = pool.submit(timed, cuda_build.load)
         host = pool.submit(timed, native.load)
         counted = pool.submit(timed, sass_counts, s.plan, s.table,
                               get_plan(DENSE_BASE))
+        probe = pool.submit(timed, build_imma_probe, tmp)
         (_, t_kernels), (_, t_host) = kernels.result(), host.result()
         counts, t_counted = counted.result()
+        probe_lib, t_probe = probe.result()
     wall = time.monotonic() - t0
     info = cuda_build.BUILD_INFO
     resources = []
@@ -316,10 +412,10 @@ def phase_build(report: dict) -> dict:
     report["build"] = {"nvcc_secs": info["seconds"], "kernels_secs": t_kernels,
                        "gxx_secs": native.BUILD_INFO["seconds"],
                        "host_library_secs": t_host,
-                       "op_count_secs": t_counted, "wall_secs": wall,
-                       "ptxas": resources}
+                       "op_count_secs": t_counted, "probe_secs": t_probe,
+                       "wall_secs": wall, "ptxas": resources}
     emit({"phase": "build", **report["build"]})
-    return counts
+    return counts, probe_lib
 
 
 def _straddle_start(plan, lanes: int) -> int:
@@ -590,6 +686,126 @@ def phase_dense_vs_plain(report: dict) -> None:
           f"b10 from 47 lost 69: {cases[:2]}")
 
 
+def _k5_detailed(plan, batch: int, n_iters: int, acc0, st, valid: int):
+    """K5 in the detailed mode, its plain version and K1 on one segment:
+    (K5's near-miss count, max abs difference from the plain version, from
+    K1), over the histogram and the count."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import vector_engine as ve
+
+    h5, nm5 = ce.detailed_accum_megaloop(plan, batch, n_iters, acc0.clone(),
+                                         st, valid, 1)
+    hp, nmp = ve.detailed_accum_megaloop(plan, batch, n_iters, acc0.clone(),
+                                         st, valid, 1)
+    h1, nm1 = ce.detailed_accum_megaloop(plan, batch, n_iters, acc0.clone(),
+                                         st, valid)
+    return (int(nm5),
+            max(int((h5 - hp).abs().max()), abs(int(nm5) - int(nmp))),
+            max(int((h5 - h1).abs().max()), abs(int(nm5) - int(nm1))))
+
+
+def _k5_dense(plan, fused: bool, start: int, batch: int, n_iters: int,
+              valid: int, min_uniques: int, dev):
+    """K5 in the dense mode, its plain version and K4 on one run: (K5's
+    [count, pruned], max abs difference from the plain version, from K4)."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import vector_engine as ve
+
+    classes = ce.niceonly_classes(plan, fused, str(dev))
+    st = ve.start_limbs_tensor(start, plan, dev)
+    args = (plan, batch, n_iters, classes, st, valid, min_uniques)
+    got = ce.niceonly_dense_megaloop(*args, use_mxu=1)
+    want = ve.niceonly_dense_megaloop(*args, use_mxu=1)
+    k4 = ce.niceonly_dense_megaloop(*args)
+    return (got.tolist(), int((got - want).abs().max()),
+            int((got - k4).abs().max()))
+
+
+def phase_mxu_vs_plain(report: dict) -> None:
+    """K5 against its plain version and against K1/K4 on the card, exact:
+    the detailed mode at BASES as phase 3 runs K1 (from range_start and
+    across a 2^32 carry, which at b10 and b17 wraps past the top limb), the
+    dense mode at DENSE_BASES as phase 4b runs K4 (both TPU modes, both
+    thresholds, from range_start or 47 and across the largest carry)."""
+    import numpy as np
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import vector_engine as ve
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    diff = {"detailed_megaloop_mma": 0, "niceonly_dense_mma": 0}
+    vs_k1_k4 = dict(diff)
+    launches0 = dict(ce.LAUNCHES)
+    calls = {"detailed_megaloop_mma": 0, "niceonly_dense_mma": 0}
+    detailed, dense = [], []
+    t0 = time.monotonic()
+    for base in BASES:
+        plan = get_plan(base)
+        batch = 128 if base == 510 else 256
+        for start in (plan.range_start, _straddle_start(plan, batch)):
+            st = ve.start_limbs_tensor(start, plan, dev)
+            for n_iters in (1, 3):
+                valid = batch * n_iters - int(rng.integers(1, batch))
+                acc0 = torch.from_numpy(
+                    rng.integers(0, 1000, plan.base + 2, dtype=np.int32)).to(dev)
+                nm, d, dk = _k5_detailed(plan, batch, n_iters, acc0, st, valid)
+                diff["detailed_megaloop_mma"] = max(diff["detailed_megaloop_mma"], d)
+                vs_k1_k4["detailed_megaloop_mma"] = max(
+                    vs_k1_k4["detailed_megaloop_mma"], dk)
+                calls["detailed_megaloop_mma"] += 1
+                detailed.append({"base": base, "start": start,
+                                 "n_iters": n_iters, "near_misses": nm})
+    empty = 0
+    for base in DENSE_BASES:
+        plan = get_plan(base)
+        batch = 256 if base == 510 else 1024
+        valid = 3 * batch - int(rng.integers(1, batch))
+        starts = [("range_start", 47 if base == 10 else plan.range_start)]
+        if base != 10:
+            starts.append(("carry", _carry_start(plan, 3 * batch)))
+        for where, start in starts:
+            for fused in (True, False):
+                case = {"base": base, "start": where, "fused": fused,
+                        "valid": valid}
+                for key, min_u in (("nice", base),
+                                   ("median", check_min_uniques(base))):
+                    got, d, dk = _k5_dense(plan, fused, start, batch, 3, valid,
+                                           min_u, dev)
+                    diff["niceonly_dense_mma"] = max(diff["niceonly_dense_mma"], d)
+                    vs_k1_k4["niceonly_dense_mma"] = max(
+                        vs_k1_k4["niceonly_dense_mma"], dk)
+                    calls["niceonly_dense_mma"] += 1
+                    empty += base == 99 and fused
+                    case[key] = {"min_uniques": min_u, "count": got[0],
+                                 "pruned": got[1]}
+                dense.append(case)
+    torch.cuda.synchronize()
+    launched = {k: ce.LAUNCHES[k] - launches0[k] for k in calls}
+    report["mxu_vs_plain"] = {"max_abs_diff": diff, "max_abs_diff_vs_k1_k4": vs_k1_k4,
+                              "calls": calls, "launches": launched,
+                              "detailed": detailed, "dense": dense,
+                              "secs": time.monotonic() - t0}
+    emit({"phase": "mxu_vs_plain", **report["mxu_vs_plain"]})
+    check(all(v == 0 for v in diff.values()), f"K5 != plain: {diff}")
+    check(all(v == 0 for v in vs_k1_k4.values()), f"K5 != K1/K4: {vs_k1_k4}")
+    check(launched["detailed_megaloop_mma"] == calls["detailed_megaloop_mma"]
+          and launched["niceonly_dense_mma"] == calls["niceonly_dense_mma"] - empty,
+          f"{launched} K5 launches for {calls} calls ({empty} on empty tables)")
+    check(any(c["near_misses"] > 0 for c in detailed),
+          "no K5 detailed case counted a near miss")
+    for c in dense:
+        if c["fused"] and c["base"] != 99:
+            check(c["median"]["pruned"] < c["valid"], f"nothing kept: {c}")
+        elif not c["fused"] and (c["start"] == "carry" or c["base"] == 10):
+            check(c["median"]["count"] > 0,
+                  f"the median threshold counted nothing: {c}")
+    check(all(c["nice"]["count"] >= 1 for c in dense if c["base"] == 10),
+          f"b10 from 47 lost 69 through K5: {dense[:2]}")
+
+
 def phase_golden(report: dict) -> None:
     from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
     from nice_tpu_torch.ops import cuda_engine as ce
@@ -720,6 +936,7 @@ def phase_full_width(report: dict) -> None:
         before = dict(ce.LAUNCHES)
         results, elapsed = client.process_field(data, args)
         launches = {k: v - before[k] for k, v in ce.LAUNCHES.items()}
+        FIELD_RESULTS[("detailed", name)] = (data, results)
         runs.append({
             "field": name, "base": data.base, "range_start": data.range_start,
             "numbers": data.range_size, "elapsed_secs": elapsed,
@@ -878,6 +1095,7 @@ def phase_full_width_dense(report: dict) -> None:
         before = dict(ce.LAUNCHES)
         results, elapsed = client.process_field(data, args)
         launches = {k: v - before[k] for k, v in ce.LAUNCHES.items()}
+        FIELD_RESULTS[("niceonly", name)] = (data, results)
         stats = dict(engine.LAST_NICEONLY_STATS)
         check(stats["base"] == DENSE_BASE and stats["start"] == data.range_start,
               f"{name}: the dense loop did not run the field: {stats}")
@@ -897,6 +1115,149 @@ def phase_full_width_dense(report: dict) -> None:
     check(runs[0]["stats"]["runs"] == 0, f"b98-first was not pruned whole: {runs[0]}")
     check(runs[1]["launches"]["niceonly_dense"] > 0,
           "the dense niceonly main path never reached K4")
+
+
+# A fresh process of the tuned path: points the port's winners table at
+# argv[1], runs the fields of argv[2] on device argv[3] through the client's
+# process_field and prints what the tuned run resolved, launched and found.
+_FRESH_TUNED = """
+import json, sys
+from nice_tpu_torch.client import main as client
+from nice_tpu_torch.core.types import DataToClient
+from nice_tpu_torch.ops import autotune, engine
+from nice_tpu_torch.ops import cuda_engine as ce
+autotune.WINNERS_PATH = sys.argv[1]
+out = []
+for mode, base, start, size in json.loads(sys.argv[2]):
+    data = DataToClient(claim_id=0, base=base, range_start=start,
+                        range_end=start + size, range_size=size)
+    args = client.build_parser().parse_args([mode, "--device", sys.argv[3]])
+    ce.reset_launches()
+    results, secs = client.process_field(data, args)
+    out.append({"mode": mode, "base": base, "secs": secs,
+                "resolved": engine.resolve_tuning(mode, base, sys.argv[3]),
+                "launches": {k: v for k, v in ce.LAUNCHES.items() if v},
+                "distribution": [[d.num_uniques, d.count]
+                                 for d in results.distribution],
+                "nice": [[n.number, n.num_uniques] for n in results.nice_numbers]})
+print(json.dumps({"fields": out, "events": autotune.EVENTS}))
+"""
+
+
+def _pairs(results) -> tuple[list, list]:
+    return ([[d.num_uniques, d.count] for d in results.distribution],
+            [[n.number, n.num_uniques] for n in results.nice_numbers])
+
+
+def phase_tuned(report: dict, tmp: str) -> None:
+    """The tuned path at full width:
+      1. sweeps on the card (autotune.sweep, the harness in a subprocess)
+         into a temporary winners table: extra-large, detailed, a 1e8
+         slice, batches 2^17-2^19 x segments 4/8/16 x K1/K5; then the
+         b98-surviving field, niceonly, whole, batches 2^17/2^18 x segment
+         8 x K4/K5;
+      2. a fresh Python process pointed at that table runs extra-large
+         (detailed) and b98-surviving (niceonly) through process_field:
+         autotune hits, and results equal to the default-shape runs;
+      3. winners with use_mxu=1 at the default shape (detailed b40,
+         niceonly b98) in a second table, and extra-large, mid-range and
+         b98-surviving through process_field here, the launch counts set to
+         0 just before and read just after: K5 launched in K1's and K4's
+         place (and K2 re-scanning mid-range's near misses), results equal
+         to the use_mxu=0 runs. These are K5's main-path launches."""
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.ops import autotune, engine
+    from nice_tpu_torch.ops import cuda_engine as ce
+
+    xl, _ = FIELD_RESULTS[("detailed", "extra-large")]
+    mid, _ = FIELD_RESULTS[("detailed", "mid-range")]
+    b98, _ = FIELD_RESULTS[("niceonly", "b98-surviving")]
+    saved = autotune.WINNERS_PATH
+    try:
+        autotune.WINNERS_PATH = os.path.join(tmp, "swept.json")
+        t0 = time.monotonic()
+        won_d = autotune.sweep("detailed", DEVICE, bench_mode="extra-large",
+                               batch_shifts=[17, 18, 19], segments=[4, 8, 16],
+                               mxu="auto", slice_size=100_000_000, timeout=400)
+        t1 = time.monotonic()
+        won_n = autotune.sweep("niceonly", DEVICE,
+                               field=(DENSE_BASE, b98.range_start, b98.range_size),
+                               batch_shifts=[17, 18], segments=[8], mxu="auto",
+                               slice_size=b98.range_size, timeout=400)
+        t2 = time.monotonic()
+        with open(autotune.WINNERS_PATH) as f:
+            table = json.load(f)
+        swept = {k: v["swept"] for k, v in table.items()}
+        fields = [["detailed", xl.base, xl.range_start, xl.range_size],
+                  ["niceonly", b98.base, b98.range_start, b98.range_size]]
+        proc = subprocess.run(
+            [sys.executable, "-c", _FRESH_TUNED, autotune.WINNERS_PATH,
+             json.dumps(fields), DEVICE], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, "the fresh tuned process failed:\n"
+              + proc.stderr[-3000:])
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        for run, name, mode, won in zip(fresh["fields"],
+                                        ("extra-large", "b98-surviving"),
+                                        ("detailed", "niceonly"), (won_d, won_n)):
+            _, want = FIELD_RESULTS[(mode, name)]
+            check([run["distribution"], run["nice"]] == list(_pairs(want)),
+                  f"{name}: the tuned run differs from the default-shape run")
+            check(run["resolved"] == [won["batch_size"], won["megaloop"],
+                                      won["use_mxu"]],
+                  f"{name}: resolved {run['resolved']}, the winner is {won}")
+        check(fresh["events"]["hit"] > 0 and fresh["events"]["invalidated"] == 0,
+              f"the fresh process did not hit the table: {fresh['events']}")
+
+        # K5's main path: use_mxu=1 winners at the default shape.
+        autotune.WINNERS_PATH = os.path.join(tmp, "k5.json")
+        shape = {"batch_size": engine.DEFAULT_BATCH_SIZE,
+                 "megaloop": engine.MEGALOOP_SEGMENT_DEFAULT, "use_mxu": 1}
+        autotune.record("detailed", SERVER_BASE, DEVICE, shape)
+        autotune.record("niceonly", DENSE_BASE, DEVICE, shape)
+        runs = []
+        ce.reset_launches()
+        for mode, name in (("detailed", "extra-large"), ("detailed", "mid-range"),
+                           ("niceonly", "b98-surviving")):
+            data, want = FIELD_RESULTS[(mode, name)]
+            args = client.build_parser().parse_args([mode, "--device", DEVICE])
+            before = dict(ce.LAUNCHES)
+            results, elapsed = client.process_field(data, args)
+            launches = {k: v - before[k] for k, v in ce.LAUNCHES.items()}
+            check(_pairs(results) == _pairs(want),
+                  f"{name}: K5's results differ from K1's/K4's")
+            runs.append({"field": name, "mode": mode, "elapsed_secs": elapsed,
+                         "launches": launches})
+            if mode == "niceonly":
+                runs[-1]["stats"] = {k: engine.LAST_NICEONLY_STATS[k] for k in
+                                     ("runs", "use_mxu", "msd_secs", "loop_secs")}
+        k5_launches = dict(ce.LAUNCHES)
+    finally:
+        autotune.WINNERS_PATH = saved
+        autotune.reset_for_tests()
+    report["tuned"] = {"sweep_detailed_secs": t1 - t0,
+                       "sweep_niceonly_secs": t2 - t1, "winners": {
+                           "detailed": won_d, "niceonly": won_n},
+                       "swept": swept, "fresh": fresh, "k5_runs": runs,
+                       "launches": k5_launches}
+    report["main_path_launches"].update(
+        detailed_megaloop_mma=k5_launches["detailed_megaloop_mma"],
+        niceonly_dense_mma=k5_launches["niceonly_dense_mma"])
+    emit({"phase": "tuned", **{k: v for k, v in report["tuned"].items()
+                               if k != "fresh"},
+          "fresh": [{k: v for k, v in r.items() if k in
+                     ("mode", "base", "secs", "resolved", "launches")}
+                    for r in fresh["fields"]] + [fresh["events"]]})
+    xl_run, mid_run, b98_run = runs
+    for run in (xl_run, mid_run):
+        check(run["launches"]["detailed_megaloop"] == 0
+              and run["launches"]["detailed_megaloop_mma"] > 0,
+              f"{run['field']}: K5 did not take K1's place: {run['launches']}")
+    check(mid_run["launches"]["uniques"] > 0, "K2 did not re-scan mid-range")
+    check(b98_run["launches"]["niceonly_dense"] == 0
+          and b98_run["launches"]["niceonly_dense_mma"]
+          == b98_run["stats"]["runs"] > 0,
+          f"b98-surviving: K5 did not take K4's place: {b98_run['launches']}")
 
 
 def _free_port() -> int:
@@ -1120,10 +1481,40 @@ def phase_main_shapes(report: dict) -> None:
             case[key] = {"min_uniques": min_u, "count": got[0],
                          "pruned": got[1]}
         dense_cases.append(case)
+    # K5 at the same shapes: the b40 segments against its plain version and
+    # K1, the b98 first run against its plain version and K4.
+    k5_cases = []
+    vs_k1_k4 = {"detailed_megaloop_mma": 0, "niceonly_dense_mma": 0}
+    diff.update(vs_k1_k4)
+    for name in ("range_start", "near_miss_segment"):
+        st = ve.start_limbs_tensor(starts[name], plan, dev)
+        acc0 = torch.from_numpy(
+            rng.integers(0, 1000, plan.base + 2, dtype=np.int32)).to(dev)
+        nm, d, dk = _k5_detailed(plan, batch, seg, acc0, st, batch * seg)
+        diff["detailed_megaloop_mma"] = max(diff["detailed_megaloop_mma"], d)
+        vs_k1_k4["detailed_megaloop_mma"] = max(vs_k1_k4["detailed_megaloop_mma"], dk)
+        k5_cases.append({"kernel": "detailed_megaloop_mma", "start": starts[name],
+                         "lanes": batch * seg, "near_misses": nm})
+    for fused in (True, False):
+        case = {"kernel": "niceonly_dense_mma", "field": "b98-surviving",
+                "start": start, "valid": valid, "fused": fused}
+        for key, min_u in (("nice", DENSE_BASE),
+                           ("median", check_min_uniques(DENSE_BASE))):
+            got, d, dk = _k5_dense(dplan, fused, start, batch, seg, valid,
+                                   min_u, dev)
+            diff["niceonly_dense_mma"] = max(diff["niceonly_dense_mma"], d)
+            vs_k1_k4["niceonly_dense_mma"] = max(vs_k1_k4["niceonly_dense_mma"], dk)
+            case[key] = {"min_uniques": min_u, "count": got[0], "pruned": got[1]}
+        k5_cases.append(case)
     torch.cuda.synchronize()
     report["main_shapes"] = {"base": plan.base, "max_abs_diff": diff,
-                             "cases": cases + dense_cases}
+                             "max_abs_diff_vs_k1_k4": vs_k1_k4,
+                             "cases": cases + dense_cases + k5_cases}
     emit({"phase": "main_shapes", **report["main_shapes"]})
+    check(all(v == 0 for v in vs_k1_k4.values()), f"K5 != K1/K4: {vs_k1_k4}")
+    check(k5_cases[1]["near_misses"] > 0, f"K5's near-miss segment: {k5_cases}")
+    check(all(c["median"]["count"] > 0 for c in k5_cases[2:]),
+          f"K5's first run counted nothing at the median: {k5_cases}")
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
     check(cases[1]["near_misses"] > 0 and cases[3]["survivors"] > 0,
           f"the near-miss segment found none: {cases}")
@@ -1133,12 +1524,13 @@ def phase_main_shapes(report: dict) -> None:
           f"the median threshold counted nothing in the first run: {dense_cases}")
 
 
-def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
+def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
+                 clk_mhz: float) -> list:
     import torch
 
     from nice_tpu_torch.core.types import FieldSize
     from nice_tpu_torch.ops import cuda_engine as ce
-    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops import engine, mxu
     from nice_tpu_torch.ops import vector_engine as ve
     from nice_tpu_torch.ops.limbs import get_plan
 
@@ -1194,11 +1586,43 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
     def p4():
         ve.niceonly_dense_megaloop(dplan, batch, seg, classes, st4, d_valid)
 
+    # K5 at K1's and K4's shapes, and K1 and K5 over one segment at b510.
+    def k5():
+        ce.detailed_accum_megaloop(plan, batch, seg, acc, st, lanes_k1, 1)
+
+    def p5():
+        ve.detailed_accum_megaloop(plan, batch, seg, acc, st, lanes_k1, 1)
+
+    def k5d(valid=d_valid):
+        return ce.niceonly_dense_megaloop(dplan, batch, seg, classes, st4,
+                                          valid, use_mxu=1)
+
+    def p5d():
+        ve.niceonly_dense_megaloop(dplan, batch, seg, classes, st4, d_valid,
+                                   use_mxu=1)
+
+    wide = get_plan(510)
+    st_wide = ve.start_limbs_tensor(wide.range_start, wide, dev)
+    acc_wide = torch.zeros(wide.base + 2, dtype=torch.int32, device=dev)
+
+    def k1_b510(mma=0):
+        ce.detailed_accum_megaloop(wide, batch, seg, acc_wide, st_wide,
+                                   lanes_k1, mma)
+
     # Plain, kernel, kernel, plain: both versions see the same card state.
     p1_a = time_cuda(p1, reps=2, warmup=1)
     k1_a = time_cuda(k1, reps=20)
     k1_b = time_cuda(k1, reps=20)
     p1_b = time_cuda(p1, reps=2, warmup=0)
+    p5_a = time_cuda(p5, reps=2, warmup=1)
+    k5_a = time_cuda(k5, reps=20)
+    k1_c = time_cuda(k1, reps=20)
+    k5_b = time_cuda(k5, reps=20)
+    p5_b = time_cuda(p5, reps=2, warmup=0)
+    k1_b510_a = time_cuda(k1_b510, reps=3, warmup=1)
+    k5_b510_a = time_cuda(lambda: k1_b510(1), reps=3, warmup=1)
+    k5_b510_b = time_cuda(lambda: k1_b510(1), reps=3, warmup=0)
+    k1_b510_b = time_cuda(k1_b510, reps=3, warmup=0)
     p2_a = time_cuda(p2, reps=3, warmup=1)
     k2_a = time_cuda(k2, reps=50)
     k2_b = time_cuda(k2, reps=50)
@@ -1213,6 +1637,20 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
     k4_b = time_cuda(k4, reps=50)
     p4_b = time_cuda(p4, reps=2, warmup=0)
     k4_full_ms = time_cuda(lambda: k4(lanes_k1), reps=20)
+    p5d_a = time_cuda(p5d, reps=2, warmup=1)
+    k5d_a = time_cuda(k5d, reps=50)
+    k4_c = time_cuda(k4, reps=50)
+    k5d_b = time_cuda(k5d, reps=50)
+    p5d_b = time_cuda(p5d, reps=2, warmup=0)
+    k5d_full_ms = time_cuda(lambda: k5d(lanes_k1), reps=20)
+    # The tensor class's rate: the IMMA instructions an SM completes a
+    # clock (the probe), 32 lanes each, as the other classes count lanes.
+    check(counts["k5_detailed_lane"]["classes"].get("tensor", 0) > 0,
+          "K5's lane issues no IMMA")
+    probe = imma_rate(probe_lib, sms, clk_mhz)
+    CLASS_LANES_PER_SM_CLK["tensor"] = 32 * probe["imma_per_sm_clk"]
+    c5 = lane_cycles(counts["k5_detailed_lane"])
+    c5d = lane_cycles(counts["k5_dense_lane"])
     # K1 reads the start limbs and the accumulator, writes the accumulator
     # and the count; K2 reads the start limbs and writes 4 bytes a lane; K3
     # reads the descriptors and the residues and writes a count a row; K4
@@ -1242,6 +1680,11 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
             in_range += s3.table.count_candidates(FieldSize(a, b))
     b3 = bound_ms(in_range, c3, 8 * 12 * n_real + 8 * s3.table.num_residues
                   + 4 * desc.shape[0], sms, clk_mhz)
+    # K5 moves K1's and K4's bytes; its work is K1's lanes (K4's kept ones).
+    b5 = bound_ms(lanes_k1, c5, 8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4,
+                  sms, clk_mhz)
+    b5d = bound_ms(kept4, c5d, bytes4, sms, clk_mhz)
+    b5d_full = bound_ms(kept4_full, c5d, bytes4, sms, clk_mhz)
     report["timing"] = {
         "base": plan.base, "sms": sms, "clk_max_mhz": clk_mhz,
         "k1": {"lanes": lanes_k1, "ms": [k1_a, k1_b], "plain_ms": [p1_a, p1_b],
@@ -1266,6 +1709,23 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
         "k4_full_run": {"valid": lanes_k1, "kept": kept4_full,
                         "ms": k4_full_ms, "bound_ms": b4_full[0],
                         "bound_by": b4_full[1]},
+        "imma_probe": {**probe,
+                       "tensor_lanes_per_sm_clk": CLASS_LANES_PER_SM_CLK["tensor"]},
+        "k5_detailed": {"lanes": lanes_k1, "ms": [k5_a, k5_b],
+                        "plain_ms": [p5_a, p5_b], "k1_ms_between": k1_c,
+                        "sass": counts["k5_detailed_lane"], "lane_cycles": c5,
+                        "bound_ms": b5[0], "bound_by": b5[1]},
+        "k5_dense": {"base": DENSE_BASE, "valid": d_valid, "kept": kept4,
+                     "ms": [k5d_a, k5d_b], "plain_ms": [p5d_a, p5d_b],
+                     "k4_ms_between": k4_c, "sass": counts["k5_dense_lane"],
+                     "lane_cycles": c5d, "bound_ms": b5d[0],
+                     "bound_by": b5d[1]},
+        "k5_dense_full_run": {"valid": lanes_k1, "kept": kept4_full,
+                              "ms": k5d_full_ms, "bound_ms": b5d_full[0],
+                              "bound_by": b5d_full[1]},
+        "b510_segment": {"lanes": lanes_k1, "start": wide.range_start,
+                         "k1_ms": [k1_b510_a, k1_b510_b],
+                         "k5_ms": [k5_b510_a, k5_b510_b]},
     }
     emit({"phase": "timing", **report["timing"]})
     return [
@@ -1277,6 +1737,10 @@ def phase_timing(report: dict, counts: dict, sms: int, clk_mhz: float) -> list:
          min(k3_a, k3_b), min(p3_a, p3_b), b3),
         ("niceonly_dense", "nice_tpu/ops/pallas_engine.py:181",
          min(k4_a, k4_b), min(p4_a, p4_b), b4),
+        ("detailed_megaloop_mma", "nice_tpu/ops/pallas_engine.py:181",
+         min(k5_a, k5_b), min(p5_a, p5_b), b5),
+        ("niceonly_dense_mma", "nice_tpu/ops/pallas_engine.py:181",
+         min(k5d_a, k5d_b), min(p5d_a, p5d_b), b5d),
     ]
 
 
@@ -1344,6 +1808,16 @@ def main() -> int:
     import nice_tpu_torch  # noqa: F401  (fails outside the repository)
 
     t_start = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="nice-chip-smoke-")
+    try:
+        return _run(args, t_start, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run(args, t_start: float, tmp: str) -> int:
+    import torch
+
     card = nvidia_smi("name,power.limit")
     clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1352,17 +1826,19 @@ def main() -> int:
                     "clk_max_mhz": clk_mhz}
     emit(f"card: {card} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
-    counts = phase_build(report)
+    counts, probe_lib = phase_build(report, tmp)
     phase_kernel_vs_plain(report)
     phase_strided_vs_plain(report)
     phase_dense_vs_plain(report)
+    phase_mxu_vs_plain(report)
     phase_golden(report)
     phase_full_width(report)
     phase_full_width_niceonly(report)
     phase_full_width_dense(report)
+    phase_tuned(report, tmp)
     phase_server(report)
     phase_main_shapes(report)
-    timed = phase_timing(report, counts, sms, clk_mhz)
+    timed = phase_timing(report, counts, probe_lib, sms, clk_mhz)
     phase_profile(report)
     kernel_ms = {name: ms for name, _, ms, _, _ in timed}
     for run in report["full_width"]["fields"]:
@@ -1404,12 +1880,31 @@ def main() -> int:
               "k4_ms_est": k4_est,
               "host_loop_ms_est": st["loop_secs"] * 1e3 - k4_est})
 
+    for run in report["tuned"]["k5_runs"]:
+        # K5 in K1's and K4's place on the same fields, the same process.
+        default = next(
+            r for key in ("full_width", "full_width_dense")
+            for r in report[key]["fields"] if r["field"] == run["field"])
+        est = sum(n * kernel_ms[k] for k, n in run["launches"].items())
+        emit({"phase": "where_time_goes", "field": run["field"],
+              "mode": run["mode"], "use_mxu": 1,
+              "elapsed_ms": run["elapsed_secs"] * 1e3,
+              "use_mxu_0_elapsed_ms": default["elapsed_secs"] * 1e3,
+              "kernel_ms_est": est})
+
     kernel_bases = {"detailed_megaloop": BASES, "uniques": BASES,
                     "strided_niceonly": NICEONLY_BASES,
-                    "niceonly_dense": DENSE_BASES}
+                    "niceonly_dense": DENSE_BASES,
+                    "detailed_megaloop_mma": BASES,
+                    "niceonly_dense_mma": DENSE_BASES}
+    k5_diff = {k: max(report["mxu_vs_plain"]["max_abs_diff"][k],
+                      report["mxu_vs_plain"]["max_abs_diff_vs_k1_k4"][k],
+                      report["main_shapes"]["max_abs_diff_vs_k1_k4"][k])
+               for k in ("detailed_megaloop_mma", "niceonly_dense_mma")}
     vs_plain = dict(report["kernel_vs_plain"]["max_abs_diff"],
                     strided_niceonly=report["strided_vs_plain"]["max_abs_diff"],
-                    niceonly_dense=report["dense_vs_plain"]["max_abs_diff"])
+                    niceonly_dense=report["dense_vs_plain"]["max_abs_diff"],
+                    **k5_diff)
     kernels = []
     for name, replaces, ms, plain_ms, (b_ms, b_by) in timed:
         kernels.append({

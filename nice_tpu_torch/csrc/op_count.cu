@@ -1,4 +1,4 @@
-// The per-lane work of the four kernels, built only to be counted:
+// The per-lane work of the kernels, built only to be counted:
 // chip_smoke.py compiles this file with nvcc -cubin and counts the SASS
 // instructions of each function here with cuobjdump.
 //
@@ -21,6 +21,9 @@
 #include "op_count_plan.h"
 
 #define NICE_PLAN_UNROLL NICE_UNROLL
+// K5's schoolbook fallback serves only lanes outside the base's range, which
+// the counted lanes (and the main path) never are: it stays out of the count.
+#define NICE_K5_NO_FALLBACK
 #include "nice_kernels.cuh"
 
 // One lane of K2 (uniques_kernel): num_uniques, stored.
@@ -70,4 +73,45 @@ extern "C" __global__ void k4_lane(const int64_t* __restrict__ start,
   const int c = Tier::dense_nice(start, classes, NICE_K4_R, s, j, valid_total,
                                  (int)p.base, p, &kept);
   out[j] = c + 2 * kept;
+}
+
+// One lane of K5 in the detailed mode (detailed_megaloop_mma_kernel) at K1's
+// base: its share of the warp's staging, MMAs and reassembly, the digit work,
+// the histogram and the near-miss test. The block's setup (T and the limb
+// constants, built once per block and reused by every lane of its
+// grid-stride loop) is left out.
+extern "C" __global__ void k5_detailed_lane(const int64_t* __restrict__ start,
+                                            int32_t* __restrict__ nm_out) {
+  constexpr nice::Plan p = {NICE_PLAN};
+  constexpr int front = 4 * ((int)p.base + 3);
+  __shared__ __align__(128) unsigned char smem[nice::k5_smem_bytes(
+      p.limbs_n, p.limbs_sq, p.limbs_cu, front)];
+  int32_t* sh = reinterpret_cast<int32_t*>(smem);
+  const nice::K5Smem mm =
+      nice::k5_layout(smem, p.limbs_n, p.limbs_sq, p.limbs_cu, front);
+  const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int u = nice::SmallTier::uniques_mma(start, g, true, p, mm);
+  if (u < (int)p.base + 2) atomicAdd(&sh[u], 1);
+  nm_out[g] = u > p.cutoff;
+}
+
+// One lane of K5 in the dense mode (niceonly_dense_mma_kernel) at K4's base
+// (the tier of K4's lane, limbs in registers): the lane's offset, the
+// ragged-period mask, K5's products, the digit work, the nice test and the
+// kept count; the block's setup left out as above.
+extern "C" __global__ void k5_dense_lane(const int64_t* __restrict__ start,
+                                         const int64_t* __restrict__ classes,
+                                         uint32_t s, uint32_t valid_total,
+                                         int32_t* __restrict__ out) {
+  constexpr nice::Plan p = {NICE_K4_PLAN};
+  typedef nice::Lane<NICE_K4_TIER, true> Tier;
+  __shared__ __align__(128) unsigned char smem[nice::k5_smem_bytes(
+      p.limbs_n, p.limbs_sq, p.limbs_cu, 0)];
+  const nice::K5Smem mm =
+      nice::k5_layout(smem, p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
+  const uint32_t j = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t i = Tier::dense_offset(classes, NICE_K4_R, s, j, p);
+  const bool live = i < valid_total;
+  const int u = Tier::uniques_mma(start, live ? i : 0u, live, p, mm);
+  out[j] = (live && u == (int)p.base) + 2 * live;
 }

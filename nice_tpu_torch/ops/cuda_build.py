@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels (csrc/nice_kernels.cu: K1-K4) at first
+"""Build and load the CUDA kernels (csrc/nice_kernels.cu: K1-K5) at first
 use.
 
 nvcc compiles the sources into a shared library with a plain C interface,
@@ -15,6 +15,7 @@ nvcc is found on PATH, else under the toolkit's default install prefix
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import logging
 import os
@@ -54,11 +55,23 @@ def find_nvcc() -> str:
     )
 
 
-def build_key(nvcc: str) -> str:
+def _source_digest():
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
+    return h
+
+
+@functools.lru_cache(maxsize=None)
+def source_hash() -> str:
+    """Hash of the kernel sources alone (no nvcc needed): what the tuning
+    table's signature stamps, so that an edited kernel re-tunes."""
+    return _source_digest().hexdigest()[:16]
+
+
+def build_key(nvcc: str) -> str:
+    h = _source_digest()
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -67,7 +80,8 @@ def _bind(lib) -> None:
     c_void_p, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     words = ctypes.POINTER(ctypes.c_uint64)
     lib.nice_detailed_megaloop.argtypes = [
-        words, c_void_p, c_longlong, c_longlong, c_void_p, c_void_p, c_void_p,
+        words, c_void_p, c_longlong, c_longlong, c_void_p, c_void_p, c_int,
+        c_void_p,
     ]
     lib.nice_detailed_megaloop.restype = c_int
     lib.nice_uniques.argtypes = [words, c_void_p, c_longlong, c_void_p, c_void_p]
@@ -78,8 +92,8 @@ def _bind(lib) -> None:
     ]
     lib.nice_strided_niceonly.restype = c_int
     lib.nice_niceonly_dense.argtypes = [
-        words, c_void_p, c_void_p, c_longlong, c_longlong, c_int, c_void_p,
-        c_void_p,
+        words, c_void_p, c_void_p, c_longlong, c_longlong, c_int, c_int,
+        c_void_p, c_void_p,
     ]
     lib.nice_niceonly_dense.restype = c_int
     lib.nice_error_string.argtypes = [c_int]

@@ -1,4 +1,4 @@
-"""Wrappers of the four CUDA kernels (csrc/nice_kernels.cu), with launch
+"""Wrappers of the CUDA kernels (csrc/nice_kernels.cu), with launch
 counters — the port's counterpart of nice_tpu/ops/pallas_engine.py's entry
 points.
 
@@ -11,8 +11,11 @@ that outside the pallas_call. K3 `strided_niceonly_batch` replaces the
 stride-descriptor niceonly kernel (_strided_callable, pallas_call at :410).
 K4 `niceonly_dense_megaloop` replaces the stats kernel's two niceonly modes
 (the same pallas_call at :181, entries niceonly_dense_batch and
-niceonly_fused_batch) and the jnp megaloops over them. All four are bound by
-integer operations (little input, little output); see the source note in
+niceonly_fused_batch) and the jnp megaloops over them. K5, the TPU's MXU
+arm of the same kernel (use_mxu, nice_tpu/ops/mxu.py), is the K1 and K4
+wrappers called with use_mxu=1: their products then run on the tensor cores
+(ops/mxu.py says how), counted under their own LAUNCHES keys. All are bound
+by integer operations (little input, little output); see the source note in
 nice_kernels.cu for what the design does about it.
 
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
@@ -27,7 +30,7 @@ import functools
 
 import torch
 
-from nice_tpu_torch.ops import cuda_build
+from nice_tpu_torch.ops import cuda_build, mxu
 from nice_tpu_torch.ops import vector_engine as ve
 from nice_tpu_torch.ops.limbs import BasePlan, digit_chunk, log2_fx
 
@@ -45,7 +48,8 @@ STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
 
 LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
-            "niceonly_dense": 0}
+            "niceonly_dense": 0, "detailed_megaloop_mma": 0,
+            "niceonly_dense_mma": 0}
 
 _U64_MAX = (1 << 64) - 1
 
@@ -85,6 +89,17 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         )
 
 
+def _check_mxu(plan: BasePlan, use_mxu: int, total: int) -> None:
+    """K5 takes the plan (mxu.supports_plan) and lane offsets below 2^31."""
+    if use_mxu not in (0, 1):
+        raise ValueError(f"use_mxu must be 0 or 1, got {use_mxu!r}")
+    if use_mxu and not mxu.supports_plan(plan):
+        raise ValueError(f"base {plan.base}: K5 does not take this plan "
+                         f"({mxu.smem_bytes(plan)} bytes of shared memory)")
+    if use_mxu and total >= 1 << 31:
+        raise ValueError(f"{total} lanes: K5's lane offsets are below 2^31")
+
+
 def _raise_on(lib, rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(
@@ -94,20 +109,22 @@ def _raise_on(lib, rc: int, kernel: str) -> None:
 
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
-                            valid_total: int):
-    """K1: n_iters * batch_size lanes from start_limbs, the first
-    valid_total of them real, folded into hist_acc (int32[base+2], updated
-    in place — the port's form of JAX's donated accumulator). Returns
-    (hist_acc, near-miss count as a 0-dim int32 tensor on the device)."""
+                            valid_total: int, use_mxu: int = 0):
+    """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1): n_iters *
+    batch_size lanes from start_limbs, the first valid_total of them real,
+    folded into hist_acc (int32[base+2], updated in place — the port's form
+    of JAX's donated accumulator). Returns (hist_acc, near-miss count as a
+    0-dim int32 tensor on the device)."""
     device = hist_acc.device
     _check(hist_acc, "hist_acc", torch.int32, (plan.base + 2,), device)
     _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
+    total = batch_size * n_iters
+    _check_mxu(plan, use_mxu, total)
     if device.type == "cpu":
         return ve.detailed_accum_megaloop(plan, batch_size, n_iters, hist_acc,
-                                          start_limbs, valid_total)
+                                          start_limbs, valid_total, use_mxu)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    total = batch_size * n_iters
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
     words = plan_words(plan)
@@ -116,11 +133,12 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     with torch.cuda.device(device):
         rc = lib.nice_detailed_megaloop(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
-            hist_acc.data_ptr(), nm.data_ptr(),
+            hist_acc.data_ptr(), nm.data_ptr(), use_mxu,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on(lib, rc, "detailed_megaloop")
-    LAUNCHES["detailed_megaloop"] += 1
+    name = "detailed_megaloop_mma" if use_mxu else "detailed_megaloop"
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
     return hist_acc, nm
 
 
@@ -225,10 +243,12 @@ def niceonly_classes(plan: BasePlan, fused: bool, device: str) -> torch.Tensor:
 def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             classes: torch.Tensor, start_limbs: torch.Tensor,
                             valid_total: int,
-                            min_uniques: int | None = None) -> torch.Tensor:
-    """K4: the candidates start + [0, valid_total) of an n_iters *
-    batch_size megaloop whose n mod (b-1) is one of `classes` (int64, from
-    niceonly_classes) are kept; returns int32 [count, pruned] on the device:
+                            min_uniques: int | None = None,
+                            use_mxu: int = 0) -> torch.Tensor:
+    """K4 (use_mxu=0) or K5 in the dense mode (use_mxu=1): the candidates
+    start + [0, valid_total) of an n_iters * batch_size megaloop whose n
+    mod (b-1) is one of `classes` (int64, from niceonly_classes) are kept;
+    returns int32 [count, pruned] on the device:
     the kept lanes with min_uniques <= num_uniques <= base, and the lanes
     not kept. min_uniques defaults to base, the nice test the search runs; a
     check passes a lower one. No lane may pass 2^(32 * limbs_n) (no lane of
@@ -248,9 +268,11 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
         min_uniques = plan.base
     if not 0 <= min_uniques <= plan.base:
         raise ValueError(f"min_uniques {min_uniques} outside [0, {plan.base}]")
+    _check_mxu(plan, use_mxu, total)
     if device.type == "cpu":
         return ve.niceonly_dense_megaloop(plan, batch_size, n_iters, classes,
-                                          start_limbs, valid_total, min_uniques)
+                                          start_limbs, valid_total, min_uniques,
+                                          use_mxu)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     words = plan_words(plan)
@@ -261,9 +283,10 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     with torch.cuda.device(device):
         rc = lib.nice_niceonly_dense(
             words, start_limbs.data_ptr(), classes.data_ptr(), num_cls,
-            valid_total, min_uniques, out.data_ptr(),
+            valid_total, min_uniques, use_mxu, out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on(lib, rc, "niceonly_dense")
-    LAUNCHES["niceonly_dense"] += 1
+    name = "niceonly_dense_mma" if use_mxu else "niceonly_dense"
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
     return out

@@ -6,8 +6,10 @@ Detailed, per field:
   * out-of-range slivers go to the scalar oracle (the kernels' fixed-width
     digit extraction holds only inside the base's valid range);
   * the core is dispatched one megaloop segment (batch_size * segment lanes)
-    at a time into a device-resident int32 histogram (K1), flushed to the
-    host before any bin could saturate and at checkpoints;
+    at a time into a device-resident int32 histogram (K1, or K5 where
+    use_mxu resolves to 1), flushed to the host before any bin could
+    saturate and at checkpoints; the shape comes from resolve_tuning (an
+    explicit argument, else the tuned winner, else the JAX defaults);
   * each segment's near-miss count is read back, and a segment with any
     near miss is re-scanned through K2 plus on-device survivor compaction,
     falling back to the dense per-lane array when the compaction overflows;
@@ -25,9 +27,10 @@ zero-count ones.
 
 Niceonly, bases above 4 u32 limbs (b98 and up): the dense loop, one run in
 flight. The MSD filter turns the core into surviving ranges, each cut into
-runs of at most batch_size * segment lanes; K4 counts a run's nice lanes
-among the residue classes the congruence keeps, and a run that counts any
-is re-scanned through K2 (a count that disagrees is an error).
+runs of at most batch_size * segment lanes (resolve_tuning, as above); K4
+(or K5) counts a run's nice lanes among the residue classes the congruence
+keeps, and a run that counts any is re-scanned through K2 (a count that
+disagrees is an error).
 
 A kernel failure raises: there is no downgrade to another backend.
 """
@@ -55,7 +58,8 @@ from nice_tpu_torch.core.types import (
     NiceNumberSimple,
     UniquesDistributionSimple,
 )
-from nice_tpu_torch.ops import adaptive_floor, msd_filter, stride_filter
+from nice_tpu_torch.ops import adaptive_floor, autotune, msd_filter, mxu
+from nice_tpu_torch.ops import stride_filter
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
 from nice_tpu_torch.ops import vector_engine as ve
@@ -63,7 +67,8 @@ from nice_tpu_torch.ops.limbs import BasePlan, get_plan
 
 log = logging.getLogger(__name__)
 
-# Lanes per batch and batches per megaloop segment (the JAX defaults).
+# Lanes per batch and batches per megaloop segment (the JAX defaults), the
+# shape an untuned run takes (resolve_tuning).
 DEFAULT_BATCH_SIZE = 1 << 18
 MEGALOOP_SEGMENT_DEFAULT = 8
 
@@ -88,6 +93,33 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def resolve_tuning(mode: str, base: int, device, batch_size: int | None = None,
+                   segment: int | None = None, use_mxu: int | None = None,
+                   backend: str = "device") -> tuple[int, int, int]:
+    """(batch_size, segment, use_mxu) of one field: each an explicit
+    argument, else the tuned winner of (mode, base, device type)
+    (ops/autotune.py), else the default (DEFAULT_BATCH_SIZE,
+    MEGALOOP_SEGMENT_DEFAULT, 0). The explicit argument takes the place of
+    the JAX engine's NICE_TPU_* pin. use_mxu selects K5 in place of K1/K4;
+    it is forced to 0 where mxu.supports_plan rejects the base's plan, so a
+    stale winner or argument never selects a kernel that cannot take it.
+    backend "scalar" has none of these knobs and gets plain defaults.
+
+    JAX's other knobs, block_rows and carry_interval, have no counterpart:
+    the kernels carry in 64-bit registers at a fixed block size."""
+    if backend == "scalar":
+        return batch_size or DEFAULT_BATCH_SIZE, 1, 0
+    dev = torch.device(device)
+    batch = autotune.choose(mode, base, dev, "batch_size", DEFAULT_BATCH_SIZE,
+                            batch_size)
+    seg = autotune.choose(mode, base, dev, "megaloop", MEGALOOP_SEGMENT_DEFAULT,
+                          segment)
+    arm = autotune.choose(mode, base, dev, "use_mxu", 0, use_mxu)
+    if arm and not mxu.supports_plan(get_plan(base)):
+        arm = 0
+    return batch, max(1, seg), 1 if arm else 0
 
 
 def clamp_segment(segment: int, batch_size: int) -> int:
@@ -159,6 +191,7 @@ def process_range_detailed(
     backend: str = "device",
     batch_size: int | None = None,
     segment: int | None = None,
+    use_mxu: int | None = None,
     progress=None,
     checkpoint_cb=None,
     resume=None,
@@ -167,7 +200,10 @@ def process_range_detailed(
 
     device: "cuda" (the default) runs the kernels; "cpu" runs their plain
     PyTorch versions. backend "scalar" runs the Python-int oracle instead
-    (no checkpoints). progress(done, total) is called after each segment.
+    (no checkpoints). batch_size, segment and use_mxu (1: K5 in place of
+    K1) resolve through resolve_tuning: the argument, else the tuned
+    winner, else the default. progress(done, total) is called after each
+    segment.
     checkpoint_cb(state) fires at every segment boundary with {"cursor",
     "hist" (int64[base+2]), "nice_numbers" [(number, uniques)],
     "remaining" [[start, end]]}, covering the slivers and everything before
@@ -180,10 +216,11 @@ def process_range_detailed(
             raise ValueError("backend 'scalar' neither checkpoints nor resumes")
         return scalar.process_range_detailed(range_, base)
     dev = resolve_device(device)
-    batch_size = int(batch_size or DEFAULT_BATCH_SIZE)
+    batch_size, seg, arm = resolve_tuning("detailed", base, dev, batch_size,
+                                          segment, use_mxu)
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
-    seg = clamp_segment(segment or MEGALOOP_SEGMENT_DEFAULT, batch_size)
+    seg = clamp_segment(seg, batch_size)
 
     pre, core, post = _clamp_to_base_range(range_, base)
     if core is None:
@@ -242,7 +279,7 @@ def process_range_detailed(
             valid = min(lanes, e - pos)
             start = ve.start_limbs_tensor(pos, plan, dev)
             acc, nm = ce.detailed_accum_megaloop(
-                plan, batch_size, seg, acc, start, valid
+                plan, batch_size, seg, acc, start, valid, arm
             )
             since_flush += 1
             if int(nm) > 0:
@@ -271,9 +308,9 @@ def process_range_detailed(
                 progress(done, total)
     flush()
     log.debug(
-        "detailed b%d [%d, %d) on %s: %.3fs, %d near misses",
-        base, range_.start(), range_.end(), dev, time.monotonic() - t0,
-        len(nice_numbers),
+        "detailed b%d [%d, %d) on %s (batch %d x %d, use_mxu %d): %.3fs, %d "
+        "near misses", base, range_.start(), range_.end(), dev, batch_size,
+        seg, arm, time.monotonic() - t0, len(nice_numbers),
     )
 
     nice_numbers.sort(key=lambda n: n.number)
@@ -782,15 +819,17 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
 def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
                     progress=None, checkpoint_cb=None, resume=None,
                     batch_size: int | None = None,
-                    segment: int | None = None) -> None:
+                    segment: int | None = None,
+                    use_mxu: int | None = None) -> None:
     """Append the nice numbers of the core to nice_numbers: the twin of the
     JAX engine's single-device dense loop, one run in flight.
 
     The MSD filter (the "dense" floor controller's floor) turns the core
     into surviving ranges; each is cut into runs of at most batch_size *
-    segment lanes, and K4 counts each run's nice lanes among the residue
-    classes the congruence keeps (the TPU's fused mode: the count equals
-    the unfused one's, since no other class holds a nice number). A run
+    segment lanes, and K4 (K5 where use_mxu resolves to 1; the shape
+    comes from resolve_tuning) counts each run's nice lanes among the
+    residue classes the congruence keeps (the TPU's fused mode: the count
+    equals the unfused one's, since no other class holds a nice number). A run
     that counts any goes through rare_scan_survivors (K2 above
     base - 1), which must find as many. progress(done, total) follows the
     dispatched lanes. checkpoint_cb fires after every run with the JAX dense
@@ -799,8 +838,9 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     state marked "filtered" has its remaining segments scanned as they are
     (the filters' gaps are proven empty), any other is filtered again."""
     plan = get_plan(base)
-    batch_size = int(batch_size or DEFAULT_BATCH_SIZE)
-    seg = clamp_segment(segment or MEGALOOP_SEGMENT_DEFAULT, batch_size)
+    batch_size, seg, arm = resolve_tuning("niceonly", base, dev, batch_size,
+                                          segment, use_mxu)
+    seg = clamp_segment(seg, batch_size)
     lanes = batch_size * seg
     classes = ce.niceonly_classes(plan, True, str(dev))
     nice0 = len(nice_numbers)
@@ -821,7 +861,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     total = sum(e - s for s, e in segments)
     done = kept = pruned = 0
     runs: list[tuple[int, int]] = []
-    launches0 = ce.LAUNCHES["niceonly_dense"]
+    kernel = "niceonly_dense_mma" if arm else "niceonly_dense"
+    launches0 = ce.LAUNCHES[kernel]
     t1 = time.monotonic()
     for si, (s, e) in enumerate(segments):
         pos = s
@@ -829,7 +870,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
             valid = min(lanes, e - pos)
             start = ve.start_limbs_tensor(pos, plan, dev)
             count, n_pruned = ce.niceonly_dense_megaloop(
-                plan, batch_size, seg, classes, start, valid).tolist()
+                plan, batch_size, seg, classes, start, valid,
+                use_mxu=arm).tolist()
             runs.append((pos, valid))
             kept += valid - n_pruned
             pruned += n_pruned
@@ -865,7 +907,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
         base=base, start=core.start(), end=core.end(), msd_secs=msd_secs,
         floor=floor, ranges=len(segments), loop_secs=loop_secs, runs=len(runs), lanes=done, kept=kept,
         pruned=pruned, classes=int(classes.shape[0]),
-        launches=ce.LAUNCHES["niceonly_dense"] - launches0,
+        launches=ce.LAUNCHES[kernel] - launches0, batch_size=batch_size,
+        segment=seg, use_mxu=arm,
         nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
         median_run=median,
     )
@@ -883,6 +926,9 @@ def process_range_niceonly(
     *,
     device="cuda",
     backend: str = "device",
+    batch_size: int | None = None,
+    segment: int | None = None,
+    use_mxu: int | None = None,
     progress=None,
     checkpoint_cb=None,
     resume=None,
@@ -893,7 +939,10 @@ def process_range_niceonly(
     PyTorch versions. backend "scalar" runs the Python-int oracle instead
     (no checkpoints). Out-of-range slivers go to the oracle. Bases of at
     most 4 u32 limbs (b10-b97) take the strided pipeline (K3); bases above
-    (b98 and up) the dense loop (K4, _niceonly_dense).
+    (b98 and up) the dense loop (K4, _niceonly_dense). batch_size, segment
+    and use_mxu (1: K5 in place of K4) shape the dense loop's runs through
+    resolve_tuning; the strided pipeline's shapes come from the MSD floor
+    (K3 has no tensor-core arm), and it takes none of them.
 
     Strided: progress(done, total) reports the filter front, from a worker
     thread; checkpoint_cb(state) fires after every descriptor group with
@@ -938,10 +987,15 @@ def process_range_niceonly(
 
     if get_plan(base).limbs_n > 4:
         _niceonly_dense(core, base, dev, nice_numbers, progress=progress,
-                        checkpoint_cb=checkpoint_cb, resume=resume)
+                        checkpoint_cb=checkpoint_cb, resume=resume,
+                        batch_size=batch_size, segment=segment,
+                        use_mxu=use_mxu)
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
+    if (batch_size, segment, use_mxu) != (None, None, None):
+        raise ValueError(f"base {base} takes the strided pipeline, which has "
+                         "no batch_size, segment or use_mxu")
     if resume is not None:
         # The pipeline scans one contiguous core: resume from the lowest
         # uncovered number, dropping restored numbers the rescan will find

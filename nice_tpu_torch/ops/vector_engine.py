@@ -118,13 +118,37 @@ def sqr_limbs(a: list, out_len: int) -> list:
 def add_u32(limbs: list, x) -> list:
     """limbs + x (x a non-negative lane offset below 2^62), truncated to
     len(limbs) limbs: the carry out of each limb carries x's high part on."""
+    return add_u32_carry(limbs, x)[0]
+
+
+def add_u32_carry(limbs: list, x):
+    """add_u32, and whether the sum wrapped past len(limbs) limbs (a bool
+    per lane)."""
     out = []
     carry = x
     for limb in limbs:
         s = limb + carry
         out.append(s & MASK32)
         carry = s >> 32
-    return out
+    return out, carry != 0
+
+
+def byte_digits(limbs: list, count: int) -> list:
+    """The first `count` bytes of the value held in u32 limbs, LS first."""
+    return [(limbs[j // 4] >> (8 * (j % 4))) & 0xFF for j in range(count)]
+
+
+def square_overflows(plan: BasePlan, n_limbs: list):
+    """Per lane, n^2 >= 2^(32 * limbs_sq), i.e. n >= 2^(16 * limbs_sq): the
+    lanes whose square K1 truncates (none inside the base's range)."""
+    h = 16 * plan.limbs_sq
+    over = torch.zeros_like(torch.as_tensor(n_limbs[0]), dtype=torch.bool)
+    for k, limb in enumerate(n_limbs):
+        if 32 * k >= h:
+            over = over | (limb != 0)
+        elif 32 * k + 32 > h:
+            over = over | ((limb >> (h - 32 * k)) != 0)
+    return over
 
 
 def limbs_lt(a: list, b: list):
@@ -208,6 +232,11 @@ def num_uniques_lanes(plan: BasePlan, n_limbs: list):
     """num_uniques of (n^2, n^3) per lane, as int32."""
     sq = sqr_limbs(n_limbs, plan.limbs_sq)
     cu = mul_limbs(sq, n_limbs, plan.limbs_cu)
+    return uniques_of_products(plan, sq, cu)
+
+
+def uniques_of_products(plan: BasePlan, sq: list, cu: list):
+    """num_uniques per lane from the limbs of n^2 and n^3, as int32."""
     lanes = sq[0].shape[0]
     lane = torch.arange(lanes, device=sq[0].device)
     masks = torch.zeros((plan.n_masks + 1, lanes), dtype=torch.int64,
@@ -236,8 +265,9 @@ def lane_limbs(plan: BasePlan, start_limbs: torch.Tensor, lanes: int) -> list:
 
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
-                            valid_total: int):
-    """Plain twin of the detailed megaloop kernel (K1).
+                            valid_total: int, use_mxu: int = 0):
+    """Plain twin of the detailed megaloop kernel (K1), and with use_mxu=1
+    of its tensor-core arm (K5, whose products come from mxu.py).
 
     Lanes start + [0, valid_total) are real candidates; their num_uniques
     histogram (bins 0..base+1) is added IN PLACE to hist_acc (int32
@@ -248,12 +278,30 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
     width = plan.base + 2
-    u = num_uniques_lanes(plan, lane_limbs(plan, start_limbs, valid_total))
+    if use_mxu:
+        u = _uniques_mxu_chunked(plan, start_limbs, torch.arange(
+            valid_total, dtype=torch.int64, device=start_limbs.device))
+    else:
+        u = num_uniques_lanes(plan, lane_limbs(plan, start_limbs, valid_total))
     hist = torch.bincount(u, minlength=width)[:width]
     hist_acc += hist.to(torch.int32)
     hist_acc[0] += total - valid_total
     nm = (u > plan.near_miss_cutoff).sum().to(torch.int32)
     return hist_acc, nm
+
+
+# Lanes per chunk of the plain K5: its column sums hold one int64 vector
+# per byte column, which a whole 2^21-lane segment would multiply.
+MXU_CHUNK_LANES = 1 << 18
+
+
+def _uniques_mxu_chunked(plan: BasePlan, start_limbs: torch.Tensor, offsets):
+    from nice_tpu_torch.ops import mxu
+
+    return torch.cat([
+        mxu.uniques_mxu(plan, start_limbs, offsets[c:c + MXU_CHUNK_LANES])
+        for c in range(0, offsets.shape[0], MXU_CHUNK_LANES)
+    ] or [torch.zeros(0, dtype=torch.int32, device=offsets.device)])
 
 
 def uniques_batch(plan: BasePlan, batch_size: int, start_limbs: torch.Tensor):
@@ -374,8 +422,10 @@ DENSE_CHUNK_LANES = 1 << 18
 
 def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             classes: torch.Tensor, start_limbs: torch.Tensor,
-                            valid_total: int, min_uniques: int | None = None):
-    """Plain twin of the dense niceonly kernel (K4), in both TPU modes.
+                            valid_total: int, min_uniques: int | None = None,
+                            use_mxu: int = 0):
+    """Plain twin of the dense niceonly kernel (K4), in both TPU modes, and
+    with use_mxu=1 of its tensor-core arm (K5, products from mxu.py).
 
     Lanes start + [0, valid_total) of an n_iters * batch_size megaloop are
     the candidates. Every lane's n mod (b-1) is held against `classes` (the
@@ -400,8 +450,11 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
         n = add_u32([start_limbs[i] for i in range(plan.limbs_n)], g)
         idx = torch.nonzero(member[lane_residues(plan, n)]).flatten()
         kept += idx.numel()
-        if idx.numel():
+        if idx.numel() and use_mxu:
+            u = _uniques_mxu_chunked(plan, start_limbs, g[idx])
+        elif idx.numel():
             u = num_uniques_lanes(plan, [x[idx] for x in n])
+        if idx.numel():
             count += int(((u >= min_uniques) & (u <= plan.base)).sum())
     return torch.tensor([count, valid_total - kept], dtype=torch.int32,
                         device=dev)

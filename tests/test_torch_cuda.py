@@ -192,3 +192,90 @@ def test_niceonly_engine_on_card_equals_cpu(card):
     adaptive_floor.reset_for_tests()
     assert [n.number for n in engine.process_range_niceonly(
         FieldSize(47, 100), 10, device=card).nice_numbers] == [69]
+
+
+@pytest.mark.parametrize("base", [10, 17, 40, 80, 98, 510])
+def test_k5_equals_plain_versions_and_k1_on_card(card, base):
+    """K5 in the detailed mode: against its plain version (the plain K1 with
+    use_mxu=1) and against K1 on the card, bins and near misses, from
+    range_start and across a 2^32 carry (wrapping past the top limb where the
+    range is narrower than 2^32: those lanes take K1's products)."""
+    plan = get_plan(base)
+    rng = np.random.default_rng(base)
+    batch = 128
+    carry = ((plan.range_start >> 32) + 1) << 32
+    for start in (plan.range_start,
+                  (carry - batch // 2) % (1 << (32 * plan.limbs_n))):
+        st = ve.start_limbs_tensor(start, plan, card)
+        for n_iters in (1, 3):
+            valid = batch * n_iters - int(rng.integers(1, batch))
+            acc = torch.from_numpy(
+                rng.integers(0, 1000, base + 2, dtype=np.int32)).to(card)
+            before = dict(ce.LAUNCHES)
+            h5, nm5 = ce.detailed_accum_megaloop(plan, batch, n_iters,
+                                                 acc.clone(), st, valid, 1)
+            assert ce.LAUNCHES["detailed_megaloop_mma"] == \
+                before["detailed_megaloop_mma"] + 1
+            assert ce.LAUNCHES["detailed_megaloop"] == before["detailed_megaloop"]
+            hp, nmp = ve.detailed_accum_megaloop(plan, batch, n_iters,
+                                                 acc.clone(), st, valid, 1)
+            h1, nm1 = ce.detailed_accum_megaloop(plan, batch, n_iters,
+                                                 acc.clone(), st, valid)
+            assert torch.equal(h5, hp) and torch.equal(h5, h1)
+            assert int(nm5) == int(nmp) == int(nm1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("base", [10, 40, 98, 100, 510])
+def test_k5_dense_equals_plain_version_and_k4_on_card(card, base):
+    """K5 in the dense mode, both TPU modes, at the nice test and the
+    median: against its plain version and against K4 on the card."""
+    plan = get_plan(base)
+    batch = 256 if base == 510 else 1024
+    valid = 3 * batch - 29
+    starts = [47] if base == 10 else [plan.range_start,
+                                      _carry_start(plan, 3 * batch)]
+    for start in starts:
+        st = ve.start_limbs_tensor(start, plan, card)
+        for fused in (True, False):
+            classes = ce.niceonly_classes(plan, fused, str(card))
+            for mu in (base, (5 * base + 7) // 8):
+                before = ce.LAUNCHES["niceonly_dense_mma"]
+                got = ce.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                 valid, mu, use_mxu=1)
+                assert ce.LAUNCHES["niceonly_dense_mma"] == before + 1
+                want = ve.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                  valid, mu, use_mxu=1)
+                k4 = ce.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                valid, mu)
+                assert torch.equal(got, want) and torch.equal(got, k4)
+                if base == 10 and mu == base:
+                    # 69, and past the range's end (100) what the
+                    # fixed-width digits count there.
+                    assert got.tolist()[0] >= 1
+    torch.cuda.synchronize()
+
+
+def test_engine_with_k5_on_card_equals_k1_k4(card):
+    """Whole fields with use_mxu=1 on the card equal the use_mxu=0 runs:
+    detailed b17 (near misses, so K2 re-scans where K5 counts) and dense
+    niceonly b98."""
+    plan = get_plan(17)
+    rng = FieldSize(plan.range_start - 100, plan.range_end + 100)
+    ce.reset_launches()
+    k5 = engine.process_range_detailed(rng, 17, device=card, batch_size=1024,
+                                       segment=2, use_mxu=1)
+    assert ce.LAUNCHES["detailed_megaloop_mma"] > 0
+    assert ce.LAUNCHES["detailed_megaloop"] == 0 and ce.LAUNCHES["uniques"] > 0
+    assert k5 == engine.process_range_detailed(rng, 17, device=card,
+                                               batch_size=1024, segment=2,
+                                               use_mxu=0)
+    adaptive_floor.reset_for_tests(pinned=4096)
+    start = 413428759798923141071530212209627033363
+    field = FieldSize(start, start + 200_000)
+    ce.reset_launches()
+    k5 = engine.process_range_niceonly(field, 98, device=card, use_mxu=1)
+    assert ce.LAUNCHES["niceonly_dense_mma"] == engine.LAST_NICEONLY_STATS["runs"] > 0
+    assert ce.LAUNCHES["niceonly_dense"] == 0
+    assert k5 == engine.process_range_niceonly(field, 98, device=card, use_mxu=0)
+    adaptive_floor.reset_for_tests()
