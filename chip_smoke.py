@@ -7,7 +7,10 @@ Phases, each of which raises (exit code 1) on failure:
   2. build, all started together: nvcc builds the kernels from csrc/, g++ the
      host library of the niceonly path (native/), nvcc -cubin the op-count
      source whose SASS bounds the kernels (see 10), and nvcc the probe of
-     the tensor cores' integer rate (csrc/imma_probe.cu);
+     the tensor cores' integer rate (csrc/imma_probe.cu); ptxas's registers,
+     stack and spills of every kernel instantiation, by kernel and tier (K4's
+     dense register tier must have neither stack nor spills), and the static
+     SASS count of each (cuobjdump);
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
@@ -25,7 +28,8 @@ Phases, each of which raises (exit code 1) on failure:
      exact, in both TPU modes (fused: the base's residue classes; unfused:
      all b-1) and at both thresholds, at b10 (from 47), b40, b98, b100, b510
      and b99 (no class: no launch, every lane pruned), from range_start and
-     across the largest limb carry inside the range, ragged;
+     across the largest limb carry inside the range, ragged; b98 and b100
+     must run in K4's dense register tier;
   4c. K5 vs plain and vs K1/K4: the tensor-core arm (use_mxu=1) of the
      detailed megaloop against its plain version and against K1 on the
      card, as phase 3 runs K1, and of the dense count against its plain
@@ -80,7 +84,12 @@ Phases, each of which raises (exit code 1) on failure:
      K1/K4), exact;
  10. timing at those shapes: each kernel beside its plain version (K4 at
      the b98 field's median run, and over a full 2^21-lane run; K5 at K1's
-     and K4's shapes beside K1/K4; K1 and K5 over one segment at b510), and
+     and K4's shapes beside K1/K4; K1 and K5 over one segment at b510), by
+     CUDA events over back-to-back calls and by each kernel's own device
+     time (torch.profiler), which the kernels line gives; each launch's
+     shape (grid, threads, resident blocks an SM: K1's segment must be one
+     full wave, b98's K4 must run in the dense tier); K1's runtime-plan
+     SASS beside the constant-plan count; and
      a bound from the instructions one lane issues in the compiled code
      (csrc/op_count.cu built with the b40 plan and stride table, and the
      b98 plan and class table, as constants, counted with cuobjdump; K5's
@@ -192,7 +201,6 @@ def sass_counts(plan, table, dense_plan) -> dict:
     from nice_tpu_torch.ops import cuda_engine as ce
 
     nvcc = cuda_build.find_nvcc()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     dp = dense_plan
     with tempfile.TemporaryDirectory(prefix="nice-op-count-") as tmp:
         with open(os.path.join(tmp, "op_count_plan.h"), "w") as f:
@@ -212,12 +220,46 @@ def sass_counts(plan, table, dense_plan) -> dict:
              "-O3", "-cubin", "-I", tmp, "-o", cubin,
              os.path.join(cuda_build.CSRC_DIR, "op_count.cu")],
             check=True, capture_output=True, text=True)
-        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                              capture_output=True, text=True).stdout
-    funcs = parse_sass(sass)
+        funcs = parse_sass(cuda_build.sass_listing(cubin))
     check({"k1_lane", "k2_lane", "k3_lane", "k4_lane", "k5_detailed_lane",
            "k5_dense_lane"} <= set(funcs), f"op_count functions: {list(funcs)}")
     return funcs
+
+
+# Lane<NL, SQL, CUL, NM, UNROLL> of nice_kernels.cuh by its template
+# arguments, as they appear in a mangled kernel name.
+TIERS = {"LaneILi2ELi4ELi6ELi2ELb1E": "small", "LaneILi5ELi9ELi13ELi4ELb1E": "dense",
+         "LaneILi144ELi288ELi424ELi64ELb0E": "generic"}
+
+
+def kernel_label(mangled: str) -> tuple[str, str]:
+    """(kernel, tier) of a mangled kernel instantiation's name."""
+    kernel = re.search(r"nice\d+(\w+?_kernel)", mangled)
+    tier = next((t for k, t in TIERS.items() if k in mangled), "?")
+    return (kernel.group(1) if kernel else mangled), tier
+
+
+def runtime_sass(lib_path: str) -> dict:
+    """Per kernel instantiation of the built library, from cuobjdump -sass:
+    its static instruction count (padding NOPs left out) and the static
+    count of its outermost loop (the grid-stride loop: the backward branch
+    that spans the most code). Its inner loops (the digit chunks) run their
+    plan's trip counts at run time, so a lane issues more than the loop's
+    static count; op_count.cu's constant-plan lane unrolls them all."""
+    from nice_tpu_torch.ops import cuda_build
+
+    out = {}
+    for name, ins in cuda_build.sass_listing(lib_path).items():
+        if "_kernel" not in name:
+            continue
+        loops = [(_branch_target(text), addr) for addr, op, text in ins
+                 if op == "BRA" and _branch_target(text) < addr]
+        lo, hi = max(loops, key=lambda b: b[1] - b[0]) if loops else (0, -1)
+        kernel, tier = kernel_label(name)
+        out[name] = {"kernel": kernel, "tier": tier, "static": len(ins),
+                     "loop_static": sum(1 for a, _, _ in ins if lo <= a <= hi),
+                     "loops": len(loops)}
+    return out
 
 
 def build_imma_probe(out_dir: str) -> str:
@@ -238,18 +280,8 @@ def imma_per_product(lib_path: str) -> float:
     probe kernel (its loop body, not unrolled, holds its 4 products)."""
     from nice_tpu_torch.ops import cuda_build
 
-    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
-                          capture_output=True, text=True).stdout
-    funcs = {}
-    name = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = 0
-        elif name and re.search(r"\bIMMA\.", line):
-            funcs[name] += 1
+    funcs = {name: sum(op == "IMMA" for _, op, _ in ins)
+             for name, ins in cuda_build.sass_listing(lib_path).items()}
     counts = [n for f, n in funcs.items() if "imma_probe_kernel" in f]
     check(len(counts) == 1 and counts[0] > 0, f"probe SASS: {funcs}")
     return counts[0] / 4
@@ -283,42 +315,33 @@ def imma_rate(lib_path: str, sms: int, clk_mhz: float) -> dict:
             "imma_per_mma": per, "imma_per_sm_clk": rate * per}
 
 
-def parse_sass(sass: str) -> dict:
-    """Per function of a cuobjdump -sass listing of straight-line code: the
-    instruction count (padding NOPs and the self-loop after EXIT left out),
-    the count per integer class of SASS_CLASS and per opcode, and the
-    forward branches (code a lane may skip, counted all the same). A
-    backward branch, a loop that did not unroll, fails."""
+def _branch_target(text: str) -> int:
+    return int(re.findall(r"0x([0-9a-f]+)", text)[-1], 16)
+
+
+def parse_sass(listing: dict) -> dict:
+    """Per function of a SASS listing of straight-line code
+    (cuda_build.sass_listing): the instruction count (the self-loop after
+    EXIT left out), the count per integer class of SASS_CLASS and per
+    opcode, and the forward branches (code a lane may skip, counted all the
+    same). A backward branch, a loop that did not unroll, fails."""
     funcs: dict = {}
-    name = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = {"instructions": 0, "classes": {}, "opcodes": {},
+    for name, ins in listing.items():
+        f = funcs[name] = {"instructions": 0, "classes": {}, "opcodes": {},
                            "forward_branches": 0}
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
-        if not (m and name):
-            continue
-        addr, toks = int(m.group(1), 16), m.group(2).split()
-        if toks[0].startswith("@"):
-            toks = toks[1:]
-        op = toks[0].split(".")[0]
-        if op == "NOP":
-            continue
-        f = funcs[name]
-        if op == "BRA":
-            target = int(re.findall(r"0x([0-9a-f]+)", m.group(2))[-1], 16)
-            if target == addr:
-                continue
-            check(target > addr, f"{name}: a loop at {addr:#x} did not unroll")
-            f["forward_branches"] += 1
-        f["instructions"] += 1
-        f["opcodes"][toks[0]] = f["opcodes"].get(toks[0], 0) + 1
-        cls = SASS_CLASS.get(op)
-        if cls:
-            f["classes"][cls] = f["classes"].get(cls, 0) + 1
+        for addr, op, text in ins:
+            if op == "BRA":
+                target = _branch_target(text)
+                if target == addr:
+                    continue
+                check(target > addr, f"{name}: a loop at {addr:#x} did not unroll")
+                f["forward_branches"] += 1
+            opcode = text.split()[1] if text.startswith("@") else text.split()[0]
+            f["instructions"] += 1
+            f["opcodes"][opcode] = f["opcodes"].get(opcode, 0) + 1
+            cls = SASS_CLASS.get(op)
+            if cls:
+                f["classes"][cls] = f["classes"].get(cls, 0) + 1
     return funcs
 
 
@@ -393,28 +416,24 @@ def phase_build(report: dict, tmp: str) -> tuple[dict, str]:
         probe_lib, t_probe = probe.result()
     wall = time.monotonic() - t0
     info = cuda_build.BUILD_INFO
-    resources = []
-    name = None
-    for line in info.get("ptxas", "").splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name and "_kernel" in name:
-            resources.append({"kernel": name, "stack": int(m.group(1)),
-                              "spill_stores": int(m.group(2)),
-                              "spill_loads": int(m.group(3))})
-        m = re.search(r"Used (\d+) registers", line)
-        if m and resources and resources[-1]["kernel"] == name:
-            resources[-1]["registers"] = int(m.group(1))
+    resources = [dict(zip(("kernel", "tier"), kernel_label(r["mangled"])), **r)
+                 for r in cuda_build.ptxas_resources(info.get("ptxas", ""))]
+    sass = runtime_sass(info["path"])
     report["build"] = {"nvcc_secs": info["seconds"], "kernels_secs": t_kernels,
                        "gxx_secs": native.BUILD_INFO["seconds"],
                        "host_library_secs": t_host,
                        "op_count_secs": t_counted, "probe_secs": t_probe,
-                       "wall_secs": wall, "ptxas": resources}
+                       "wall_secs": wall, "ptxas": resources,
+                       "runtime_sass": list(sass.values())}
     emit({"phase": "build", **report["build"]})
+    # K4's register tier exists to keep b98's limbs out of local memory.
+    dense = [r for r in resources if r["tier"] == "dense"]
+    check(len(dense) == 1 and dense[0]["kernel"] == "niceonly_dense_kernel"
+          and dense[0]["stack"] == dense[0]["spill_stores"] == 0,
+          f"K4's dense tier: {dense}")
+    counts["k1_runtime"] = next(
+        v for v in sass.values()
+        if v["kernel"] == "detailed_megaloop_kernel" and v["tier"] == "small")
     return counts, probe_lib
 
 
@@ -648,8 +667,11 @@ def phase_dense_vs_plain(report: dict) -> None:
             starts.append(("carry", _carry_start(plan, 3 * batch)))
         for where, start in starts:
             for fused in (True, False):
+                n_cls = ce.niceonly_classes(plan, fused, str(dev)).shape[0]
                 case = {"base": base, "start": where, "fused": fused,
-                        "valid": valid}
+                        "valid": valid, "tier": ce.launch_shape(
+                            "niceonly_dense", plan, n_cls, valid)["tier"]
+                        if n_cls else None}
                 for key, min_u in (("nice", base),
                                    ("median", check_min_uniques(base))):
                     got, d = _k4_pair(plan, fused, start, batch, 3, valid,
@@ -666,6 +688,8 @@ def phase_dense_vs_plain(report: dict) -> None:
                                 "secs": time.monotonic() - t0}
     emit({"phase": "dense_vs_plain", **report["dense_vs_plain"]})
     check(diff == 0, f"K4 != plain: {cases}")
+    check(all(c["tier"] == "dense" for c in cases if c["base"] in (98, 100)),
+          f"b98/b100 outside K4's dense tier: {cases}")
     empty = [c for c in cases if c["base"] == 99 and c["fused"]]
     check(launched == calls - 2 * len(empty),
           f"{launched} K4 launches for {calls} calls ({len(empty)} empty "
@@ -1471,8 +1495,10 @@ def phase_main_shapes(report: dict) -> None:
     dense_cases = []
     diff["niceonly_dense"] = 0
     for fused in (True, False):
+        n_cls = ce.niceonly_classes(dplan, fused, str(dev)).shape[0]
         case = {"kernel": "niceonly_dense", "field": "b98-surviving",
-                "start": start, "valid": valid, "fused": fused}
+                "start": start, "valid": valid, "fused": fused,
+                "shape": ce.launch_shape("niceonly_dense", dplan, n_cls, valid)}
         for key, min_u in (("nice", DENSE_BASE),
                            ("median", check_min_uniques(DENSE_BASE))):
             got, d = _k4_pair(dplan, fused, start, batch, seg, valid, min_u,
@@ -1522,6 +1548,8 @@ def phase_main_shapes(report: dict) -> None:
           f"the median threshold counted nothing in a main-path group: {cases}")
     check(all(c["median"]["count"] > 0 for c in dense_cases),
           f"the median threshold counted nothing in the first run: {dense_cases}")
+    check(all(c["shape"]["tier"] == "dense" for c in dense_cases),
+          f"the first run outside K4's dense tier: {dense_cases}")
 
 
 def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
@@ -1530,9 +1558,10 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
 
     from nice_tpu_torch.core.types import FieldSize
     from nice_tpu_torch.ops import cuda_engine as ce
-    from nice_tpu_torch.ops import engine, mxu
+    from nice_tpu_torch.ops import engine
     from nice_tpu_torch.ops import vector_engine as ve
     from nice_tpu_torch.ops.limbs import get_plan
+    from nice_tpu_torch.scripts.kernel_ab import device_ms
 
     dev = torch.device(DEVICE)
     plan = get_plan(SERVER_BASE)
@@ -1643,6 +1672,36 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     k5d_b = time_cuda(k5d, reps=50)
     p5d_b = time_cuda(p5d, reps=2, warmup=0)
     k5d_full_ms = time_cuda(lambda: k5d(lanes_k1), reps=20)
+    # Device time of each kernel alone (torch.profiler's records): the
+    # events above time back-to-back calls, which for the short launches
+    # (K2, K4) is the host's rate of calls more than the kernel's time.
+    dev = {"k1": device_ms(k1, 20, "detailed_megaloop_kernel"),
+           "k2": device_ms(k2, 50, "uniques_kernel"),
+           "k3": device_ms(k3, 10, "strided_niceonly_kernel"),
+           "k4": device_ms(k4, 50, "niceonly_dense_kernel"),
+           "k4_full": device_ms(lambda: k4(lanes_k1), 20,
+                                "niceonly_dense_kernel"),
+           "k5": device_ms(k5, 20, "detailed_megaloop_mma_kernel"),
+           "k5d": device_ms(k5d, 50, "niceonly_dense_mma_kernel"),
+           "k5d_full": device_ms(lambda: k5d(lanes_k1), 20,
+                                 "niceonly_dense_mma_kernel")}
+    # Each timed launch's shape: its grid against one full resident wave.
+    n_cls = int(classes.shape[0])
+    shapes = {
+        "k1": ce.launch_shape("detailed_megaloop", plan, lanes_k1),
+        "k2": ce.launch_shape("uniques", plan, lanes_k2),
+        "k3": ce.launch_shape("strided_niceonly", s3.plan,
+                              s3.periods * s3.table.num_residues, n_real),
+        "k4": ce.launch_shape("niceonly_dense", dplan, n_cls, d_valid),
+        "k4_full": ce.launch_shape("niceonly_dense", dplan, n_cls, lanes_k1),
+        "k5": ce.launch_shape("detailed_megaloop_mma", plan, lanes_k1),
+        "k5d": ce.launch_shape("niceonly_dense_mma", dplan, n_cls, d_valid),
+    }
+    emit({"phase": "launch_shapes", **shapes})
+    check(shapes["k1"]["grid"] == shapes["k1"]["blocks_per_sm"] * shapes["k1"]["sms"],
+          f"K1's segment is not one resident wave: {shapes['k1']}")
+    check(shapes["k4"]["tier"] == "dense" and shapes["k4_full"]["tier"] == "dense",
+          f"b98's K4 runs outside the dense tier: {shapes['k4']}")
     # The tensor class's rate: the IMMA instructions an SM completes a
     # clock (the probe), 32 lanes each, as the other classes count lanes.
     check(counts["k5_detailed_lane"]["classes"].get("tensor", 0) > 0,
@@ -1687,60 +1746,69 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     b5d_full = bound_ms(kept4_full, c5d, bytes4, sms, clk_mhz)
     report["timing"] = {
         "base": plan.base, "sms": sms, "clk_max_mhz": clk_mhz,
-        "k1": {"lanes": lanes_k1, "ms": [k1_a, k1_b], "plain_ms": [p1_a, p1_b],
-               "sass": counts["k1_lane"], "lane_cycles": c1,
-               "bound_ms": b1[0], "bound_by": b1[1]},
-        "k2": {"lanes": lanes_k2, "ms": [k2_a, k2_b], "plain_ms": [p2_a, p2_b],
+        "k1": {"lanes": lanes_k1, "ms": [k1_a, k1_b], "device_ms": dev["k1"],
+               "plain_ms": [p1_a, p1_b], "shape": shapes["k1"],
+               "sass": counts["k1_lane"], "sass_runtime": counts["k1_runtime"],
+               "lane_cycles": c1, "bound_ms": b1[0], "bound_by": b1[1]},
+        "k2": {"lanes": lanes_k2, "ms": [k2_a, k2_b], "device_ms": dev["k2"],
+               "plain_ms": [p2_a, p2_b], "shape": shapes["k2"],
                "sass": counts["k2_lane"], "lane_cycles": c2,
                "bound_ms": b2[0], "bound_by": b2[1]},
         "k3": {"rows": n_real, "k": s3.k, "periods": s3.periods,
                "lanes": n_real * s3.periods * s3.table.num_residues,
                "lanes_in_range": in_range, "ms": [k3_a, k3_b],
+               "device_ms": dev["k3"], "shape": shapes["k3"],
                "plain_ms": [p3_a, p3_b], "sass": counts["k3_lane"],
                "lane_cycles": c3, "bound_ms": b3[0], "bound_by": b3[1]},
         "k3_b80": {"rows": len(cols8[0]), "k": s8.k, "periods": s8.periods,
                    "lanes": len(cols8[0]) * s8.periods * s8.table.num_residues,
                    "ms": k3_b80_ms},
         "k4": {"base": DENSE_BASE, "start": d_start, "valid": d_valid,
-               "kept": kept4, "classes": int(classes.shape[0]),
-               "ms": [k4_a, k4_b], "plain_ms": [p4_a, p4_b],
+               "kept": kept4, "classes": n_cls,
+               "ms": [k4_a, k4_b], "device_ms": dev["k4"],
+               "plain_ms": [p4_a, p4_b], "shape": shapes["k4"],
                "sass": counts["k4_lane"], "lane_cycles": c4,
                "bound_ms": b4[0], "bound_by": b4[1]},
         "k4_full_run": {"valid": lanes_k1, "kept": kept4_full,
-                        "ms": k4_full_ms, "bound_ms": b4_full[0],
+                        "ms": k4_full_ms, "device_ms": dev["k4_full"],
+                        "shape": shapes["k4_full"], "bound_ms": b4_full[0],
                         "bound_by": b4_full[1]},
         "imma_probe": {**probe,
                        "tensor_lanes_per_sm_clk": CLASS_LANES_PER_SM_CLK["tensor"]},
         "k5_detailed": {"lanes": lanes_k1, "ms": [k5_a, k5_b],
+                        "device_ms": dev["k5"], "shape": shapes["k5"],
                         "plain_ms": [p5_a, p5_b], "k1_ms_between": k1_c,
                         "sass": counts["k5_detailed_lane"], "lane_cycles": c5,
                         "bound_ms": b5[0], "bound_by": b5[1]},
         "k5_dense": {"base": DENSE_BASE, "valid": d_valid, "kept": kept4,
-                     "ms": [k5d_a, k5d_b], "plain_ms": [p5d_a, p5d_b],
+                     "ms": [k5d_a, k5d_b], "device_ms": dev["k5d"],
+                     "shape": shapes["k5d"], "plain_ms": [p5d_a, p5d_b],
                      "k4_ms_between": k4_c, "sass": counts["k5_dense_lane"],
                      "lane_cycles": c5d, "bound_ms": b5d[0],
                      "bound_by": b5d[1]},
         "k5_dense_full_run": {"valid": lanes_k1, "kept": kept4_full,
-                              "ms": k5d_full_ms, "bound_ms": b5d_full[0],
+                              "ms": k5d_full_ms, "device_ms": dev["k5d_full"],
+                              "bound_ms": b5d_full[0],
                               "bound_by": b5d_full[1]},
         "b510_segment": {"lanes": lanes_k1, "start": wide.range_start,
                          "k1_ms": [k1_b510_a, k1_b510_b],
                          "k5_ms": [k5_b510_a, k5_b510_b]},
     }
     emit({"phase": "timing", **report["timing"]})
+    # The kernels line gives each kernel's device time.
     return [
         ("detailed_megaloop", "nice_tpu/ops/pallas_engine.py:181",
-         min(k1_a, k1_b), min(p1_a, p1_b), b1),
+         dev["k1"], min(p1_a, p1_b), b1),
         ("uniques", "nice_tpu/ops/pallas_engine.py:466",
-         min(k2_a, k2_b), min(p2_a, p2_b), b2),
+         dev["k2"], min(p2_a, p2_b), b2),
         ("strided_niceonly", "nice_tpu/ops/pallas_engine.py:410",
-         min(k3_a, k3_b), min(p3_a, p3_b), b3),
+         dev["k3"], min(p3_a, p3_b), b3),
         ("niceonly_dense", "nice_tpu/ops/pallas_engine.py:181",
-         min(k4_a, k4_b), min(p4_a, p4_b), b4),
+         dev["k4"], min(p4_a, p4_b), b4),
         ("detailed_megaloop_mma", "nice_tpu/ops/pallas_engine.py:181",
-         min(k5_a, k5_b), min(p5_a, p5_b), b5),
+         dev["k5"], min(p5_a, p5_b), b5),
         ("niceonly_dense_mma", "nice_tpu/ops/pallas_engine.py:181",
-         min(k5d_a, k5d_b), min(p5d_a, p5d_b), b5d),
+         dev["k5d"], min(p5d_a, p5d_b), b5d),
     ]
 
 

@@ -78,20 +78,33 @@
 // write little (K1: base+2 bins; K2: 4 bytes a lane; K3: 4 bytes a
 // descriptor; K4: 8 bytes), so they are bound by integer operations — wide
 // multiplies for n^2 and n^3 and the multiply-high divisions of the digit
-// extraction. The design keeps every intermediate of the small tier in
-// registers, replaces each division by a multiply-high with a host-computed
-// reciprocal, keeps atomics off the global outputs except for one flush per
-// block, and (K4) spends no lane on a candidate the congruence excludes.
+// extraction. The design keeps every intermediate of the small tier (and of
+// K4's dense tier, sized to b98) in registers, replaces each division by a
+// multiply-high with a host-computed reciprocal (32-bit for the single
+// digits, which are most of a lane's work), keeps atomics off the global
+// outputs except for one flush per block, and (K4) spends no lane on a
+// candidate the congruence excludes. Every grid-stride launch is one full
+// wave: its grid is the blocks each SM holds at once (the occupancy API,
+// per kernel) times the SMs, or fewer for a small launch, and K4 takes
+// smaller blocks when a run is too small to give each SM a block of
+// kThreads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 #include "nice_kernels.cuh"
 
 namespace nice {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+// K4's block when a run has fewer lanes than SMs x kThreads: small enough
+// that such a run's lanes spread over every SM.
+constexpr int kDenseSmallThreads = 64;
 constexpr int kDescWidth = 12;  // int64 words of a stride descriptor row
 
 template <class L>
@@ -159,8 +172,11 @@ strided_niceonly_kernel(const int64_t* __restrict__ desc,
   }
 }
 
+// minBlocksPerMultiprocessor = 1 lets ptxas give a lane the registers its
+// limbs need (up to 255); with kThreads alone it trims them to the next
+// occupancy step and spills (the dense tier's 5/9/13 limbs did).
 template <class L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 niceonly_dense_kernel(const int64_t* __restrict__ start,
                       const int64_t* __restrict__ classes, uint32_t num_cls,
                       uint32_t lanes, uint32_t valid_total, int min_u, Plan p,
@@ -182,8 +198,10 @@ niceonly_dense_kernel(const int64_t* __restrict__ start,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
+    // The block's warps alone: it may be launched below kThreads (a whole
+    // number of warps; see dense_shape).
     int sc = 0, sk = 0;
-    for (int w = 0; w < kThreads / 32; ++w) {
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
       sc += warp_sums[0][w];
       sk += warp_sums[1][w];
     }
@@ -283,48 +301,123 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
 
 static_assert(kThreads / 32 == kMmaWarps, "K5 stages one slot per warp");
 
-// Enough blocks to fill every SM, capped so the grid-stride loop (and not a
-// huge grid) covers large segments.
-static int grid_for(int64_t lanes) {
-  int dev = 0, sms = 132;
+// A launch's shape: grid blocks of `threads` threads, and the one full wave
+// it is capped at (blocks_per_sm resident blocks on each of sms SMs).
+struct Shape {
+  int grid, threads, blocks_per_sm, sms;
+};
+
+// The blocks of `threads` threads (and smem bytes of dynamic shared memory)
+// that one SM holds at once for `kernel`, asked of the occupancy API once
+// per kernel, block size, shared memory and device; and the SM count.
+static void resident(const void* kernel, int threads, size_t smem,
+                     int* blocks_per_sm, int* sms) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, size_t>,
+                  std::pair<int, int>> cache;
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int64_t want = (lanes + kThreads - 1) / kThreads;
-  int64_t cap = (int64_t)sms * kBlocksPerSm;
+  const auto key = std::make_tuple(kernel, dev, threads, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *blocks_per_sm = it->second.first;
+    *sms = it->second.second;
+    return;
+  }
+  int b = 0, n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads,
+                                                    smem) == cudaSuccess &&
+      b > 0) {
+    cache[key] = std::make_pair(b, n);
+  }
+  // On a failed query the launch that follows reports the error (the
+  // runtime's last error); one block keeps its grid valid meanwhile.
+  *blocks_per_sm = b > 0 ? b : 1;
+  *sms = n > 0 ? n : 1;
+}
+
+// One block per `threads` lanes, capped at one full resident wave: the
+// grid-stride loops cover the rest with every block resident from the start
+// (a larger grid would leave a partial second wave).
+static Shape wave_shape(const void* kernel, int64_t lanes, int threads,
+                        size_t smem) {
+  Shape sh;
+  sh.threads = threads;
+  resident(kernel, threads, smem, &sh.blocks_per_sm, &sh.sms);
+  int64_t want = (lanes + threads - 1) / threads;
+  const int64_t cap = (int64_t)sh.blocks_per_sm * sh.sms;
   if (want > cap) want = cap;
-  return want < 1 ? 1 : (int)want;
+  sh.grid = want < 1 ? 1 : (int)want;
+  return sh;
 }
 
 // Returns 0, or kNoSmem when K5's shared memory exceeds kMmaSmemMax.
 constexpr int kNoSmem = -2;
 
 template <class L>
+static int megaloop_shape(const Plan& p, int64_t valid_total, int mma,
+                          Shape* sh, size_t* smem) {
+  if (!mma) {
+    *smem = (size_t)(p.base + 3) * sizeof(int32_t);
+    *sh = wave_shape((const void*)detailed_megaloop_kernel<L>, valid_total,
+                     kThreads, *smem);
+    return 0;
+  }
+  const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu,
+                                  4 * ((int)p.base + 3));
+  if (bytes > kMmaSmemMax) return kNoSmem;
+  *smem = (size_t)bytes;
+  *sh = wave_shape((const void*)detailed_megaloop_mma_kernel<L>, valid_total,
+                   kThreads, *smem);
+  return 0;
+}
+
+template <class L>
 static int launch_megaloop(const Plan& p, const int64_t* start,
                            int64_t valid_total, int64_t pad, int32_t* hist,
                            int32_t* nm, int mma, cudaStream_t s) {
-  const int grid = grid_for(valid_total);
+  Shape sh;
+  size_t smem;
+  const int rc = megaloop_shape<L>(p, valid_total, mma, &sh, &smem);
+  if (rc) return rc;
   if (!mma) {
-    const size_t smem = (size_t)(p.base + 3) * sizeof(int32_t);
-    detailed_megaloop_kernel<L><<<grid, kThreads, smem, s>>>(
+    detailed_megaloop_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
         start, valid_total, pad, p, hist, nm);
-    return 0;
+  } else {
+    detailed_megaloop_mma_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
+        start, valid_total, pad, p, hist, nm);
   }
-  const int smem = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu,
-                                 4 * ((int)p.base + 3));
-  if (smem > kMmaSmemMax) return kNoSmem;
-  detailed_megaloop_mma_kernel<L><<<grid, kThreads, smem, s>>>(
-      start, valid_total, pad, p, hist, nm);
   return 0;
+}
+
+template <class L>
+static Shape uniques_shape(int64_t lanes) {
+  return wave_shape((const void*)uniques_kernel<L>, lanes, kThreads, 0);
 }
 
 template <class L>
 static void launch_uniques(const Plan& p, const int64_t* start, int64_t lanes,
                            int32_t* out, cudaStream_t s) {
-  uniques_kernel<L><<<grid_for(lanes), kThreads, 0, s>>>(start, lanes, p, out);
+  const Shape sh = uniques_shape<L>(lanes);
+  uniques_kernel<L><<<sh.grid, sh.threads, 0, s>>>(start, lanes, p, out);
 }
 
 // One block per kThreads lanes of a descriptor (lanes <= 2^20, so at most
-// 4096), times the n_real real descriptors (<= 1024) on the grid's y axis.
+// 4096), times the n_real real descriptors (<= 1024) on the grid's y axis;
+// Shape::grid counts the blocks of both axes.
+template <class L>
+static Shape strided_shape(int64_t lanes, int n_real) {
+  Shape sh;
+  sh.threads = kThreads;
+  resident((const void*)strided_niceonly_kernel<L>, kThreads, 0,
+           &sh.blocks_per_sm, &sh.sms);
+  sh.grid = (int)((lanes + kThreads - 1) / kThreads) * n_real;
+  return sh;
+}
+
 template <class L>
 static void launch_strided(const Plan& p, const int64_t* desc, int n_real,
                            const int64_t* residues, uint32_t num_res,
@@ -336,24 +429,62 @@ static void launch_strided(const Plan& p, const int64_t* desc, int n_real,
 }
 
 // num_cls classes times ceil(valid_total / (base - 1)) periods of lanes, in
-// a grid-stride loop.
+// a grid-stride loop. K4 (not K5, whose warps each stage a slot of its
+// shared memory) takes blocks of kDenseSmallThreads when the run has fewer
+// lanes than the SMs hold blocks of kThreads, so that its few blocks do not
+// leave most SMs idle.
+template <class L>
+static int dense_shape(const Plan& p, uint32_t num_cls, uint32_t valid_total,
+                       int mma, Shape* sh, size_t* smem, uint32_t* lanes) {
+  const uint32_t m = p.base - 1;
+  *lanes = num_cls * ((valid_total + m - 1) / m);
+  if (!mma) {
+    const void* k = (const void*)niceonly_dense_kernel<L>;
+    *smem = 0;
+    *sh = wave_shape(k, *lanes, kThreads, 0);
+    if ((int64_t)*lanes < (int64_t)sh->sms * kThreads) {
+      *sh = wave_shape(k, *lanes, kDenseSmallThreads, 0);
+    }
+    return 0;
+  }
+  if constexpr (std::is_same_v<L, DenseTier>) {
+    return -1;  // DenseTier serves K4 alone (dense_tier)
+  } else {
+    const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
+    if (bytes > kMmaSmemMax) return kNoSmem;
+    *smem = (size_t)bytes;
+    *sh = wave_shape((const void*)niceonly_dense_mma_kernel<L>, *lanes,
+                     kThreads, *smem);
+    return 0;
+  }
+}
+
 template <class L>
 static int launch_dense(const Plan& p, const int64_t* start,
                         const int64_t* classes, uint32_t num_cls,
                         uint32_t valid_total, int min_u, int32_t* out, int mma,
                         cudaStream_t s) {
-  const uint32_t m = p.base - 1;
-  const uint32_t lanes = num_cls * ((valid_total + m - 1) / m);
+  Shape sh;
+  size_t smem;
+  uint32_t lanes;
+  const int rc = dense_shape<L>(p, num_cls, valid_total, mma, &sh, &smem,
+                                &lanes);
+  if (rc) return rc;
   if (!mma) {
-    niceonly_dense_kernel<L><<<grid_for(lanes), kThreads, 0, s>>>(
+    niceonly_dense_kernel<L><<<sh.grid, sh.threads, 0, s>>>(
         start, classes, num_cls, lanes, valid_total, min_u, p, out);
-    return 0;
+  } else if constexpr (!std::is_same_v<L, DenseTier>) {
+    niceonly_dense_mma_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
+        start, classes, num_cls, lanes, valid_total, min_u, p, out);
   }
-  const int smem = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
-  if (smem > kMmaSmemMax) return kNoSmem;
-  niceonly_dense_mma_kernel<L><<<grid_for(lanes), kThreads, smem, s>>>(
-      start, classes, num_cls, lanes, valid_total, min_u, p, out);
   return 0;
+}
+
+// K4's tier (2 for DenseTier): pick_tier's, with DenseTier between the
+// small and the generic tier for the non-MMA kernel (K5 keeps pick_tier's).
+inline int dense_tier(const Plan& p, int mma) {
+  if (!mma && !SmallTier::fits(p) && DenseTier::fits(p)) return 2;
+  return pick_tier(p);
 }
 
 }  // namespace nice
@@ -442,7 +573,7 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  switch (pick_tier(p)) {
+  switch (dense_tier(p, mma)) {
     case 0:
       rc = launch_dense<SmallTier>(p, st, cl, (uint32_t)num_cls,
                                    (uint32_t)valid_total, min_uniques, o, mma,
@@ -453,9 +584,62 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
                                      (uint32_t)valid_total, min_uniques, o,
                                      mma, s);
       break;
+    case 2:
+      rc = launch_dense<DenseTier>(p, st, cl, (uint32_t)num_cls,
+                                   (uint32_t)valid_total, min_uniques, o, mma,
+                                   s);
+      break;
     default: return -1;
   }
   return rc ? rc : (int)cudaGetLastError();
+}
+
+// The shape a launch would take, from the same code the launch runs.
+// kernel 0: K1 (K5's detailed mode with mma = 1) over a = valid_total
+// lanes; 1: K2 over a lanes; 2: K3 over a lanes a row and b rows; 3: K4
+// (K5's dense mode with mma = 1) over a = num_cls classes and b =
+// valid_total lanes. out[0..4] = the grid's blocks, threads a block,
+// resident blocks an SM at that block size, the SMs, and the tier (0 small,
+// 1 generic, 2 dense). Returns 0, or what the launch would return for the
+// plan before launching (-1, kNoSmem).
+int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
+                      long long b, int mma, int* out) {
+  using namespace nice;
+  const Plan p = plan_from_words(plan_words);
+  const int tier = kernel == 3 ? dense_tier(p, mma) : pick_tier(p);
+  if (tier < 0) return -1;
+  Shape sh;
+  size_t smem;
+  uint32_t lanes;
+  int rc = 0;
+  switch (kernel * 3 + tier) {
+    case 0: rc = megaloop_shape<SmallTier>(p, a, mma, &sh, &smem); break;
+    case 1: rc = megaloop_shape<GenericTier>(p, a, mma, &sh, &smem); break;
+    case 3: sh = uniques_shape<SmallTier>(a); break;
+    case 4: sh = uniques_shape<GenericTier>(a); break;
+    case 6: sh = strided_shape<SmallTier>(a, (int)b); break;
+    case 7: sh = strided_shape<GenericTier>(a, (int)b); break;
+    case 9:
+      rc = dense_shape<SmallTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
+                                  &smem, &lanes);
+      break;
+    case 10:
+      rc = dense_shape<GenericTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
+                                    &smem, &lanes);
+      break;
+    case 11:
+      rc = dense_shape<DenseTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
+                                  &smem, &lanes);
+      break;
+    default: return -1;
+  }
+  if (rc) return rc;
+  out[0] = sh.grid;
+  out[1] = sh.threads;
+  out[2] = sh.blocks_per_sm;
+  out[3] = sh.sms;
+  out[4] = tier;
+  return (int)cudaGetLastError();
 }
 
 const char* nice_error_string(int code) {

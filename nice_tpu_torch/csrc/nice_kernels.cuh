@@ -15,16 +15,18 @@
 //     64-bit intermediates: chunks of base^e < 2^31 digits at a time, each
 //     step (rem << 32 | limb) / chunk_div done as a multiply-high by a
 //     host-computed reciprocal plus one correction (no hardware divide);
-//   * presence bits live in u32 mask words, counted with __popc.
+//   * a chunk's digits come off its remainder (< 2^31) in 32-bit arithmetic:
+//     one __umulhi by a host-computed magic and a shift per digit;
+//   * presence bits live in u64 mask words, counted with __popcll.
 // The plain PyTorch twin (nice_tpu_torch/ops/vector_engine.py) runs the same
 // steps in int64 carriers; both agree on every lane, in range or not.
 //
 // Everything per base is a runtime value (struct Plan), so one build serves
 // every base. Array capacities are template parameters of a tier: in the
-// small tier every loop runs to the constant capacity under a guard, is
-// fully unrolled, and the limb arrays stay in registers; the generic tier
-// loops to the runtime counts over arrays in local memory (slow, but right
-// for every base up to 2046).
+// small tier (and K4's dense tier) every loop over limbs runs to the
+// constant capacity under a guard, is fully unrolled, and the limb arrays
+// stay in registers; the generic tier loops to the runtime counts over
+// arrays in local memory (slow, but right for every base up to 2046).
 
 #pragma once
 
@@ -60,9 +62,11 @@ enum PlanWord {
   PW_CHUNK_E,
   PW_CHUNK_DIV,
   PW_CHUNK_MAGIC,
-  PW_BASE_MAGIC,
   PW_LOG2_FX,
   PW_RES_MAGIC,
+  PW_DIGIT_MAGIC,
+  PW_DIGIT_MAGIC_FULL,
+  PW_DIGIT_SHIFT,
   PW_COUNT
 };
 
@@ -78,9 +82,14 @@ struct Plan {
   int chunk_e;                      // digits per chunk division
   uint32_t chunk_div;               // base^chunk_e < 2^31
   uint64_t chunk_magic;             // floor((2^64 - 1) / chunk_div)
-  uint64_t base_magic;              // floor((2^64 - 1) / base)
   uint64_t log2_fx;                 // >= log2(base) * 2^kLog2FxBits
   uint64_t res_magic;               // floor((2^64 - 1) / (base - 1))
+  // One digit off x < 2^32 in 32-bit arithmetic (see div_base), with
+  // s = ceil(log2 base) - 1: digit_magic = ceil(2^(32 + s) / base) and
+  // digit_magic_full = floor(2^(33 + s) / base) + 1 - 2^32, both < 2^32.
+  uint32_t digit_magic;
+  uint32_t digit_magic_full;
+  int digit_shift;
 };
 
 // --------------------------------------------------------------------------
@@ -230,17 +239,36 @@ NICE_D uint32_t divmod_magic(uint64_t x, uint32_t c, uint64_t m, uint32_t* r) {
   return (uint32_t)q;
 }
 
+// x / base for x < 2^31: __umulhi(x, digit_magic) >> digit_shift. The
+// magic over-estimates 2^(32 + s) / base by e < base <= 2^(s + 1), so the
+// error term x * e / 2^(32 + s) stays below 1 while x < 2^31: exact there.
+NICE_D uint32_t div_base(uint32_t x, const Plan& p) {
+  return __umulhi(x, p.digit_magic) >> p.digit_shift;
+}
+
+// x / base for every x < 2^32 (Granlund and Montgomery's round-up magic:
+// M = 2^32 + digit_magic_full, l = s + 1, floor(x * M / 2^(32 + l)) is exact
+// on all of [0, 2^32)), with the add-and-shift fix-up that keeps the sum in
+// 32 bits.
+NICE_D uint32_t div_base_full(uint32_t x, const Plan& p) {
+  const uint32_t t = __umulhi(x, p.digit_magic_full);
+  return (t + ((x - t) >> 1)) >> p.digit_shift;
+}
+
 // Upper bound on the u32 limbs of base^rem_digits (ops/limbs.py
 // quotient_limbs): the dividend shrinks to it as digits are peeled.
 NICE_D int quotient_limbs(int rem_digits, uint64_t log2_fx) {
   return (int)((((uint64_t)rem_digits * log2_fx) >> kLog2FxBits) / 32) + 1;
 }
 
-// NL, SQL, CUL: limb capacities of n, n^2, n^3; NM: mask-word capacity.
+// NL, SQL, CUL: limb capacities of n, n^2, n^3; NM: capacity in u32 mask
+// words (the plan's n_masks), held as NW u64 words.
 // UNROLL: loop to the capacities (unrolled, register arrays) instead of the
 // runtime counts (local-memory arrays).
 template <int NL, int SQL, int CUL, int NM, bool UNROLL>
 struct Lane {
+  static constexpr int NW = (NM + 1) / 2;
+
   static bool fits(const Plan& p) {
     return p.limbs_n <= NL && p.limbs_sq <= SQL && p.limbs_cu <= CUL &&
            p.n_masks <= NM;
@@ -292,26 +320,41 @@ struct Lane {
     }
   }
 
-  // OR digit d's presence bit into word d >> 5; words past n_masks (a lane
-  // outside the base's range can yield such digits) are dropped.
-  static NICE_D void set_digit(uint32_t (&m)[NM], uint32_t d, const Plan& p) {
-    const uint32_t bit = 1u << (d & 31u);
-    const uint32_t w = d >> 5;
-    if constexpr (UNROLL) {
-      NICE_UNROLL
-      for (int i = 0; i < NM; ++i) {
-        if (w == (uint32_t)i && i < p.n_masks) m[i] |= bit;
-      }
+  // OR digit d's presence bit into word d >> 6, for d < base (every digit
+  // the peel yields but a value's leading one). The register tiers write
+  // both of their words without an index: a select by d >> 6 is one the
+  // compiler folds back into an indexed store, which puts the words in
+  // local memory.
+  static NICE_D void set_digit(uint64_t (&m)[NW], uint32_t d) {
+    if constexpr (UNROLL && NW == 1) {
+      m[0] |= 1ull << d;
+    } else if constexpr (UNROLL) {
+      static_assert(NW == 2, "a register tier holds at most 128 digits");
+      const uint64_t bit = 1ull << (d & 63u);
+      const uint64_t lo = d < 64u ? bit : 0ull;
+      m[0] |= lo;
+      m[1] |= bit ^ lo;
     } else {
-      if (w < (uint32_t)p.n_masks) m[w] |= bit;
+      m[d >> 6] |= 1ull << (d & 63u);
     }
   }
 
+  // The leading digit, which a lane outside the base's range can make any
+  // u32: digits past the plan's 32 * n_masks bits are dropped (as the plain
+  // version drops words past n_masks).
+  static NICE_D void set_top_digit(uint64_t (&m)[NW], uint32_t d,
+                                   const Plan& p) {
+    if (d < 32u * (uint32_t)p.n_masks) set_digit(m, d);
+  }
+
   // Peel ndig digits off the value in v[0..nl), destroying it. Inside the
-  // base's valid range the value has exactly ndig digits.
+  // base's valid range the value has exactly ndig digits. A chunk's
+  // remainder is below chunk_div < 2^31, so its digits come off by
+  // div_base; the last stage starts from v[0], which only inside the range
+  // is below base^chunk_e, so its first digit comes off by div_base_full.
   template <int L>
   static NICE_D void digits(uint32_t (&v)[L], int nl, int ndig, const Plan& p,
-                             uint32_t (&m)[NM]) {
+                             uint64_t (&m)[NW]) {
     int rem = ndig;
     NICE_PLAN_UNROLL
     while (rem > p.chunk_e) {
@@ -328,20 +371,25 @@ struct Lane {
       nl = nl < bound ? nl : bound;
       NICE_PLAN_UNROLL
       for (int t = 1; t < p.chunk_e; ++t) {
-        uint32_t d;
-        r = divmod_magic(r, p.base, p.base_magic, &d);
-        set_digit(m, d, p);
+        const uint32_t q = div_base(r, p);
+        set_digit(m, r - q * p.base);
+        r = q;
       }
-      set_digit(m, r, p);
+      set_digit(m, r);
     }
     uint32_t r = v[0];
-    NICE_PLAN_UNROLL
-    for (int t = 1; t < rem; ++t) {
-      uint32_t d;
-      r = divmod_magic(r, p.base, p.base_magic, &d);
-      set_digit(m, d, p);
+    if (rem > 1) {
+      const uint32_t q = div_base_full(r, p);
+      set_digit(m, r - q * p.base);
+      r = q;
     }
-    if (rem > 0) set_digit(m, r, p);
+    NICE_PLAN_UNROLL
+    for (int t = 2; t < rem; ++t) {
+      const uint32_t q = div_base(r, p);
+      set_digit(m, r - q * p.base);
+      r = q;
+    }
+    set_top_digit(m, r, p);
   }
 
   // a < b on the low limbs_n limbs, most significant limb first; b holds
@@ -589,16 +637,15 @@ struct Lane {
 
   static NICE_D int uniques_from(uint32_t (&sq)[SQL], uint32_t (&cu)[CUL],
                                  const Plan& p) {
-    uint32_t m[NM];
+    const int nw = (p.n_masks + 1) / 2;
+    uint64_t m[NW];
     NICE_UNROLL
-    for (int i = 0; i < (UNROLL ? NM : p.n_masks); ++i) m[i] = 0;
+    for (int i = 0; i < (UNROLL ? NW : nw); ++i) m[i] = 0;
     digits(sq, p.limbs_sq, p.d_sq, p, m);
     digits(cu, p.limbs_cu, p.d_cu, p, m);
     int u = 0;
     NICE_UNROLL
-    for (int i = 0; i < (UNROLL ? NM : p.n_masks); ++i) {
-      if (!UNROLL || i < p.n_masks) u += __popc(m[i]);
-    }
+    for (int i = 0; i < (UNROLL ? NW : nw); ++i) u += __popcll(m[i]);
     return u;
   }
 };
@@ -607,10 +654,14 @@ struct Lane {
 // SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
 // holds the main path's b40 and every benchmark base except hi-base (b80,
 // whose niceonly fields K3 runs in the generic tier).
+// DenseTier: K4's alone (its non-MMA kernel; dense_tier), sized to the
+// dense path's b98 plan (5/9/13 limbs, 4 mask words), with its limbs in
+// registers; it holds every base from b97 to b104 (from b105 n^3 takes 14
+// limbs).
 // GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;
-// at b2046, n/n^2/n^3 take 141/282/422 limbs); K4's niceonly fields (b98 and
-// up, 5/9/13 limbs at b98) run here.
+// at b2046, n/n^2/n^3 take 141/282/422 limbs); every other base above b55.
 typedef Lane<2, 4, 6, 2, true> SmallTier;
+typedef Lane<5, 9, 13, 4, true> DenseTier;
 typedef Lane<144, 288, 424, 64, false> GenericTier;
 
 inline Plan plan_from_words(const uint64_t* w) {
@@ -626,9 +677,11 @@ inline Plan plan_from_words(const uint64_t* w) {
   p.chunk_e = (int)w[PW_CHUNK_E];
   p.chunk_div = (uint32_t)w[PW_CHUNK_DIV];
   p.chunk_magic = w[PW_CHUNK_MAGIC];
-  p.base_magic = w[PW_BASE_MAGIC];
   p.log2_fx = w[PW_LOG2_FX];
   p.res_magic = w[PW_RES_MAGIC];
+  p.digit_magic = (uint32_t)w[PW_DIGIT_MAGIC];
+  p.digit_magic_full = (uint32_t)w[PW_DIGIT_MAGIC_FULL];
+  p.digit_shift = (int)w[PW_DIGIT_SHIFT];
   return p;
 }
 

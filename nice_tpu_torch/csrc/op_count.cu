@@ -11,10 +11,10 @@
 // of the per-lane arithmetic has a constant trip count and unrolls fully,
 // so each function is straight-line code and its instruction count is what
 // one lane issues, give or take the few instructions of index setup. The
-// constants also fold (divisors and reciprocals become immediates), and
-// K4's limbs stay in registers where its kernel keeps them in local memory
-// (the generic tier), so the count is no more than what the runtime-plan
-// kernels in nice_kernels.cu issue for a lane of that base.
+// constants also fold (divisors and reciprocals become immediates), and K4's
+// tier is its kernel's (the dense tier, limbs in registers), so the count is
+// no more than what the runtime-plan kernels in nice_kernels.cu issue for a
+// lane of that base.
 
 #include <stdint.h>
 

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import logging
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -76,28 +77,76 @@ def build_key(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _bind(lib) -> None:
+def bind(lib) -> None:
+    """Sets the argument and result types of the library's C functions
+    (those it has: a build of an older tree may lack the newer ones)."""
     c_void_p, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     words = ctypes.POINTER(ctypes.c_uint64)
-    lib.nice_detailed_megaloop.argtypes = [
-        words, c_void_p, c_longlong, c_longlong, c_void_p, c_void_p, c_int,
-        c_void_p,
-    ]
-    lib.nice_detailed_megaloop.restype = c_int
-    lib.nice_uniques.argtypes = [words, c_void_p, c_longlong, c_void_p, c_void_p]
-    lib.nice_uniques.restype = c_int
-    lib.nice_strided_niceonly.argtypes = [
-        words, c_void_p, c_longlong, c_void_p, c_longlong, c_longlong,
-        c_longlong, c_int, c_void_p, c_void_p,
-    ]
-    lib.nice_strided_niceonly.restype = c_int
-    lib.nice_niceonly_dense.argtypes = [
-        words, c_void_p, c_void_p, c_longlong, c_longlong, c_int, c_int,
-        c_void_p, c_void_p,
-    ]
-    lib.nice_niceonly_dense.restype = c_int
+    signatures = {
+        "nice_detailed_megaloop": [words, c_void_p, c_longlong, c_longlong,
+                                   c_void_p, c_void_p, c_int, c_void_p],
+        "nice_uniques": [words, c_void_p, c_longlong, c_void_p, c_void_p],
+        "nice_strided_niceonly": [words, c_void_p, c_longlong, c_void_p,
+                                  c_longlong, c_longlong, c_longlong, c_int,
+                                  c_void_p, c_void_p],
+        "nice_niceonly_dense": [words, c_void_p, c_void_p, c_longlong,
+                                c_longlong, c_int, c_int, c_void_p, c_void_p],
+        "nice_launch_shape": [c_int, words, c_longlong, c_longlong, c_int,
+                              ctypes.POINTER(c_int)],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = c_int
     lib.nice_error_string.argtypes = [c_int]
     lib.nice_error_string.restype = ctypes.c_char_p
+
+
+def ptxas_resources(log: str) -> list:
+    """ptxas's report (-Xptxas -v) per kernel entry: its mangled name,
+    bytes of stack frame, of spill stores and loads, and registers."""
+    out: list = []
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and "_kernel" in name:
+            out.append({"mangled": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["mangled"] == name:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_listing(path: str) -> dict:
+    """Per function of a compiled file (cubin or shared library), from
+    cuobjdump -sass: its instructions as (address, opcode without
+    modifiers, text), padding NOPs left out."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], check=True,
+                          capture_output=True, text=True).stdout
+    funcs: dict = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if not (m and name):
+            continue
+        toks = m.group(2).split()
+        op = (toks[1] if toks[0].startswith("@") else toks[0]).split(".")[0]
+        if op != "NOP":
+            funcs[name].append((int(m.group(1), 16), op, m.group(2)))
+    return funcs
 
 
 def load():
@@ -128,7 +177,7 @@ def load():
             os.replace(tmp, lib_path)
             log.info("built %s in %.1fs", lib_path, seconds)
         lib = ctypes.CDLL(lib_path)
-        _bind(lib)
+        bind(lib)
         ptxas = ""
         if os.path.isfile(log_path):
             with open(log_path) as f:

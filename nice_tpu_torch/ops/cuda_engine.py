@@ -63,6 +63,16 @@ def supports_base(plan: BasePlan) -> bool:
     return plan.base + 2 <= MAX_HIST_BINS
 
 
+def digit_magics(base: int) -> tuple[int, int, int]:
+    """The 32-bit magics of one digit step x // base (nice_kernels.cuh
+    div_base, div_base_full), with s = ceil(log2 base) - 1: (ceil(2^(32+s) /
+    base), exact for x < 2^31; floor(2^(33+s) / base) + 1 - 2^32, the round-
+    up magic less its 2^32 bit, exact for every x < 2^32; s)."""
+    s = (base - 1).bit_length() - 1
+    return (-(-(1 << (32 + s)) // base),
+            (1 << (33 + s)) // base + 1 - (1 << 32), s)
+
+
 @functools.lru_cache(maxsize=None)
 def plan_words(plan: BasePlan):
     """The kernels' per-base constants as a host uint64 array, in the
@@ -73,10 +83,33 @@ def plan_words(plan: BasePlan):
     words = [
         plan.base, plan.limbs_n, plan.limbs_sq, plan.limbs_cu,
         plan.d_sq, plan.d_cu, plan.n_masks, plan.near_miss_cutoff,
-        e, chunk_div, _U64_MAX // chunk_div, _U64_MAX // plan.base,
+        e, chunk_div, _U64_MAX // chunk_div,
         log2_fx(plan.base), _U64_MAX // (plan.base - 1),
+        *digit_magics(plan.base),
     ]
     return (ctypes.c_uint64 * len(words))(*words)
+
+
+# nice_launch_shape's kernel numbers.
+_SHAPE_KERNELS = {"detailed_megaloop": (0, 0), "uniques": (1, 0),
+                  "strided_niceonly": (2, 0), "niceonly_dense": (3, 0),
+                  "detailed_megaloop_mma": (0, 1), "niceonly_dense_mma": (3, 1)}
+_TIERS = ("small", "generic", "dense")
+
+
+def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
+    """The launch shape the kernel takes on the current card (from the code
+    its launch runs): grid blocks, threads a block, the blocks an SM holds
+    at once at that size, the SMs, and the tier. a and b as the launch
+    sees them: K1/K5 detailed and K2 a = lanes; K3 a = lanes a row, b =
+    rows; K4/K5 dense a = classes, b = valid_total."""
+    which, mma = _SHAPE_KERNELS[kernel]
+    lib = cuda_build.load()
+    out = (ctypes.c_int * 5)()
+    rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma, out)
+    _raise_on(lib, rc, f"{kernel} shape")
+    return {"grid": out[0], "threads": out[1], "blocks_per_sm": out[2],
+            "sms": out[3], "tier": _TIERS[out[4]]}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -30,7 +30,7 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("base", [10, 17, 40, 50, 80, 97, 510])
+@pytest.mark.parametrize("base", [10, 17, 40, 50, 80, 97, 98, 100, 510])
 def test_kernels_equal_plain_versions_on_card(card, base):
     plan = get_plan(base)
     rng = np.random.default_rng(base)
@@ -135,7 +135,7 @@ def _carry_start(plan, lanes: int) -> int:
     raise AssertionError(f"b{plan.base}: no limb carry inside the range")
 
 
-@pytest.mark.parametrize("base", [40, 98, 510])
+@pytest.mark.parametrize("base", [40, 98, 100, 510])
 def test_dense_kernel_equals_plain_version_on_card(card, base):
     plan = get_plan(base)
     batch = 256 if base == 510 else 1024
@@ -162,6 +162,49 @@ def test_dense_kernel_equals_plain_version_on_card(card, base):
                 if mu == min_u and not fused and where == "carry":
                     assert count > 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("base", [98, 100, 510])
+def test_dense_small_runs_equal_plain_version_on_card(card, base):
+    """K4 on runs with fewer kept lanes than 132 x 32 and lane counts that
+    are no multiple of a block, which take blocks of 64 threads (b98 and
+    b100 in the dense register tier, b510 in the generic one), and (fused,
+    below b510) on a full 2^21-lane run in blocks of 256."""
+    plan = get_plan(base)
+    st = ve.start_limbs_tensor(_carry_start(plan, 1 << 21), plan, card)
+    want_tier = "generic" if base == 510 else "dense"
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for fused in (True, False):
+        classes = ce.niceonly_classes(plan, fused, str(card))
+        num_cls = classes.shape[0]
+        full = [1 << 21] if fused and base < 510 else []
+        for valid in [1, 97, 4999, 100_003] + full:
+            shape = ce.launch_shape("niceonly_dense", plan, num_cls, valid)
+            lanes = num_cls * -(-valid // (base - 1))
+            assert shape["tier"] == want_tier
+            assert shape["threads"] == (64 if lanes < sms * 256 else 256)
+            assert shape["grid"] <= shape["blocks_per_sm"] * shape["sms"]
+            for mu in (base, (5 * base + 7) // 8):
+                got = ce.niceonly_dense_megaloop(plan, 1 << 21, 1, classes,
+                                                 st, valid, mu)
+                want = ve.niceonly_dense_megaloop(plan, 1 << 21, 1, classes,
+                                                  st, valid, mu)
+                assert torch.equal(got, want), (fused, valid, mu)
+    torch.cuda.synchronize()
+
+
+def test_k1_launch_is_one_resident_wave_on_card(card):
+    """K1's grid is the blocks each SM holds at once times the SMs for a
+    main-path segment (2^18 x 8 lanes), and one block per 256 lanes for a
+    small one."""
+    plan = get_plan(40)
+    big = ce.launch_shape("detailed_megaloop", plan, 1 << 21)
+    assert big["tier"] == "small" and big["threads"] == 256
+    assert big["grid"] == big["blocks_per_sm"] * big["sms"]
+    small = ce.launch_shape("detailed_megaloop", plan, 1000)
+    assert small["grid"] == 4
+    assert ce.launch_shape("niceonly_dense_mma", get_plan(98), 2,
+                           10_000)["tier"] == "generic"
 
 
 def test_dense_engine_on_card_equals_cpu(card):
