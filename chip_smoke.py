@@ -4,26 +4,33 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build, all started together: nvcc builds the kernels from csrc/, g++ the
-     host library of the niceonly path (native/), nvcc -cubin the op-count
-     source whose SASS bounds the kernels (see 10), and nvcc the probe of
-     the tensor cores' integer rate (csrc/imma_probe.cu); ptxas's registers,
-     stack and spills of every kernel instantiation, by kernel and tier (K4's
-     dense register tier must have neither stack nor spills), and the static
-     SASS count of each (cuobjdump);
+  2. build, all started together: nvcc builds the main library of kernels
+     from csrc/ and the per-base library (csrc/plan_kernels.cu: K2 and K3
+     on the plan tier) of each base of PLAN_BASES, g++ the host library of
+     the niceonly path (native/), nvcc -cubin the op-count source whose
+     SASS bounds the kernels (see 10) at b40 and at b80, and nvcc the
+     probe of the tensor cores' integer rate (csrc/imma_probe.cu); ptxas's
+     registers, stack and spills of every kernel instantiation of the main
+     library, by kernel and tier (K4's dense register tier must have
+     neither stack nor spills), the static SASS count of each (cuobjdump),
+     and each per-base build's nvcc seconds, registers, stack, spills and
+     the local loads and stores (LDL, STL) in its SASS (there must be
+     none);
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
-     range_start and from a start straddling a 2^32 limb carry;
-  4. strided vs plain: K3 (stride-descriptor niceonly counts) against its
-     plain version, exact, at b10, b17, b40, b50 and b80 with each base's
-     main-path stride shape: ragged runs, padded rows past n_real,
-     candidates across multiples of 2^32, 2^64 and 2^96, and at b10 the
-     descriptor holding 69, repeated, plus spans past the range's end. Each
-     table runs at the nice test (min_uniques = base) and at a threshold
-     about the median of num_uniques (check_min_uniques), where every row
-     counts many lanes: no number but 69 is nice, so only the second makes
-     a lost carry or a wrong range mask show;
+     range_start and from a start straddling a 2^32 limb carry; K2 runs on
+     the plan tier at every base to b97 and in the generic tier at b510;
+  4. strided vs plain: K3 (stride-descriptor niceonly counts, on the plan
+     tier) against its plain version, exact, at b10, b17, b40, b50, b80 and
+     b97 with each base's main-path stride shape: ragged runs, padded rows
+     past n_real, candidates across multiples of 2^32, 2^64 and 2^96 above
+     the range's middle, and at b10 the descriptor holding 69, repeated,
+     plus spans past the range's end. Each table runs at the nice test
+     (min_uniques = base) and at a threshold about the median of
+     num_uniques (check_min_uniques), where every row counts many lanes: no
+     number but 69 is nice, so only the second makes a lost carry or a
+     wrong range mask show;
   4b. dense vs plain: K4 (dense niceonly counts) against its plain version,
      exact, in both TPU modes (fused: the base's residue classes; unfused:
      all b-1) and at both thresholds, at b10 (from 47), b40, b98, b100, b510
@@ -88,12 +95,16 @@ Phases, each of which raises (exit code 1) on failure:
      CUDA events over back-to-back calls and by each kernel's own device
      time (torch.profiler), which the kernels line gives; each launch's
      shape (grid, threads, resident blocks an SM: K1's segment must be one
-     full wave, b98's K4 must run in the dense tier); K1's runtime-plan
-     SASS beside the constant-plan count; and
+     full wave, b98's K4 must run in the dense tier, K2 and K3 to b97 on the
+     plan tier); K3 over the b80 field's first group and K2 over a 2^18
+     sub-batch at b80 (plan tier) and b510 (generic tier), by device time;
+     K1's runtime-plan SASS beside the constant-plan count; and
      a bound from the instructions one lane issues in the compiled code
-     (csrc/op_count.cu built with the b40 plan and stride table, and the
-     b98 plan and class table, as constants, counted with cuobjdump; K5's
-     IMMAs at the rate the probe measures); then
+     (csrc/op_count.cu built with the b40 plan and stride table, and again
+     with b80's, and the b98 plan and class table, as constants, counted
+     with cuobjdump; K5's IMMAs at the rate the probe measures), at b510
+     from the multiplies the plan's shapes need (scripts/generic_bound.py,
+     held against the op-count lanes at b40 and b80); then
      the kernels' estimated share of each main-path field's time (launches
      x kernel time / field time), each niceonly field's split into MSD
      filter, collector and dispatch time, and each b98 field's into MSD
@@ -125,6 +136,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 BASES = (10, 17, 40, 50, 80, 97, 510)
 NICEONLY_BASES = (10, 17, 40, 50, 80)
+# K3's checks: the niceonly bases and b97, the plan tier's 4-limb edge.
+STRIDED_BASES = NICEONLY_BASES + (97,)
+# The bases whose per-base library (K2, K3 on the plan tier) the build
+# phase builds: every base of BASES to b97.
+PLAN_BASES = tuple(b for b in BASES if b <= 97)
 # K4's checks: b99 keeps no residue class (no launch), the others span the
 # small tier (b10, b40) and the generic one (b98 and up, 5+ limbs).
 DENSE_BASES = (10, 40, 98, 100, 510, 99)
@@ -174,7 +190,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# When the run started (main sets it): each phase line carries its seconds
+# since then, so that the smoke's own time can be split by phase.
+T_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_secs": time.monotonic() - T_START}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -192,7 +215,8 @@ def nvidia_smi(query: str) -> str:
 
 def sass_counts(plan, table, dense_plan) -> dict:
     """Instructions one lane of each kernel issues, read from the compiled
-    code: K1-K3 at `plan`'s base (K3 with this stride table), K4 at
+    code: K1-K3 and K5's detailed mode at `plan`'s base (their plan tier's
+    lane; K3 with this stride table), K4 and K5's dense mode at
     dense_plan's (with its fused class table). nvcc builds csrc/op_count.cu
     with the plans as compile-time constants (every loop unrolls, so each
     function there is straight-line) and cuobjdump lists its SASS (see
@@ -203,17 +227,16 @@ def sass_counts(plan, table, dense_plan) -> dict:
     nvcc = cuda_build.find_nvcc()
     dp = dense_plan
     with tempfile.TemporaryDirectory(prefix="nice-op-count-") as tmp:
-        with open(os.path.join(tmp, "op_count_plan.h"), "w") as f:
-            words = ", ".join(f"{w}ull" for w in ce.plan_words(plan))
-            dense_words = ", ".join(f"{w}ull" for w in ce.plan_words(dp))
-            n_cls = ce.niceonly_classes(dp, True, "cpu").shape[0]
-            f.write(f"#define NICE_PLAN {words}\n"
-                    f"#define NICE_K3_R {table.num_residues}u\n"
-                    f"#define NICE_K3_M {table.modulus}u\n"
-                    f"#define NICE_K4_PLAN {dense_words}\n"
-                    f"#define NICE_K4_TIER {dp.limbs_n}, {dp.limbs_sq}, "
-                    f"{dp.limbs_cu}, {dp.n_masks}\n"
-                    f"#define NICE_K4_R {n_cls}u\n")
+        with open(os.path.join(tmp, cuda_build.PLAN_HEADER), "w") as f:
+            r = table.num_residues
+            f.write(ce.plan_header(
+                plan, NICE_K3_R=f"{r}u",
+                NICE_K3_DIV="{}u, {}, {}".format(*ce.u32_divisor(r)),
+                NICE_K3_M=f"{table.modulus}u",
+                NICE_K4_PLAN=", ".join(f"{w}ull" for w in ce.plan_words(dp)),
+                NICE_K4_TIER=f"{dp.limbs_n}, {dp.limbs_sq}, {dp.limbs_cu}, "
+                             f"{dp.n_masks}",
+                NICE_K4_R=f"{ce.niceonly_classes(dp, True, 'cpu').shape[0]}u"))
         cubin = os.path.join(tmp, "op_count.cubin")
         subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -229,7 +252,7 @@ def sass_counts(plan, table, dense_plan) -> dict:
 # Lane<NL, SQL, CUL, NM, UNROLL> of nice_kernels.cuh by its template
 # arguments, as they appear in a mangled kernel name.
 TIERS = {"LaneILi2ELi4ELi6ELi2ELb1E": "small", "LaneILi5ELi9ELi13ELi4ELb1E": "dense",
-         "LaneILi144ELi288ELi424ELi64ELb0E": "generic"}
+         "LaneILi144ELi288ELi424ELi64ELb0E": "generic", "8PlanTier": "plan"}
 
 
 def kernel_label(mangled: str) -> tuple[str, str]:
@@ -386,33 +409,65 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 # Phases
 # --------------------------------------------------------------------------
 
-def phase_build(report: dict, tmp: str) -> tuple[dict, str]:
-    """The builds, all started together: the kernels (nvcc), the niceonly
-    path's host library (g++), the op-count source (nvcc -cubin, counted
-    with cuobjdump) and the tensor-core rate probe (nvcc, into tmp).
-    Returns the op counts per lane and the probe's library for
-    phase_timing."""
+def plan_build_facts(base: int, info: dict) -> dict:
+    """One per-base build's facts: nvcc seconds, and per kernel ptxas's
+    registers, stack and spills and the LDL/STL in its SASS."""
+    from nice_tpu_torch.ops import cuda_build
+
+    sass = cuda_build.sass_listing(info["path"])
+    kernels = []
+    for r in cuda_build.ptxas_resources(info["ptxas"]):
+        ins = sass.get(r["mangled"], [])
+        kernels.append({
+            "kernel": kernel_label(r["mangled"])[0],
+            "registers": r.get("registers"), "stack": r["stack"],
+            "spill_stores": r["spill_stores"], "spill_loads": r["spill_loads"],
+            "LDL": sum(op == "LDL" for _, op, _ in ins),
+            "STL": sum(op == "STL" for _, op, _ in ins), "static": len(ins)})
+    return {"base": base, "nvcc_secs": info["seconds"], "kernels": kernels}
+
+
+def _timed(fn, *args):
+    t0 = time.monotonic()
+    out = fn(*args)
+    return out, time.monotonic() - t0
+
+
+def phase_build(report: dict, tmp: str) -> dict:
+    """The builds, all started together: the main library of kernels
+    (nvcc), the niceonly path's host library (g++), the per-base library of
+    each base of PLAN_BASES (nvcc; each with its facts, plan_build_facts),
+    the op-count source at b40 and at b80 (nvcc -cubin, counted with
+    cuobjdump) and the tensor-core rate probe (nvcc, into tmp). Returns
+    the op counts (with K1's runtime-plan SASS counts) and the probe's
+    library for phase_timing."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nice_tpu_torch import native
     from nice_tpu_torch.ops import cuda_build, engine
+    from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops.limbs import get_plan
 
-    def timed(fn, *args):
-        t0 = time.monotonic()
-        out = fn(*args)
-        return out, time.monotonic() - t0
+    def plan_build(base: int) -> dict:
+        info, secs = _timed(cuda_build.build_plan,
+                            ce.plan_header(get_plan(base)))
+        return dict(plan_build_facts(base, info), secs=secs)
 
     s = engine.strided_setup(SERVER_BASE, SERVER_FIELD_SIZE)
+    s80 = engine.strided_setup(80, SERVER_FIELD_SIZE)
+    dp = get_plan(DENSE_BASE)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        kernels = pool.submit(timed, cuda_build.load)
-        host = pool.submit(timed, native.load)
-        counted = pool.submit(timed, sass_counts, s.plan, s.table,
-                              get_plan(DENSE_BASE))
-        probe = pool.submit(timed, build_imma_probe, tmp)
+    with ThreadPoolExecutor(max_workers=5 + len(PLAN_BASES)) as pool:
+        kernels = pool.submit(_timed, cuda_build.load)
+        host = pool.submit(_timed, native.load)
+        plans = [pool.submit(plan_build, b) for b in PLAN_BASES]
+        counted = pool.submit(_timed, sass_counts, s.plan, s.table, dp)
+        counted80 = pool.submit(sass_counts, s80.plan, s80.table, dp)
+        probe = pool.submit(_timed, build_imma_probe, tmp)
         (_, t_kernels), (_, t_host) = kernels.result(), host.result()
+        builds = [f.result() for f in plans]
         counts, t_counted = counted.result()
+        counts80 = counted80.result()
         probe_lib, t_probe = probe.result()
     wall = time.monotonic() - t0
     info = cuda_build.BUILD_INFO
@@ -421,20 +476,27 @@ def phase_build(report: dict, tmp: str) -> tuple[dict, str]:
     sass = runtime_sass(info["path"])
     report["build"] = {"nvcc_secs": info["seconds"], "kernels_secs": t_kernels,
                        "gxx_secs": native.BUILD_INFO["seconds"],
-                       "host_library_secs": t_host,
+                       "host_library_secs": t_host, "plan_builds": builds,
                        "op_count_secs": t_counted, "probe_secs": t_probe,
                        "wall_secs": wall, "ptxas": resources,
                        "runtime_sass": list(sass.values())}
     emit({"phase": "build", **report["build"]})
-    # K4's register tier exists to keep b98's limbs out of local memory.
+    # K4's register tier exists to keep b98's limbs out of local memory,
+    # and the plan tier every base's to b97.
     dense = [r for r in resources if r["tier"] == "dense"]
     check(len(dense) == 1 and dense[0]["kernel"] == "niceonly_dense_kernel"
           and dense[0]["stack"] == dense[0]["spill_stores"] == 0,
           f"K4's dense tier: {dense}")
+    for pb in builds:
+        check(sorted(k["kernel"] for k in pb["kernels"])
+              == ["strided_niceonly_kernel", "uniques_kernel"]
+              and all(k["stack"] == k["spill_stores"] == k["LDL"] == k["STL"]
+                      == 0 for k in pb["kernels"]),
+              f"b{pb['base']}'s per-base build: {pb}")
     counts["k1_runtime"] = next(
         v for v in sass.values()
         if v["kernel"] == "detailed_megaloop_kernel" and v["tier"] == "small")
-    return counts, probe_lib
+    return {"counts": counts, "counts80": counts80, "probe_lib": probe_lib}
 
 
 def _straddle_start(plan, lanes: int) -> int:
@@ -454,10 +516,12 @@ def phase_kernel_vs_plain(report: dict) -> None:
     rng = np.random.default_rng(SEED)
     diff = {"detailed_megaloop": 0, "uniques": 0}
     checked = {"detailed_megaloop": 0, "uniques": 0}
+    k2_tiers = {}
     t0 = time.monotonic()
     for base in BASES:
         plan = get_plan(base)
         batch = 128 if base == 510 else 256
+        k2_tiers[base] = ce.launch_shape("uniques", plan, batch)["tier"]
         for start in (plan.range_start, _straddle_start(plan, batch)):
             st = ve.start_limbs_tensor(start, plan, dev)
             for n_iters in (1, 3):
@@ -489,10 +553,12 @@ def phase_kernel_vs_plain(report: dict) -> None:
     torch.cuda.synchronize()
     report["kernel_vs_plain"] = {
         "bases": list(BASES), "max_abs_diff": diff, "cases": checked,
-        "secs": time.monotonic() - t0,
+        "k2_tiers": k2_tiers, "secs": time.monotonic() - t0,
     }
     emit({"phase": "kernel_vs_plain", **report["kernel_vs_plain"]})
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
+    check(all(t == ("plan" if b in PLAN_BASES else "generic")
+              for b, t in k2_tiers.items()), f"K2's tiers: {k2_tiers}")
 
 
 def _desc_tensor(rows, n_pad: int, rng, dev):
@@ -540,7 +606,9 @@ def _k3_pair(s, desc, n_real: int, dev, min_uniques: int):
 def _strided_rows(s, rng) -> tuple[list, int]:
     """(n0, lo, hi) rows of the kernel-vs-plain cases at one base, with the
     base's main-path stride shape, and how many of them (the last) cross a
-    multiple of 2^32, 2^64 or 2^96."""
+    multiple of 2^32, 2^64 or 2^96: the first above the range's middle (near
+    a range's start the squares lead with zeros, and at b97 num_uniques
+    stays below check_min_uniques for the first 2^29 numbers)."""
     plan, m = s.plan, s.table.modulus
     span = s.periods * m
     start, end = plan.range_start, plan.range_end
@@ -564,8 +632,9 @@ def _strided_rows(s, rng) -> tuple[list, int]:
             rows.append((n0, lo, hi))
             n0 += span
     n_carry = 0
+    mid = (start + end) // 2
     for width in (32, 64, 96):  # candidates across a multiple of 2^width
-        boundary = ((start >> width) + 1) << width
+        boundary = ((mid >> width) + 1) << width
         if start < boundary < end - span:
             n0 = (boundary - span // 2) // m * m
             rows.append((n0, max(n0, start), n0 + span))
@@ -576,18 +645,22 @@ def _strided_rows(s, rng) -> tuple[list, int]:
 def phase_strided_vs_plain(report: dict) -> None:
     import torch
 
+    from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops import engine
 
     dev = torch.device(DEVICE)
     rng = random.Random(SEED)
     cases, diff, hits = [], 0, 0
     t0 = time.monotonic()
-    for base in NICEONLY_BASES:
+    for base in STRIDED_BASES:
         s = engine.strided_setup(base, SERVER_FIELD_SIZE)
         rows, n_carry = _strided_rows(s, rng)
         desc = _desc_tensor(rows, 2, rng, dev)
         case = {"base": base, "k": s.k, "periods": s.periods,
-                "rows": len(rows), "carry_rows": n_carry}
+                "rows": len(rows), "carry_rows": n_carry,
+                "tier": ce.launch_shape(
+                    "strided_niceonly", s.plan,
+                    s.periods * s.table.num_residues, len(rows))["tier"]}
         for key, min_u in (("nice", base), ("median", check_min_uniques(base))):
             got, d = _k3_pair(s, desc, len(rows), dev, min_u)
             diff = max(diff, d)
@@ -603,6 +676,7 @@ def phase_strided_vs_plain(report: dict) -> None:
                                   "hits": hits, "secs": time.monotonic() - t0}
     emit({"phase": "strided_vs_plain", **report["strided_vs_plain"]})
     check(diff == 0, f"K3 != plain: {cases}")
+    check(all(c["tier"] == "plan" for c in cases), f"K3 off the plan tier: {cases}")
     check(cases[0]["nice"]["counted"] >= 64, f"b10 rows lost 69: {cases[0]}")
     for c in cases:
         # The median threshold must make the comparison see real counts: in
@@ -1552,11 +1626,29 @@ def phase_main_shapes(report: dict) -> None:
           f"the first run outside K4's dense tier: {dense_cases}")
 
 
-def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
-                 clk_mhz: float) -> list:
+def _in_range_lanes(s, cols, n_real: int) -> int:
+    """The candidates of a descriptor group inside their rows' [lo, hi):
+    the stride table's count over each row's clipped span (the lanes that
+    reach the digit work)."""
+    from nice_tpu_torch.core.types import FieldSize
+    from nice_tpu_torch.ops import engine
+
+    span = s.periods * s.table.modulus
+    total = 0
+    for g in range(n_real):
+        n0, lo, hi = (engine.desc_value(cols, j, g) for j in range(3))
+        a, b = max(lo, n0), min(hi, n0 + span)
+        if a < b:
+            total += s.table.count_candidates(FieldSize(a, b))
+    return total
+
+
+def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
+    """Device times, plain times and bounds at the main path's shapes (the
+    module note's phase 10); `built` holds phase_build's op counts and
+    probe library."""
     import torch
 
-    from nice_tpu_torch.core.types import FieldSize
     from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops import engine
     from nice_tpu_torch.ops import vector_engine as ve
@@ -1601,6 +1693,24 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     def k3_b80():
         ce.strided_niceonly_batch(s8.plan, s8.table.modulus, res8, s8.periods,
                                   desc8, len(cols8[0]))
+
+    # K2 over a 2^18 sub-batch at b80 (plan tier, from the b80 field's
+    # start) and at b510 (generic tier, from its range start).
+    p80, p510 = get_plan(80), get_plan(510)
+    b80_start = next(r["range_start"] for r in
+                     report["full_width_niceonly"]["fields"]
+                     if r["field"] == "b80-surviving")
+    st80 = ve.start_limbs_tensor(b80_start, p80, dev)
+    st510 = ve.start_limbs_tensor(p510.range_start, p510, dev)
+
+    def k2_b80():
+        ce.uniques_batch(p80, lanes_k2, st80)
+
+    def p2_b80():
+        ve.uniques_batch(p80, lanes_k2, st80)
+
+    def k2_b510():
+        ce.uniques_batch(p510, lanes_k2, st510)
 
     # K4: the b98 field's median run (its typical one), in the fused mode
     # the main path runs, and a full run of batch * seg lanes from its start.
@@ -1661,6 +1771,9 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     k3_b = time_cuda(k3, reps=20)
     p3_b = time_cuda(p3, reps=2, warmup=0)
     k3_b80_ms = time_cuda(k3_b80, reps=10)
+    p2_b80_a = time_cuda(p2_b80, reps=2, warmup=1)
+    k2_b80_ms = time_cuda(k2_b80, reps=50)
+    p2_b80_b = time_cuda(p2_b80, reps=2, warmup=0)
     p4_a = time_cuda(p4, reps=2, warmup=1)
     k4_a = time_cuda(k4, reps=50)
     k4_b = time_cuda(k4, reps=50)
@@ -1678,6 +1791,9 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     dev = {"k1": device_ms(k1, 20, "detailed_megaloop_kernel"),
            "k2": device_ms(k2, 50, "uniques_kernel"),
            "k3": device_ms(k3, 10, "strided_niceonly_kernel"),
+           "k3_b80": device_ms(k3_b80, 10, "strided_niceonly_kernel"),
+           "k2_b80": device_ms(k2_b80, 50, "uniques_kernel"),
+           "k2_b510": device_ms(k2_b510, 5, "uniques_kernel"),
            "k4": device_ms(k4, 50, "niceonly_dense_kernel"),
            "k4_full": device_ms(lambda: k4(lanes_k1), 20,
                                 "niceonly_dense_kernel"),
@@ -1692,6 +1808,11 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
         "k2": ce.launch_shape("uniques", plan, lanes_k2),
         "k3": ce.launch_shape("strided_niceonly", s3.plan,
                               s3.periods * s3.table.num_residues, n_real),
+        "k3_b80": ce.launch_shape("strided_niceonly", s8.plan,
+                                  s8.periods * s8.table.num_residues,
+                                  len(cols8[0])),
+        "k2_b80": ce.launch_shape("uniques", p80, lanes_k2),
+        "k2_b510": ce.launch_shape("uniques", p510, lanes_k2),
         "k4": ce.launch_shape("niceonly_dense", dplan, n_cls, d_valid),
         "k4_full": ce.launch_shape("niceonly_dense", dplan, n_cls, lanes_k1),
         "k5": ce.launch_shape("detailed_megaloop_mma", plan, lanes_k1),
@@ -1702,11 +1823,15 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
           f"K1's segment is not one resident wave: {shapes['k1']}")
     check(shapes["k4"]["tier"] == "dense" and shapes["k4_full"]["tier"] == "dense",
           f"b98's K4 runs outside the dense tier: {shapes['k4']}")
+    check(all(shapes[k]["tier"] == "plan" for k in ("k2", "k3", "k3_b80", "k2_b80"))
+          and shapes["k2_b510"]["tier"] == "generic",
+          f"K2/K3 tiers: {shapes}")
     # The tensor class's rate: the IMMA instructions an SM completes a
     # clock (the probe), 32 lanes each, as the other classes count lanes.
+    counts, counts80 = built["counts"], built["counts80"]
     check(counts["k5_detailed_lane"]["classes"].get("tensor", 0) > 0,
           "K5's lane issues no IMMA")
-    probe = imma_rate(probe_lib, sms, clk_mhz)
+    probe = imma_rate(built["probe_lib"], sms, clk_mhz)
     CLASS_LANES_PER_SM_CLK["tensor"] = 32 * probe["imma_per_sm_clk"]
     c5 = lane_cycles(counts["k5_detailed_lane"])
     c5d = lane_cycles(counts["k5_dense_lane"])
@@ -1730,15 +1855,53 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
     # K3's work depends on the data: only candidates inside [lo, hi) reach
     # the digit work, so the bound counts those (the stride table's count
     # over each row's clipped span) at the full lane's instructions.
-    span = s3.periods * m3
-    in_range = 0
-    for g in range(n_real):
-        n0, lo, hi = (engine.desc_value(cols, j, g) for j in range(3))
-        a, b = max(lo, n0), min(hi, n0 + span)
-        if a < b:
-            in_range += s3.table.count_candidates(FieldSize(a, b))
+    in_range = _in_range_lanes(s3, cols, n_real)
     b3 = bound_ms(in_range, c3, 8 * 12 * n_real + 8 * s3.table.num_residues
                   + 4 * desc.shape[0], sms, clk_mhz)
+    # K3 and K2 at b80: the lanes of op_count.cu built with b80's plan.
+    c3_80, c2_80 = (lane_cycles(counts80[k]) for k in ("k3_lane", "k2_lane"))
+    in_range8 = _in_range_lanes(s8, cols8, len(cols8[0]))
+    b3_80 = bound_ms(in_range8, c3_80, 8 * 12 * len(cols8[0])
+                     + 8 * s8.table.num_residues + 4 * desc8.shape[0], sms,
+                     clk_mhz)
+    b2_80 = bound_ms(lanes_k2, c2_80, 8 * p80.limbs_n + 4 * lanes_k2, sms,
+                     clk_mhz)
+    # b510, in the generic tier: the multiplies a lane needs at b510's
+    # shapes (scripts/generic_bound.py). The same count at b40 and b80 walks
+    # exactly the constant-plan lanes' limb steps (IMAD.WIDE.U32.X) and
+    # digit divisions (IMAD.HI.U32) and stays under their multiply-adds.
+    from nice_tpu_torch.scripts import generic_bound as gb
+
+    imma = probe["imma_per_mma"]
+    held = {}
+    for name, p, lane, kernel in (
+            ("k1_b40", plan, counts["k1_lane"], "detailed_megaloop_kernel"),
+            ("k2_b40", plan, counts["k2_lane"], "uniques_kernel"),
+            ("k2_b80", p80, counts80["k2_lane"], "uniques_kernel"),
+            ("k5_b40", plan, counts["k5_detailed_lane"],
+             "detailed_megaloop_mma_kernel")):
+        need = gb.lane_ops(p, kernel, imma)
+        ops = lane["opcodes"]
+        held[name] = {"need": need, "lane_multiply_add":
+                      lane["classes"]["multiply-add"],
+                      "need_cycles": lane_cycles(need),
+                      "lane_cycles": lane_cycles(lane)}
+        check(need["steps"]["limb_steps"] == ops.get("IMAD.WIDE.U32.X", 0)
+              and need["steps"]["digit_steps"] == ops.get("IMAD.HI.U32", 0)
+              and need["classes"]["multiply-add"]
+              <= lane["classes"]["multiply-add"]
+              and need["classes"].get("tensor", 0)
+              == lane["classes"].get("tensor", 0),
+              f"generic_bound's count against the {name} lane: {held[name]}")
+    wide_need = {k: gb.lane_ops(wide, k, imma) for k in gb.KERNELS}
+    c_wide = {k: lane_cycles(v) for k, v in wide_need.items()}
+    hist_bytes = 8 * wide.limbs_n + 2 * 4 * (wide.base + 2) + 4
+    b2_510 = bound_ms(lanes_k2, c_wide["uniques_kernel"],
+                      8 * wide.limbs_n + 4 * lanes_k2, sms, clk_mhz)
+    b1_510 = bound_ms(lanes_k1, c_wide["detailed_megaloop_kernel"], hist_bytes,
+                      sms, clk_mhz)
+    b5_510 = bound_ms(lanes_k1, c_wide["detailed_megaloop_mma_kernel"],
+                      hist_bytes, sms, clk_mhz)
     # K5 moves K1's and K4's bytes; its work is K1's lanes (K4's kept ones).
     b5 = bound_ms(lanes_k1, c5, 8 * plan.limbs_n + 2 * 4 * (plan.base + 2) + 4,
                   sms, clk_mhz)
@@ -1762,7 +1925,21 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
                "lane_cycles": c3, "bound_ms": b3[0], "bound_by": b3[1]},
         "k3_b80": {"rows": len(cols8[0]), "k": s8.k, "periods": s8.periods,
                    "lanes": len(cols8[0]) * s8.periods * s8.table.num_residues,
-                   "ms": k3_b80_ms},
+                   "lanes_in_range": in_range8, "ms": k3_b80_ms,
+                   "device_ms": dev["k3_b80"], "shape": shapes["k3_b80"],
+                   "sass": counts80["k3_lane"], "lane_cycles": c3_80,
+                   "bound_ms": b3_80[0], "bound_by": b3_80[1]},
+        "k2_b80": {"lanes": lanes_k2, "start": b80_start, "ms": k2_b80_ms,
+                   "device_ms": dev["k2_b80"], "plain_ms": [p2_b80_a, p2_b80_b],
+                   "shape": shapes["k2_b80"], "sass": counts80["k2_lane"],
+                   "lane_cycles": c2_80, "bound_ms": b2_80[0],
+                   "bound_by": b2_80[1]},
+        # b510's bound: the multiplies the plan's shapes need.
+        "k2_b510": {"lanes": lanes_k2, "start": p510.range_start,
+                    "device_ms": dev["k2_b510"], "shape": shapes["k2_b510"],
+                    "lane_need": wide_need["uniques_kernel"],
+                    "lane_cycles": c_wide["uniques_kernel"],
+                    "bound_ms": b2_510[0], "bound_by": b2_510[1]},
         "k4": {"base": DENSE_BASE, "start": d_start, "valid": d_valid,
                "kept": kept4, "classes": n_cls,
                "ms": [k4_a, k4_b], "device_ms": dev["k4"],
@@ -1790,25 +1967,33 @@ def phase_timing(report: dict, counts: dict, probe_lib: str, sms: int,
                               "ms": k5d_full_ms, "device_ms": dev["k5d_full"],
                               "bound_ms": b5d_full[0],
                               "bound_by": b5d_full[1]},
-        "b510_segment": {"lanes": lanes_k1, "start": wide.range_start,
-                         "k1_ms": [k1_b510_a, k1_b510_b],
-                         "k5_ms": [k5_b510_a, k5_b510_b]},
+        "b510_segment": {
+            "lanes": lanes_k1, "start": wide.range_start,
+            "k1_ms": [k1_b510_a, k1_b510_b],
+            "k1_lane_need": wide_need["detailed_megaloop_kernel"],
+            "k1_lane_cycles": c_wide["detailed_megaloop_kernel"],
+            "k1_bound_ms": b1_510[0], "k1_bound_by": b1_510[1],
+            "k5_ms": [k5_b510_a, k5_b510_b],
+            "k5_lane_need": wide_need["detailed_megaloop_mma_kernel"],
+            "k5_lane_cycles": c_wide["detailed_megaloop_mma_kernel"],
+            "k5_bound_ms": b5_510[0], "k5_bound_by": b5_510[1]},
+        "need_vs_lanes": held,
     }
     emit({"phase": "timing", **report["timing"]})
-    # The kernels line gives each kernel's device time.
+    # The kernels line gives each kernel's device time and tier.
     return [
         ("detailed_megaloop", "nice_tpu/ops/pallas_engine.py:181",
-         dev["k1"], min(p1_a, p1_b), b1),
+         dev["k1"], min(p1_a, p1_b), b1, shapes["k1"]["tier"]),
         ("uniques", "nice_tpu/ops/pallas_engine.py:466",
-         dev["k2"], min(p2_a, p2_b), b2),
+         dev["k2"], min(p2_a, p2_b), b2, shapes["k2"]["tier"]),
         ("strided_niceonly", "nice_tpu/ops/pallas_engine.py:410",
-         dev["k3"], min(p3_a, p3_b), b3),
+         dev["k3"], min(p3_a, p3_b), b3, shapes["k3"]["tier"]),
         ("niceonly_dense", "nice_tpu/ops/pallas_engine.py:181",
-         dev["k4"], min(p4_a, p4_b), b4),
+         dev["k4"], min(p4_a, p4_b), b4, shapes["k4"]["tier"]),
         ("detailed_megaloop_mma", "nice_tpu/ops/pallas_engine.py:181",
-         dev["k5"], min(p5_a, p5_b), b5),
+         dev["k5"], min(p5_a, p5_b), b5, shapes["k5"]["tier"]),
         ("niceonly_dense_mma", "nice_tpu/ops/pallas_engine.py:181",
-         dev["k5d"], min(p5d_a, p5d_b), b5d),
+         dev["k5d"], min(p5d_a, p5d_b), b5d, shapes["k5d"]["tier"]),
     ]
 
 
@@ -1875,7 +2060,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import nice_tpu_torch  # noqa: F401  (fails outside the repository)
 
-    t_start = time.monotonic()
+    global T_START
+    t_start = T_START = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="nice-chip-smoke-")
     try:
         return _run(args, t_start, tmp)
@@ -1894,7 +2080,7 @@ def _run(args, t_start: float, tmp: str) -> int:
                     "clk_max_mhz": clk_mhz}
     emit(f"card: {card} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
-    counts, probe_lib = phase_build(report, tmp)
+    built = phase_build(report, tmp)
     phase_kernel_vs_plain(report)
     phase_strided_vs_plain(report)
     phase_dense_vs_plain(report)
@@ -1906,9 +2092,9 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_tuned(report, tmp)
     phase_server(report)
     phase_main_shapes(report)
-    timed = phase_timing(report, counts, probe_lib, sms, clk_mhz)
+    timed = phase_timing(report, built, sms, clk_mhz)
     phase_profile(report)
-    kernel_ms = {name: ms for name, _, ms, _, _ in timed}
+    kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())
         run["kernel_ms_est"] = est
@@ -1917,7 +2103,7 @@ def _run(args, t_start: float, tmp: str) -> int:
               "elapsed_ms": run["elapsed_secs"] * 1e3, "kernel_ms_est": est,
               "kernel_share_est": run["kernel_share_est"]})
     k3_group_ms = {SERVER_BASE: kernel_ms["strided_niceonly"],
-                   80: report["timing"]["k3_b80"]["ms"]}
+                   80: report["timing"]["k3_b80"]["device_ms"]}
     for run in report["full_width_niceonly"]["fields"]:
         # The pipeline's stages overlap: wall ~ the slowest of the MSD pool
         # (msd_busy over its threads), the dispatcher (gen + disp + put) and
@@ -1961,7 +2147,7 @@ def _run(args, t_start: float, tmp: str) -> int:
               "kernel_ms_est": est})
 
     kernel_bases = {"detailed_megaloop": BASES, "uniques": BASES,
-                    "strided_niceonly": NICEONLY_BASES,
+                    "strided_niceonly": STRIDED_BASES,
                     "niceonly_dense": DENSE_BASES,
                     "detailed_megaloop_mma": BASES,
                     "niceonly_dense_mma": DENSE_BASES}
@@ -1974,11 +2160,12 @@ def _run(args, t_start: float, tmp: str) -> int:
                     niceonly_dense=report["dense_vs_plain"]["max_abs_diff"],
                     **k5_diff)
     kernels = []
-    for name, replaces, ms, plain_ms, (b_ms, b_by) in timed:
+    for name, replaces, ms, plain_ms, (b_ms, b_by), tier in timed:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "nice_tpu_torch/csrc/nice_kernels.cu",
-            "replaces": replaces,
+            "source": "nice_tpu_torch/csrc/" + (
+                "plan_kernels.cu" if tier == "plan" else "nice_kernels.cu"),
+            "tier": tier, "replaces": replaces,
             "launches": report["main_path_launches"][name],
             "max_abs_err": max(vs_plain[name],
                                report["main_shapes"]["max_abs_diff"][name]),

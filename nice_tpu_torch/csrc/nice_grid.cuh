@@ -1,0 +1,153 @@
+// The grid-stride kernels that both libraries instantiate, and how a launch
+// is shaped: K1 (detailed_megaloop_kernel) and K2 (uniques_kernel). The main
+// library (nice_kernels.cu) builds them on its runtime-plan tiers, the
+// per-base library (plan_kernels.cu) K2 on the plan tier (and K1 there as a
+// variant to time). nice_kernels.cu's note says what each replaces.
+//
+// A kernel takes its plan from L::plan(p): the runtime plan for the
+// runtime tiers, the constant one for PlanTier.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "nice_kernels.cuh"
+
+namespace nice {
+
+constexpr int kThreads = 256;
+
+// K1: each block builds a histogram of base+2 bins in shared memory over its
+// lanes of a grid-stride loop and flushes it with one global atomic per bin;
+// the near-miss count is reduced per warp, then per block. Padding lanes
+// are not computed: their count goes into bin 0 once.
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+detailed_megaloop_kernel(const int64_t* __restrict__ start, int64_t valid_total,
+                         int64_t pad, Plan rp, int32_t* __restrict__ hist,
+                         int32_t* __restrict__ nm_out) {
+  const Plan& p = L::plan(rp);
+  extern __shared__ int32_t sh[];  // bins 0..base+1, then the near-miss count
+  const int nb = (int)p.base + 2;
+  for (int i = threadIdx.x; i <= nb; i += blockDim.x) sh[i] = 0;
+  __syncthreads();
+  int nm = 0;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       g < valid_total; g += stride) {
+    const int u = L::uniques(start, (uint64_t)g, p);
+    if (u < nb) atomicAdd(&sh[u], 1);  // bins past base+1 are dropped, as in JAX
+    nm += u > p.cutoff;
+  }
+  nm = __reduce_add_sync(0xffffffffu, nm);
+  if ((threadIdx.x & 31) == 0 && nm) atomicAdd(&sh[nb], nm);
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+    if (sh[i]) atomicAdd(&hist[i], sh[i]);
+  }
+  if (threadIdx.x == 0) {
+    if (sh[nb]) atomicAdd(nm_out, sh[nb]);
+    if (blockIdx.x == 0 && pad) atomicAdd(&hist[0], (int32_t)pad);
+  }
+}
+
+// K2: num_uniques of every lane, one int32 each.
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+uniques_kernel(const int64_t* __restrict__ start, int64_t lanes, Plan rp,
+               int32_t* __restrict__ out) {
+  const Plan& p = L::plan(rp);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < lanes;
+       g += stride) {
+    out[g] = L::uniques(start, (uint64_t)g, p);
+  }
+}
+
+// A launch's shape: grid blocks of `threads` threads, and the one full wave
+// it is capped at (blocks_per_sm resident blocks on each of sms SMs).
+struct Shape {
+  int grid, threads, blocks_per_sm, sms;
+};
+
+// The blocks of `threads` threads (and smem bytes of dynamic shared memory)
+// that one SM holds at once for `kernel`, asked of the occupancy API once
+// per kernel, block size, shared memory and device; and the SM count.
+static void resident(const void* kernel, int threads, size_t smem,
+                     int* blocks_per_sm, int* sms) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, size_t>,
+                  std::pair<int, int>> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(kernel, dev, threads, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *blocks_per_sm = it->second.first;
+    *sms = it->second.second;
+    return;
+  }
+  int b = 0, n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads,
+                                                    smem) == cudaSuccess &&
+      b > 0) {
+    cache[key] = std::make_pair(b, n);
+  }
+  // On a failed query the launch that follows reports the error (the
+  // runtime's last error); one block keeps its grid valid meanwhile.
+  *blocks_per_sm = b > 0 ? b : 1;
+  *sms = n > 0 ? n : 1;
+}
+
+// One block per `threads` lanes, capped at one full resident wave: the
+// grid-stride loops cover the rest with every block resident from the start
+// (a larger grid would leave a partial second wave).
+static Shape wave_shape(const void* kernel, int64_t lanes, int threads,
+                        size_t smem) {
+  Shape sh;
+  sh.threads = threads;
+  resident(kernel, threads, smem, &sh.blocks_per_sm, &sh.sms);
+  int64_t want = (lanes + threads - 1) / threads;
+  const int64_t cap = (int64_t)sh.blocks_per_sm * sh.sms;
+  if (want > cap) want = cap;
+  sh.grid = want < 1 ? 1 : (int)want;
+  return sh;
+}
+
+template <class L>
+static Shape k1_shape(const Plan& p, int64_t valid_total, size_t* smem) {
+  *smem = (size_t)(p.base + 3) * sizeof(int32_t);
+  return wave_shape((const void*)detailed_megaloop_kernel<L>, valid_total,
+                    kThreads, *smem);
+}
+
+template <class L>
+static void launch_k1(const Plan& p, const int64_t* start, int64_t valid_total,
+                      int64_t pad, int32_t* hist, int32_t* nm, cudaStream_t s) {
+  size_t smem;
+  const Shape sh = k1_shape<L>(p, valid_total, &smem);
+  detailed_megaloop_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
+      start, valid_total, pad, p, hist, nm);
+}
+
+template <class L>
+static Shape uniques_shape(int64_t lanes) {
+  return wave_shape((const void*)uniques_kernel<L>, lanes, kThreads, 0);
+}
+
+template <class L>
+static void launch_uniques(const Plan& p, const int64_t* start, int64_t lanes,
+                           int32_t* out, cudaStream_t s) {
+  const Shape sh = uniques_shape<L>(lanes);
+  uniques_kernel<L><<<sh.grid, sh.threads, 0, s>>>(start, lanes, p, out);
+}
+
+}  // namespace nice

@@ -1,9 +1,11 @@
 // The CUDA kernels of the port, with a plain C interface for ctypes
 // (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc for sm_90a;
-// ops/cuda_engine.py wraps it): K1 and K2 on the detailed path, K3 on the
-// strided niceonly path (bases of at most 4 u32 limbs), K4 on the dense
-// niceonly path (b98 and up), and K5, the tensor-core arm of K1 and K4,
-// where the tuned shape asks for it (use_mxu).
+// ops/cuda_engine.py wraps it): K1 and, above b97, K2 on the detailed path,
+// K4 on the dense niceonly path (b98 and up), and K5, the tensor-core arm of
+// K1 and K4, where the tuned shape asks for it (use_mxu). K3 (the strided
+// niceonly path, bases of at most 4 u32 limbs) and K2 at those bases run
+// on the plan tier: plan_kernels.cu, built once per base. K1's and K2's
+// kernels are in nice_grid.cuh, shared with that build.
 //
 // K1 detailed_megaloop_kernel replaces the TPU's detailed stats kernel:
 // nice_tpu/ops/pallas_engine.py _stats_callable (pallas_call at :181, body
@@ -22,20 +24,7 @@
 // pallas_engine.py _uniques_callable (pallas_call at :466): num_uniques of
 // every lane of a batch, one int32 per lane. The survivor compaction after
 // it stays plain tensor code, as it stayed outside the pallas_call in JAX.
-//
-// K3 strided_niceonly_kernel replaces the TPU's stride-descriptor niceonly
-// kernel: pallas_engine.py _strided_callable (pallas_call at :410, body
-// _make_strided_kernel). Each descriptor row (n0, lo, hi as four u32 limbs)
-// covers candidates n = n0 + (i / R) * M + residues[i % R], i < periods * R,
-// and the kernel counts those with lo <= n < hi and num_uniques(n) == base
-// (or, for a check, min_uniques <= num_uniques(n) <= base).
-// The TPU expanded the offsets on the host into a VMEM table and walked the
-// descriptors as a sequential grid axis, skipping padded rows with
-// pl.when(d < n_real); here the grid is (lane chunks, n_real): only real
-// rows are launched, each thread derives its candidate's offset from the
-// residue table (R u32 words, resident in L1) with one u32 division, and
-// each block reduces its count per warp, then across warps, and adds it to
-// counts[row] with one atomic.
+// K3 (strided_niceonly_kernel) is described in plan_kernels.cu.
 //
 // K4 niceonly_dense_kernel replaces the TPU's dense niceonly kernel in both
 // of its modes: pallas_engine.py _stats_callable (pallas_call at :181) with
@@ -48,7 +37,7 @@
 // b98 it keeps 2 residue classes of 97, so one thread per dense lane would
 // leave about half the warps running the full digit work for one or two
 // live lanes. Here a thread derives a kept lane by index arithmetic, as K3
-// derives its offsets: lane j is class classes[j % R] of period j / R, the
+// derives its offsets (plan_kernels.cu): lane j is class classes[j % R] of period j / R, the
 // run offset ((classes[j % R] - start) mod (b - 1)) + (j / R) * (b - 1), so
 // the grid covers R * ceil(valid_total / (b - 1)) lanes, each a candidate
 // but for the ragged last period (masked by i < valid_total). The unfused
@@ -92,85 +81,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
 #include <type_traits>
 
-#include "nice_kernels.cuh"
+#include "nice_grid.cuh"
 
 namespace nice {
 
-constexpr int kThreads = 256;
 // K4's block when a run has fewer lanes than SMs x kThreads: small enough
 // that such a run's lanes spread over every SM.
 constexpr int kDenseSmallThreads = 64;
-constexpr int kDescWidth = 12;  // int64 words of a stride descriptor row
-
-template <class L>
-__global__ void __launch_bounds__(kThreads)
-detailed_megaloop_kernel(const int64_t* __restrict__ start, int64_t valid_total,
-                         int64_t pad, Plan p, int32_t* __restrict__ hist,
-                         int32_t* __restrict__ nm_out) {
-  extern __shared__ int32_t sh[];  // bins 0..base+1, then the near-miss count
-  const int nb = (int)p.base + 2;
-  for (int i = threadIdx.x; i <= nb; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  int nm = 0;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       g < valid_total; g += stride) {
-    const int u = L::uniques(start, (uint64_t)g, p);
-    if (u < nb) atomicAdd(&sh[u], 1);  // bins past base+1 are dropped, as in JAX
-    nm += u > p.cutoff;
-  }
-  nm = __reduce_add_sync(0xffffffffu, nm);
-  if ((threadIdx.x & 31) == 0 && nm) atomicAdd(&sh[nb], nm);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    if (sh[i]) atomicAdd(&hist[i], sh[i]);
-  }
-  if (threadIdx.x == 0) {
-    if (sh[nb]) atomicAdd(nm_out, sh[nb]);
-    if (blockIdx.x == 0 && pad) atomicAdd(&hist[0], (int32_t)pad);
-  }
-}
-
-template <class L>
-__global__ void __launch_bounds__(kThreads)
-uniques_kernel(const int64_t* __restrict__ start, int64_t lanes, Plan p,
-               int32_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < lanes;
-       g += stride) {
-    out[g] = L::uniques(start, (uint64_t)g, p);
-  }
-}
-
-template <class L>
-__global__ void __launch_bounds__(kThreads)
-strided_niceonly_kernel(const int64_t* __restrict__ desc,
-                        const int64_t* __restrict__ residues, uint32_t num_res,
-                        uint32_t modulus, int64_t lanes, int min_u, Plan p,
-                        int32_t* __restrict__ counts) {
-  __shared__ int32_t warp_sums[kThreads / 32];
-  const int64_t* row = desc + (int64_t)blockIdx.y * kDescWidth;
-  int c = 0;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
-       i += stride) {
-    c += L::strided_nice(row, residues, num_res, modulus, (uint32_t)i, min_u,
-                         p);
-  }
-  c = __reduce_add_sync(0xffffffffu, c);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-    if (s) atomicAdd(&counts[blockIdx.y], s);
-  }
-}
 
 // minBlocksPerMultiprocessor = 1 lets ptxas give a lane the registers its
 // limbs need (up to 255); with kThreads alone it trims them to the next
@@ -301,69 +220,12 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
 
 static_assert(kThreads / 32 == kMmaWarps, "K5 stages one slot per warp");
 
-// A launch's shape: grid blocks of `threads` threads, and the one full wave
-// it is capped at (blocks_per_sm resident blocks on each of sms SMs).
-struct Shape {
-  int grid, threads, blocks_per_sm, sms;
-};
-
-// The blocks of `threads` threads (and smem bytes of dynamic shared memory)
-// that one SM holds at once for `kernel`, asked of the occupancy API once
-// per kernel, block size, shared memory and device; and the SM count.
-static void resident(const void* kernel, int threads, size_t smem,
-                     int* blocks_per_sm, int* sms) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, size_t>,
-                  std::pair<int, int>> cache;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const auto key = std::make_tuple(kernel, dev, threads, smem);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *blocks_per_sm = it->second.first;
-    *sms = it->second.second;
-    return;
-  }
-  int b = 0, n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
-          cudaSuccess &&
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads,
-                                                    smem) == cudaSuccess &&
-      b > 0) {
-    cache[key] = std::make_pair(b, n);
-  }
-  // On a failed query the launch that follows reports the error (the
-  // runtime's last error); one block keeps its grid valid meanwhile.
-  *blocks_per_sm = b > 0 ? b : 1;
-  *sms = n > 0 ? n : 1;
-}
-
-// One block per `threads` lanes, capped at one full resident wave: the
-// grid-stride loops cover the rest with every block resident from the start
-// (a larger grid would leave a partial second wave).
-static Shape wave_shape(const void* kernel, int64_t lanes, int threads,
-                        size_t smem) {
-  Shape sh;
-  sh.threads = threads;
-  resident(kernel, threads, smem, &sh.blocks_per_sm, &sh.sms);
-  int64_t want = (lanes + threads - 1) / threads;
-  const int64_t cap = (int64_t)sh.blocks_per_sm * sh.sms;
-  if (want > cap) want = cap;
-  sh.grid = want < 1 ? 1 : (int)want;
-  return sh;
-}
-
 // Returns 0, or kNoSmem when K5's shared memory exceeds kMmaSmemMax.
-constexpr int kNoSmem = -2;
-
 template <class L>
 static int megaloop_shape(const Plan& p, int64_t valid_total, int mma,
                           Shape* sh, size_t* smem) {
   if (!mma) {
-    *smem = (size_t)(p.base + 3) * sizeof(int32_t);
-    *sh = wave_shape((const void*)detailed_megaloop_kernel<L>, valid_total,
-                     kThreads, *smem);
+    *sh = k1_shape<L>(p, valid_total, smem);
     return 0;
   }
   const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu,
@@ -393,41 +255,6 @@ static int launch_megaloop(const Plan& p, const int64_t* start,
   return 0;
 }
 
-template <class L>
-static Shape uniques_shape(int64_t lanes) {
-  return wave_shape((const void*)uniques_kernel<L>, lanes, kThreads, 0);
-}
-
-template <class L>
-static void launch_uniques(const Plan& p, const int64_t* start, int64_t lanes,
-                           int32_t* out, cudaStream_t s) {
-  const Shape sh = uniques_shape<L>(lanes);
-  uniques_kernel<L><<<sh.grid, sh.threads, 0, s>>>(start, lanes, p, out);
-}
-
-// One block per kThreads lanes of a descriptor (lanes <= 2^20, so at most
-// 4096), times the n_real real descriptors (<= 1024) on the grid's y axis;
-// Shape::grid counts the blocks of both axes.
-template <class L>
-static Shape strided_shape(int64_t lanes, int n_real) {
-  Shape sh;
-  sh.threads = kThreads;
-  resident((const void*)strided_niceonly_kernel<L>, kThreads, 0,
-           &sh.blocks_per_sm, &sh.sms);
-  sh.grid = (int)((lanes + kThreads - 1) / kThreads) * n_real;
-  return sh;
-}
-
-template <class L>
-static void launch_strided(const Plan& p, const int64_t* desc, int n_real,
-                           const int64_t* residues, uint32_t num_res,
-                           uint32_t modulus, int64_t lanes, int min_u,
-                           int32_t* counts, cudaStream_t s) {
-  const dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads), (unsigned)n_real);
-  strided_niceonly_kernel<L><<<grid, kThreads, 0, s>>>(
-      desc, residues, num_res, modulus, lanes, min_u, p, counts);
-}
-
 // num_cls classes times ceil(valid_total / (base - 1)) periods of lanes, in
 // a grid-stride loop. K4 (not K5, whose warps each stage a slot of its
 // shared memory) takes blocks of kDenseSmallThreads when the run has fewer
@@ -448,7 +275,7 @@ static int dense_shape(const Plan& p, uint32_t num_cls, uint32_t valid_total,
     return 0;
   }
   if constexpr (std::is_same_v<L, DenseTier>) {
-    return -1;  // DenseTier serves K4 alone (dense_tier)
+    return kNoTier;  // DenseTier serves K4 alone (dense_tier)
   } else {
     const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
     if (bytes > kMmaSmemMax) return kNoSmem;
@@ -490,8 +317,8 @@ inline int dense_tier(const Plan& p, int mma) {
 }  // namespace nice
 
 // Return codes: 0 on success, a cudaError_t from cudaGetLastError() after
-// the launch, -1 when no tier holds the plan, or -2 (kNoSmem) when K5's
-// shared memory for the plan exceeds kMmaSmemMax.
+// the launch, or one of nice_kernels.cuh's codes (kNoTier, kNoSmem,
+// kPlanTierOnly) before launching.
 extern "C" {
 
 // K1 (mma = 0) or K5 in the detailed mode (mma = 1; lanes < 2^31).
@@ -508,52 +335,21 @@ int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
   switch (pick_tier(p)) {
     case 0: rc = launch_megaloop<SmallTier>(p, st, valid_total, pad, h, n, mma, s); break;
     case 1: rc = launch_megaloop<GenericTier>(p, st, valid_total, pad, h, n, mma, s); break;
-    default: return -1;
+    default: return kNoTier;
   }
   return rc ? rc : (int)cudaGetLastError();
 }
 
+// K2 above the plan tier (limbs_n > kPlanTierLimbs), in the generic tier;
+// plan_kernels.cu runs the plans below it.
 int nice_uniques(const uint64_t* plan_words, const void* start,
                  long long lanes, void* out, void* stream) {
   using namespace nice;
   const Plan p = plan_from_words(plan_words);
-  const int64_t* st = (const int64_t*)start;
-  int32_t* o = (int32_t*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (pick_tier(p)) {
-    case 0: launch_uniques<SmallTier>(p, st, lanes, o, s); break;
-    case 1: launch_uniques<GenericTier>(p, st, lanes, o, s); break;
-    default: return -1;
-  }
-  return (int)cudaGetLastError();
-}
-
-// K3 over desc rows [0, n_real): counts[row] += candidates of the row with
-// min_uniques <= num_uniques <= base (the caller zeroes counts; the search
-// passes min_uniques = base). periods * num_res lanes per row.
-int nice_strided_niceonly(const uint64_t* plan_words, const void* desc,
-                          long long n_real, const void* residues,
-                          long long num_res, long long modulus,
-                          long long periods, int min_uniques, void* counts,
-                          void* stream) {
-  using namespace nice;
-  const Plan p = plan_from_words(plan_words);
-  const int64_t* d = (const int64_t*)desc;
-  const int64_t* r = (const int64_t*)residues;
-  const int64_t lanes = (int64_t)periods * num_res;
-  int32_t* c = (int32_t*)counts;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (pick_tier(p)) {
-    case 0:
-      launch_strided<SmallTier>(p, d, (int)n_real, r, (uint32_t)num_res,
-                                (uint32_t)modulus, lanes, min_uniques, c, s);
-      break;
-    case 1:
-      launch_strided<GenericTier>(p, d, (int)n_real, r, (uint32_t)num_res,
-                                  (uint32_t)modulus, lanes, min_uniques, c, s);
-      break;
-    default: return -1;
-  }
+  if (plan_tier_takes(p)) return kPlanTierOnly;
+  if (pick_tier(p) != 1) return kNoTier;
+  launch_uniques<GenericTier>(p, (const int64_t*)start, lanes, (int32_t*)out,
+                              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -589,25 +385,26 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
                                    (uint32_t)valid_total, min_uniques, o, mma,
                                    s);
       break;
-    default: return -1;
+    default: return kNoTier;
   }
   return rc ? rc : (int)cudaGetLastError();
 }
 
 // The shape a launch would take, from the same code the launch runs.
 // kernel 0: K1 (K5's detailed mode with mma = 1) over a = valid_total
-// lanes; 1: K2 over a lanes; 2: K3 over a lanes a row and b rows; 3: K4
-// (K5's dense mode with mma = 1) over a = num_cls classes and b =
-// valid_total lanes. out[0..4] = the grid's blocks, threads a block,
+// lanes; 1: K2 over a lanes; 3: K4 (K5's dense mode with mma = 1) over a =
+// num_cls classes and b = valid_total lanes (kernel 2, K3, is
+// plan_kernels.cu's alone). out[0..4] = the grid's blocks, threads a block,
 // resident blocks an SM at that block size, the SMs, and the tier (0 small,
 // 1 generic, 2 dense). Returns 0, or what the launch would return for the
-// plan before launching (-1, kNoSmem).
+// plan before launching.
 int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
                       long long b, int mma, int* out) {
   using namespace nice;
   const Plan p = plan_from_words(plan_words);
+  if (kernel == 2 || (kernel == 1 && plan_tier_takes(p))) return kPlanTierOnly;
   const int tier = kernel == 3 ? dense_tier(p, mma) : pick_tier(p);
-  if (tier < 0) return -1;
+  if (tier < 0) return kNoTier;
   Shape sh;
   size_t smem;
   uint32_t lanes;
@@ -615,10 +412,7 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
   switch (kernel * 3 + tier) {
     case 0: rc = megaloop_shape<SmallTier>(p, a, mma, &sh, &smem); break;
     case 1: rc = megaloop_shape<GenericTier>(p, a, mma, &sh, &smem); break;
-    case 3: sh = uniques_shape<SmallTier>(a); break;
     case 4: sh = uniques_shape<GenericTier>(a); break;
-    case 6: sh = strided_shape<SmallTier>(a, (int)b); break;
-    case 7: sh = strided_shape<GenericTier>(a, (int)b); break;
     case 9:
       rc = dense_shape<SmallTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
                                   &smem, &lanes);
@@ -631,7 +425,7 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
       rc = dense_shape<DenseTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
                                   &smem, &lanes);
       break;
-    default: return -1;
+    default: return kNoTier;
   }
   if (rc) return rc;
   out[0] = sh.grid;
@@ -643,9 +437,8 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
 }
 
 const char* nice_error_string(int code) {
-  if (code == -1) return "plan exceeds every kernel tier";
-  if (code == nice::kNoSmem) return "plan exceeds K5's shared memory";
-  return cudaGetErrorString((cudaError_t)code);
+  const char* own = nice::error_string(code);
+  return own ? own : cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

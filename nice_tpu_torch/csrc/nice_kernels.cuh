@@ -21,12 +21,15 @@
 // The plain PyTorch twin (nice_tpu_torch/ops/vector_engine.py) runs the same
 // steps in int64 carriers; both agree on every lane, in range or not.
 //
-// Everything per base is a runtime value (struct Plan), so one build serves
-// every base. Array capacities are template parameters of a tier: in the
-// small tier (and K4's dense tier) every loop over limbs runs to the
-// constant capacity under a guard, is fully unrolled, and the limb arrays
-// stay in registers; the generic tier loops to the runtime counts over
-// arrays in local memory (slow, but right for every base up to 2046).
+// In the main library (nice_kernels.cu) everything per base is a runtime
+// value (struct Plan), so one build serves every base. Array capacities are
+// template parameters of a tier: in the small tier (and K4's dense tier)
+// every loop over limbs runs to the constant capacity under a guard, is
+// fully unrolled, and the limb arrays stay in registers; the generic tier
+// loops to the runtime counts over arrays in local memory (slow, but right
+// for every base up to 2046). The plan tier (PlanTier, at the end) is the
+// lane built for one base, as the TPU traced a kernel per plan: a build
+// that defines NICE_PLAN (plan_kernels.cu, op_count.cu) gets it.
 
 #pragma once
 
@@ -40,10 +43,11 @@
 #define NICE_UNROLL _Pragma("unroll")
 
 // Marks the loops whose trip count is a plan value (the digit chunks). The
-// kernels leave them to the compiler; op_count.cu, which builds one base's
-// plan as a constant to count the instructions a lane issues, defines it as
-// NICE_UNROLL so that they unroll fully.
-#ifndef NICE_PLAN_UNROLL
+// runtime-plan kernels leave them to the compiler; a build for one base
+// (NICE_PLAN defined: plan_kernels.cu, op_count.cu) unrolls them fully.
+#ifdef NICE_PLAN
+#define NICE_PLAN_UNROLL NICE_UNROLL
+#else
 #define NICE_PLAN_UNROLL
 #endif
 
@@ -255,6 +259,20 @@ NICE_D uint32_t div_base_full(uint32_t x, const Plan& p) {
   return (t + ((x - t) >> 1)) >> p.digit_shift;
 }
 
+// x / d for every u32 x and 1 <= d < 2^32, without a division: the
+// round-up magic with the add-and-shift fix-up, as div_base_full, with
+// l = ceil(log2 d), magic = floor(2^32 (2^l - d) / d) + 1, shift1 = min(l, 1)
+// and shift2 = max(l - 1, 0) (ops/cuda_engine.py u32_divisor computes them).
+struct U32Divisor {
+  uint32_t magic;
+  int shift1, shift2;
+};
+
+NICE_D uint32_t div_u32(uint32_t x, const U32Divisor& d) {
+  const uint32_t t = __umulhi(x, d.magic);
+  return (t + ((x - t) >> d.shift1)) >> d.shift2;
+}
+
 // Upper bound on the u32 limbs of base^rem_digits (ops/limbs.py
 // quotient_limbs): the dividend shrinks to it as digits are peeled.
 NICE_D int quotient_limbs(int rem_digits, uint64_t log2_fx) {
@@ -268,6 +286,9 @@ NICE_D int quotient_limbs(int rem_digits, uint64_t log2_fx) {
 template <int NL, int SQL, int CUL, int NM, bool UNROLL>
 struct Lane {
   static constexpr int NW = (NM + 1) / 2;
+
+  // The plan a kernel runs: the runtime one (PlanTier's is its own).
+  static NICE_D const Plan& plan(const Plan& p) { return p; }
 
   static bool fits(const Plan& p) {
     return p.limbs_n <= NL && p.limbs_sq <= SQL && p.limbs_cu <= CUL &&
@@ -417,17 +438,19 @@ struct Lane {
   // K3's lane: candidate i of one stride descriptor. row holds the
   // descriptor's n0, lo and hi as four u32 limbs each (int64 words, LSW
   // first); residues holds the stride table's num_res residues modulo
-  // `modulus`. n = n0 + (i / num_res) * modulus + residues[i % num_res] in
-  // u32 (the caller keeps periods * modulus < 2^32), carried through limbs_n
-  // limbs; 1 when lo <= n < hi and min_u <= num_uniques(n) <= base, else 0.
-  // With min_u = base this is the TPU kernel's nice test, num_uniques(n) ==
-  // base; a lower min_u (a check's, never the search's) makes the count
-  // sensitive to every step of a lane where nice numbers are absent. Lanes
-  // outside [lo, hi) skip the digit work.
+  // `modulus`, and by_res divides by num_res. n = n0 + (i / num_res) *
+  // modulus + residues[i % num_res] in u32 (the caller keeps periods *
+  // modulus < 2^32), carried through limbs_n limbs; 1 when lo <= n < hi and
+  // min_u <= num_uniques(n) <= base, else 0. With min_u = base this is the
+  // TPU kernel's nice test, num_uniques(n) == base; a lower min_u (a
+  // check's, never the search's) makes the count sensitive to every step of
+  // a lane where nice numbers are absent. Lanes outside [lo, hi) skip the
+  // digit work.
   static NICE_D int strided_nice(const int64_t* row, const int64_t* residues,
-                                 uint32_t num_res, uint32_t modulus,
-                                 uint32_t i, int min_u, const Plan& p) {
-    const uint32_t q = i / num_res;
+                                 uint32_t num_res, const U32Divisor& by_res,
+                                 uint32_t modulus, uint32_t i, int min_u,
+                                 const Plan& p) {
+    const uint32_t q = div_u32(i, by_res);
     const uint32_t off = q * modulus + (uint32_t)residues[i - q * num_res];
     uint32_t n[NL];
     load_n(n, row, off, p);
@@ -691,5 +714,52 @@ inline int pick_tier(const Plan& p) {
   if (GenericTier::fits(p)) return 1;
   return -1;
 }
+
+// The plans that K2 and K3 run on the plan tier, built per base: every plan
+// of at most kPlanTierLimbs limbs of n (b10-b97), which is all of K3's
+// domain (a descriptor carries four limbs). K2 above it keeps pick_tier's.
+// ops/cuda_engine.py PLAN_TIER_LIMBS mirrors the constant.
+constexpr int kPlanTierLimbs = 4;
+
+inline bool plan_tier_takes(const Plan& p) {
+  return p.limbs_n <= kPlanTierLimbs;
+}
+
+// Return codes of the C interfaces beside a cudaError_t: no tier holds the
+// plan; K5's shared memory exceeds kMmaSmemMax; the plan belongs to the plan
+// tier (the main library does not run it); a per-base library was asked for
+// another plan than the one it was built for.
+constexpr int kNoTier = -1;
+constexpr int kNoSmem = -2;
+constexpr int kPlanTierOnly = -3;
+constexpr int kOtherPlan = -4;
+
+inline const char* error_string(int code) {
+  switch (code) {
+    case kNoTier: return "plan exceeds every kernel tier";
+    case kNoSmem: return "plan exceeds K5's shared memory";
+    case kPlanTierOnly: return "plan is run by its per-base build (plan tier)";
+    case kOtherPlan: return "per-base library built for another plan";
+    default: return nullptr;
+  }
+}
+
+#ifdef NICE_PLAN
+// PlanTier: the lane built for one base. The generated nice_plan.h
+// (ops/cuda_engine.py plan_header) defines NICE_PLAN as the base's plan
+// words in PlanWord order (struct Plan's) and NICE_PLAN_TIER as the plan's
+// own limb counts of n, n^2, n^3 and mask words. So every loop has a
+// constant trip count and no guard, every plan-valued loop unrolls, and
+// every magic and divisor is an immediate: what the TPU compiled for each
+// base (pallas_engine.py's lru_cached callables trace the plan as
+// constants). The kernels take their plan from plan() and ignore the
+// runtime one.
+struct PlanTier : Lane<NICE_PLAN_TIER, true> {
+  static __host__ __device__ __forceinline__ Plan plan(const Plan&) {
+    constexpr Plan p = {NICE_PLAN};
+    return p;
+  }
+};
+#endif
 
 }  // namespace nice

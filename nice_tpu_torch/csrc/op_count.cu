@@ -2,25 +2,27 @@
 // chip_smoke.py compiles this file with nvcc -cubin and counts the SASS
 // instructions of each function here with cuobjdump.
 //
-// op_count_plan.h, which the caller generates, defines NICE_PLAN as the
-// words of K1-K3's base's Plan (the order of struct Plan), NICE_K3_R and
-// NICE_K3_M as the residue count and modulus of K3's stride table, and for
-// K4's (larger) base NICE_K4_PLAN, NICE_K4_TIER (the limb capacities of n,
-// n^2, n^3 and the mask words: the plan's own counts) and NICE_K4_R (its
-// kept residue classes). With the plan a compile-time constant, every loop
-// of the per-lane arithmetic has a constant trip count and unrolls fully,
-// so each function is straight-line code and its instruction count is what
-// one lane issues, give or take the few instructions of index setup. The
-// constants also fold (divisors and reciprocals become immediates), and K4's
-// tier is its kernel's (the dense tier, limbs in registers), so the count is
-// no more than what the runtime-plan kernels in nice_kernels.cu issue for a
-// lane of that base.
+// nice_plan.h, which the caller generates as plan_kernels.cu's
+// (ops/cuda_engine.py plan_header), defines NICE_PLAN and NICE_PLAN_TIER
+// for K1-K3's and K5's detailed base (the plan tier's lane of that base,
+// nice_kernels.cuh PlanTier), NICE_K3_R, NICE_K3_DIV and NICE_K3_M as the
+// residue count, its divisor magic (U32Divisor) and the modulus of K3's
+// stride table, and for K4's (larger) base NICE_K4_PLAN, NICE_K4_TIER (the
+// limb capacities of n, n^2, n^3 and the mask words: the plan's own
+// counts) and NICE_K4_R (its kept residue classes). With the plan a
+// compile-time constant, every loop of the per-lane arithmetic has a
+// constant trip count and unrolls fully, so each function is straight-line
+// code and its instruction count is what one lane issues, give or take the
+// few instructions of index setup. The constants also fold (divisors and
+// reciprocals become immediates). K2's and K3's lanes are those of their
+// kernels (plan_kernels.cu builds the same PlanTier); K1's and K5's
+// detailed lanes and K4's issue no more than what their runtime-plan
+// kernels in nice_kernels.cu issue for a lane of that base.
 
 #include <stdint.h>
 
-#include "op_count_plan.h"
+#include "nice_plan.h"
 
-#define NICE_PLAN_UNROLL NICE_UNROLL
 // K5's schoolbook fallback serves only lanes outside the base's range, which
 // the counted lanes (and the main path) never are: it stays out of the count.
 #define NICE_K5_NO_FALLBACK
@@ -31,7 +33,7 @@ extern "C" __global__ void k2_lane(const int64_t* __restrict__ start,
                                    int32_t* __restrict__ out) {
   constexpr nice::Plan p = {NICE_PLAN};
   const uint64_t g = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  out[g] = nice::SmallTier::uniques(start, g, p);
+  out[g] = nice::PlanTier::uniques(start, g, p);
 }
 
 // One lane of K1 (detailed_megaloop_kernel): num_uniques into the block's
@@ -41,7 +43,7 @@ extern "C" __global__ void k1_lane(const int64_t* __restrict__ start,
   constexpr nice::Plan p = {NICE_PLAN};
   __shared__ int32_t sh[p.base + 2];
   const uint64_t g = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int u = nice::SmallTier::uniques(start, g, p);
+  const int u = nice::PlanTier::uniques(start, g, p);
   if (u < (int)p.base + 2) atomicAdd(&sh[u], 1);
   nm_out[g] = u > p.cutoff;
 }
@@ -53,9 +55,10 @@ extern "C" __global__ void k3_lane(const int64_t* __restrict__ desc,
                                    const int64_t* __restrict__ residues,
                                    int32_t* __restrict__ out) {
   constexpr nice::Plan p = {NICE_PLAN};
+  constexpr nice::U32Divisor by_res = {NICE_K3_DIV};
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = nice::SmallTier::strided_nice(desc, residues, NICE_K3_R, NICE_K3_M,
-                                         i, (int)p.base, p);
+  out[i] = nice::PlanTier::strided_nice(desc, residues, NICE_K3_R, by_res,
+                                        NICE_K3_M, i, (int)p.base, p);
 }
 
 // One lane of K4 (niceonly_dense_kernel): the lane's class and offset, the
@@ -90,7 +93,7 @@ extern "C" __global__ void k5_detailed_lane(const int64_t* __restrict__ start,
   const nice::K5Smem mm =
       nice::k5_layout(smem, p.limbs_n, p.limbs_sq, p.limbs_cu, front);
   const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int u = nice::SmallTier::uniques_mma(start, g, true, p, mm);
+  const int u = nice::PlanTier::uniques_mma(start, g, true, p, mm);
   if (u < (int)p.base + 2) atomicAdd(&sh[u], 1);
   nm_out[g] = u > p.cutoff;
 }

@@ -18,6 +18,12 @@ wrappers called with use_mxu=1: their products then run on the tensor cores
 by integer operations (little input, little output); see the source note in
 nice_kernels.cu for what the design does about it.
 
+K3, and K2 at the bases of at most four limbs (b10-b97), run on the plan
+tier: a library built for each base with its plan as constants
+(csrc/plan_kernels.cu, `plan_library`), as the TPU traced a kernel per plan.
+Which plans take it is decided by `plan_tier_takes` alone; a failed build
+or launch there raises, as any other.
+
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
 two. LAUNCHES counts launches, one per kernel launch and nowhere else.
@@ -47,6 +53,10 @@ STRIDED_PERIODS_MAX = 1024
 STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
 
+# The plans K2 and K3 run on the plan tier: at most this many limbs of n
+# (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
+PLAN_TIER_LIMBS = 4
+
 LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
             "niceonly_dense": 0, "detailed_megaloop_mma": 0,
             "niceonly_dense_mma": 0}
@@ -73,6 +83,22 @@ def digit_magics(base: int) -> tuple[int, int, int]:
             (1 << (33 + s)) // base + 1 - (1 << 32), s)
 
 
+def u32_divisor(d: int) -> tuple[int, int, int]:
+    """(magic, shift1, shift2) of x // d for every u32 x (nice_kernels.cuh
+    div_u32: the round-up magic with the add-and-shift fix-up, as
+    div_base_full), 1 <= d < 2^32: with l = ceil(log2 d), floor(2^32 (2^l -
+    d) / d) + 1 (below 2^32), min(l, 1) and max(l - 1, 0)."""
+    if not 1 <= d < 1 << 32:
+        raise ValueError(f"divisor {d} outside [1, 2^32)")
+    lg = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << lg) - d) // d + 1, min(lg, 1), max(lg - 1, 0))
+
+
+def plan_tier_takes(plan: BasePlan) -> bool:
+    """Whether K2 and K3 run the plan on the plan tier (its own build)."""
+    return plan.limbs_n <= PLAN_TIER_LIMBS
+
+
 @functools.lru_cache(maxsize=None)
 def plan_words(plan: BasePlan):
     """The kernels' per-base constants as a host uint64 array, in the
@@ -90,11 +116,34 @@ def plan_words(plan: BasePlan):
     return (ctypes.c_uint64 * len(words))(*words)
 
 
+def plan_header(plan: BasePlan, **defines) -> str:
+    """nice_plan.h of a build with one base's plan as constants
+    (csrc/plan_kernels.cu, csrc/op_count.cu): NICE_PLAN, the plan words in
+    PlanWord order (struct Plan's); NICE_PLAN_TIER, the plan's own limb
+    counts of n, n^2, n^3 and mask words (the plan tier's capacities); then
+    each of `defines` as #define NAME VALUE."""
+    words = ", ".join(f"{w}ull" for w in plan_words(plan))
+    lines = [f"// nice_plan.h: base {plan.base} (ops/cuda_engine.py plan_header)",
+             "#pragma once",
+             f"#define NICE_PLAN {words}",
+             f"#define NICE_PLAN_TIER {plan.limbs_n}, {plan.limbs_sq}, "
+             f"{plan.limbs_cu}, {plan.n_masks}"]
+    lines += [f"#define {k} {v}" for k, v in defines.items()]
+    return "\n".join(lines) + "\n"
+
+
+@functools.lru_cache(maxsize=None)
+def plan_library(plan: BasePlan):
+    """The plan's per-base library (K2 and K3 on the plan tier), built at
+    the first use of the base and kept for the process."""
+    return cuda_build.load_plan(plan_header(plan))
+
+
 # nice_launch_shape's kernel numbers.
 _SHAPE_KERNELS = {"detailed_megaloop": (0, 0), "uniques": (1, 0),
                   "strided_niceonly": (2, 0), "niceonly_dense": (3, 0),
                   "detailed_megaloop_mma": (0, 1), "niceonly_dense_mma": (3, 1)}
-_TIERS = ("small", "generic", "dense")
+_TIERS = ("small", "generic", "dense", "plan")
 
 
 def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
@@ -104,9 +153,13 @@ def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
     sees them: K1/K5 detailed and K2 a = lanes; K3 a = lanes a row, b =
     rows; K4/K5 dense a = classes, b = valid_total."""
     which, mma = _SHAPE_KERNELS[kernel]
-    lib = cuda_build.load()
     out = (ctypes.c_int * 5)()
-    rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma, out)
+    if kernel in ("uniques", "strided_niceonly") and plan_tier_takes(plan):
+        lib = plan_library(plan)
+        rc = lib.nice_plan_launch_shape(which, plan_words(plan), a, b, out)
+    else:
+        lib = cuda_build.load()
+        rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma, out)
     _raise_on(lib, rc, f"{kernel} shape")
     return {"grid": out[0], "threads": out[1], "blocks_per_sm": out[2],
             "sms": out[3], "tier": _TIERS[out[4]]}
@@ -184,13 +237,16 @@ def uniques_batch(plan: BasePlan, batch_size: int, start_limbs: torch.Tensor):
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     words = plan_words(plan)
-    lib = cuda_build.load()
+    if plan_tier_takes(plan):
+        lib = plan_library(plan)
+        launch = lib.nice_plan_uniques
+    else:
+        lib = cuda_build.load()
+        launch = lib.nice_uniques
     out = torch.empty(batch_size, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        rc = lib.nice_uniques(
-            words, start_limbs.data_ptr(), batch_size, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        rc = launch(words, start_limbs.data_ptr(), batch_size, out.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream)
     _raise_on(lib, rc, "uniques")
     LAUNCHES["uniques"] += 1
     return out
@@ -228,9 +284,9 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     if not 1 <= rows <= STRIDED_DESC_MAX or not 0 <= n_real <= rows:
         raise ValueError(f"{rows} descriptor rows (at most {STRIDED_DESC_MAX}), "
                          f"n_real {n_real}")
-    if plan.limbs_n > 4:
+    if not plan_tier_takes(plan):
         raise ValueError(f"base {plan.base} needs {plan.limbs_n} limbs; "
-                         "descriptors carry 4")
+                         f"descriptors carry {PLAN_TIER_LIMBS}")
     if (num_res < 1 or periods < 1 or periods * modulus >= 1 << 32
             or periods * num_res > STRIDED_OFFS_LANES_MAX):
         raise ValueError(f"stride shape out of range: {periods} periods of "
@@ -245,15 +301,15 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     words = plan_words(plan)
-    lib = cuda_build.load()
+    lib = plan_library(plan)
     counts = torch.zeros(rows, dtype=torch.int32, device=device)
     if n_real == 0:
         return counts
     with torch.cuda.device(device):
-        rc = lib.nice_strided_niceonly(
+        rc = lib.nice_plan_strided_niceonly(
             words, desc.data_ptr(), n_real, residues.data_ptr(), num_res,
-            modulus, periods, min_uniques, counts.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            *u32_divisor(num_res), modulus, periods, min_uniques,
+            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, rc, "strided_niceonly")
     LAUNCHES["strided_niceonly"] += 1

@@ -16,7 +16,7 @@ import torch
 from nice_tpu_torch.core.types import FieldSize
 from nice_tpu_torch.ops import adaptive_floor
 from nice_tpu_torch.ops import cuda_engine as ce
-from nice_tpu_torch.ops import engine
+from nice_tpu_torch.ops import engine, stride_filter
 from nice_tpu_torch.ops import vector_engine as ve
 from nice_tpu_torch.ops.limbs import get_plan, int_to_limbs
 
@@ -191,6 +191,128 @@ def test_dense_small_runs_equal_plain_version_on_card(card, base):
                                                   st, valid, mu)
                 assert torch.equal(got, want), (fused, valid, mu)
     torch.cuda.synchronize()
+
+
+def _mid_rows(plan, m, span, rng):
+    """Rows mid-range (near a range's start the squares lead with zeros and
+    num_uniques sits lower): a ragged run cut into spans, then one span
+    across each multiple of 2^32, 2^64 and 2^96 above the middle that lies
+    inside the range; the index where the carry rows start."""
+    mid = (plan.range_start + plan.range_end) // 2
+    lo = mid + int(rng.integers(1, m))
+    hi = lo + 2 * span + 7
+    rows = [(n0, lo, hi) for n0 in range(lo // m * m, hi, span)]
+    n_ragged = len(rows)
+    for width in (32, 64, 96):
+        b = ((mid >> width) + 1) << width
+        if b < plan.range_end - span:
+            n0 = (b - span // 2) // m * m
+            rows.append((n0, n0, n0 + span))
+    return rows, n_ragged
+
+
+def test_plan_tier_strided_kernel_at_b97_equals_plain_version_on_card(card):
+    """K3 at the plan tier's widest base (4/9/12 limbs), at both of its
+    stride depths that fit a descriptor, across 2^32, 2^64 and 2^96."""
+    plan = get_plan(97)
+    rng = np.random.default_rng(97)
+    for k in (1, 2):
+        table = stride_filter.get_stride_table(97, k)
+        m = table.modulus
+        periods = max(1, min(32, (1 << 20) // table.num_residues))
+        rows, n_ragged = _mid_rows(plan, m, periods * m, rng)
+        assert len(rows) == n_ragged + 3
+        desc = _desc(rows, 2, rng, card)
+        res = engine._device_residues(97, k, str(card))
+        assert ce.launch_shape("strided_niceonly", plan,
+                               periods * table.num_residues,
+                               len(rows))["tier"] == "plan"
+        for min_u in (97, (5 * 97 + 7) // 8):
+            before = ce.LAUNCHES["strided_niceonly"]
+            got = ce.strided_niceonly_batch(plan, m, res, periods, desc,
+                                            len(rows), min_u)
+            assert ce.LAUNCHES["strided_niceonly"] == before + 1
+            want = ve.niceonly_strided_counts(plan, m, res, periods, desc,
+                                              len(rows), min_u)
+            assert torch.equal(got, want), (k, min_u)
+            assert got[len(rows):].tolist() == [0, 0]
+            if min_u < 97:
+                assert bool((got[:len(rows)] > 0).all()), (k, got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("base", [80, 97])
+def test_plan_tier_uniques_equals_plain_version_on_card(card, base):
+    """K2 on the plan tier at the main path's rare-scan sub-batch (2^18
+    lanes) and at a ragged one, mid-range and across a 2^64 carry."""
+    plan = get_plan(base)
+    mid = (plan.range_start + plan.range_end) // 2
+    starts = [mid, (((mid >> 64) + 1) << 64) - 1000]
+    for lanes in (1 << 18, 1000):
+        assert ce.launch_shape("uniques", plan, lanes)["tier"] == "plan"
+        for start in starts:
+            st = ve.start_limbs_tensor(start, plan, card)
+            before = ce.LAUNCHES["uniques"]
+            got = ce.uniques_batch(plan, lanes, st)
+            assert ce.LAUNCHES["uniques"] == before + 1
+            assert torch.equal(got, ve.uniques_batch(plan, lanes, st))
+    assert ce.launch_shape("uniques", get_plan(98), 1 << 18)["tier"] == "generic"
+    torch.cuda.synchronize()
+
+
+def test_plan_tier_build_is_reused_on_card(card, monkeypatch):
+    """One nvcc a base and key: a second call at the same base in this
+    process loads nothing new, and a fresh load finds the library on
+    disk."""
+    from nice_tpu_torch.ops import cuda_build
+
+    plan = get_plan(80)
+    st = ve.start_limbs_tensor(plan.range_start, plan, card)
+    ce.uniques_batch(plan, 256, st)  # built here or earlier
+    runs = []
+    real_run = cuda_build.subprocess.run
+
+    def counting_run(cmd, *args, **kwargs):
+        runs.append(cmd[0])
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_build.subprocess, "run", counting_run)
+    ce.uniques_batch(plan, 256, st)
+    ce.plan_library.cache_clear()
+    assert torch.equal(ce.uniques_batch(plan, 256, st),
+                       ve.uniques_batch(plan, 256, st))
+    assert runs == []
+    assert cuda_build.PLAN_BUILDS[ce.plan_header(plan)]["seconds"] == 0.0
+
+
+def test_plan_tier_failures_raise_on_card(card, monkeypatch):
+    """A per-base build that fails raises, and so does a library asked for
+    another base's plan; neither launches anything else."""
+    from nice_tpu_torch.ops import cuda_build
+
+    plan = get_plan(97)
+    st = ve.start_limbs_tensor(plan.range_start, plan, card)
+    table = stride_filter.get_stride_table(97, 1)
+    res = engine._device_residues(97, 1, str(card))
+    desc = _desc([(plan.range_start, plan.range_start, plan.range_start + 99)],
+                 0, np.random.default_rng(0), card)
+    before = dict(ce.LAUNCHES)
+    ce.plan_library.cache_clear()
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_build, "NVCC_FLAGS",
+                   cuda_build.NVCC_FLAGS + ("--no-such-nvcc-flag",))
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ce.uniques_batch(plan, 256, st)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
+    wrong = ce.plan_library(get_plan(80))
+    monkeypatch.setattr(ce, "plan_library", lambda p: wrong)
+    with pytest.raises(RuntimeError, match="another plan"):
+        ce.uniques_batch(plan, 256, st)
+    with pytest.raises(RuntimeError, match="another plan"):
+        ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES == before
 
 
 def test_k1_launch_is_one_resident_wave_on_card(card):
