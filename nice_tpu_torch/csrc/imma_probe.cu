@@ -1,6 +1,8 @@
 // A probe of the tensor cores' integer rate, built and timed only by
 // chip_smoke.py, which bounds K5 with it: how many 16x16x16 u8 x u8 -> s32
-// wmma products (mma_sync, the form K5 issues) one SM completes per clock.
+// wmma products (mma_sync) one SM completes per clock. Each compiles to two
+// m16n8k16 IMMA instructions, the one K5's mma.sync issues, so the rate in
+// IMMAs a clock is K5's.
 // NVIDIA's int8 figure for the H100 SXM (1,979 dense TOP/s at 1,830 MHz,
 // 4,096 multiply-adds per SM per clock, one such product a clock) is
 // wgmma's; mma_sync may reach less of it, so the smoke measures it.

@@ -2,9 +2,10 @@
 // (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc for sm_90a;
 // ops/cuda_engine.py wraps it): K1 and, above b97, K2 on the detailed path,
 // K4 on the dense niceonly path (b98 and up), and K5, the tensor-core arm of
-// K1 and K4, where the tuned shape asks for it (use_mxu). K3 (the strided
-// niceonly path, bases of at most 4 u32 limbs) and K2 at those bases run
-// on the plan tier: plan_kernels.cu, built once per base. K1's and K2's
+// K1 and K4, where the tuned shape asks for it (use_mxu; its detailed mode
+// above b97). K3 (the strided niceonly path, bases of at most 4 u32 limbs)
+// and, at those bases, K2 and K5's detailed mode run on the plan tier:
+// plan_kernels.cu, built once per base. K1's, K2's and K5's detailed
 // kernels are in nice_grid.cuh, shared with that build.
 //
 // K1 detailed_megaloop_kernel replaces the TPU's detailed stats kernel:
@@ -54,13 +55,17 @@
 // That matrix differs per lane, which on an MMA fills one output column of
 // eight; K5 instead splits n = S + i (S the launch's start, i the lane's
 // offset), so the lane-dependent limbs of n^2 and n^3 are one GEMM of each
-// lane's bytes of i and i^2 against Toeplitz bands of 2S, 3S^2 and 3S
-// shared by the whole launch (nice_kernels.cuh, "K5"), on the tensor cores
-// through wmma (u8 x u8 -> s32, m16n16k16). The kernels are K1's and K4's
-// with K5's products in place of the schoolbook ones and the grid-stride
-// loops run per warp, so every thread reaches each MMA. The digit work is
-// K1's; it, not the products, dominates a lane at b40, so K5 can only pay
-// where the product's share is large (b98, b510).
+// lane's bytes of i and i^2 against Toeplitz bands of S and S^2 shared by
+// the whole launch (nice_kernels.cuh, "K5"), on the tensor cores through
+// mma.sync (u8 x u8 -> s32, m16n8k16) with every operand and result in
+// registers: a thread loads its T words once, builds D's from its quad's
+// offsets and gets its own columns by shuffles. The kernels are K1's and
+// K4's with K5's products in place of the schoolbook ones and the
+// grid-stride loops run per warp, so every thread reaches each MMA; each
+// runs on the tier its K1/K4 counterpart would (the dense mode on K4's
+// register tier and block shape), the detailed mode on the plan tier to
+// b97. The digit work is K1's; it, not the products, dominates a lane at
+// b40, so K5 pays most where the product's share is large (b98, b510).
 //
 // What bounds them on an H100: they take no input but a few start limbs (K3:
 // 96 bytes a descriptor and the residue table; K4: the class table) and
@@ -80,8 +85,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "nice_grid.cuh"
 
@@ -130,62 +133,25 @@ niceonly_dense_kernel(const int64_t* __restrict__ start,
   }
 }
 
-// K5, the detailed mode: K1 with K5's products (see the note at the top).
-// The grid-stride loop runs per warp (its first lane decides), so every
-// thread of a warp reaches the MMA as often as the others; lanes past
-// valid_total take part with a zero offset and count nothing.
-template <class L>
-__global__ void __launch_bounds__(kThreads)
-detailed_megaloop_mma_kernel(const int64_t* __restrict__ start,
-                             int64_t valid_total, int64_t pad, Plan p,
-                             int32_t* __restrict__ hist,
-                             int32_t* __restrict__ nm_out) {
-  extern __shared__ __align__(128) unsigned char k5_smem[];
-  int32_t* sh = reinterpret_cast<int32_t*>(k5_smem);  // bins, near misses
-  const int nb = (int)p.base + 2;
-  for (int i = threadIdx.x; i <= nb; i += blockDim.x) sh[i] = 0;
-  const K5Smem mm =
-      k5_layout(k5_smem, p.limbs_n, p.limbs_sq, p.limbs_cu, 4 * (nb + 1));
-  k5_setup(start, p.limbs_n, p.limbs_sq, p.limbs_cu, mm);  // syncs the block
-  int nm = 0;
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t g0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane;
-       g0 < valid_total; g0 += stride) {
-    const int64_t g = g0 + lane;
-    const bool live = g < valid_total;
-    const int u = L::uniques_mma(start, live ? (uint32_t)g : 0u, live, p, mm);
-    if (live) {
-      if (u < nb) atomicAdd(&sh[u], 1);
-      nm += u > p.cutoff;
-    }
-  }
-  nm = __reduce_add_sync(0xffffffffu, nm);
-  if (lane == 0 && nm) atomicAdd(&sh[nb], nm);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    if (sh[i]) atomicAdd(&hist[i], sh[i]);
-  }
-  if (threadIdx.x == 0) {
-    if (sh[nb]) atomicAdd(nm_out, sh[nb]);
-    if (blockIdx.x == 0 && pad) atomicAdd(&hist[0], (int32_t)pad);
-  }
-}
-
 // K5, the dense niceonly mode: K4 with K5's products, its loop run per warp
-// as above (a lane past the run's lanes or past valid_total is not live).
+// (the MMAs and shuffles are the warp's; a lane past the run's lanes or past
+// valid_total is not live and takes part with a zero offset). A lane's quad
+// offsets come from its neighbours by shuffles. The block shape and
+// register bound are K4's.
 template <class L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
                           const int64_t* __restrict__ classes,
                           uint32_t num_cls, uint32_t lanes,
                           uint32_t valid_total, int min_u, Plan p,
                           int32_t* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char k5_smem[];
+  extern __shared__ __align__(16) unsigned char k5_smem[];
   __shared__ int32_t warp_sums[2][kThreads / 32];
-  const K5Smem mm = k5_layout(k5_smem, p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
-  k5_setup(start, p.limbs_n, p.limbs_sq, p.limbs_cu, mm);
   const uint32_t s = L::start_residue(start, p);
+  const K5Smem mm = k5_layout(k5_smem, p.limbs_cu, 0);
+  k5_setup(start, p, mm);  // syncs the block
+  typename L::K5B b;
+  L::load_b(b, p, mm);
   int c = 0, kept = 0;
   const uint32_t lane = threadIdx.x & 31;
   const uint32_t stride = gridDim.x * blockDim.x;
@@ -196,7 +162,13 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
         j < lanes ? L::dense_offset(classes, num_cls, s, j, p) : valid_total;
     const bool live = i < valid_total;
     kept += live;
-    const int u = L::uniques_mma(start, live ? i : 0u, live, p, mm);
+    const uint32_t il = live ? i : 0u;
+    uint32_t iq[4];
+    NICE_UNROLL
+    for (int r = 0; r < 4; ++r) {
+      iq[r] = __shfl_sync(0xffffffffu, il, (lane & ~3u) | r);
+    }
+    const int u = L::uniques_mma(start, il, iq, live, p, b, mm);
     c += live && u >= min_u && u <= (int)p.base;
   }
   c = __reduce_add_sync(0xffffffffu, c);
@@ -208,7 +180,7 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
   __syncthreads();
   if (threadIdx.x == 0) {
     int sc = 0, sk = 0;
-    for (int w = 0; w < kThreads / 32; ++w) {
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
       sc += warp_sums[0][w];
       sk += warp_sums[1][w];
     }
@@ -218,74 +190,35 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
   }
 }
 
-static_assert(kThreads / 32 == kMmaWarps, "K5 stages one slot per warp");
-
-// Returns 0, or kNoSmem when K5's shared memory exceeds kMmaSmemMax.
-template <class L>
-static int megaloop_shape(const Plan& p, int64_t valid_total, int mma,
-                          Shape* sh, size_t* smem) {
-  if (!mma) {
-    *sh = k1_shape<L>(p, valid_total, smem);
-    return 0;
-  }
-  const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu,
-                                  4 * ((int)p.base + 3));
-  if (bytes > kMmaSmemMax) return kNoSmem;
-  *smem = (size_t)bytes;
-  *sh = wave_shape((const void*)detailed_megaloop_mma_kernel<L>, valid_total,
-                   kThreads, *smem);
-  return 0;
-}
-
-template <class L>
-static int launch_megaloop(const Plan& p, const int64_t* start,
-                           int64_t valid_total, int64_t pad, int32_t* hist,
-                           int32_t* nm, int mma, cudaStream_t s) {
-  Shape sh;
-  size_t smem;
-  const int rc = megaloop_shape<L>(p, valid_total, mma, &sh, &smem);
-  if (rc) return rc;
-  if (!mma) {
-    detailed_megaloop_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
-        start, valid_total, pad, p, hist, nm);
-  } else {
-    detailed_megaloop_mma_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
-        start, valid_total, pad, p, hist, nm);
-  }
-  return 0;
-}
-
 // num_cls classes times ceil(valid_total / (base - 1)) periods of lanes, in
-// a grid-stride loop. K4 (not K5, whose warps each stage a slot of its
-// shared memory) takes blocks of kDenseSmallThreads when the run has fewer
-// lanes than the SMs hold blocks of kThreads, so that its few blocks do not
-// leave most SMs idle.
+// a grid-stride loop. K4 and K5 take blocks of kDenseSmallThreads when the
+// run has fewer lanes than the SMs hold blocks of kThreads, so that its few
+// blocks do not leave most SMs idle. K5's blocks carry its shared memory;
+// it returns kNoSmem when that passes kMmaSmemMax.
 template <class L>
 static int dense_shape(const Plan& p, uint32_t num_cls, uint32_t valid_total,
                        int mma, Shape* sh, size_t* smem, uint32_t* lanes) {
   const uint32_t m = p.base - 1;
   *lanes = num_cls * ((valid_total + m - 1) / m);
-  if (!mma) {
-    const void* k = (const void*)niceonly_dense_kernel<L>;
-    *smem = 0;
-    *sh = wave_shape(k, *lanes, kThreads, 0);
-    if ((int64_t)*lanes < (int64_t)sh->sms * kThreads) {
-      *sh = wave_shape(k, *lanes, kDenseSmallThreads, 0);
-    }
-    return 0;
-  }
-  if constexpr (std::is_same_v<L, DenseTier>) {
-    return kNoTier;  // DenseTier serves K4 alone (dense_tier)
-  } else {
-    const int bytes = k5_smem_bytes(p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
+  const void* k = (const void*)niceonly_dense_kernel<L>;
+  *smem = 0;
+  if (mma) {
+    const int bytes = k5_smem_bytes(p.limbs_sq, p.limbs_cu, 0);
     if (bytes > kMmaSmemMax) return kNoSmem;
+    k = (const void*)niceonly_dense_mma_kernel<L>;
     *smem = (size_t)bytes;
-    *sh = wave_shape((const void*)niceonly_dense_mma_kernel<L>, *lanes,
-                     kThreads, *smem);
-    return 0;
   }
+  *sh = wave_shape(k, *lanes, kThreads, *smem);
+  if ((int64_t)*lanes < (int64_t)sh->sms * kThreads) {
+    *sh = wave_shape(k, *lanes, kDenseSmallThreads, *smem);
+  }
+  return 0;
 }
 
+// K4 (mma = 0) or K5 in the dense mode (mma = 1; mma = 2 runs each
+// block's setup alone, over the launch's grid for these arguments, to time
+// it apart: a measurement mode, as launch_k5's in nice_grid.cuh, that the
+// wrappers never pass).
 template <class L>
 static int launch_dense(const Plan& p, const int64_t* start,
                         const int64_t* classes, uint32_t num_cls,
@@ -300,17 +233,20 @@ static int launch_dense(const Plan& p, const int64_t* start,
   if (!mma) {
     niceonly_dense_kernel<L><<<sh.grid, sh.threads, 0, s>>>(
         start, classes, num_cls, lanes, valid_total, min_u, p, out);
-  } else if constexpr (!std::is_same_v<L, DenseTier>) {
+  } else if (mma == 2) {
+    niceonly_dense_mma_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
+        start, classes, num_cls, 0, 0, min_u, p, out);
+  } else {
     niceonly_dense_mma_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
         start, classes, num_cls, lanes, valid_total, min_u, p, out);
   }
   return 0;
 }
 
-// K4's tier (2 for DenseTier): pick_tier's, with DenseTier between the
-// small and the generic tier for the non-MMA kernel (K5 keeps pick_tier's).
-inline int dense_tier(const Plan& p, int mma) {
-  if (!mma && !SmallTier::fits(p) && DenseTier::fits(p)) return 2;
+// The dense mode's tier (2 for DenseTier), the same for K4 and K5:
+// pick_tier's, with DenseTier between the small and the generic tier.
+inline int dense_tier(const Plan& p) {
+  if (!SmallTier::fits(p) && DenseTier::fits(p)) return 2;
   return pick_tier(p);
 }
 
@@ -321,7 +257,9 @@ inline int dense_tier(const Plan& p, int mma) {
 // kPlanTierOnly) before launching.
 extern "C" {
 
-// K1 (mma = 0) or K5 in the detailed mode (mma = 1; lanes < 2^31).
+// K1 (mma = 0) or K5 in the detailed mode (mma = 1; lanes < 2^31; mma = 2
+// its setup alone) above the plan tier; plan_kernels.cu runs K5's plans of
+// at most kPlanTierLimbs limbs.
 int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
                            long long valid_total, long long pad, void* hist,
                            void* nm, int mma, void* stream) {
@@ -331,13 +269,19 @@ int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
   int32_t* h = (int32_t*)hist;
   int32_t* n = (int32_t*)nm;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  switch (pick_tier(p)) {
-    case 0: rc = launch_megaloop<SmallTier>(p, st, valid_total, pad, h, n, mma, s); break;
-    case 1: rc = launch_megaloop<GenericTier>(p, st, valid_total, pad, h, n, mma, s); break;
-    default: return kNoTier;
+  const int tier = pick_tier(p);
+  if (tier < 0) return kNoTier;
+  if (mma) {
+    if (plan_tier_takes(p)) return kPlanTierOnly;
+    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma, s);
+    return rc ? rc : (int)cudaGetLastError();
   }
-  return rc ? rc : (int)cudaGetLastError();
+  if (tier == 0) {
+    launch_k1<SmallTier>(p, st, valid_total, pad, h, n, s);
+  } else {
+    launch_k1<GenericTier>(p, st, valid_total, pad, h, n, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K2 above the plan tier (limbs_n > kPlanTierLimbs), in the generic tier;
@@ -357,7 +301,7 @@ int nice_uniques(const uint64_t* plan_words, const void* start,
 // min_uniques <= num_uniques <= base, out[1] += the lanes not kept (the
 // caller zeroes out; the search passes min_uniques = base). The caller keeps
 // 1 <= num_cls <= base - 1, base >= 3 and valid_total + base < 2^31. mma = 1
-// runs K5 in the dense mode instead of K4.
+// runs K5 in the dense mode instead of K4 (mma = 2 its setup alone).
 int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
                         const void* classes, long long num_cls,
                         long long valid_total, int min_uniques, int mma,
@@ -369,7 +313,7 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  switch (dense_tier(p, mma)) {
+  switch (dense_tier(p)) {
     case 0:
       rc = launch_dense<SmallTier>(p, st, cl, (uint32_t)num_cls,
                                    (uint32_t)valid_total, min_uniques, o, mma,
@@ -394,24 +338,33 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
 // kernel 0: K1 (K5's detailed mode with mma = 1) over a = valid_total
 // lanes; 1: K2 over a lanes; 3: K4 (K5's dense mode with mma = 1) over a =
 // num_cls classes and b = valid_total lanes (kernel 2, K3, is
-// plan_kernels.cu's alone). out[0..4] = the grid's blocks, threads a block,
-// resident blocks an SM at that block size, the SMs, and the tier (0 small,
-// 1 generic, 2 dense). Returns 0, or what the launch would return for the
-// plan before launching.
+// plan_kernels.cu's alone, as K2 and K5's detailed mode are at its plans).
+// out[0..4] = the grid's blocks, threads a block, resident blocks an SM at
+// that block size, the SMs, and the tier (0 small, 1 generic, 2 dense).
+// Returns 0, or what the launch would return for the plan before launching.
 int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
                       long long b, int mma, int* out) {
   using namespace nice;
   const Plan p = plan_from_words(plan_words);
-  if (kernel == 2 || (kernel == 1 && plan_tier_takes(p))) return kPlanTierOnly;
-  const int tier = kernel == 3 ? dense_tier(p, mma) : pick_tier(p);
+  if (kernel == 2 || (kernel < 2 && (kernel == 1 || mma) &&
+                      plan_tier_takes(p))) {
+    return kPlanTierOnly;
+  }
+  const int tier = kernel == 3 ? dense_tier(p) : pick_tier(p);
   if (tier < 0) return kNoTier;
   Shape sh;
   size_t smem;
   uint32_t lanes;
   int rc = 0;
   switch (kernel * 3 + tier) {
-    case 0: rc = megaloop_shape<SmallTier>(p, a, mma, &sh, &smem); break;
-    case 1: rc = megaloop_shape<GenericTier>(p, a, mma, &sh, &smem); break;
+    case 0: sh = k1_shape<SmallTier>(p, a, &smem); break;
+    case 1:
+      if (mma) {
+        rc = k5_shape<GenericTier>(p, a, &sh, &smem);
+      } else {
+        sh = k1_shape<GenericTier>(p, a, &smem);
+      }
+      break;
     case 4: sh = uniques_shape<GenericTier>(a); break;
     case 9:
       rc = dense_shape<SmallTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,

@@ -33,7 +33,6 @@
 
 #pragma once
 
-#include <mma.h>
 #include <stdint.h>
 
 #define NICE_D __device__ __forceinline__
@@ -104,128 +103,248 @@ struct Plan {
 // lane's offset, so n^2 = S^2 + 2S*i + i^2 and n^3 = S^3 + 3S^2*i + 3S*i^2 +
 // i^3. The lane-dependent parts are one GEMM with a shared operand: D (a row
 // per lane: the 4 bytes of i and the 8 of i^2, padded to 16) times T (the
-// Toeplitz bands of the bytes of 2S for n^2's byte columns, of 3S^2 and 3S
-// for n^3's), on the tensor cores as u8 x u8 -> s32 (column sums at most
-// 12 * 255 * 255). Each block builds T and S^2, S^3 once in shared memory
-// from the start limbs; each warp stages its 32 rows of D and, one tile of
-// 16 byte columns (4 limbs) at a time, its accumulators, which each thread
-// walks into its lane's limbs with a 64-bit carry.
+// Toeplitz bands of the bytes of S for n^2's byte columns, of S^2 and S for
+// n^3's), on the tensor cores as mma.sync m16n8k16 u8 x u8 -> s32 (column
+// sums at most 12 * 255 * 255), in registers; the factors 2 and 3 of the
+// algebra multiply the column sums as they are walked into limbs
+// (ops/mxu.py puts them into T's bands instead: the same sums).
+//   * A warp's 32 lanes are the MMA's rows, two halves of 16: in quad g
+//     (lanes 4g..4g+3), quad lane r is row g + 8 (r & 1) of half r >> 1.
+//   * D is the A operand: thread (g, q) holds word q of rows g and g + 8 of
+//     each half, so word q of the D row ({i, lo(i^2), hi(i^2), 0}) of each
+//     lane of its quad, made from the quad's four offsets.
+//   * T is the B operand, 16 x 8 bytes a tile of two limbs: thread (g, q)
+//     holds rows 4q..4q+3 of byte column g, one word a tile. T is the
+//     launch's: the block fills its words into shared memory once, and a
+//     thread loads its own before its grid-stride loop (into registers
+//     where the tier's tile count is a constant).
+//   * C: thread (g, q) gets byte columns 2q and 2q + 1 of each lane of its
+//     quad. It folds them into one word a lane (< 2^29); three xor shuffles
+//     give every lane the four words of its own row, which make the tile's
+//     two limbs as 64-bit sums, walked with one carry together with S^2 +
+//     i^2 (S^3 + i^3).
+// Each block forms S^2 and S^3 in shared memory from the start limbs, as
+// warp 0's products, while its other warps fill T's words (k5_setup).
 
-constexpr int kMmaWarps = 8;        // warps of a block (kThreads / 32)
-constexpr int kMmaK = 16;           // MMA depth: D's 12 digit bytes, padded
-constexpr int kTileCols = 16;       // byte columns of one MMA tile: 4 limbs
-constexpr int kAccLd = 20;          // int32 words a staged accumulator row
-                                    // (padded: conflict-free 16-byte reads)
+constexpr int kTileLimbs = 2;       // u32 limbs of one m16n8 tile (8 bytes)
 constexpr int kMmaSmemMax = 48 * 1024;  // no opt-in beyond the default
+constexpr int kK5Pad = 2;           // zero words below T's sources S, S^2
 
-__host__ __device__ constexpr int k5_tiles(int limbs) { return (limbs + 3) / 4; }
-__host__ __device__ constexpr int k5_round128(int x) { return (x + 127) & ~127; }
+__host__ __device__ constexpr int k5_tiles(int limbs) {
+  return (limbs + kTileLimbs - 1) / kTileLimbs;
+}
+__host__ __device__ constexpr int k5_round16(int x) { return (x + 15) & ~15; }
+
+// Words of each of T's sources in shared memory: kK5Pad zero words below,
+// then the value zero-extended to limbs_cu + 2 words, so that every byte
+// window T reads lies inside.
+__host__ __device__ constexpr int k5_source_words(int limbs_cu) {
+  return kK5Pad + limbs_cu + 2;
+}
 
 // Shared-memory bytes of a K5 block: the caller's own `front` bytes (K1's
-// histogram), T (column-major, 16 bytes a column), the launch's limb
-// constants, and per warp its rows of D and of accumulators. ops/mxu.py
-// smem_bytes computes the same for the detailed mode.
-__host__ __device__ constexpr int k5_smem_bytes(int limbs_n, int limbs_sq,
-                                                int limbs_cu, int front) {
-  return k5_round128(front) +
-         kMmaK * kTileCols * (k5_tiles(limbs_sq) + k5_tiles(limbs_cu)) +
-         k5_round128(4 * (limbs_n + 2 * limbs_sq + 3 * limbs_cu)) +
-         kMmaWarps * (32 * kMmaK + 32 * kAccLd * 4);
+// histogram), then S and S^2 (T's sources, padded), S^3, and T's words, 32
+// a tile, n^2's tiles first. ops/mxu.py smem_bytes computes the same for
+// the detailed mode.
+__host__ __device__ constexpr int k5_smem_bytes(int limbs_sq, int limbs_cu,
+                                                int front) {
+  return k5_round16(front) + 4 * (2 * k5_source_words(limbs_cu) + limbs_cu) +
+         4 * 32 * (k5_tiles(limbs_sq) + k5_tiles(limbs_cu));
 }
 
 struct K5Smem {
-  uint8_t* t;            // T: byte column c's 16 rows at t[16 c]
-  uint32_t* s;           // S (limbs_n)
-  uint32_t* two_s;       // 2S mod 2^(32 limbs_sq)
-  uint32_t* s_sq;        // S^2 mod 2^(32 limbs_sq)
-  uint32_t* s_cu;        // S^2 * S mod 2^(32 limbs_cu)
-  uint32_t* three_s_sq;  // 3 S^2 mod 2^(32 limbs_cu)
-  uint32_t* three_s;     // 3S mod 2^(32 limbs_cu)
-  uint8_t* d;            // this warp's 32 rows of D (16 bytes each)
-  int32_t* acc;          // this warp's 32 rows of column sums (kAccLd words)
+  uint32_t* s;     // S, zero-extended (kK5Pad zero words below s[0])
+  uint32_t* s_sq;  // S^2 mod 2^(32 limbs_sq), zero-extended the same way
+  uint32_t* s_cu;  // S^2 * S mod 2^(32 limbs_cu)
+  uint32_t* b;     // T's words: tile t's word of lane l at 32 t + l
 };
 
-// Carves base (128-byte aligned) as k5_smem_bytes lays it out.
-__device__ inline K5Smem k5_layout(unsigned char* base, int limbs_n,
-                                   int limbs_sq, int limbs_cu, int front) {
+// Carves base (16-byte aligned) as k5_smem_bytes lays it out.
+NICE_D K5Smem k5_layout(unsigned char* base, int limbs_cu, int front) {
   K5Smem sh;
-  int off = k5_round128(front);
-  sh.t = base + off;
-  off += kMmaK * kTileCols * (k5_tiles(limbs_sq) + k5_tiles(limbs_cu));
-  uint32_t* l = reinterpret_cast<uint32_t*>(base + off);
-  sh.s = l;
-  sh.two_s = sh.s + limbs_n;
-  sh.s_sq = sh.two_s + limbs_sq;
-  sh.s_cu = sh.s_sq + limbs_sq;
-  sh.three_s_sq = sh.s_cu + limbs_cu;
-  sh.three_s = sh.three_s_sq + limbs_cu;
-  off += k5_round128(4 * (limbs_n + 2 * limbs_sq + 3 * limbs_cu));
-  sh.d = base + off + (threadIdx.x >> 5) * (32 * kMmaK + 32 * kAccLd * 4);
-  sh.acc = reinterpret_cast<int32_t*>(sh.d + 32 * kMmaK);
+  const int src = k5_source_words(limbs_cu);
+  sh.s = reinterpret_cast<uint32_t*>(base + k5_round16(front)) + kK5Pad;
+  sh.s_sq = sh.s + src;
+  sh.s_cu = sh.s_sq + src - kK5Pad;
+  sh.b = sh.s_cu + limbs_cu;
   return sh;
 }
 
-// o = a * b mod 2^(32 lo) over shared arrays, one thread, schoolbook.
-__device__ inline void k5_mul(const uint32_t* a, int la, const uint32_t* b,
-                              int lb, uint32_t* o, int lo) {
-  for (int k = 0; k < lo; ++k) o[k] = 0;
-  for (int i = 0; i < la && i < lo; ++i) {
-    uint64_t carry = 0;
-    for (int j = 0; j < lb && i + j < lo; ++j) {
-      const uint64_t t = (uint64_t)a[i] * b[j] + o[i + j] + carry;
-      o[i + j] = (uint32_t)t;
-      carry = t >> 32;
+// o[0, lo) = x * y mod 2^(32 lo), x of lx limbs and y of ly, all in shared
+// memory, by the 32 lanes of the calling warp. Lane k sums column k of each
+// 32-limb chunk in 96 bits (c0 + c1 2^32 + c2 2^64); v_k = c0_k + c1_{k-1} +
+// c2_{k-2} < 2^35 and its carry e_k < 8 go one limb up, and the 1-bit
+// carries left resolve by carry-lookahead on two ballots (lane k generates
+// one when it overflowed, which leaves it below 8, and passes one on when it
+// is all ones). What a chunk carries past its top lane goes into the next
+// chunk's lanes 0 and 1.
+NICE_D void k5_warp_mul(const uint32_t* x, int lx, const uint32_t* y, int ly,
+                        uint32_t* o, int lo) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  uint64_t in0 = 0;
+  uint32_t in1 = 0;
+  for (int c = 0; c < lo; c += 32) {
+    const int k = c + lane;
+    // The products' low and high words summed apart (each sum < 2^40).
+    uint64_t s_lo = 0, s_hi = 0;
+    if (k < lo) {
+      const int i1 = k < lx - 1 ? k : lx - 1;
+      _Pragma("unroll 4")
+      for (int i = k - ly + 1 > 0 ? k - ly + 1 : 0; i <= i1; ++i) {
+        const uint64_t t = (uint64_t)x[i] * y[k - i];
+        s_lo += (uint32_t)t;
+        s_hi += t >> 32;
+      }
     }
-    if (i + lb < lo) o[i + lb] = (uint32_t)carry;
+    const uint64_t rest = (s_lo >> 32) + s_hi;  // the column's c1 + c2 2^32
+    const uint32_t top = (uint32_t)(rest >> 32);
+    const uint32_t c1 = (uint32_t)rest;
+    const uint32_t c1_up = __shfl_up_sync(full, c1, 1);
+    const uint32_t c2_up = __shfl_up_sync(full, top, 2);
+    const uint64_t v = (uint64_t)(uint32_t)s_lo + (lane >= 1 ? c1_up : 0u) +
+                       (lane >= 2 ? c2_up : 0u) +
+                       (lane == 0 ? in0 : lane == 1 ? (uint64_t)in1 : 0u);
+    const uint32_t e = (uint32_t)(v >> 32);
+    const uint32_t e_up = __shfl_up_sync(full, e, 1);
+    const uint64_t z = (uint64_t)(uint32_t)v + (lane >= 1 ? e_up : 0u);
+    const uint32_t w = (uint32_t)z;
+    const uint32_t gen = __ballot_sync(full, (z >> 32) != 0);
+    const uint32_t pass = __ballot_sync(full, w == 0xffffffffu);
+    // The carries into each lane: those of (gen | pass) + gen.
+    const uint64_t sum = (uint64_t)(gen | pass) + gen;
+    const uint32_t cin = (uint32_t)sum ^ pass;
+    if (k < lo) o[k] = w + ((cin >> lane) & 1u);
+    if (c + 32 < lo) {
+      in0 = (uint64_t)__shfl_sync(full, c1, 31) + __shfl_sync(full, top, 30) +
+            __shfl_sync(full, e, 31) + (uint32_t)(sum >> 32);
+      in1 = __shfl_sync(full, top, 31);
+    }
+  }
+  __syncwarp();
+}
+
+// Bytes c0 - 3 .. c0 of the zero-extended source x, byte c0 lowest: T's
+// word of rows 4q..4q+3 against a band ending at byte column c0 (row k
+// takes byte c0 - (k - 4q)). -4 <= c0 < 4 (limbs_cu + 1) stays inside.
+NICE_D uint32_t k5_window(const uint32_t* x, int c0) {
+  const int b = c0 - 3;
+  const uint32_t win =
+      __funnelshift_r(x[b >> 2], x[(b >> 2) + 1], 8 * (b & 3));
+  return __byte_perm(win, 0u, 0x0123);
+}
+
+// T's word of lane l = 4g + q in tile t: rows 4q..4q+3 of byte column
+// 8 t' + g, with t' the tile within its product. Rows 0-3 take i's bytes
+// (S's band for n^2, S^2's for n^3), rows 4-11 i^2's (S's band). Only
+// those rows carry a term (q = 0 in n^2's tiles, q < 3 in n^3's): the
+// other words are never filled, and a thread takes them as 0.
+NICE_D uint32_t k5_b_word(const K5Smem& sh, int nt_sq, int t, int l) {
+  const int q = l & 3;
+  const int col = 8 * (t < nt_sq ? t : t - nt_sq) + (l >> 2);
+  if (t < nt_sq) return k5_window(sh.s, col);
+  return q == 0 ? k5_window(sh.s_sq, col) : k5_window(sh.s, col - 4 * (q - 1));
+}
+
+// The used words of T that need S alone (n^2's tiles, n^3's rows 4-11:
+// 8 + 16 a tile) or S^2 (n^3's rows 0-3: 8 a tile) into sh, by the block's
+// warps but warp 0, four words a thread in flight.
+NICE_D void k5_fill(const K5Smem& sh, int nt_sq, int nt, bool need_sq) {
+  const int words = need_sq ? 8 * (nt - nt_sq) : 8 * nt_sq + 16 * (nt - nt_sq);
+  _Pragma("unroll 4")
+  for (int u = (int)threadIdx.x - 32; u < words; u += (int)blockDim.x - 32) {
+    int t, l;
+    if (need_sq) {
+      t = nt_sq + (u >> 3);
+      l = 4 * (u & 7);
+    } else if (u < 8 * nt_sq) {
+      t = u >> 3;
+      l = 4 * (u & 7);
+    } else {
+      const int r = u - 8 * nt_sq;
+      t = nt_sq + (r >> 4);
+      l = 4 * ((r & 15) >> 1) + 1 + (r & 1);
+    }
+    sh.b[32 * t + l] = k5_b_word(sh, nt_sq, t, l);
   }
 }
 
-// o = a * m mod 2^(32 lo), a of la limbs (zero above).
-__device__ inline void k5_scale(const uint32_t* a, int la, uint32_t m,
-                                uint32_t* o, int lo) {
-  uint64_t carry = 0;
-  for (int k = 0; k < lo; ++k) {
-    const uint64_t t = (uint64_t)(k < la ? a[k] : 0u) * m + carry;
-    o[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-}
-
-// Byte j of a value of `limbs` u32 limbs (0 outside it).
-NICE_D uint32_t k5_byte(const uint32_t* x, int limbs, int j) {
-  return (j >= 0 && j < 4 * limbs) ? (x[j >> 2] >> (8 * (j & 3))) & 0xffu
-                                   : 0u;
-}
-
-// Builds the launch's constants and T in shared memory from the start
-// limbs (int64 words): every thread of the block calls it, and it ends with
-// the block synchronised.
-__device__ inline void k5_setup(const int64_t* start, int limbs_n,
-                                int limbs_sq, int limbs_cu, const K5Smem& sh) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < limbs_n; ++i) sh.s[i] = (uint32_t)start[i];
-    k5_scale(sh.s, limbs_n, 2, sh.two_s, limbs_sq);
-    k5_mul(sh.s, limbs_n, sh.s, limbs_n, sh.s_sq, limbs_sq);
-    k5_mul(sh.s_sq, limbs_sq, sh.s, limbs_n, sh.s_cu, limbs_cu);
-    k5_scale(sh.s_sq, limbs_sq, 3, sh.three_s_sq, limbs_cu);
-    k5_scale(sh.s, limbs_n, 3, sh.three_s, limbs_cu);
+// The block's K5 constants in sh from the start limbs: S and S^2 with their
+// zero words, S^3 and T's words. Warp 0 forms S^2, then S^3; meanwhile the
+// other warps fill T's words from S's band, then those from S^2's. Every
+// thread of the block calls it (at least two warps), and it ends with the
+// block synchronised.
+NICE_D void k5_setup(const int64_t* start, const Plan& p, const K5Smem& sh) {
+  const int n = p.limbs_n, lsq = p.limbs_sq, lcu = p.limbs_cu;
+  const int src = k5_source_words(lcu);
+  for (int k = threadIdx.x; k < 2 * src; k += blockDim.x) {
+    const int j = k % src - kK5Pad;  // word j of S (k < src) or of S^2
+    if (k < src) {
+      sh.s[j] = j >= 0 && j < n ? (uint32_t)start[j] : 0u;
+    } else if (j < 0 || j >= lsq) {
+      sh.s_sq[j] = 0u;
+    }
   }
   __syncthreads();
-  const int cols_sq = kTileCols * k5_tiles(limbs_sq);
-  const int cols = cols_sq + kTileCols * k5_tiles(limbs_cu);
-  for (int x = threadIdx.x; x < cols * kMmaK; x += blockDim.x) {
-    const int col = x / kMmaK, k = x % kMmaK;
-    uint32_t v = 0;
-    if (col < cols_sq) {
-      if (k < 4) v = k5_byte(sh.two_s, limbs_sq, col - k);
-    } else if (k < 4) {
-      v = k5_byte(sh.three_s_sq, limbs_cu, col - cols_sq - k);
-    } else if (k < 12) {
-      v = k5_byte(sh.three_s, limbs_cu, col - cols_sq - (k - 4));
-    }
-    sh.t[x] = (uint8_t)v;
+  const int nt_sq = k5_tiles(lsq), nt = nt_sq + k5_tiles(lcu);
+  if (threadIdx.x < 32) {
+    k5_warp_mul(sh.s, n, sh.s, n, sh.s_sq, lsq);
+  } else {
+    k5_fill(sh, nt_sq, nt, false);
   }
   __syncthreads();
+  if (threadIdx.x < 32) {
+    k5_warp_mul(sh.s_sq, lsq, sh.s, n, sh.s_cu, lcu);
+  } else {
+    k5_fill(sh, nt_sq, nt, true);
+  }
+  __syncthreads();
+}
+
+// C += A * B for one m16n8k16 tile, u8 x u8 -> s32 (a: A's two words, the
+// rows g and g + 8 of the thread's quad; b: B's word).
+NICE_D void mma_u8(int32_t (&c)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// x[k ^ q] for the quad lane q = l & 3 (two xor-permutation steps: the
+// quad's transpose reads and writes its words at indices relative to q).
+NICE_D void k5_permute(uint32_t (&x)[4], int q) {
+  const bool o = q & 1, h = q & 2;
+  const uint32_t y0 = o ? x[1] : x[0], y1 = o ? x[0] : x[1];
+  const uint32_t y2 = o ? x[3] : x[2], y3 = o ? x[2] : x[3];
+  x[0] = h ? y2 : y0;
+  x[1] = h ? y3 : y1;
+  x[2] = h ? y0 : y2;
+  x[3] = h ? y1 : y3;
+}
+
+// One tile's two limbs of this lane's row: the MMAs of both halves, each
+// thread's two byte columns of each quad lane folded into a word (p[r]
+// for quad lane r), the quad's transpose, and the four words of the lane's
+// own row summed into limb 2t's and 2t+1's 64-bit parts (*lo, *hi).
+NICE_D void k5_tile(const uint32_t (&a)[4], uint32_t b, uint64_t* lo,
+                    uint64_t* hi) {
+  int32_t c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
+  mma_u8(c0, a[0], a[1], b);
+  mma_u8(c1, a[2], a[3], b);
+  // Column sums are below 2^20, so c + (c' << 8) < 2^29.
+  uint32_t p[4] = {(uint32_t)c0[0] + ((uint32_t)c0[1] << 8),
+                   (uint32_t)c0[2] + ((uint32_t)c0[3] << 8),
+                   (uint32_t)c1[0] + ((uint32_t)c1[1] << 8),
+                   (uint32_t)c1[2] + ((uint32_t)c1[3] << 8)};
+  const int q = threadIdx.x & 3;
+  k5_permute(p, q);  // p[k] = the word for quad lane q ^ k
+  p[1] = __shfl_xor_sync(0xffffffffu, p[1], 1);
+  p[2] = __shfl_xor_sync(0xffffffffu, p[2], 2);
+  p[3] = __shfl_xor_sync(0xffffffffu, p[3], 3);
+  k5_permute(p, q);  // p[q'] = quad lane q''s columns 2q', 2q'+1 of my row
+  *lo = (uint64_t)p[0] + ((uint64_t)p[1] << 16);
+  *hi = (uint64_t)p[2] + ((uint64_t)p[3] << 16);
 }
 
 // Returns x / c and stores x % c in *r, for x < c * 2^32 and 2 <= c < 2^32,
@@ -514,83 +633,85 @@ struct Lane {
     return uniques_from(sq, cu, p);
   }
 
+  // The generic tier's K5 kernel asks for one block an SM (nice_grid.cuh).
+  static constexpr bool kUnroll = UNROLL;
+
+  // T's words of this thread: in registers where the tier unrolls (n^2's
+  // tiles at [0, TSQ), n^3's at [TSQ, TSQ + TCU)), else read from the
+  // block's shared copy a tile at a time.
+  static constexpr int TSQ = k5_tiles(SQL), TCU = k5_tiles(CUL);
+  struct K5B {
+    uint32_t r[UNROLL ? TSQ + TCU : 1];
+    const uint32_t* smem;  // this thread's word of tile 0
+  };
+
+  // A thread's T words, once, after the block's k5_setup (its unused ones
+  // read as 0: in the generic tier mma_limbs tests k5_b_used itself).
+  static NICE_D void load_b(K5B& b, const Plan& p, const K5Smem& sh) {
+    const int l = threadIdx.x & 31;
+    b.smem = sh.b + l;
+    if constexpr (UNROLL) {
+      const int nt_sq = k5_tiles(p.limbs_sq), nt_cu = k5_tiles(p.limbs_cu);
+      NICE_UNROLL
+      for (int t = 0; t < TSQ; ++t) {
+        b.r[t] = t < nt_sq && (l & 3) == 0 ? b.smem[32 * t] : 0u;
+      }
+      NICE_UNROLL
+      for (int t = 0; t < TCU; ++t) {
+        b.r[TSQ + t] =
+            t < nt_cu && (l & 3) < 3 ? b.smem[32 * (nt_sq + t)] : 0u;
+      }
+    }
+  }
+
   // K5's lane: num_uniques of n = start + i (i < 2^31) through K5's
-  // products. Every thread of a warp calls it together (the MMA is the
+  // products; iq holds the offsets of the thread's quad (lanes 4g..4g+3).
+  // Every thread of a warp calls it together (the MMAs and shuffles are the
   // warp's); a lane that is not live takes part with i = 0 and returns 0.
-  static NICE_D int uniques_mma(const int64_t* start, uint32_t i, bool live,
-                                const Plan& p, const K5Smem& sh) {
+  static NICE_D int uniques_mma(const int64_t* start, uint32_t i,
+                                const uint32_t (&iq)[4], bool live,
+                                const Plan& p, const K5B& b,
+                                const K5Smem& sh) {
     uint32_t n[NL], sq[SQL], cu[CUL];
     const bool wrapped = load_n(n, start, i, p);
-    products_mma(n, wrapped, i, p, sh, sq, cu);
+    products_mma(n, wrapped, i, iq, p, b, sh, sq, cu);
     if (!live) return 0;
     return uniques_from(sq, cu, p);
   }
 
-  typedef nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                 unsigned char, nvcuda::wmma::row_major>
-      FragA;
-
-  // The warp's 32 rows of column sums of one tile of T (16 byte columns at
-  // t_tile): two 16 x 16 x 16 MMAs (lanes 0-15, 16-31) staged through the
-  // warp's accumulator rows; col gets this thread's row.
-  static NICE_D void mma_tile(const FragA& a0, const FragA& a1,
-                              const uint8_t* t_tile, int32_t* acc,
-                              int32_t (&col)[16]) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, unsigned char, wmma::col_major>
-        b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> c;
-    wmma::load_matrix_sync(b, t_tile, kMmaK);
-    wmma::fill_fragment(c, 0);
-    wmma::mma_sync(c, a0, b, c);
-    wmma::store_matrix_sync(acc, c, kAccLd, wmma::mem_row_major);
-    wmma::fill_fragment(c, 0);
-    wmma::mma_sync(c, a1, b, c);
-    wmma::store_matrix_sync(acc + 16 * kAccLd, c, kAccLd, wmma::mem_row_major);
-    __syncwarp();
-    const int4* row =
-        reinterpret_cast<const int4*>(acc + (threadIdx.x & 31) * kAccLd);
-    NICE_UNROLL
-    for (int q = 0; q < 4; ++q) {
-      const int4 v = row[q];
-      col[4 * q] = v.x;
-      col[4 * q + 1] = v.y;
-      col[4 * q + 2] = v.z;
-      col[4 * q + 3] = v.w;
-    }
-    __syncwarp();
-  }
-
-  // A tile's 16 byte columns (LS first) into limbs 4 tile .. 4 tile + 3 of
-  // o (those below lo), the carry between limbs in *carry.
-  template <int L>
-  static NICE_D void columns_to_limbs(const int32_t (&col)[16], int tile,
-                                      uint32_t (&o)[L], int lo,
-                                      uint64_t* carry) {
-    NICE_UNROLL
-    for (int u = 0; u < 4; ++u) {
-      const uint64_t a = *carry + (uint64_t)(uint32_t)col[4 * u] +
-                         ((uint64_t)(uint32_t)col[4 * u + 1] << 8) +
-                         ((uint64_t)(uint32_t)col[4 * u + 2] << 16) +
-                         ((uint64_t)(uint32_t)col[4 * u + 3] << 24);
-      const int l = 4 * tile + u;
-      if (l < L && l < lo) o[l] = (uint32_t)a;
-      *carry = a >> 32;
-    }
-  }
-
-  // x += c + (y2:y1:y0) mod 2^(32 lx), c a shared limb constant.
-  template <int L>
-  static NICE_D void add_const(uint32_t (&x)[L], int lx, const uint32_t* c,
-                               uint32_t y0, uint32_t y1, uint32_t y2) {
+  // One product's limbs o[0, lo): T's tiles t0 .. t0 + nt (of capacity TN
+  // where the tier unrolls) against the lane's D row a, each tile's two
+  // limbs walked with one carry, times the algebra's 2 (n^2) or 3 (cube:
+  // n^3), together with c (a shared limb constant) and the lane term
+  // (y2:y1:y0).
+  template <int L, int TN>
+  static NICE_D void mma_limbs(const uint32_t (&a)[4], const K5B& b, int t0,
+                               int nt, bool cube, uint32_t (&o)[L], int lo,
+                               const uint32_t* c, uint32_t y0, uint32_t y1,
+                               uint32_t y2) {
+    const uint32_t m = cube ? 3u : 2u;
+    const bool used = (threadIdx.x & 3) < (cube ? 3u : 1u);
     uint64_t carry = 0;
     NICE_UNROLL
-    for (int k = 0; k < (UNROLL ? L : lx); ++k) {
-      if (UNROLL && k >= lx) continue;
-      const uint32_t y = k == 0 ? y0 : k == 1 ? y1 : k == 2 ? y2 : 0u;
-      const uint64_t t = (uint64_t)x[k] + c[k] + y + carry;
-      x[k] = (uint32_t)t;
-      carry = t >> 32;
+    for (int t = 0; t < (UNROLL ? TN : nt); ++t) {
+      if (UNROLL && t >= nt) break;
+      uint32_t bw;
+      if constexpr (UNROLL) {
+        bw = b.r[t0 + t];
+      } else {
+        bw = used ? b.smem[32 * (t0 + t)] : 0u;
+      }
+      uint64_t part[2];
+      k5_tile(a, bw, &part[0], &part[1]);
+      NICE_UNROLL
+      for (int u = 0; u < kTileLimbs; ++u) {
+        const int k = kTileLimbs * t + u;
+        if (k >= L || k >= lo) break;
+        const uint32_t y = k == 0 ? y0 : k == 1 ? y1 : k == 2 ? y2 : 0u;
+        const uint64_t v = carry + (m * part[u] + c[k] + y);
+        o[k] = (uint32_t)v;
+        carry = v >> 32;
+      }
     }
   }
 
@@ -611,45 +732,35 @@ struct Lane {
     return over;
   }
 
-  // K5's products of the warp's lanes n = S + i (S in sh, i this thread's):
-  // D's rows staged, then the GEMM one tile at a time, each thread's 16
-  // sums walked into 4 limbs, then + S^2 + i^2 and + S^3 + i^3. sq and cu
-  // are K1's (n^2 mod 2^(32 limbs_sq), that times n mod 2^(32 limbs_cu)).
-  // A lane whose n wrapped or whose square passes limbs_sq limbs (outside
-  // the base's range) takes mul's schoolbook products instead, so K5 equals
-  // K1 on every lane.
+  // K5's products of the warp's lanes n = S + i (S's constants in sh, i
+  // this thread's, iq its quad's): D's words of the quad (word q of each
+  // quad lane's row), then the GEMM a tile at a time, + S^2 + i^2 and
+  // + S^3 + i^3. sq and cu are K1's (n^2 mod 2^(32 limbs_sq), that times n
+  // mod 2^(32 limbs_cu)). A lane whose n wrapped or whose square passes
+  // limbs_sq limbs (outside the base's range) takes mul's schoolbook
+  // products instead, so K5 equals K1 on every lane.
   static NICE_D void products_mma(const uint32_t (&n)[NL], bool wrapped,
-                                  uint32_t i, const Plan& p, const K5Smem& sh,
-                                  uint32_t (&sq)[SQL], uint32_t (&cu)[CUL]) {
-    using namespace nvcuda;
+                                  uint32_t i, const uint32_t (&iq)[4],
+                                  const Plan& p, const K5B& b,
+                                  const K5Smem& sh, uint32_t (&sq)[SQL],
+                                  uint32_t (&cu)[CUL]) {
+    const int q = threadIdx.x & 3;
+    uint32_t a[4];
+    NICE_UNROLL
+    for (int r = 0; r < 4; ++r) {
+      const uint64_t s2 = (uint64_t)iq[r] * iq[r];
+      a[r] = q == 0 ? iq[r]
+           : q == 1 ? (uint32_t)s2
+           : q == 2 ? (uint32_t)(s2 >> 32) : 0u;
+    }
     const uint64_t i2 = (uint64_t)i * i;
-    __syncwarp();
-    reinterpret_cast<uint4*>(sh.d)[threadIdx.x & 31] =
-        make_uint4(i, (uint32_t)i2, (uint32_t)(i2 >> 32), 0u);
-    __syncwarp();
-    FragA a0, a1;
-    wmma::load_matrix_sync(a0, sh.d, kMmaK);
-    wmma::load_matrix_sync(a1, sh.d + 16 * kMmaK, kMmaK);
-    const int nt_sq = k5_tiles(p.limbs_sq), nt_cu = k5_tiles(p.limbs_cu);
-    int32_t col[16];
-    uint64_t carry = 0;
-    NICE_UNROLL
-    for (int tile = 0; tile < (UNROLL ? k5_tiles(SQL) : nt_sq); ++tile) {
-      if (UNROLL && tile >= nt_sq) break;
-      mma_tile(a0, a1, sh.t + tile * kTileCols * kMmaK, sh.acc, col);
-      columns_to_limbs(col, tile, sq, p.limbs_sq, &carry);
-    }
-    carry = 0;
-    NICE_UNROLL
-    for (int tile = 0; tile < (UNROLL ? k5_tiles(CUL) : nt_cu); ++tile) {
-      if (UNROLL && tile >= nt_cu) break;
-      mma_tile(a0, a1, sh.t + (nt_sq + tile) * kTileCols * kMmaK, sh.acc, col);
-      columns_to_limbs(col, tile, cu, p.limbs_cu, &carry);
-    }
     const uint64_t i3_lo = i2 * i;  // i^3 < 2^93: three limbs
-    add_const(sq, p.limbs_sq, sh.s_sq, (uint32_t)i2, (uint32_t)(i2 >> 32), 0u);
-    add_const(cu, p.limbs_cu, sh.s_cu, (uint32_t)i3_lo,
-              (uint32_t)(i3_lo >> 32), (uint32_t)__umul64hi(i2, i));
+    const int nt_sq = k5_tiles(p.limbs_sq), nt_cu = k5_tiles(p.limbs_cu);
+    mma_limbs<SQL, TSQ>(a, b, 0, nt_sq, false, sq, p.limbs_sq, sh.s_sq,
+                        (uint32_t)i2, (uint32_t)(i2 >> 32), 0u);
+    mma_limbs<CUL, TCU>(a, b, UNROLL ? TSQ : nt_sq, nt_cu, true, cu,
+                        p.limbs_cu, sh.s_cu, (uint32_t)i3_lo, (uint32_t)(i3_lo >> 32),
+                        (uint32_t)__umul64hi(i2, i));
 #ifndef NICE_K5_NO_FALLBACK
     if (wrapped || square_overflows(n, p)) {
       mul(n, p.limbs_n, n, p.limbs_n, sq, p.limbs_sq);
@@ -677,8 +788,8 @@ struct Lane {
 // SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
 // holds the main path's b40 and every benchmark base except hi-base (b80,
 // whose niceonly fields K3 runs in the generic tier).
-// DenseTier: K4's alone (its non-MMA kernel; dense_tier), sized to the
-// dense path's b98 plan (5/9/13 limbs, 4 mask words), with its limbs in
+// DenseTier: K4's and K5's dense mode (dense_tier), sized to the dense
+// path's b98 plan (5/9/13 limbs, 4 mask words), with its limbs in
 // registers; it holds every base from b97 to b104 (from b105 n^3 takes 14
 // limbs).
 // GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;

@@ -14,10 +14,10 @@
 // constant trip count and unrolls fully, so each function is straight-line
 // code and its instruction count is what one lane issues, give or take the
 // few instructions of index setup. The constants also fold (divisors and
-// reciprocals become immediates). K2's and K3's lanes are those of their
-// kernels (plan_kernels.cu builds the same PlanTier); K1's and K5's
-// detailed lanes and K4's issue no more than what their runtime-plan
-// kernels in nice_kernels.cu issue for a lane of that base.
+// reciprocals become immediates). K2's, K3's and K5's detailed lanes are
+// those of their kernels (plan_kernels.cu builds the same PlanTier); K1's
+// lane and K4's and K5's dense lanes issue no more than what their
+// runtime-plan kernels in nice_kernels.cu issue for a lane of that base.
 
 #include <stdint.h>
 
@@ -78,43 +78,56 @@ extern "C" __global__ void k4_lane(const int64_t* __restrict__ start,
   out[j] = c + 2 * kept;
 }
 
-// One lane of K5 in the detailed mode (detailed_megaloop_mma_kernel) at K1's
-// base: its share of the warp's staging, MMAs and reassembly, the digit work,
-// the histogram and the near-miss test. The block's setup (T and the limb
-// constants, built once per block and reused by every lane of its
-// grid-stride loop) is left out.
+// One lane of K5 in the detailed mode (detailed_megaloop_mma_kernel) on the
+// plan tier at K1's base: its quad's offsets and D's words, its share of the
+// warp's MMAs and shuffles and its limbs' carry walk, the digit work, the
+// histogram and the near-miss test. The block's setup (S^2 and S^3, formed
+// once per block and reused by every lane of its grid-stride loop) is left
+// out; the thread's loads of T's words, once per thread, are counted.
 extern "C" __global__ void k5_detailed_lane(const int64_t* __restrict__ start,
                                             int32_t* __restrict__ nm_out) {
   constexpr nice::Plan p = {NICE_PLAN};
+  typedef nice::PlanTier Tier;
   constexpr int front = 4 * ((int)p.base + 3);
-  __shared__ __align__(128) unsigned char smem[nice::k5_smem_bytes(
-      p.limbs_n, p.limbs_sq, p.limbs_cu, front)];
+  __shared__ __align__(16) unsigned char smem[nice::k5_smem_bytes(
+      p.limbs_sq, p.limbs_cu, front)];
   int32_t* sh = reinterpret_cast<int32_t*>(smem);
-  const nice::K5Smem mm =
-      nice::k5_layout(smem, p.limbs_n, p.limbs_sq, p.limbs_cu, front);
+  const nice::K5Smem mm = nice::k5_layout(smem, p.limbs_cu, front);
+  Tier::K5B b;
+  Tier::load_b(b, p, mm);
   const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int u = nice::PlanTier::uniques_mma(start, g, true, p, mm);
+  const uint32_t gq = g & ~3u;
+  const uint32_t iq[4] = {gq, gq + 1, gq + 2, gq + 3};
+  const int u = Tier::uniques_mma(start, g, iq, true, p, b, mm);
   if (u < (int)p.base + 2) atomicAdd(&sh[u], 1);
   nm_out[g] = u > p.cutoff;
 }
 
 // One lane of K5 in the dense mode (niceonly_dense_mma_kernel) at K4's base
 // (the tier of K4's lane, limbs in registers): the lane's offset, the
-// ragged-period mask, K5's products, the digit work, the nice test and the
-// kept count; the block's setup left out as above.
+// ragged-period mask, its quad's offsets by shuffles, K5's products, the
+// digit work, the nice test and the kept count; the block's setup left out
+// as above.
 extern "C" __global__ void k5_dense_lane(const int64_t* __restrict__ start,
                                          const int64_t* __restrict__ classes,
                                          uint32_t s, uint32_t valid_total,
                                          int32_t* __restrict__ out) {
   constexpr nice::Plan p = {NICE_K4_PLAN};
   typedef nice::Lane<NICE_K4_TIER, true> Tier;
-  __shared__ __align__(128) unsigned char smem[nice::k5_smem_bytes(
-      p.limbs_n, p.limbs_sq, p.limbs_cu, 0)];
-  const nice::K5Smem mm =
-      nice::k5_layout(smem, p.limbs_n, p.limbs_sq, p.limbs_cu, 0);
+  __shared__ __align__(16) unsigned char smem[nice::k5_smem_bytes(
+      p.limbs_sq, p.limbs_cu, 0)];
+  const nice::K5Smem mm = nice::k5_layout(smem, p.limbs_cu, 0);
+  Tier::K5B b;
+  Tier::load_b(b, p, mm);
   const uint32_t j = blockIdx.x * blockDim.x + threadIdx.x;
   const uint32_t i = Tier::dense_offset(classes, NICE_K4_R, s, j, p);
   const bool live = i < valid_total;
-  const int u = Tier::uniques_mma(start, live ? i : 0u, live, p, mm);
+  const uint32_t il = live ? i : 0u;
+  uint32_t iq[4];
+  NICE_UNROLL
+  for (int r = 0; r < 4; ++r) {
+    iq[r] = __shfl_sync(0xffffffffu, il, (threadIdx.x & ~3u) | r);
+  }
+  const int u = Tier::uniques_mma(start, il, iq, live, p, b, mm);
   out[j] = (live && u == (int)p.base) + 2 * live;
 }

@@ -1,14 +1,16 @@
-// The per-base library: K3 and K2 on the plan tier, the lane built for one
-// base with its plan as constants (nice_kernels.cuh PlanTier). The TPU did
-// the same: pallas_engine.py's _strided_callable (:390) and
-// _uniques_callable (:446) are lru_cached per plan, so each base was traced
-// and compiled with its plan as constants (K3's stride offsets expanded
-// into the kernel too, _expanded_offsets :335-347). ops/cuda_build.py
+// The per-base library: K3, K2 and K5's detailed mode on the plan tier, the
+// lane built for one base with its plan as constants (nice_kernels.cuh
+// PlanTier). The TPU did the same: pallas_engine.py's _strided_callable
+// (:390), _uniques_callable (:446) and _stats_callable (:163, its MXU arm
+// included) are lru_cached per plan, so each base was traced and compiled
+// with its plan as constants (K3's stride offsets expanded into the kernel
+// too, _expanded_offsets :335-347). ops/cuda_build.py
 // load_plan builds this file with nvcc for sm_90a at the first use of a
 // base, with the generated nice_plan.h (ops/cuda_engine.py plan_header) on
 // the include path, for every plan of at most kPlanTierLimbs limbs of n
-// (b10-b97): all of K3's domain, and K2 there. A library answers only the
-// plan it was built for (kOtherPlan otherwise).
+// (b10-b97): all of K3's domain, and K2 and K5's detailed mode there (K5's
+// kernel is nice_grid.cuh's, with T's words in registers). A library
+// answers only the plan it was built for (kOtherPlan otherwise).
 //
 // K3 strided_niceonly_kernel replaces the TPU's stride-descriptor niceonly
 // kernel: pallas_engine.py _strided_callable (pallas_call at :410, body
@@ -108,6 +110,22 @@ int nice_plan_uniques(const uint64_t* plan_words, const void* start,
   return (int)cudaGetLastError();
 }
 
+// K5 in the detailed mode (mma = 1; mma = 2 runs each block's setup
+// alone, over the launch's grid, to time it apart): n = start + g for g <
+// valid_total < 2^31 into hist and *nm, as nice_detailed_megaloop.
+int nice_plan_detailed_megaloop_mma(const uint64_t* plan_words,
+                                    const void* start, long long valid_total,
+                                    long long pad, void* hist, void* nm,
+                                    int mma, void* stream) {
+  using namespace nice;
+  if (!this_plan(plan_words)) return kOtherPlan;
+  if (mma != 1 && mma != 2) return kNoTier;
+  const int rc = launch_k5<PlanTier>(
+      plan_from_words(plan_words), (const int64_t*)start, valid_total, pad,
+      (int32_t*)hist, (int32_t*)nm, mma, (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
 // K3 over desc rows [0, n_real): counts[row] += candidates of the row with
 // min_uniques <= num_uniques <= base (the caller zeroes counts; the search
 // passes min_uniques = base). periods * num_res lanes per row; res_magic,
@@ -133,14 +151,22 @@ int nice_plan_strided_niceonly(const uint64_t* plan_words, const void* desc,
 }
 
 // The shape a launch would take, as nice_launch_shape (whose kernel
-// numbers it keeps): kernel 1 K2 over a lanes, 2 K3 over a lanes a row and
-// b rows; out[4] is the plan tier's index, 3.
+// numbers it keeps): kernel 0 K5's detailed mode over a lanes, 1 K2 over a
+// lanes, 2 K3 over a lanes a row and b rows; out[4] is the plan tier's
+// index, 3.
 int nice_plan_launch_shape(int kernel, const uint64_t* plan_words,
                            long long a, long long b, int* out) {
   using namespace nice;
   if (!this_plan(plan_words)) return kOtherPlan;
   Shape sh;
+  size_t smem;
   switch (kernel) {
+    case 0: {
+      const int rc = k5_shape<PlanTier>(plan_from_words(plan_words), a, &sh,
+                                        &smem);
+      if (rc) return rc;
+      break;
+    }
     case 1: sh = uniques_shape<PlanTier>(a); break;
     case 2: sh = strided_shape(a, (int)b); break;
     default: return kNoTier;

@@ -18,11 +18,12 @@ wrappers called with use_mxu=1: their products then run on the tensor cores
 by integer operations (little input, little output); see the source note in
 nice_kernels.cu for what the design does about it.
 
-K3, and K2 at the bases of at most four limbs (b10-b97), run on the plan
-tier: a library built for each base with its plan as constants
-(csrc/plan_kernels.cu, `plan_library`), as the TPU traced a kernel per plan.
-Which plans take it is decided by `plan_tier_takes` alone; a failed build
-or launch there raises, as any other.
+K3, and K2 and K5's detailed mode at the bases of at most four limbs
+(b10-b97), run on the plan tier: a library built for each base with its
+plan as constants (csrc/plan_kernels.cu, `plan_library`), as the TPU traced
+a kernel per plan. Which plans take it is decided by `plan_tier_takes`
+alone; a failed build or launch there raises, as any other. K1 stays in the
+main library at every base.
 
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
@@ -53,8 +54,8 @@ STRIDED_PERIODS_MAX = 1024
 STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
 
-# The plans K2 and K3 run on the plan tier: at most this many limbs of n
-# (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
+# The plans K2, K3 and K5's detailed mode run on the plan tier: at most this
+# many limbs of n (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
 PLAN_TIER_LIMBS = 4
 
 LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
@@ -95,7 +96,8 @@ def u32_divisor(d: int) -> tuple[int, int, int]:
 
 
 def plan_tier_takes(plan: BasePlan) -> bool:
-    """Whether K2 and K3 run the plan on the plan tier (its own build)."""
+    """Whether K2, K3 and K5's detailed mode run the plan on the plan tier
+    (its own build)."""
     return plan.limbs_n <= PLAN_TIER_LIMBS
 
 
@@ -134,8 +136,9 @@ def plan_header(plan: BasePlan, **defines) -> str:
 
 @functools.lru_cache(maxsize=None)
 def plan_library(plan: BasePlan):
-    """The plan's per-base library (K2 and K3 on the plan tier), built at
-    the first use of the base and kept for the process."""
+    """The plan's per-base library (K2, K3 and K5's detailed mode on the
+    plan tier), built at the first use of the base and kept for the
+    process."""
     return cuda_build.load_plan(plan_header(plan))
 
 
@@ -144,6 +147,8 @@ _SHAPE_KERNELS = {"detailed_megaloop": (0, 0), "uniques": (1, 0),
                   "strided_niceonly": (2, 0), "niceonly_dense": (3, 0),
                   "detailed_megaloop_mma": (0, 1), "niceonly_dense_mma": (3, 1)}
 _TIERS = ("small", "generic", "dense", "plan")
+# The kernels the per-base library runs at the plan tier's plans.
+_PLAN_TIER_KERNELS = ("uniques", "strided_niceonly", "detailed_megaloop_mma")
 
 
 def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
@@ -154,7 +159,7 @@ def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
     rows; K4/K5 dense a = classes, b = valid_total."""
     which, mma = _SHAPE_KERNELS[kernel]
     out = (ctypes.c_int * 5)()
-    if kernel in ("uniques", "strided_niceonly") and plan_tier_takes(plan):
+    if kernel in _PLAN_TIER_KERNELS and plan_tier_takes(plan):
         lib = plan_library(plan)
         rc = lib.nice_plan_launch_shape(which, plan_words(plan), a, b, out)
     else:
@@ -196,8 +201,9 @@ def _raise_on(lib, rc: int, kernel: str) -> None:
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
                             valid_total: int, use_mxu: int = 0):
-    """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1): n_iters *
-    batch_size lanes from start_limbs, the first valid_total of them real,
+    """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1; on the plan
+    tier where plan_tier_takes): n_iters * batch_size lanes from
+    start_limbs, the first valid_total of them real,
     folded into hist_acc (int32[base+2], updated in place — the port's form
     of JAX's donated accumulator). Returns (hist_acc, near-miss count as a
     0-dim int32 tensor on the device)."""
@@ -214,10 +220,15 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
     words = plan_words(plan)
-    lib = cuda_build.load()
+    if use_mxu and plan_tier_takes(plan):
+        lib = plan_library(plan)
+        launch = lib.nice_plan_detailed_megaloop_mma
+    else:
+        lib = cuda_build.load()
+        launch = lib.nice_detailed_megaloop
     nm = torch.zeros((), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        rc = lib.nice_detailed_megaloop(
+        rc = launch(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
             hist_acc.data_ptr(), nm.data_ptr(), use_mxu,
             torch.cuda.current_stream(device).cuda_stream,

@@ -43,20 +43,13 @@ from nice_tpu_torch.ops.limbs import BasePlan
 
 _DIGIT_MAX = 255  # both GEMM operands are bytes
 
-# Rows of D (and of T) that carry a term: i's 4 bytes, then i^2's 8.
+# Rows of D (and of T) that carry a term: i's 4 bytes, then i^2's 8 (the
+# MMA's depth pads them to 16).
 D_ROWS = 12
-# The MMA's depth: D padded to 16 bytes.
-MMA_K = 16
-# Columns of one MMA tile: 16 byte columns, four u32 limbs.
-TILE_COLS = 16
-
-# What one block of K5 holds in shared memory besides T and the limb
-# constants: per warp, its 32 rows of D (16 bytes each) and its 32 rows of
-# accumulator sums (20 int32 words each, padded against bank conflicts), for
-# the 8 warps of a block. The kernels launch without opting in to more than
-# the default 48 KiB of shared memory a block.
-MMA_WARPS = 8
-WARP_STAGE_BYTES = 32 * MMA_K + 32 * 20 * 4
+# u32 limbs of one m16n8k16 tile: its 8 byte columns.
+TILE_LIMBS = 2
+# The kernels launch without opting in to more than the default 48 KiB of
+# shared memory a block.
 SMEM_LIMIT = 48 * 1024
 
 
@@ -68,28 +61,38 @@ def accum_bound() -> int:
 
 def tiles(limbs: int) -> int:
     """MMA column tiles of a product region of `limbs` u32 limbs."""
-    return -(-limbs // 4)
+    return -(-limbs // TILE_LIMBS)
 
 
-def _round128(x: int) -> int:
-    return -(-x // 128) * 128
+# Zero words below each of T's sources (S, S^2) in shared memory; above,
+# each is zero-extended to limbs_cu + 2 words.
+SOURCE_PAD = 2
 
 
 def smem_bytes(plan: BasePlan) -> int:
-    """Shared memory of one K5 block (csrc/nice_kernels.cuh k5_smem_bytes),
-    in the detailed mode, whose histogram (bins 0..base+1 and the near-miss
-    count) comes first; the dense mode needs less."""
-    t = 16 * TILE_COLS * (tiles(plan.limbs_sq) + tiles(plan.limbs_cu))
-    limbs = 4 * (plan.limbs_n + 2 * plan.limbs_sq + 3 * plan.limbs_cu)
-    return (_round128(4 * (plan.base + 3)) + t + _round128(limbs)
-            + MMA_WARPS * WARP_STAGE_BYTES)
+    """Shared memory of one K5 block (csrc/nice_kernels.cuh k5_smem_bytes)
+    in the detailed mode: its histogram (bins 0..base+1 and the near-miss
+    count, rounded to 16 bytes), T's sources S and S^2 (padded), S^3, and
+    T's words (32 a tile); the dense mode has no histogram."""
+    front = -(-4 * (plan.base + 3) // 16) * 16
+    source = SOURCE_PAD + plan.limbs_cu + 2
+    return (front + 4 * (2 * source + plan.limbs_cu)
+            + 4 * 32 * (tiles(plan.limbs_sq) + tiles(plan.limbs_cu)))
+
+
+def reference_takes(plan: BasePlan) -> bool:
+    """The reference's own bound on its MXU arm (nice_tpu/ops/mxu.py
+    supports_plan): a contraction over the 2 * limbs_n 16-bit halves of n,
+    each times an 8-bit digit, fits i32 (limbs_n <= 64)."""
+    return 2 * plan.limbs_n * _DIGIT_MAX * 65535 < 2**31
 
 
 def supports_plan(plan: BasePlan) -> bool:
     """True when K5 takes this plan: the accumulator bound fits s32 (for
-    every plan) and a block's shared memory fits SMEM_LIMIT (every base up
-    to b892)."""
-    return accum_bound() < 2**31 and smem_bytes(plan) <= SMEM_LIMIT
+    every plan), a block's shared memory fits SMEM_LIMIT, and the reference
+    takes it too: every base up to b1024 (from b1025 n takes 65 limbs)."""
+    return (accum_bound() < 2**31 and smem_bytes(plan) <= SMEM_LIMIT
+            and reference_takes(plan))
 
 
 # --------------------------------------------------------------------------

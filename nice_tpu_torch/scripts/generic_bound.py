@@ -16,10 +16,12 @@ counts, as nice_kernels.cuh's Lane forms the steps:
     reciprocal, one for the remainder x - q * base^e;
   * a digit off a chunk's remainder (div_base, div_base_full): one for the
     multiply-high by the digit magic, one for r - q * base;
-  * K5: its products are its warp's IMMAs, two 16-row halves of the warp
-    per tile of 16 byte columns, imma_per_mma IMMAs each, as every lane
-    counts its warp's; i^2 and i^3 from i take three multiplies; its digits
-    are K1's.
+  * K5: its products are its warp's IMMAs (mma.sync m16n8k16, one IMMA
+    each), two 16-row halves of the warp per tile of 8 byte columns (two
+    limbs), as every lane counts its warp's; i^2 and i^3 from i take three
+    multiplies (a kernel that forms more, such as the squares of its quad's
+    four offsets, does so by its own design, not because the function needs
+    them); its digits are K1's.
 
 Adds, shifts, compares, the presence bits, moves, address arithmetic and
 loop control are left out, so the count stays below what any compiled lane
@@ -39,9 +41,6 @@ MUL_PER_PRODUCT = 1
 MUL_PER_LIMB_STEP = 5
 MUL_PER_DIGIT = 2
 MUL_K5_POWERS = 3  # i^2: one; i^3 = i^2 * i: two
-# One 16x16x16 u8 product compiles to two m16n8k16 IMMAs on sm_90
-# (chip_smoke.py measures it from its probe and passes its own count).
-IMMA_PER_MMA = 2
 
 
 def products(la: int, lb: int, lo: int) -> int:
@@ -69,7 +68,7 @@ def peel(plan, nl: int, ndig: int) -> tuple[int, int]:
     return limb_steps, digit_steps + max(rem - 1, 0)
 
 
-def lane_ops(plan, kernel: str, imma_per_mma: float = IMMA_PER_MMA) -> dict:
+def lane_ops(plan, kernel: str) -> dict:
     """The operations one lane of `kernel` needs at `plan` (inside the
     base's range): {"instructions", "classes", "steps"}, in the form of
     chip_smoke.py's SASS counts (its lane_cycles reads them)."""
@@ -84,8 +83,10 @@ def lane_ops(plan, kernel: str, imma_per_mma: float = IMMA_PER_MMA) -> dict:
            + MUL_PER_DIGIT * steps["digit_steps"])
     classes: dict = {}
     if kernel == "detailed_megaloop_mma_kernel":
-        steps["mma"] = 2 * ((sq + 3) // 4 + (cu + 3) // 4)
-        classes["tensor"] = steps["mma"] * imma_per_mma
+        from nice_tpu_torch.ops.mxu import tiles
+
+        steps["mma"] = 2 * (tiles(sq) + tiles(cu))
+        classes["tensor"] = steps["mma"]
         mul += MUL_K5_POWERS
     else:
         steps["products"] = products(n, n, sq) + products(sq, n, cu)

@@ -171,11 +171,11 @@ def test_use_mxu_roundtrip():
 
 def test_use_mxu_forced_off_past_the_bound(monkeypatch):
     """A winner or an argument cannot select K5 for a plan it does not
-    take (here a plan whose shared memory passes the block's 48 KiB)."""
+    take (here b1100's: n's 70 limbs pass the reference's own bound)."""
     autotune.record("detailed", 40, "cpu", {"use_mxu": 1})
     assert engine.resolve_tuning("detailed", 40, "cpu")[2] == 1
     assert engine.resolve_tuning("detailed", 40, "cpu", use_mxu=1)[2] == 1
-    fat = get_plan(1000)
+    fat = get_plan(1100)
     assert not mxu.supports_plan(fat)
     monkeypatch.setattr(engine, "get_plan", lambda base: fat)
     assert engine.resolve_tuning("detailed", 40, "cpu")[2] == 0
@@ -214,7 +214,7 @@ def test_resolver_parity_with_jax(tmp_path, monkeypatch):
             limbs_n = 1 << 20
 
         monkeypatch.setattr("nice_tpu.ops.engine.get_plan", lambda b: _FatPlan())
-        monkeypatch.setattr(engine, "get_plan", lambda b: get_plan(1000))
+        monkeypatch.setattr(engine, "get_plan", lambda b: get_plan(1100))
         assert port(segment=2, use_mxu=1) == jax_fields() == (4096, 2, 0)
         r = jengine.resolve_tuning("detailed", 40, "scalar")
         assert engine.resolve_tuning("detailed", 40, "cpu", backend="scalar") \

@@ -287,7 +287,8 @@ def test_plan_tier_build_is_reused_on_card(card, monkeypatch):
 
 def test_plan_tier_failures_raise_on_card(card, monkeypatch):
     """A per-base build that fails raises, and so does a library asked for
-    another base's plan; neither launches anything else."""
+    another base's plan, for K2, K3 and K5's detailed mode; neither
+    launches anything else (K5 does not give way to the main library)."""
     from nice_tpu_torch.ops import cuda_build
 
     plan = get_plan(97)
@@ -296,6 +297,7 @@ def test_plan_tier_failures_raise_on_card(card, monkeypatch):
     res = engine._device_residues(97, 1, str(card))
     desc = _desc([(plan.range_start, plan.range_start, plan.range_start + 99)],
                  0, np.random.default_rng(0), card)
+    acc = torch.zeros(plan.base + 2, dtype=torch.int32, device=card)
     before = dict(ce.LAUNCHES)
     ce.plan_library.cache_clear()
     with monkeypatch.context() as mp:
@@ -305,12 +307,16 @@ def test_plan_tier_failures_raise_on_card(card, monkeypatch):
             ce.uniques_batch(plan, 256, st)
         with pytest.raises(RuntimeError, match="nvcc failed"):
             ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64, use_mxu=1)
     wrong = ce.plan_library(get_plan(80))
     monkeypatch.setattr(ce, "plan_library", lambda p: wrong)
     with pytest.raises(RuntimeError, match="another plan"):
         ce.uniques_batch(plan, 256, st)
     with pytest.raises(RuntimeError, match="another plan"):
         ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
+    with pytest.raises(RuntimeError, match="another plan"):
+        ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64, use_mxu=1)
     torch.cuda.synchronize()
     assert ce.LAUNCHES == before
 
@@ -325,8 +331,13 @@ def test_k1_launch_is_one_resident_wave_on_card(card):
     assert big["grid"] == big["blocks_per_sm"] * big["sms"]
     small = ce.launch_shape("detailed_megaloop", plan, 1000)
     assert small["grid"] == 4
-    assert ce.launch_shape("niceonly_dense_mma", get_plan(98), 2,
-                           10_000)["tier"] == "generic"
+    # K5's dense mode takes K4's register tier and, for a small run, K4's
+    # small blocks; its detailed mode takes the plan tier to b97.
+    k5d = ce.launch_shape("niceonly_dense_mma", get_plan(98), 2, 10_000)
+    k4 = ce.launch_shape("niceonly_dense", get_plan(98), 2, 10_000)
+    assert k5d["tier"] == k4["tier"] == "dense"
+    assert k5d["threads"] == k4["threads"] == 64
+    assert ce.launch_shape("detailed_megaloop_mma", plan, 1 << 21)["tier"] == "plan"
 
 
 def test_dense_engine_on_card_equals_cpu(card):
@@ -444,3 +455,79 @@ def test_engine_with_k5_on_card_equals_k1_k4(card):
     assert ce.LAUNCHES["niceonly_dense"] == 0
     assert k5 == engine.process_range_niceonly(field, 98, device=card, use_mxu=0)
     adaptive_floor.reset_for_tests()
+
+
+def _k5_detailed_case(card, plan, start, batch, n_iters, valid, rng):
+    """K5's detailed mode against its plain version and K1 on one call."""
+    st = ve.start_limbs_tensor(start, plan, card)
+    acc = torch.from_numpy(
+        rng.integers(0, 1000, plan.base + 2, dtype=np.int32)).to(card)
+    before = dict(ce.LAUNCHES)
+    h5, nm5 = ce.detailed_accum_megaloop(plan, batch, n_iters, acc.clone(),
+                                         st, valid, 1)
+    assert ce.LAUNCHES["detailed_megaloop_mma"] == \
+        before["detailed_megaloop_mma"] + 1
+    hp, nmp = ve.detailed_accum_megaloop(plan, batch, n_iters, acc.clone(),
+                                         st, valid, 1)
+    h1, nm1 = ce.detailed_accum_megaloop(plan, batch, n_iters, acc.clone(),
+                                         st, valid)
+    assert torch.equal(h5, hp) and torch.equal(h5, h1), (plan.base, start)
+    assert int(nm5) == int(nmp) == int(nm1)
+
+
+@pytest.mark.parametrize("base,tier", [(10, "plan"), (17, "plan"),
+                                       (40, "plan"), (50, "plan"),
+                                       (80, "plan"), (97, "plan"),
+                                       (105, "generic"), (1024, "generic")])
+def test_k5_detailed_tiers_on_card(card, base, tier):
+    """K5's detailed mode in each tier it runs in (the plan tier at a base
+    of each limb count to b97, the generic tier above, to b1024, the top of
+    its admitted range), exact against its
+    plain version and K1: from range_start, mid-range, across the largest
+    limb carry inside the range and across a 2^32 carry (past the range
+    where it is narrower: the schoolbook branch), with ragged last warps."""
+    plan = get_plan(base)
+    rng = np.random.default_rng(base + 1)
+    batch = 96
+    assert ce.launch_shape("detailed_megaloop_mma", plan, 1 << 21)["tier"] == tier
+    carry = ((plan.range_start >> 32) + 1) << 32
+    starts = [plan.range_start, (plan.range_start + plan.range_end) // 2,
+              (carry - batch // 2) % (1 << (32 * plan.limbs_n))]
+    if plan.limbs_n > 1:
+        starts.append(_carry_start(plan, 3 * batch))
+    for start in starts:
+        for n_iters, valid in ((1, batch - 19), (3, 3 * batch - 45)):
+            _k5_detailed_case(card, plan, start, batch, n_iters, valid, rng)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("base,tier", [(40, "small"), (98, "dense"),
+                                       (104, "dense"), (105, "generic")])
+def test_k5_dense_tiers_on_card(card, base, tier):
+    """K5's dense mode in each tier it runs in (K4's: the small tier, the
+    dense register tier b97-b104, the generic tier from b105), both TPU
+    modes at the nice test and the median, exact against its plain version
+    and K4, from range_start and across the largest limb carry, with a
+    ragged last warp and K4's small blocks."""
+    plan = get_plan(base)
+    batch = 512
+    valid = 3 * batch - 77
+    for fused in (True, False):
+        classes = ce.niceonly_classes(plan, fused, str(card))
+        shape = ce.launch_shape("niceonly_dense_mma", plan, classes.shape[0],
+                                valid)
+        assert shape["tier"] == tier and shape["threads"] == 64
+        for start in (plan.range_start, _carry_start(plan, 3 * batch)):
+            st = ve.start_limbs_tensor(start, plan, card)
+            for mu in (base, (5 * base + 7) // 8):
+                before = ce.LAUNCHES["niceonly_dense_mma"]
+                got = ce.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                 valid, mu, use_mxu=1)
+                assert ce.LAUNCHES["niceonly_dense_mma"] == before + 1
+                want = ve.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                  valid, mu, use_mxu=1)
+                k4 = ce.niceonly_dense_megaloop(plan, batch, 3, classes, st,
+                                                valid, mu)
+                assert torch.equal(got, want) and torch.equal(got, k4), \
+                    (base, fused, start, mu)
+    torch.cuda.synchronize()

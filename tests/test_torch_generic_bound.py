@@ -92,7 +92,9 @@ def test_counts_at_b40_and_b80_match_the_constant_plan_lanes():
     """The H100's op_count.cu lanes (chip_smoke.py's timing phase) issue one
     IMAD.WIDE.U32.X a limb step and one IMAD.HI.U32 a digit division: 19
     and 31 at b40 (K1, K2, K5), 97 and 60 at b80 (K2), with 270 and 1182
-    multiply-add instructions in all and 8 IMMAs in K5's b40 lane."""
+    multiply-add instructions in all and 8 IMMAs in K5's b40 lane (two
+    m16n8k16 halves a tile of two limbs: 2 + 2 tiles of n^2's 3 limbs and
+    n^3's 4)."""
     b40, b80 = get_plan(40), get_plan(80)
     for kernel in gb.KERNELS:
         steps = gb.lane_ops(b40, kernel)["steps"]
@@ -105,7 +107,8 @@ def test_counts_at_b40_and_b80_match_the_constant_plan_lanes():
     assert (k2["steps"]["limb_steps"], k2["steps"]["digit_steps"]) == (97, 60)
     assert k2["classes"]["multiply-add"] <= 1182
     k5 = gb.lane_ops(b40, "detailed_megaloop_mma_kernel")
-    assert k5["classes"]["tensor"] == 8
+    assert k5["steps"]["mma"] == k5["classes"]["tensor"] == 8
+    assert k5["classes"]["multiply-add"] == 3 + 5 * 19 + 2 * 31
     assert k5["instructions"] == sum(k5["classes"].values())
 
 
@@ -122,9 +125,9 @@ def test_b510_counts_follow_its_shapes():
     # Every digit but the leading one of each value is divided off.
     assert digit == plan.d_sq + plan.d_cu - 2 - (
         (plan.d_sq - 1) // 3 + (plan.d_cu - 1) // 3)
-    k5 = gb.lane_ops(plan, "detailed_megaloop_mma_kernel", imma_per_mma=2)
-    assert k5["steps"]["mma"] == 2 * (15 + 22)
-    assert k5["classes"] == {"tensor": 148,
+    k5 = gb.lane_ops(plan, "detailed_megaloop_mma_kernel")
+    assert k5["steps"]["mma"] == 2 * (29 + 44)
+    assert k5["classes"] == {"tensor": 146,
                              "multiply-add": 3 + 5 * limb + 2 * digit}
 
 

@@ -59,17 +59,38 @@ def _starts(plan, lanes: int) -> list[int]:
 def test_accum_bound_and_supported_plans():
     # 12 digit rows of at most 255 x 255: far inside s32 for every plan.
     assert mxu.accum_bound() == 12 * 255 * 255 < 2**31
-    for base in (10, 40, 97, 98, 510, 892):
+    for base in (10, 40, 97, 98, 510, 892, 1024):
         assert mxu.supports_plan(get_plan(base)), base
-    # From b893 on, T and the staging pass a block's 48 KiB.
-    assert mxu.smem_bytes(get_plan(892)) <= 48 * 1024
-    assert not mxu.supports_plan(get_plan(893))
-    assert not mxu.supports_plan(get_plan(1000))
+    # A block's shared memory (no per-warp staging) stays far under 48 KiB
+    # to b1024; from b1025 n takes 65 limbs, past the reference's bound.
+    assert mxu.smem_bytes(get_plan(1024)) <= 28 * 1024
+    assert get_plan(1025).limbs_n == 65
+    assert not mxu.supports_plan(get_plan(1025))
+    assert not mxu.supports_plan(get_plan(1100))
     with pytest.raises(ValueError, match="K5 does not take"):
         ce.detailed_accum_megaloop(
-            get_plan(1000), 64, 1, torch.zeros(1002, dtype=torch.int32),
-            ve.start_limbs_tensor(get_plan(1000).range_start, get_plan(1000),
+            get_plan(1100), 64, 1, torch.zeros(1102, dtype=torch.int32),
+            ve.start_limbs_tensor(get_plan(1100).range_start, get_plan(1100),
                                   CPU), 64, use_mxu=1)
+
+
+@pytest.mark.parametrize("lo,hi", [(3, 400), (400, 900), (900, 1300)])
+def test_admitted_range_is_b1024_and_inside_the_reference(lo, hi):
+    """K5 takes exactly the plans to b1024 (those with a valid range), and
+    never one that the JAX package's MXU arm refuses (its own bound,
+    nice_tpu/ops/mxu.py supports_plan)."""
+    from nice_tpu.ops import mxu as jmxu
+
+    for base in range(lo, hi):
+        try:
+            plan = get_plan(base)
+        except ValueError:
+            continue  # no valid range
+        takes = mxu.supports_plan(plan)
+        assert takes == (base <= 1024), base
+        assert takes == mxu.reference_takes(plan)
+        if takes:
+            assert jmxu.supports_plan(jget_plan(base)), base
 
 
 @pytest.mark.parametrize("base", [10, 17, 40, 80])
@@ -220,7 +241,8 @@ def test_plain_k5_equals_plain_k1_k4(base):
 
 def test_wrappers_route_use_mxu_to_the_plain_k5():
     """On a CPU tensor the K1/K4 wrappers with use_mxu=1 run the plain K5
-    and count no launch; a use_mxu other than 0 or 1 raises."""
+    and count no launch; a use_mxu other than 0 or 1 raises in both (the C
+    entries' mma = 2, the setup alone, is for timing only)."""
     plan = get_plan(40)
     st = ve.start_limbs_tensor(plan.range_start + 99, plan, CPU)
     ce.reset_launches()
@@ -232,6 +254,10 @@ def test_wrappers_route_use_mxu_to_the_plain_k5():
                                       use_mxu=1).tolist()[1] > 0
     with pytest.raises(ValueError, match="use_mxu"):
         ce.niceonly_dense_megaloop(plan, 64, 2, classes, st, 100, use_mxu=2)
+    with pytest.raises(ValueError, match="use_mxu"):
+        ce.detailed_accum_megaloop(plan, 64, 2, torch.zeros(
+            42, dtype=torch.int32), st, 100, use_mxu=2)
+    assert sum(ce.LAUNCHES.values()) == 0
 
 
 def test_detailed_field_b40_with_k5_equals_jax_engine(monkeypatch):

@@ -216,3 +216,38 @@ def test_kernel_ab_packs_each_tree_s_plan_words():
     words = list(kernel_ab.plan_words(old, get_plan(40)))
     assert words[len(old) - 3] == M32 * (2**32 + 1) // 40
     assert words[:W["PW_LOG2_FX"]] == list(ce.plan_words(get_plan(40)))[:W["PW_LOG2_FX"]]
+
+
+def test_kernel_ab_k5_split_edits_this_tree_or_raises(tmp_path):
+    """Every --k5-split variant of scripts/kernel_ab.py that has a part in
+    this tree's K5 layout finds each text it edits exactly once, and
+    changes the copy; a tree that holds a text twice, or lacks it, makes
+    split_tree raise, not drop the variant."""
+    import shutil
+
+    from nice_tpu_torch.scripts import kernel_ab
+
+    csrc = os.path.dirname(HEADER)
+    layout = kernel_ab.k5_layout(csrc)
+    assert layout == "register"
+    for variant, by_layout in kernel_ab.K5_SPLIT.items():
+        assert layout in by_layout, variant
+        copy = kernel_ab.split_tree(csrc, variant, str(tmp_path))
+        for name, old, new in by_layout[layout]:
+            with open(os.path.join(copy, name)) as f:
+                text = f.read()
+            assert new in text and old not in text.replace(new, ""), variant
+    twice = tmp_path / "twice"
+    shutil.copytree(csrc, twice)
+    with open(twice / "nice_kernels.cuh", "a") as f:
+        f.write("\n    k5_fill(sh, nt_sq, nt, false);\n")
+    with pytest.raises(ValueError, match="2 times"):
+        kernel_ab.split_tree(str(twice), "fill_skipped", str(tmp_path / "o"))
+    lacking = tmp_path / "lacking"
+    shutil.copytree(csrc, lacking)
+    text = (lacking / "nice_kernels.cuh").read_text()
+    (lacking / "nice_kernels.cuh").write_text(
+        text.replace("k5_warp_mul(sh.s_sq, lsq", "k5_warp_mul(sh.s_sq,  lsq"))
+    with pytest.raises(ValueError, match="0 times"):
+        kernel_ab.split_tree(str(lacking), "constants_skipped",
+                             str(tmp_path / "p"))
