@@ -72,9 +72,8 @@ Phases, each of which raises (exit code 1) on failure:
      nice test, number by number;
   7c. the tuned path at full width: autotune.sweep on the card into a
      temporary winners table (extra-large detailed, a 1e8 slice, batches
-     2^17-2^19 x segments 4/8/16 x K1/K5; the b98 field niceonly, batches
-     2^17/2^18 x K4/K5; a b510 segment detailed, K1/K5, which K5 must
-     win), then a fresh process pointed at that table runs extra-large,
+     2^18/2^19 x segments 8/16 x K1/K5; the b98 field niceonly, batch 2^18
+     x K4/K5; a b510 segment detailed, K1/K5, which K5 must win), then a fresh process pointed at that table runs extra-large,
      the b98 field and the b510 segment through process_field (autotune
      hits, results equal to phases 6 and 7b and to K1's at b510, K5
      launched at b510); then winners with use_mxu=1 at the
@@ -82,11 +81,25 @@ Phases, each of which raises (exit code 1) on failure:
      process_field with the launch counts set to 0 just before and read
      just after (K5's main path): K5 in K1's and K4's place, K2 re-scanning
      mid-range's near misses, results equal to the use_mxu=0 runs;
+  7d. pipeline: extra-large (b40 detailed) and b98-surviving (dense
+     niceonly) at the default shape through the engine with feed_depth=0
+     (the synchronous A/B) and the default feed depth, timed in turns (0,
+     default, default, 0): field seconds and the feed stats (dispatches,
+     the host's gaps between them); every run must give the same results
+     and launches (their profiled runs come after phase 11);
   8. claim -> process -> submit: the repository's coordination server in a
      separate process (python -m nice_tpu.server, seeded with b40 fields of
      1e9), one detailed and one niceonly single-shot client run on the card
      against it; both submits must be accepted and the server's spot check
      must pass;
+  8b. crash and resume: against a second such server, `python -m
+     nice_tpu_torch.client detailed --checkpoint-dir D` (CRASH_BATCH lanes a
+     batch, so that the 1e9 field takes seconds) is SIGKILLed once its first
+     snapshot lands; the same command again must resume that claim from the
+     snapshot's cursor, be accepted, pass the spot check and retire the
+     snapshot, and its histogram and near misses must equal an
+     uninterrupted run of the field here; it prints the kill and resume
+     cursors and both runs' seconds;
   9. main-path shapes: K1 over one whole 2^18 x 8 segment and K2 (with the
      survivor compaction) over one 2^18 rare-scan sub-batch at b40, from
      extra-large's start and from the segment and sub-batch that hold the
@@ -121,7 +134,9 @@ Phases, each of which raises (exit code 1) on failure:
      filter and loop;
  11. profile: the mid-range field once more in each mode, and the b98
      field in niceonly mode, under torch.profiler, for the device's busy
-     and idle share of each wall time.
+     and idle share of each wall time (the pipelined loop's); then the
+     pipeline phase's fields at feed depth 0 and the default, for the
+     idle share and K1's/K4's device ms at each.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -130,6 +145,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import random
@@ -1321,9 +1337,10 @@ def phase_tuned(report: dict, tmp: str) -> None:
     """The tuned path at full width:
       1. sweeps on the card (autotune.sweep, the harness in a subprocess)
          into a temporary winners table: extra-large, detailed, a 1e8
-         slice, batches 2^17-2^19 x segments 4/8/16 x K1/K5; then the
-         b98-surviving field, niceonly, whole, batches 2^17/2^18 x segment
-         8 x K4/K5; then one wide base, a b510 segment, detailed, batch
+         slice, batches 2^18/2^19 x segments 8/16 x K1/K5; then the
+         b98-surviving field, niceonly, whole, batch 2^18 x segment 8 x
+         K4/K5 (small grids keep the smoke near two minutes); then one
+         wide base, a b510 segment, detailed, batch
          2^18 x segment 8 x K1/K5, whose winner must be K5;
       2. a fresh Python process pointed at that table runs extra-large
          (detailed), b98-surviving (niceonly) and the b510 segment through
@@ -1349,12 +1366,12 @@ def phase_tuned(report: dict, tmp: str) -> None:
         autotune.WINNERS_PATH = os.path.join(tmp, "swept.json")
         t0 = time.monotonic()
         won_d = autotune.sweep("detailed", DEVICE, bench_mode="extra-large",
-                               batch_shifts=[17, 18, 19], segments=[4, 8, 16],
+                               batch_shifts=[18, 19], segments=[8, 16],
                                mxu="auto", slice_size=100_000_000, timeout=400)
         t1 = time.monotonic()
         won_n = autotune.sweep("niceonly", DEVICE,
                                field=(DENSE_BASE, b98.range_start, b98.range_size),
-                               batch_shifts=[17, 18], segments=[8], mxu="auto",
+                               batch_shifts=[18], segments=[8], mxu="auto",
                                slice_size=b98.range_size, timeout=400)
         t2 = time.monotonic()
         wide_start = get_plan(WIDE_BASE).range_start
@@ -1465,33 +1482,59 @@ def _get_json(url: str):
         return json.loads(resp.read())
 
 
+def _start_server(tmp: str, port: int):
+    """The repository's coordination server in a separate process, seeded
+    with SERVER_BASE fields of SERVER_FIELD_SIZE; (process, url, log)."""
+    log_path = os.path.join(tmp, "server.log")
+    with open(log_path, "wb") as log_f:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "nice_tpu.server", "--db",
+             os.path.join(tmp, "nice.db"), "--init-base", str(SERVER_BASE),
+             "--field-size", str(SERVER_FIELD_SIZE),
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT,
+        )
+    api = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 120
+    while True:
+        check(server.poll() is None, "server exited: " + _tail(log_path))
+        try:
+            _get_json(api + "/status")
+            return server, api, log_path
+        except OSError:
+            check(time.monotonic() < deadline, "server did not come up")
+            time.sleep(0.5)
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=15)
+
+
+def _await_spot_check(api: str) -> dict:
+    spot = {}
+    deadline = time.monotonic() + 60
+    while not spot.get("pass"):
+        check(time.monotonic() < deadline, f"no spot check: {spot}")
+        time.sleep(1.0)
+        spot = _get_json(api + "/status")["fleet"]["trust"]["spot_checks"]
+    check(spot.get("fail", 0) == 0, f"spot check failed: {spot}")
+    return spot
+
+
 def phase_server(report: dict) -> None:
     from nice_tpu_torch.client import main as client
     from nice_tpu_torch.core.types import FieldResults
     from nice_tpu_torch.ops import cuda_engine as ce
 
-    port = _free_port()
-    api = f"http://127.0.0.1:{port}"
     with tempfile.TemporaryDirectory(prefix="nice-chip-smoke-") as tmp:
-        log_path = os.path.join(tmp, "server.log")
-        with open(log_path, "wb") as log_f:
-            server = subprocess.Popen(
-                [sys.executable, "-m", "nice_tpu.server", "--db",
-                 os.path.join(tmp, "nice.db"), "--init-base", str(SERVER_BASE),
-                 "--field-size", str(SERVER_FIELD_SIZE),
-                 "--host", "127.0.0.1", "--port", str(port)],
-                cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT,
-            )
+        server, api, _ = _start_server(tmp, _free_port())
         try:
-            deadline = time.monotonic() + 120
-            while True:
-                check(server.poll() is None, "server exited: " + _tail(log_path))
-                try:
-                    _get_json(api + "/status")
-                    break
-                except OSError:
-                    check(time.monotonic() < deadline, "server did not come up")
-                    time.sleep(0.5)
             args = client.build_parser().parse_args(
                 ["detailed", "--api-base", api, "--username", "chip-smoke",
                  "--device", DEVICE])
@@ -1508,13 +1551,7 @@ def phase_server(report: dict) -> None:
                   f"claimed {data}, not a b{SERVER_BASE} field")
             _check_field(data, FieldResults(tuple(sub.unique_distribution),
                                             tuple(sub.nice_numbers)))
-            spot = {}
-            deadline = time.monotonic() + 60
-            while not spot.get("pass"):
-                check(time.monotonic() < deadline, f"no spot check: {spot}")
-                time.sleep(1.0)
-                spot = _get_json(api + "/status")["fleet"]["trust"]["spot_checks"]
-            check(spot.get("fail", 0) == 0, f"spot check failed: {spot}")
+            spot = _await_spot_check(api)
             # A niceonly round against the same server.
             args = client.build_parser().parse_args(
                 ["niceonly", "--api-base", api, "--username", "chip-smoke",
@@ -1530,12 +1567,7 @@ def phase_server(report: dict) -> None:
             _check_niceonly(n_data, FieldResults((), tuple(n_sub.nice_numbers)))
             n_launches = dict(ce.LAUNCHES)
         finally:
-            server.terminate()
-            try:
-                server.wait(timeout=15)
-            except subprocess.TimeoutExpired:
-                server.kill()
-                server.wait(timeout=15)
+            _stop(server)
     report["server"] = {"claim_id": data.claim_id, "numbers": data.range_size,
                         "client_secs": elapsed, "launches": launches,
                         "near_misses": len(sub.nice_numbers), "reply": resp,
@@ -1548,6 +1580,240 @@ def phase_server(report: dict) -> None:
                                      "nice": len(n_sub.nice_numbers),
                                      "reply": n_resp}}
     emit({"phase": "server", **report["server"]})
+
+
+# The pipeline phase's kernels, by the profiler's kernel names.
+PIPELINE_KERNELS = {"detailed": "detailed_megaloop", "niceonly": "niceonly_dense"}
+
+
+def _field_run(mode: str, data, depth: int):
+    """One field through the engine at the default shape and feed depth
+    `depth`: (results, seconds, the feed stats, the launches)."""
+    import torch
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+
+    process = (engine.process_range_detailed if mode == "detailed"
+               else engine.process_range_niceonly)
+    before = dict(ce.LAUNCHES)
+    t0 = time.monotonic()
+    results = process(data.to_field_size(), data.base, device=DEVICE,
+                      feed_depth=depth)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return (results, secs, dict(engine.LAST_FEED_STATS),
+            {k: v - before[k] for k, v in ce.LAUNCHES.items() if v - before[k]})
+
+
+def _pinned_dense_floor():
+    """Context: the dense floor controller pinned at its current floor (it
+    adapts after every field, which changes the runs), so that every run of
+    an A/B does the same work; the controller is put back after."""
+    import contextlib
+
+    from nice_tpu_torch.ops import adaptive_floor
+
+    @contextlib.contextmanager
+    def pinned():
+        ctrl = adaptive_floor.get_floor_controller("dense")
+        adaptive_floor._CONTROLLERS["dense"] = adaptive_floor.AdaptiveFloor(
+            pinned=ctrl.current())
+        try:
+            yield
+        finally:
+            adaptive_floor._CONTROLLERS["dense"] = ctrl
+
+    return pinned()
+
+
+PIPELINE_FIELDS = (("detailed", "extra-large"), ("niceonly", "b98-surviving"))
+
+
+def phase_pipeline(report: dict) -> None:
+    """The pipelined host loop against the synchronous one: extra-large
+    (b40 detailed) and b98-surviving (dense niceonly) at the default shape,
+    with feed_depth=0 (each block of starts made inline) and the default
+    depth, timed in turns (0, default, default, 0): field seconds, the feed
+    stats and the launches, which with the results must not differ. (Their
+    runs under torch.profiler come last, phase_pipeline_profile: profiling
+    whole fields before the timing phase left its profiler windows short
+    of records.)"""
+    from nice_tpu_torch.ops import engine
+
+    depths = (0, engine.FEED_DEPTH_DEFAULT)
+    out = []
+    with _pinned_dense_floor():
+        for mode, name in PIPELINE_FIELDS:
+            data, want = FIELD_RESULTS[(mode, name)]
+            runs = []
+            for depth in (depths[0], depths[1], depths[1], depths[0]):
+                results, secs, feed, launches = _field_run(mode, data, depth)
+                check(_pairs(results) == _pairs(want),
+                      f"{name}: feed depth {depth} changed the results")
+                runs.append({"feed_depth": depth, "field_secs": secs,
+                             "feed_stats": feed, "launches": launches})
+            check(all(r["launches"] == runs[0]["launches"] for r in runs),
+                  f"{name}: the launches differ between feed depths: {runs}")
+            row = {"field": name, "mode": mode, "base": data.base,
+                   "numbers": data.range_size, "runs": runs}
+            out.append(row)
+            emit({"phase": "pipeline", **row})
+    report["pipeline"] = out
+
+
+def phase_pipeline_profile(report: dict) -> None:
+    """The pipeline phase's fields once at each feed depth under
+    torch.profiler, recording the device alone: the device's idle share and
+    K1's/K4's device ms."""
+    from nice_tpu_torch.ops import engine
+
+    out = []
+    with _pinned_dense_floor():
+        for mode, name in PIPELINE_FIELDS:
+            data, _ = FIELD_RESULTS[(mode, name)]
+            kernel = PIPELINE_KERNELS[mode]
+            for depth in (0, engine.FEED_DEPTH_DEFAULT):
+                prof = _profiled(lambda: _field_run(mode, data, depth),
+                                 cpu=False)
+                row = {"field": name, "mode": mode, "feed_depth": depth,
+                       "wall_ms": prof["wall_ms"],
+                       "device_idle_share": prof["device_idle_share"],
+                       "kernel_device_ms": sum(
+                           ms for k, ms in
+                           prof["device_ms_by_kernel_all"].items()
+                           if kernel in k)}
+                out.append(row)
+                emit({"phase": "pipeline_profile", **row})
+    report["pipeline_profile"] = out
+
+
+# The crash-resume phase's field width: the server's own (it hands out no
+# detailed field above 1e9), and a client batch small enough that one such
+# field takes seconds on the card, so that a SIGKILL lands mid-field.
+CRASH_BATCH = 8192
+CRASH_CKPT_BATCHES = 256
+
+
+def phase_crash_resume(report: dict) -> None:
+    """A port client SIGKILLed mid-field resumes its claim: the JAX
+    package's server (as phase 8 starts it) hands out a b40 field; `python
+    -m nice_tpu_torch.client detailed --checkpoint-dir D` runs it on the
+    card at CRASH_BATCH lanes a batch, a snapshot every CRASH_CKPT_BATCHES
+    segments, and is SIGKILLed once the first claim-*.ckpt lands; the same
+    command again must log that it resumes that claim from a cursor above
+    the field's start, submit, be accepted, pass the spot check and leave
+    no snapshot; and its histogram and near misses must equal an
+    uninterrupted run of the same field in this process."""
+    from nice_tpu_torch.ckpt import read_snapshot
+    from nice_tpu_torch.core.types import DataToClient
+    from nice_tpu_torch.ops import engine
+
+    with tempfile.TemporaryDirectory(prefix="nice-chip-crash-") as tmp:
+        server, api, _ = _start_server(tmp, _free_port())
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "nice_tpu_torch.client", "detailed",
+               "--api-base", api, "--username", "chip-smoke-crash",
+               "--device", DEVICE, "--checkpoint-dir", ckpt_dir,
+               "--batch-size", str(CRASH_BATCH),
+               "--checkpoint-batches", str(CRASH_CKPT_BATCHES),
+               "--renew-secs", "2"]
+        client = None
+        try:
+            t0 = time.monotonic()
+            with open(os.path.join(tmp, "run1.log"), "wb") as log1:
+                client = subprocess.Popen(cmd, cwd=REPO, stdout=log1,
+                                          stderr=subprocess.STDOUT)
+                snaps = []
+                deadline = time.monotonic() + 300
+                while not snaps and client.poll() is None:
+                    check(time.monotonic() < deadline, "no snapshot in 300 s")
+                    snaps = glob.glob(os.path.join(ckpt_dir, "claim-*.ckpt"))
+                    time.sleep(0.005)
+                alive = client.poll() is None
+                client.kill()  # SIGKILL: no cleanup, a real crash
+                client.wait(timeout=30)
+            run1_secs = time.monotonic() - t0
+            run1 = _tail(os.path.join(tmp, "run1.log"))
+            check(bool(snaps) and alive,
+                  "the client did not die mid-field:\n" + run1)
+            manifest, _ = read_snapshot(snaps[0])
+            data = DataToClient.from_json(manifest["field"])
+            kill_cursor = int(manifest["cursor"])
+            check(data.range_start < kill_cursor < data.range_end,
+                  f"kill cursor {kill_cursor} outside {data}")
+
+            t0 = time.monotonic()
+            run2 = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=600)
+            run2_secs = time.monotonic() - t0
+            check(run2.returncode == 0,
+                  "the resumed client failed:\n" + run2.stderr[-3000:])
+            m = re.search(r"resuming claim (\d+) from checkpoint: .* cursor "
+                          r"(\d+)", run2.stderr)
+            check(m is not None and int(m.group(1)) == data.claim_id,
+                  "the restart did not resume the claim:\n"
+                  + run2.stderr[-3000:])
+            resume_cursor = int(m.group(2))
+            check(data.range_start < resume_cursor == kill_cursor,
+                  f"resumed from {resume_cursor}, killed at {kill_cursor}")
+            check(f"submitted claim {data.claim_id}" in run2.stderr,
+                  "the resumed submission was not accepted:\n"
+                  + run2.stderr[-3000:])
+            check(not glob.glob(os.path.join(ckpt_dir, "claim-*.ckpt")),
+                  "the snapshot outlived its accepted submit")
+            field_secs = re.search(r"processed [\d,]+ numbers in ([\d.]+)s",
+                                   run2.stderr)
+            spot = _await_spot_check(api)
+        finally:
+            if client is not None and client.poll() is None:
+                client.kill()
+                client.wait(timeout=30)
+            _stop(server)
+        # The submission the server took, against an uninterrupted run.
+        got = _read_submission(os.path.join(tmp, "nice.db"), data.claim_id)
+    want = engine.process_range_detailed(data.to_field_size(), data.base,
+                                         device=DEVICE)
+    check(_pairs(got) == _pairs(want),
+          "the resumed submission differs from an uninterrupted run")
+    _check_field(data, got)
+    report["crash_resume"] = {
+        "claim_id": data.claim_id, "range_start": data.range_start,
+        "numbers": data.range_size, "kill_cursor": kill_cursor,
+        "resume_cursor": resume_cursor,
+        "resumed_numbers": data.range_end - resume_cursor,
+        "run1_secs": run1_secs, "run2_secs": run2_secs,
+        "run2_field_secs": float(field_secs.group(1)) if field_secs else None,
+        "batch_size": CRASH_BATCH, "checkpoint_batches": CRASH_CKPT_BATCHES,
+        "near_misses": len(want.nice_numbers), "spot_checks": spot}
+    emit({"phase": "crash_resume", **report["crash_resume"]})
+
+
+def _read_submission(db_path: str, claim_id: int):
+    """The server's record of the submission for a claim, read from its
+    sqlite file (JSON rows of num_uniques/count and number/num_uniques), as
+    FieldResults."""
+    import sqlite3
+
+    from nice_tpu_torch.core.types import (FieldResults, NiceNumberSimple,
+                                           UniquesDistributionSimple)
+
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute("SELECT distribution, numbers FROM submissions "
+                            "WHERE claim_id = ?", (claim_id,)).fetchall()
+    finally:
+        conn.close()
+    check(len(rows) == 1, f"{len(rows)} submissions for claim {claim_id}")
+    dist, nums = (json.loads(col) for col in rows[0])
+    return FieldResults(
+        distribution=tuple(sorted(
+            (UniquesDistributionSimple(num_uniques=int(d["num_uniques"]),
+                                       count=int(d["count"])) for d in dist),
+            key=lambda d: d.num_uniques)),
+        nice_numbers=tuple(sorted(
+            (NiceNumberSimple(number=int(n["number"]),
+                              num_uniques=int(n["num_uniques"])) for n in nums),
+            key=lambda n: n.number)))
 
 
 def _tail(path: str) -> str:
@@ -2150,14 +2416,18 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
     ]
 
 
-def _profiled(run_field) -> dict:
+def _profiled(run_field, cpu: bool = True) -> dict:
     """run_field() under torch.profiler: wall time, device time and the
-    device's idle share of the wall, and device time by kernel."""
+    device's idle share of the wall, and device time by kernel. cpu=False
+    records the device alone, which spares the host loop the profiler's
+    per-call tracing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         run_field()
         torch.cuda.synchronize()
@@ -2173,7 +2443,8 @@ def _profiled(run_field) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_ms_by_kernel": dict(top)}
+            "device_ms_by_kernel": dict(top),
+            "device_ms_by_kernel_all": by_kernel}
 
 
 def phase_profile(report: dict) -> None:
@@ -2195,8 +2466,9 @@ def phase_profile(report: dict) -> None:
             ("profile_niceonly", "niceonly", "mid-range", data),
             ("profile_dense", "niceonly", "b98-surviving", dense)):
         args = client.build_parser().parse_args([mode, "--device", DEVICE])
-        report[key] = {"field": name, "mode": mode,
-                       **_profiled(lambda: client.process_field(field, args))}
+        prof = _profiled(lambda: client.process_field(field, args))
+        prof.pop("device_ms_by_kernel_all")
+        report[key] = {"field": name, "mode": mode, **prof}
         emit({"phase": "profile", **report[key]})
 
 
@@ -2242,11 +2514,14 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_full_width(report)
     phase_full_width_niceonly(report)
     phase_full_width_dense(report)
+    phase_pipeline(report)
     phase_tuned(report, tmp)
     phase_server(report)
+    phase_crash_resume(report)
     phase_main_shapes(report)
     timed = phase_timing(report, built, sms, clk_mhz)
     phase_profile(report)
+    phase_pipeline_profile(report)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())
@@ -2275,8 +2550,8 @@ def _run(args, t_start: float, tmp: str) -> int:
               "descriptors": st["descriptors"], "k3_launches": run["k3_launches"],
               "k3_ms_at_most": run["k3_launches"] * k3_group_ms[run["base"]]})
     for run in report["full_width_dense"]["fields"]:
-        # One run in flight: wall = MSD filter + the loop (upload, K4,
-        # readback per run); K4's share is about launches x a typical run.
+        # wall = MSD filter (up front) + the pipelined loop of runs; K4's
+        # share of the loop is about launches x a typical run.
         st = run["stats"]
         k4_est = run["launches"]["niceonly_dense"] * kernel_ms["niceonly_dense"]
         emit({"phase": "where_time_goes", "field": run["field"],

@@ -1,10 +1,12 @@
-"""Client HTTP transport: claim and submit with retry and backoff (the
-port's cut of nice_tpu/client/api_client.py:282-522).
+"""Client HTTP transport: claim, submit and lease renewal with retry and
+backoff, and the thread-backed AsyncApi of the pipelined loop (the port's
+cut of nice_tpu/client/api_client.py:282-681).
 
 Stdlib only. Network errors, 5xx and 429 retry with full-jitter exponential
 backoff (uniform(0, min(2^attempt, cap)) seconds, or the server's
 Retry-After when it sent one); any other 4xx raises at once with the
-server's message. One server, no failover, epochs, journal or telemetry.
+server's message. One server: no failover, claim blocks, epochs, journal
+or telemetry.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 from nice_tpu_torch.core.constants import CLIENT_REQUEST_TIMEOUT_SECS
@@ -108,3 +111,38 @@ def submit_field_to_server(api_base: str, submit_data: DataToServer,
     resp = retry_request(f"{api_base.rstrip('/')}/submit", submit_data.to_json(),
                          max_retries=max_retries)
     return resp if isinstance(resp, dict) else {"status": "OK"}
+
+
+def renew_claim(api_base: str, claim_id: int, max_retries: int = 1) -> None:
+    """POST /renew_claim — lease heartbeat while a long field scans.
+
+    Low default retry budget on purpose: a missed heartbeat is harmless (the
+    next one, or the submit itself, lands well inside the expiry window), so
+    the renewer thread must never sit in a 10-deep backoff while the scan it
+    protects finishes."""
+    retry_request(f"{api_base.rstrip('/')}/renew_claim",
+                  {"claim_id": claim_id}, max_retries=max_retries)
+
+
+class AsyncApi:
+    """Thread-backed async facade so claim N+1 / submit N-1 overlap compute
+    (the reference's 3-stage pipeline)."""
+
+    def __init__(self, api_base: str, username: str,
+                 max_retries: int = DEFAULT_MAX_RETRIES):
+        self.api_base = api_base
+        self.username = username
+        self.max_retries = max_retries
+        self._pool = ThreadPoolExecutor(max_workers=2,
+                                        thread_name_prefix="nice-api")
+
+    def claim_async(self, mode: SearchMode):
+        return self._pool.submit(get_field_from_server, mode, self.api_base,
+                                 self.username, self.max_retries)
+
+    def submit_async(self, data: DataToServer):
+        return self._pool.submit(submit_field_to_server, self.api_base, data,
+                                 self.max_retries)
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=True)

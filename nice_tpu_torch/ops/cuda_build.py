@@ -123,6 +123,13 @@ def nvcc_library(lib_path: str, sources, csrc: str | None = None,
             "ptxas": proc.stdout + proc.stderr}
 
 
+# LOAD_NOTE: the libraries load as ctypes.PyDLL, whose calls keep the
+# interpreter lock. A launch returns in microseconds; a ctypes.CDLL call
+# releases the lock around it, which hands it to the pipelined loop's
+# feed and collector threads at every launch (ops/engine.py), a thread
+# wake-up each way per kernel.
+
+
 def bind(lib) -> None:
     """Sets the argument and result types of the library's C functions
     (those it has: a build of an older tree may lack the newer ones)."""
@@ -217,7 +224,7 @@ def load():
             return _lib
         lib_path = os.path.join(BUILD_DIR, build_key(find_nvcc()), LIB_NAME)
         info = _built(lib_path, SOURCES)
-        lib = ctypes.CDLL(lib_path)
+        lib = ctypes.PyDLL(lib_path)  # calls keep the GIL (LOAD_NOTE)
         bind(lib)
         BUILD_INFO.update(info)
         _lib = lib
@@ -266,7 +273,7 @@ def load_plan(header: str):
         lock = _plan_locks.setdefault(header, threading.Lock())
     with lock:
         info = build_plan(header)
-        lib = ctypes.CDLL(info["path"])
+        lib = ctypes.PyDLL(info["path"])  # calls keep the GIL (LOAD_NOTE)
         bind(lib)
         PLAN_BUILDS[header] = info
         return lib

@@ -32,6 +32,7 @@ two. LAUNCHES counts launches, one per kernel launch and nowhere else.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -191,6 +192,21 @@ def _check_mxu(plan: BasePlan, use_mxu: int, total: int) -> None:
         raise ValueError(f"{total} lanes: K5's lane offsets are below 2^31")
 
 
+def _on_device(device):
+    """The context a launch on `device` runs in: nothing when it is already
+    the current device (the usual case, and the cheap one), else a device
+    guard."""
+    if torch._C._cuda_getDevice() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device) -> int:
+    """The raw handle of `device`'s current stream (the torch.cuda.Stream
+    lookup costs about 10 us a call, a share of a 0.1 ms segment)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _raise_on(lib, rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(
@@ -200,13 +216,16 @@ def _raise_on(lib, rc: int, kernel: str) -> None:
 
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
-                            valid_total: int, use_mxu: int = 0):
+                            valid_total: int, use_mxu: int = 0,
+                            nm_out: torch.Tensor | None = None):
     """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1; on the plan
     tier where plan_tier_takes): n_iters * batch_size lanes from
     start_limbs, the first valid_total of them real,
     folded into hist_acc (int32[base+2], updated in place — the port's form
     of JAX's donated accumulator). Returns (hist_acc, near-miss count as a
-    0-dim int32 tensor on the device)."""
+    0-dim int32 tensor on the device). nm_out, on the card: a zeroed 0-dim
+    int32 device tensor to count into (a pipelined caller's ring slot), in
+    place of a fresh one."""
     device = hist_acc.device
     _check(hist_acc, "hist_acc", torch.int32, (plan.base + 2,), device)
     _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
@@ -226,12 +245,15 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     else:
         lib = cuda_build.load()
         launch = lib.nice_detailed_megaloop
-    nm = torch.zeros((), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    if nm_out is None:
+        nm = torch.zeros((), dtype=torch.int32, device=device)
+    else:
+        _check(nm_out, "nm_out", torch.int32, (), device)
+        nm = nm_out
+    with _on_device(device):
         rc = launch(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
-            hist_acc.data_ptr(), nm.data_ptr(), use_mxu,
-            torch.cuda.current_stream(device).cuda_stream,
+            hist_acc.data_ptr(), nm.data_ptr(), use_mxu, _stream(device),
         )
     name = "detailed_megaloop_mma" if use_mxu else "detailed_megaloop"
     _raise_on(lib, rc, name)
@@ -255,9 +277,9 @@ def uniques_batch(plan: BasePlan, batch_size: int, start_limbs: torch.Tensor):
         lib = cuda_build.load()
         launch = lib.nice_uniques
     out = torch.empty(batch_size, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    with _on_device(device):
         rc = launch(words, start_limbs.data_ptr(), batch_size, out.data_ptr(),
-                    torch.cuda.current_stream(device).cuda_stream)
+                    _stream(device))
     _raise_on(lib, rc, "uniques")
     LAUNCHES["uniques"] += 1
     return out
@@ -316,11 +338,11 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     counts = torch.zeros(rows, dtype=torch.int32, device=device)
     if n_real == 0:
         return counts
-    with torch.cuda.device(device):
+    with _on_device(device):
         rc = lib.nice_plan_strided_niceonly(
             words, desc.data_ptr(), n_real, residues.data_ptr(), num_res,
             *u32_divisor(num_res), modulus, periods, min_uniques,
-            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            counts.data_ptr(), _stream(device),
         )
     _raise_on(lib, rc, "strided_niceonly")
     LAUNCHES["strided_niceonly"] += 1
@@ -344,7 +366,8 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             classes: torch.Tensor, start_limbs: torch.Tensor,
                             valid_total: int,
                             min_uniques: int | None = None,
-                            use_mxu: int = 0) -> torch.Tensor:
+                            use_mxu: int = 0,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
     """K4 (use_mxu=0) or K5 in the dense mode (use_mxu=1): the candidates
     start + [0, valid_total) of an n_iters * batch_size megaloop whose n
     mod (b-1) is one of `classes` (int64, from niceonly_classes) are kept;
@@ -353,7 +376,9 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     not kept. min_uniques defaults to base, the nice test the search runs; a
     check passes a lower one. No lane may pass 2^(32 * limbs_n) (no lane of
     the base's range does). An empty table launches nothing and gives
-    [0, valid_total], what the TPU kernel gives after pruning every lane."""
+    [0, valid_total], what the TPU kernel gives after pruning every lane.
+    out, on the card: a zeroed int32[2] device tensor to count into (a
+    pipelined caller's ring slot), in place of a fresh one."""
     device = start_limbs.device
     _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
     num_cls = classes.shape[0]
@@ -379,12 +404,14 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     lib = cuda_build.load()
     if num_cls == 0 or valid_total == 0:
         return torch.tensor([0, valid_total], dtype=torch.int32, device=device)
-    out = torch.zeros(2, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    if out is None:
+        out = torch.zeros(2, dtype=torch.int32, device=device)
+    else:
+        _check(out, "out", torch.int32, (2,), device)
+    with _on_device(device):
         rc = lib.nice_niceonly_dense(
             words, start_limbs.data_ptr(), classes.data_ptr(), num_cls,
-            valid_total, min_uniques, use_mxu, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            valid_total, min_uniques, use_mxu, out.data_ptr(), _stream(device),
         )
     name = "niceonly_dense_mma" if use_mxu else "niceonly_dense"
     _raise_on(lib, rc, name)

@@ -2,35 +2,45 @@
 counterpart of nice_tpu/ops/engine.py process_range_detailed and
 process_range_niceonly).
 
+Detailed and dense niceonly share the pipelined host loop (the JAX
+engine's _SliceFeed, _Collector and _CkptTicker on one device): a feed
+thread prepares each item's start limbs FEED_DEPTH_DEFAULT items ahead and
+uploads them from a ring of pinned buffers without a stream sync; the
+dispatcher enqueues one kernel an item and hands its count, copied to
+pinned memory with one CUDA event, to a collector thread that keeps
+DISPATCH_WINDOW items in flight and alone does the readbacks, the rare-path
+re-scans, the histogram folds and the checkpoints, which follow a ticker
+(every CKPT_EVERY_BATCHES items or CKPT_EVERY_SECS seconds). On the CPU the
+same threads run the kernels' plain versions; only the event waits vanish.
+
 Detailed, per field:
   * out-of-range slivers go to the scalar oracle (the kernels' fixed-width
     digit extraction holds only inside the base's valid range);
   * the core is dispatched one megaloop segment (batch_size * segment lanes)
     at a time into a device-resident int32 histogram (K1, or K5 where
-    use_mxu resolves to 1), flushed to the host before any bin could
+    use_mxu resolves to 1), handed to the collector before any bin could
     saturate and at checkpoints; the shape comes from resolve_tuning (an
     explicit argument, else the tuned winner, else the JAX defaults);
-  * each segment's near-miss count is read back, and a segment with any
-    near miss is re-scanned through K2 plus on-device survivor compaction,
-    falling back to the dense per-lane array when the compaction overflows;
-  * checkpoint_cb fires at every segment boundary with the JAX engine's
-    state dict, and resume= accepts such a state from either engine.
-  The loop is synchronous (one segment in flight).
+  * a segment whose near-miss count is nonzero is re-scanned through K2
+    plus on-device survivor compaction, falling back to the dense per-lane
+    array when the compaction overflows;
+  * checkpoint_cb gets the JAX engine's state dict, and resume= accepts
+    such a state from either engine.
 
 Niceonly, per field, bases of at most 4 u32 limbs (b10-b97): the strided
 pipeline of three threads. MSD filter threads (the host library) turn the
 core into surviving ranges; the dispatcher packs them into stride
 descriptors, 1024 to a group, and launches K3 on each group; the collector
 reads each group's counts back, re-scans the descriptors with hits on the
-host (a count that disagrees is an error) and audits a sample of the
-zero-count ones.
+host (a count that disagrees is an error), audits a sample of the
+zero-count ones and checkpoints on its ticker.
 
-Niceonly, bases above 4 u32 limbs (b98 and up): the dense loop, one run in
-flight. The MSD filter turns the core into surviving ranges, each cut into
-runs of at most batch_size * segment lanes (resolve_tuning, as above); K4
-(or K5) counts a run's nice lanes among the residue classes the congruence
-keeps, and a run that counts any is re-scanned through K2 (a count that
-disagrees is an error).
+Niceonly, bases above 4 u32 limbs (b98 and up): the dense loop. The MSD
+filter turns the core into surviving ranges up front, each cut into runs
+of at most batch_size * segment lanes (resolve_tuning, as above); K4 (or
+K5) counts a run's nice lanes among the residue classes the congruence
+keeps, and the collector re-scans a run that counts any through K2 (a
+count that disagrees is an error).
 
 A kernel failure raises: there is no downgrade to another backend.
 """
@@ -62,8 +72,7 @@ from nice_tpu_torch.ops import adaptive_floor, autotune, msd_filter, mxu
 from nice_tpu_torch.ops import stride_filter
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
-from nice_tpu_torch.ops import vector_engine as ve
-from nice_tpu_torch.ops.limbs import BasePlan, get_plan
+from nice_tpu_torch.ops.limbs import BasePlan, get_plan, int_to_limbs
 
 log = logging.getLogger(__name__)
 
@@ -155,22 +164,493 @@ def _resume_segments(resume: dict, start: int, end: int) -> list[tuple[int, int]
     return [(pos, end)] if pos < end else []
 
 
+# ---------------------------------------------------------------------------
+# The pipelined host loop: feed thread, collector and checkpoint ticker (the
+# JAX engine's _SliceFeed, _Collector and _CkptTicker, on one device)
+# ---------------------------------------------------------------------------
+
+# Items (detailed segments, dense runs) in flight between the dispatcher and
+# the collector, and how many items the feed's producer thread prepares
+# ahead of the dispatcher (0 prepares them inline: the synchronous A/B).
+DISPATCH_WINDOW = 32
+FEED_DEPTH_DEFAULT = 2
+
+# Items a feed block carries: the producer computes a block's start limbs
+# at once, the dispatcher uploads them in one copy and reads the block's
+# counts back in one copy. Every hand-off between the threads costs a
+# wake-up under the interpreter lock (and every torch call releases it), so
+# they go a block at a time, not an item at a time.
+FEED_BLOCK = 16
+
+# Blocks of the feed's pinned upload ring: the device may lag the
+# dispatcher by this many blocks before an upload waits for a copy.
+FEED_RING_SLOTS = 4
+
+# Periodic-checkpoint cadence defaults (overridable per call).
+CKPT_EVERY_BATCHES = 256
+CKPT_EVERY_SECS = 30.0
+
+# Feed stats of the most recent detailed or dense loop, the keys of the JAX
+# engine's _record_feed_stats (one device: no reshards) plus ring_waits, the
+# uploads that found their ring slot's last copy still in flight.
+LAST_FEED_STATS: dict = {}
+
+
+class _Collector:
+    """Bounded-queue worker thread applying `fn` to put() items (readbacks,
+    rare-path re-scans, folds and checkpoints run off the dispatch thread).
+
+    On worker failure the queue is drained so producers' put() calls never
+    block forever; shutdown() joins without raising (safe in a finally) and
+    raise_if_failed() re-raises the worker's exception on the caller. As a
+    context manager, __exit__ always shuts the worker down. With `stream`
+    the worker enqueues on that stream (_adopt)."""
+
+    def __init__(self, fn, maxsize: int, name: str, on_fail=None,
+                 stream=None):
+        self._fn = fn
+        self._err: list = [None]
+        self._on_fail = on_fail
+        self._stream = stream
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._t = threading.Thread(target=self._run, name=name, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        try:
+            _adopt(self._stream)
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                self._fn(*item)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+            self._err[0] = e
+            if self._on_fail is not None:
+                self._on_fail()  # lets the producer stop at its next chunk
+            while self._q.get() is not None:
+                pass  # drain so producers' puts never block forever
+
+    def __enter__(self) -> "_Collector":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+    def failed(self) -> bool:
+        return self._err[0] is not None
+
+    def put(self, item) -> None:
+        self._q.put(item)
+
+    def shutdown(self) -> None:
+        self._q.put(None)
+        self._t.join()
+
+    def raise_if_failed(self) -> None:
+        if self._err[0] is not None:
+            raise self._err[0]
+
+
+class _CkptTicker:
+    """Decides when a periodic checkpoint is due: every N batches or every T
+    seconds, whichever fires first (either can be 0 to disable that trigger).
+    Single-threaded by construction — each dispatch path owns one ticker and
+    tick()s it from exactly one thread."""
+
+    def __init__(self, every_batches=None, every_secs=None):
+        self.every_batches = int(
+            every_batches if every_batches is not None else CKPT_EVERY_BATCHES
+        )
+        self.every_secs = float(
+            every_secs if every_secs is not None else CKPT_EVERY_SECS
+        )
+        self._batches = 0
+        self._last = time.monotonic()
+
+    def tick(self) -> bool:
+        self._batches += 1
+        now = time.monotonic()
+        if (self.every_batches > 0 and self._batches >= self.every_batches) or (
+            self.every_secs > 0 and now - self._last >= self.every_secs
+        ):
+            self._batches = 0
+            self._last = now
+            return True
+        return False
+
+
+class _HostRing:
+    """Uploads of small int64 arrays to the device without a stream sync: R
+    pinned host slots, R device slots and R events, each slot of `shape`.
+    upload(values) writes the next host slot (values may fill fewer rows
+    than the slot has), copies it into its device slot with
+    non_blocking=True on the current stream, records the slot's event on
+    `stream` and returns the device slot. A host slot is written again only
+    once the event recorded after its last copy has completed (`waits`
+    counts the uploads that had to wait for it). A device slot is
+    overwritten by the copy enqueued R uploads later, on the same stream,
+    so the caller must have enqueued every kernel that reads a slot by then
+    (the feed uploads a block only once the block before is enqueued). On
+    the CPU each upload is a fresh tensor and nothing waits."""
+
+    def __init__(self, slots: int, shape: tuple, dev: torch.device,
+                 stream=None):
+        self._cuda = dev.type == "cuda"
+        self._slots = max(1, slots)
+        self._shape = tuple(shape)
+        self._next = 0
+        self.waits = 0
+        if not self._cuda:
+            return
+        self._stream = stream if stream is not None else \
+            torch.cuda.current_stream(dev)
+        host = torch.empty((self._slots, *shape), dtype=torch.int64,
+                           pin_memory=True)
+        self._host_np = host.numpy()
+        self._host = list(host)
+        self._dev = list(torch.empty((self._slots, *shape), dtype=torch.int64,
+                                     device=dev))
+        self._events = [torch.cuda.Event() for _ in range(self._slots)]
+        self._used = [False] * self._slots
+
+    def upload(self, values: np.ndarray) -> torch.Tensor:
+        if (values.shape[1:] != self._shape[1:]
+                or len(values) > self._shape[0]):
+            raise ValueError(f"{values.shape} does not fit a ring slot of "
+                             f"{self._shape}")
+        if not self._cuda:
+            return torch.from_numpy(np.array(values, dtype=np.int64))
+        i = self._next
+        self._next = (i + 1) % self._slots
+        ev = self._events[i]
+        if self._used[i] and not ev.query():
+            self.waits += 1
+            ev.synchronize()
+        n = len(values)
+        self._host_np[i][:n] = values
+        self._dev[i][:n].copy_(self._host[i][:n], non_blocking=True)
+        ev.record(self._stream)
+        self._used[i] = True
+        return self._dev[i]
+
+
+class _Readbacks:
+    """Small per-item device outputs (a segment's near-miss count, a run's
+    [count, pruned]) read back a block at a time without a stream sync: R
+    device blocks of FEED_BLOCK zeroed slots that kernels count into, R
+    pinned host blocks and R events. slot() is the next item's device slot
+    (None on the CPU, where the plain version makes its own); add(t, meta)
+    takes the item's output (copied into its slot on the card when the
+    kernel did not count into it) and what the collector needs to know of
+    the item; fetch() copies the pending slots into the block's host rows
+    with non_blocking=True, records its event, zeroes the device block
+    after the copy and returns (the items' metas, host rows, event) for
+    the collector. A host block is written again R fetches later, by which time
+    the collector's bounded window has read it (R > the window + 2)."""
+
+    def __init__(self, shape: tuple, dev: torch.device, window: int,
+                 stream=None):
+        self._cuda = dev.type == "cuda"
+        self._blocks = window + 3
+        self._b = 0
+        self._pending: list = []
+        self._metas: list = []
+        if not self._cuda:
+            return
+        self._stream = stream if stream is not None else \
+            torch.cuda.current_stream(dev)
+        dev_all = torch.zeros((self._blocks, FEED_BLOCK, *shape),
+                              dtype=torch.int32, device=dev)
+        self._dev = list(dev_all)
+        self._dev_rows = [list(b) for b in dev_all]
+        self._host = list(torch.empty((self._blocks, FEED_BLOCK, *shape),
+                                      dtype=torch.int32, pin_memory=True))
+        self._events = [torch.cuda.Event() for _ in range(self._blocks)]
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def slot(self):
+        if not self._cuda:
+            return None
+        return self._dev_rows[self._b][len(self._pending)]
+
+    def add(self, t: torch.Tensor, meta) -> None:
+        if self._cuda:
+            row = self._dev_rows[self._b][len(self._pending)]
+            if t is not row:
+                row.copy_(t)  # a result the kernel did not count into
+        self._pending.append(t)
+        self._metas.append(meta)
+
+    def fetch(self):
+        n = len(self._pending)
+        metas = tuple(self._metas)
+        self._metas.clear()
+        if not self._cuda:
+            out = torch.stack(self._pending)
+            self._pending.clear()
+            return metas, out, None
+        i = self._b
+        self._b = (i + 1) % self._blocks
+        self._pending.clear()
+        host = self._host[i][:n]
+        host.copy_(self._dev[i][:n], non_blocking=True)
+        ev = self._events[i]
+        ev.record(self._stream)
+        self._dev[i].zero_()
+        return metas, host, ev
+
+
+def _to_host(tensors, dev: torch.device, stream=None):
+    """(host copies, event): device tensors copied into fresh pinned host
+    tensors with non_blocking=True on the current stream and one event
+    recorded on `stream` after the copies; read the copies only after
+    _wait(event). On the CPU the tensors themselves and no event."""
+    if dev.type == "cpu":
+        return tuple(tensors), None
+    hosts = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        hosts.append(h)
+    ev = torch.cuda.Event()
+    ev.record(stream if stream is not None else torch.cuda.current_stream(dev))
+    return tuple(hosts), ev
+
+
+def _adopt(stream) -> None:
+    """Make `stream` (the caller's, captured once) the current stream of a
+    pipeline thread, so that what it enqueues is ordered with the
+    dispatcher's kernels; nothing on the CPU."""
+    if stream is not None:
+        torch.cuda.set_stream(stream)
+
+
+def _wait(event) -> None:
+    """Block until the copies before `event` have landed (a no-op on the
+    CPU, where there is no event)."""
+    if event is not None:
+        event.synchronize()
+
+
+class _FeedItem(NamedTuple):
+    start: torch.Tensor  # the segment's start limbs, on the device
+    seg: tuple           # (start, valid) as Python ints
+    markers: tuple       # ((seg_idx, cursor),) AFTER this item
+    lanes: int           # valid lanes of the item
+
+
+class _SliceFeed:
+    """Host->device feed over one work queue (the JAX engine's _SliceFeed on
+    one device: queues holds a single list of ascending disjoint [start,
+    end) segments). Each get() yields the next item of at most `lanes`
+    candidates, never across a segment boundary, its start limbs on their
+    way to the device. Items come FEED_BLOCK at a time: the producer
+    computes a block's start limbs (numpy, no torch call) and the
+    dispatcher, in get(), uploads them through a _HostRing in one copy (no
+    stream sync). With depth > 0 a producer thread computes blocks ahead
+    of the dispatcher, at least `depth` items (whole blocks); depth == 0
+    computes each block inline (the synchronous A/B). Only the dispatcher
+    uploads, after it has enqueued every kernel of the block before, so a
+    ring of any size keeps each device block until its kernels are
+    enqueued.
+
+    markers are the resume vocabulary: item.markers = ((seg_idx, cursor),)
+    AFTER the item, so remaining(queues, markers-of-the-last-dispatched-
+    item) is exactly the uncovered range."""
+
+    def __init__(self, plan: BasePlan, queues, lanes: int, dev: torch.device,
+                 depth: int, ring_slots: int | None = None, stream=None):
+        self.ring = _HostRing(FEED_RING_SLOTS if ring_slots is None
+                              else ring_slots, (FEED_BLOCK, plan.limbs_n),
+                              dev, stream)
+        self._blocks = self._generate(plan, queues, lanes)
+        self._items: deque = deque()
+        self._depth = depth
+        if depth > 0:
+            self._q: queue.Queue = queue.Queue(
+                maxsize=-(-depth // FEED_BLOCK))
+            self._err: list = [None]
+            self._stop = threading.Event()
+            self._t = threading.Thread(target=self._fill, name="engine-feed",
+                                       daemon=True)
+            self._t.start()
+
+    @staticmethod
+    def start_markers(queues) -> tuple:
+        return tuple((0, q[0][0] if q else 0) for q in queues)
+
+    @staticmethod
+    def _generate(plan, queues, lanes):
+        """(start limbs int64[n, limbs_n], [(seg, markers)] * n) of up to
+        FEED_BLOCK items at a time."""
+        (q,) = queues
+        si, cur = 0, (q[0][0] if q else 0)
+        while si < len(q):
+            metas = []
+            while si < len(q) and len(metas) < FEED_BLOCK:
+                take = min(lanes, q[si][1] - cur)
+                seg = (cur, take)
+                cur += take
+                if cur >= q[si][1]:
+                    si += 1
+                    if si < len(q):
+                        cur = q[si][0]
+                if take > 0:  # an empty segment has nothing to dispatch
+                    metas.append((seg, ((si, cur),)))
+            if not metas:
+                return
+            yield (np.stack([int_to_limbs(seg[0], plan.limbs_n)
+                             for seg, _ in metas]).astype(np.int64), metas)
+
+    @staticmethod
+    def remaining(queues, markers) -> list[tuple[int, int]]:
+        """Uncovered [start, end) segments given the markers of the last
+        successfully dispatched item (sorted, merged)."""
+        rem = []
+        for q, (si, cur) in zip(queues, markers):
+            if si < len(q):
+                if cur < q[si][1]:
+                    rem.append((max(cur, q[si][0]), q[si][1]))
+                rem.extend((s, e) for s, e in q[si + 1:])
+        rem.sort()
+        merged: list[list[int]] = []
+        for s, e in rem:
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        return [(s, e) for s, e in merged]
+
+    def _fill(self):
+        try:
+            for block in self._blocks:
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(block, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised by get()
+            self._err[0] = e
+        finally:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(None, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+    def get(self):
+        """Next _FeedItem, or None once the queue is exhausted."""
+        if not self._items:
+            if self._depth == 0:
+                block = next(self._blocks, None)
+            else:
+                block = self._q.get()
+                if block is None and self._err[0] is not None:
+                    raise self._err[0]
+            if block is None:
+                return None
+            rows, metas = block
+            starts = self.ring.upload(rows)
+            self._items.extend(_FeedItem(starts[j], seg, markers, seg[1])
+                               for j, (seg, markers) in enumerate(metas))
+        return self._items.popleft()
+
+    def stop(self) -> None:
+        """Tear the producer down (idempotent; safe mid-stream: the queue is
+        drained until the producer thread exits, so no put() deadlocks)."""
+        if self._depth == 0:
+            self._blocks.close()
+            return
+        self._stop.set()
+        while self._t.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                self._t.join(timeout=0.05)
+        self._t.join()
+
+
+def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
+                       ring_waits: int) -> None:
+    g = np.asarray(gaps, dtype=np.float64)
+    LAST_FEED_STATS.clear()
+    LAST_FEED_STATS.update({
+        "mode": mode,
+        "feed_depth": int(depth),
+        "dispatches": int(dispatches),
+        "gaps": int(g.size),
+        "idle_p50": float(np.percentile(g, 50)) if g.size else 0.0,
+        "idle_p95": float(np.percentile(g, 95)) if g.size else 0.0,
+        "idle_mean": float(g.mean()) if g.size else 0.0,
+        "idle_total": float(g.sum()) if g.size else 0.0,
+        "n_dev_start": 1,
+        "n_dev_end": 1,
+        "reshards": 0,
+        "reshard_secs": 0.0,
+        "ring_waits": int(ring_waits),
+    })
+
+
+def _dispatch_loop(feed: _SliceFeed, collector: _Collector, dispatch,
+                   after, progress, total: int, done: int):
+    """The dispatcher shared by the detailed and dense loops: take each item
+    from the feed, dispatch(item) (enqueue its kernel and hand its readback
+    to the collector), then after(markers) (ticker, flushes), then
+    progress(done, total). Stops when the feed is exhausted or the collector
+    failed. Returns (dispatches, the host's gaps between dispatches)."""
+    gaps: list[float] = []
+    n_batch = 0
+    t_prev = None
+    try:
+        while not collector.failed():
+            item = feed.get()
+            if item is None:
+                break
+            now = time.monotonic()
+            if t_prev is not None and len(gaps) < 65536:
+                gaps.append(now - t_prev)
+            dispatch(item)
+            t_prev = time.monotonic()
+            n_batch += 1
+            done += item.lanes
+            after(item.markers)
+            if progress is not None:
+                progress(done, total)
+    finally:
+        feed.stop()
+    return n_batch, gaps
+
+
 def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
-                        batch_size: int, device, thresh: int):
+                        batch_size: int, device, thresh: int,
+                        ring: _HostRing | None = None):
     """Yield (number, num_uniques) for every candidate in [batch_start,
     +valid) with num_uniques > thresh, in ascending order: K2 plus on-device
     compaction per sub-batch, so only (count, idx[cap], uniq[cap]) cross to
-    the host; a sub-batch whose count overflows cap reads the dense array."""
+    the host (one non-blocking copy and event a sub-batch); a sub-batch
+    whose count overflows cap reads the dense array. Start limbs go up
+    through `ring` (a two-slot _HostRing when None)."""
+    dev = torch.device(device)
     sub_size = min(RARE_SCAN_BATCH, batch_size)
     cap = min(SURVIVOR_CAP, sub_size)
+    if ring is None:
+        ring = _HostRing(2, (plan.limbs_n,), dev)
     done = 0
     while done < valid:
         sub_valid = min(sub_size, valid - done)
         sub_start = batch_start + done
-        start = ve.start_limbs_tensor(sub_start, plan, device)
-        count, idx, uniq = ce.survivors_batch(
-            plan, sub_size, thresh, cap, start, sub_valid
-        )
+        start = ring.upload(
+            int_to_limbs(sub_start, plan.limbs_n).astype(np.int64))
+        (count, idx, uniq), ev = _to_host(ce.survivors_batch(
+            plan, sub_size, thresh, cap, start, sub_valid), dev)
+        _wait(ev)
         count = int(count)
         if 0 < count <= cap:
             for i, u in zip(idx[:count].tolist(), uniq[:count].tolist()):
@@ -195,20 +675,30 @@ def process_range_detailed(
     progress=None,
     checkpoint_cb=None,
     resume=None,
+    checkpoint_batches: int | None = None,
+    checkpoint_secs: float | None = None,
+    feed_depth: int = FEED_DEPTH_DEFAULT,
 ) -> FieldResults:
     """Histogram (bins 1..base) and near-miss list of a field, exact.
 
     device: "cuda" (the default) runs the kernels; "cpu" runs their plain
-    PyTorch versions. backend "scalar" runs the Python-int oracle instead
-    (no checkpoints). batch_size, segment and use_mxu (1: K5 in place of
-    K1) resolve through resolve_tuning: the argument, else the tuned
-    winner, else the default. progress(done, total) is called after each
-    segment.
-    checkpoint_cb(state) fires at every segment boundary with {"cursor",
-    "hist" (int64[base+2]), "nice_numbers" [(number, uniques)],
-    "remaining" [[start, end]]}, covering the slivers and everything before
-    the remaining segments; resume takes such a state (from this engine or
-    the JAX engine) and finishes the field without recomputing slivers."""
+    PyTorch versions, through the same feed, window, ticker and markers.
+    backend "scalar" runs the Python-int oracle instead (no checkpoints).
+    batch_size, segment and use_mxu (1: K5 in place of K1) resolve through
+    resolve_tuning: the argument, else the tuned winner, else the default.
+    feed_depth: segments the feed thread prepares ahead (0: inline).
+    progress(done, total) is called after each dispatched segment.
+
+    checkpoint_cb(state) fires every checkpoint_batches segments or
+    checkpoint_secs seconds (CKPT_EVERY_BATCHES / CKPT_EVERY_SECS when
+    None), on the collector thread, the only thread that touches the
+    histogram and near misses, with {"cursor", "hist" (int64[base+2]),
+    "nice_numbers" [(number, uniques)], "remaining" [[start, end]]}: every
+    candidate outside the remaining segments, slivers included, is folded
+    in. resume takes such a state (from this engine or the JAX engine) and
+    finishes the field without recomputing slivers. A failure in the feed,
+    a kernel or the collector (checkpoint_cb included) is raised here, with
+    every thread joined."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
     if backend == "scalar":
@@ -262,55 +752,90 @@ def process_range_detailed(
     # flushing every flush_every segments keeps int32 bins far from 2^31.
     flush_every = max(1, ((1 << 31) - 1) // (2 * lanes))
     total = core.size()
-    done = total - sum(e - s for s, e in segments)
-    acc = torch.zeros(plan.base + 2, dtype=torch.int32, device=dev)
-    since_flush = 0
+    done0 = total - sum(e - s for s, e in segments)
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    rare_ring = _HostRing(2, (plan.limbs_n,), dev, stream)
+    window = -(-DISPATCH_WINDOW // FEED_BLOCK)  # blocks of segments
+    readbacks = _Readbacks((), dev, window, stream)
+    ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
+              if checkpoint_cb is not None else None)
     t0 = time.monotonic()
 
-    def flush():
-        nonlocal since_flush
-        hist[:] += acc.cpu().numpy().astype(np.int64)
-        acc.zero_()
-        since_flush = 0
-
-    for si, (s, e) in enumerate(segments):
-        pos = s
-        while pos < e:
-            valid = min(lanes, e - pos)
-            start = ve.start_limbs_tensor(pos, plan, dev)
-            acc, nm = ce.detailed_accum_megaloop(
-                plan, batch_size, seg, acc, start, valid, arm
-            )
-            since_flush += 1
-            if int(nm) > 0:
-                for number, uniq in rare_scan_survivors(
-                    plan, pos, valid, batch_size, dev, plan.near_miss_cutoff
-                ):
-                    nice_numbers.append(
+    def collect_item(kind, *payload):
+        if kind == "nm":  # a block of segments' near-miss counts
+            segs, nms, ev = payload
+            _wait(ev)
+            for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
+                if nm > 0:
+                    nice_numbers.extend(
                         NiceNumberSimple(number=number, num_uniques=uniq)
-                    )
-            pos += valid
-            done += valid
-            if checkpoint_cb is not None:
+                        for number, uniq in rare_scan_survivors(
+                            plan, seg_start, seg_valid, batch_size, dev,
+                            plan.near_miss_cutoff, rare_ring))
+        elif kind == "stats":  # an accumulator handed over by a flush
+            (h,), ev = payload
+            _wait(ev)
+            hist[:] += h.numpy().astype(np.int64)
+        else:  # "ckpt": after its "nm" and "stats", so the state matches
+            # its cursor
+            (rem,) = payload
+            checkpoint_cb({
+                "cursor": rem[0][0] if rem else core.end(),
+                "hist": hist.copy(),
+                "nice_numbers": [
+                    (n.number, n.num_uniques) for n in nice_numbers
+                ],
+                "remaining": [[s, e] for s, e in rem],
+            })
+
+    queues = [segments]
+    st = {"acc": torch.zeros(plan.base + 2, dtype=torch.int32, device=dev),
+          "since_flush": 0}
+
+    with _Collector(collect_item, window, "detailed-collect",
+                    stream=stream) as collector:
+
+        def read_back():
+            if len(readbacks):
+                collector.put(("nm", *readbacks.fetch()))
+
+        def flush():
+            read_back()
+            collector.put(("stats", *_to_host((st["acc"],), dev, stream)))
+            st["acc"] = torch.zeros(plan.base + 2, dtype=torch.int32,
+                                    device=dev)
+            st["since_flush"] = 0
+
+        def dispatch(item):
+            st["acc"], nm = ce.detailed_accum_megaloop(
+                plan, batch_size, seg, st["acc"], item.start, item.seg[1], arm,
+                nm_out=readbacks.slot())
+            readbacks.add(nm, item.seg)
+            st["since_flush"] += 1
+            if len(readbacks) == FEED_BLOCK:
+                read_back()
+
+        def after(markers):
+            if ticker is not None and ticker.tick():
                 flush()
-                rem = ([(pos, e)] if pos < e else []) + segments[si + 1:]
-                checkpoint_cb({
-                    "cursor": rem[0][0] if rem else core.end(),
-                    "hist": hist.copy(),
-                    "nice_numbers": [
-                        (n.number, n.num_uniques) for n in nice_numbers
-                    ],
-                    "remaining": [[a, b] for a, b in rem],
-                })
-            elif since_flush >= flush_every:
+                collector.put(("ckpt", _SliceFeed.remaining(queues, markers)))
+            elif st["since_flush"] >= flush_every:
                 flush()
-            if progress is not None:
-                progress(done, total)
-    flush()
+
+        feed = _SliceFeed(plan, queues, lanes, dev, feed_depth, stream=stream)
+        n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
+                                       progress, total, done0)
+        if not collector.failed():
+            read_back()
+            if st["since_flush"]:
+                flush()
+    _record_feed_stats("detailed", gaps, n_batch, feed_depth, feed.ring.waits)
+    collector.raise_if_failed()
     log.debug(
-        "detailed b%d [%d, %d) on %s (batch %d x %d, use_mxu %d): %.3fs, %d "
-        "near misses", base, range_.start(), range_.end(), dev, batch_size,
-        seg, arm, time.monotonic() - t0, len(nice_numbers),
+        "detailed b%d [%d, %d) on %s (batch %d x %d, use_mxu %d, feed depth "
+        "%d): %.3fs, %d segments, %d near misses", base, range_.start(),
+        range_.end(), dev, batch_size, seg, arm, feed_depth,
+        time.monotonic() - t0, n_batch, len(nice_numbers),
     )
 
     nice_numbers.sort(key=lambda n: n.number)
@@ -342,58 +867,6 @@ FILTER_THREADS = os.cpu_count() or 1
 # columns ("first_group", None when it had none): the inputs of the field's
 # first K3 launch. The last field wins.
 LAST_NICEONLY_STATS: dict = {}
-
-
-class _Collector:
-    """Bounded-queue worker thread applying `fn` to put() items (the count
-    readback and host re-scan run off the dispatch thread).
-
-    On worker failure the queue is drained so producers' put() calls never
-    block forever; shutdown() joins without raising (safe in a finally) and
-    raise_if_failed() re-raises the worker's exception on the caller. As a
-    context manager, __exit__ always shuts the worker down."""
-
-    def __init__(self, fn, maxsize: int, name: str, on_fail=None):
-        self._fn = fn
-        self._err: list = [None]
-        self._on_fail = on_fail
-        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
-        self._t = threading.Thread(target=self._run, name=name, daemon=True)
-        self._t.start()
-
-    def _run(self):
-        try:
-            while True:
-                item = self._q.get()
-                if item is None:
-                    return
-                self._fn(*item)
-        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
-            self._err[0] = e
-            if self._on_fail is not None:
-                self._on_fail()  # lets the producer stop at its next chunk
-            while self._q.get() is not None:
-                pass  # drain so producers' puts never block forever
-
-    def __enter__(self) -> "_Collector":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.shutdown()
-
-    def failed(self) -> bool:
-        return self._err[0] is not None
-
-    def put(self, item) -> None:
-        self._q.put(item)
-
-    def shutdown(self) -> None:
-        self._q.put(None)
-        self._t.join()
-
-    def raise_if_failed(self) -> None:
-        if self._err[0] is not None:
-            raise self._err[0]
 
 
 def _pick_stride_depth(base: int, typical: int, max_k: int = 3) -> tuple[int, int]:
@@ -605,7 +1078,7 @@ def _device_residues(base: int, k: int, device: str) -> torch.Tensor:
 
 
 def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
-                      progress, checkpoint) -> list[int]:
+                      progress, checkpoint, ticker=None) -> list[int]:
     """Nice numbers of the core through the three-thread pipeline.
 
     producer (a pool of FILTER_THREADS): the MSD filter over the field's
@@ -614,15 +1087,17 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
         groups of STRIDED_DESC_MAX -> one K3 launch per group;
     collector: each group's counts back to the host; re-scan of every
         descriptor with hits (a disagreeing count raises), the zero-count
-        audit, and checkpoint(watermark, found) after every group, where
-        `found` holds every nice number below the watermark (groups are
-        collected in order and the filters' gaps hold none)."""
+        audit, and checkpoint(watermark, found) when the ticker (ticked
+        once a group) fires, where `found` holds every nice number below
+        the watermark (groups are collected in order and the filters' gaps
+        hold none). Descriptor tables go up through a pinned _HostRing."""
     plan, table, periods = s.plan, s.table, s.periods
     modulus = table.modulus
     span = periods * modulus
     group_cap = ce.STRIDED_DESC_MAX
     filter_threads, audit_every = FILTER_THREADS, STRIDE_AUDIT_EVERY
     residues = _device_residues(base, s.k, str(dev))
+    ring = _HostRing(2 * STRIDE_WINDOW, (group_cap, ce.DESC_WIDTH), dev)
     nice: list[int] = []
 
     host_busy = [0.0]  # filter seconds, summed over the pool's threads
@@ -728,7 +1203,7 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                         f"{len(found)} nice numbers (audit)"
                     )
             audit_seen[0] += len(zeros)
-        if checkpoint is not None:
+        if checkpoint is not None and (ticker is None or ticker.tick()):
             # The coverage frontier of this group: the end of its last
             # descriptor.
             watermark = min(desc_value(cols, 2, k - 1),
@@ -762,9 +1237,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                     n_groups += 1
                     if first_group is None:
                         first_group = cols
-                    desc = torch.from_numpy(
-                        pack_descriptors(cols, group_cap).astype(np.int64)
-                    ).to(dev)
+                    desc = ring.upload(
+                        pack_descriptors(cols, group_cap).astype(np.int64))
                     counts = ce.strided_niceonly_batch(
                         plan, modulus, residues, periods, desc, k_real)
                     launched = None
@@ -820,23 +1294,28 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
                     progress=None, checkpoint_cb=None, resume=None,
                     batch_size: int | None = None,
                     segment: int | None = None,
-                    use_mxu: int | None = None) -> None:
+                    use_mxu: int | None = None,
+                    checkpoint_batches: int | None = None,
+                    checkpoint_secs: float | None = None,
+                    feed_depth: int = FEED_DEPTH_DEFAULT) -> None:
     """Append the nice numbers of the core to nice_numbers: the twin of the
-    JAX engine's single-device dense loop, one run in flight.
+    JAX engine's single-device dense loop, on the pipelined host loop.
 
     The MSD filter (the "dense" floor controller's floor) turns the core
-    into surviving ranges; each is cut into runs of at most batch_size *
-    segment lanes, and K4 (K5 where use_mxu resolves to 1; the shape
-    comes from resolve_tuning) counts each run's nice lanes among the
+    into surviving ranges up front; each is cut into runs of at most
+    batch_size * segment lanes, and K4 (K5 where use_mxu resolves to 1; the
+    shape comes from resolve_tuning) counts each run's nice lanes among the
     residue classes the congruence keeps (the TPU's fused mode: the count
-    equals the unfused one's, since no other class holds a nice number). A run
-    that counts any goes through rare_scan_survivors (K2 above
-    base - 1), which must find as many. progress(done, total) follows the
-    dispatched lanes. checkpoint_cb fires after every run with the JAX dense
-    loop's state {"cursor", "hist": None, "nice_numbers" (nice_numbers so
-    far, prior entries included), "remaining", "filtered": True}; a resume
-    state marked "filtered" has its remaining segments scanned as they are
-    (the filters' gaps are proven empty), any other is filtered again."""
+    equals the unfused one's, since no other class holds a nice number). The
+    collector reads each run's [count, pruned] from pinned memory and sends
+    a run that counts any through rare_scan_survivors (K2 above base - 1),
+    which must find as many. progress(done, total) follows the dispatched
+    lanes. checkpoint_cb fires on the ticker (checkpoint_batches runs or
+    checkpoint_secs seconds) with the JAX dense loop's state {"cursor",
+    "hist": None, "nice_numbers" (nice_numbers so far, prior entries
+    included), "remaining", "filtered": True}; a resume state marked
+    "filtered" has its remaining segments scanned as they are (the filters'
+    gaps are proven empty), any other is filtered again."""
     plan = get_plan(base)
     batch_size, seg, arm = resolve_tuning("niceonly", base, dev, batch_size,
                                           segment, use_mxu)
@@ -859,64 +1338,96 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
         ]
     msd_secs = time.monotonic() - t0
     total = sum(e - s for s, e in segments)
-    done = kept = pruned = 0
     runs: list[tuple[int, int]] = []
+    tally = {"kept": 0, "pruned": 0}
     kernel = "niceonly_dense_mma" if arm else "niceonly_dense"
     launches0 = ce.LAUNCHES[kernel]
-    t1 = time.monotonic()
-    for si, (s, e) in enumerate(segments):
-        pos = s
-        while pos < e:
-            valid = min(lanes, e - pos)
-            start = ve.start_limbs_tensor(pos, plan, dev)
-            count, n_pruned = ce.niceonly_dense_megaloop(
-                plan, batch_size, seg, classes, start, valid,
-                use_mxu=arm).tolist()
-            runs.append((pos, valid))
-            kept += valid - n_pruned
-            pruned += n_pruned
-            if count > 0:
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    rare_ring = _HostRing(2, (plan.limbs_n,), dev, stream)
+    window = -(-DISPATCH_WINDOW // FEED_BLOCK)  # blocks of runs
+    readbacks = _Readbacks((2,), dev, window, stream)
+    ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
+              if checkpoint_cb is not None else None)
+
+    def collect_item(kind, *payload):
+        if kind == "count":  # a block of runs' [count, pruned]
+            block, counts, ev = payload
+            _wait(ev)
+            for (pos, valid), (count, n_pruned) in zip(block, counts.tolist()):
+                tally["kept"] += valid - n_pruned
+                tally["pruned"] += n_pruned
+                if count == 0:
+                    continue
                 found = [n for n, _ in rare_scan_survivors(
-                    plan, pos, valid, batch_size, dev, base - 1)]
+                    plan, pos, valid, batch_size, dev, base - 1, rare_ring)]
                 if len(found) != count:
                     raise RuntimeError(
                         f"K4 counted {count} nice numbers in [{pos}, "
                         f"{pos + valid}), the rare scan found {len(found)}")
                 nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
                                     for n in found)
-            pos += valid
-            done += valid
-            if checkpoint_cb is not None:
-                rem = ([(pos, e)] if pos < e else []) + segments[si + 1:]
-                checkpoint_cb({
-                    "cursor": rem[0][0] if rem else core.end(),
-                    "hist": None,
-                    "nice_numbers": [(n.number, n.num_uniques)
-                                     for n in nice_numbers],
-                    "remaining": [[a, b] for a, b in rem],
-                    "filtered": True,
-                })
-            if progress is not None:
-                progress(done, total)
+        else:  # "ckpt": every run before the marker is collected
+            (rem,) = payload
+            checkpoint_cb({
+                "cursor": rem[0][0] if rem else core.end(),
+                "hist": None,
+                "nice_numbers": [(n.number, n.num_uniques)
+                                 for n in nice_numbers],
+                "remaining": [[a, b] for a, b in rem],
+                "filtered": True,
+            })
+
+    queues = [segments]
+    t1 = time.monotonic()
+    with _Collector(collect_item, window, "dense-collect",
+                    stream=stream) as collector:
+
+        def read_back():
+            if len(readbacks):
+                collector.put(("count", *readbacks.fetch()))
+
+        def dispatch(item):
+            readbacks.add(ce.niceonly_dense_megaloop(
+                plan, batch_size, seg, classes, item.start, item.seg[1],
+                use_mxu=arm, out=readbacks.slot()), item.seg)
+            runs.append(item.seg)
+            if len(readbacks) == FEED_BLOCK:
+                read_back()
+
+        def after(markers):
+            if ticker is not None and ticker.tick():
+                read_back()
+                collector.put(("ckpt", _SliceFeed.remaining(queues, markers)))
+
+        feed = _SliceFeed(plan, queues, lanes, dev, feed_depth, stream=stream)
+        n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
+                                       progress, total, 0)
+        if not collector.failed():
+            read_back()
     loop_secs = time.monotonic() - t1
+    _record_feed_stats("niceonly", gaps, n_batch, feed_depth, feed.ring.waits)
+    collector.raise_if_failed()
     if ran_filter:
         ctrl.observe(msd_secs, loop_secs, core.size())
     median = sorted(runs, key=lambda r: r[1])[len(runs) // 2] if runs else None
+    done = sum(v for _, v in runs)
     LAST_NICEONLY_STATS.clear()
     LAST_NICEONLY_STATS.update(
         base=base, start=core.start(), end=core.end(), msd_secs=msd_secs,
-        floor=floor, ranges=len(segments), loop_secs=loop_secs, runs=len(runs), lanes=done, kept=kept,
-        pruned=pruned, classes=int(classes.shape[0]),
+        floor=floor, ranges=len(segments), loop_secs=loop_secs,
+        runs=len(runs), lanes=done, kept=tally["kept"],
+        pruned=tally["pruned"], classes=int(classes.shape[0]),
         launches=ce.LAUNCHES[kernel] - launches0, batch_size=batch_size,
-        segment=seg, use_mxu=arm,
+        segment=seg, use_mxu=arm, feed_depth=feed_depth,
         nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
         median_run=median,
     )
     log.info(
         "niceonly-dense b%d [%d, %d): msd %.3fs (floor %d, %d ranges) | "
-        "loop %.3fs (%d runs, %d lanes, %d kept, %d pruned) | %d nice",
-        base, core.start(), core.end(), msd_secs, floor, len(segments),
-        loop_secs, len(runs), done, kept, pruned, len(nice_numbers) - nice0,
+        "loop %.3fs (%d runs, %d lanes, %d kept, %d pruned, feed depth %d) | "
+        "%d nice", base, core.start(), core.end(), msd_secs, floor,
+        len(segments), loop_secs, len(runs), done, tally["kept"],
+        tally["pruned"], feed_depth, len(nice_numbers) - nice0,
     )
 
 
@@ -932,6 +1443,9 @@ def process_range_niceonly(
     progress=None,
     checkpoint_cb=None,
     resume=None,
+    checkpoint_batches: int | None = None,
+    checkpoint_secs: float | None = None,
+    feed_depth: int = FEED_DEPTH_DEFAULT,
 ) -> FieldResults:
     """The nice numbers of a field (distribution empty), exact.
 
@@ -942,17 +1456,20 @@ def process_range_niceonly(
     (b98 and up) the dense loop (K4, _niceonly_dense). batch_size, segment
     and use_mxu (1: K5 in place of K4) shape the dense loop's runs through
     resolve_tuning; the strided pipeline's shapes come from the MSD floor
-    (K3 has no tensor-core arm), and it takes none of them.
+    (K3 has no tensor-core arm), and it takes none of them; feed_depth is
+    the dense loop's (runs its feed thread prepares ahead, 0: inline).
+    checkpoint_cb fires on a ticker, every checkpoint_batches descriptor
+    groups or runs or checkpoint_secs seconds (CKPT_EVERY_BATCHES /
+    CKPT_EVERY_SECS when None), from the collector thread.
 
     Strided: progress(done, total) reports the filter front, from a worker
-    thread; checkpoint_cb(state) fires after every descriptor group with
-    {"cursor", "hist": None, "nice_numbers" [(number, base)]}: every nice
-    number below the cursor is listed; a resume state's "remaining"
-    segments collapse to their lowest start. Dense: progress follows the
-    dispatched lanes and checkpoint_cb fires after every run with the JAX
-    dense loop's state (see _niceonly_dense). resume takes a state of this
-    engine or of the JAX engine and finishes the field without recomputing
-    slivers."""
+    thread; checkpoint_cb(state) gets {"cursor", "hist": None,
+    "nice_numbers" [(number, base)]}: every nice number below the cursor is
+    listed; a resume state's "remaining" segments collapse to their lowest
+    start. Dense: progress follows the dispatched lanes and checkpoint_cb
+    gets the JAX dense loop's state (see _niceonly_dense). resume takes a
+    state of this engine or of the JAX engine and finishes the field
+    without recomputing slivers."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
     if backend == "scalar":
@@ -989,7 +1506,8 @@ def process_range_niceonly(
         _niceonly_dense(core, base, dev, nice_numbers, progress=progress,
                         checkpoint_cb=checkpoint_cb, resume=resume,
                         batch_size=batch_size, segment=segment,
-                        use_mxu=use_mxu)
+                        use_mxu=use_mxu, checkpoint_batches=checkpoint_batches,
+                        checkpoint_secs=checkpoint_secs, feed_depth=feed_depth)
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
@@ -1019,7 +1537,9 @@ def process_range_niceonly(
                     "nice_numbers": prior + [(n, base) for n in nice_so_far],
                 })
 
-        found = _niceonly_strided(core, base, s, dev, progress, ckpt)
+        found = _niceonly_strided(
+            core, base, s, dev, progress, ckpt,
+            _CkptTicker(checkpoint_batches, checkpoint_secs))
     nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
                         for n in found)
     nice_numbers.sort(key=lambda n: n.number)

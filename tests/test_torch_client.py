@@ -173,7 +173,9 @@ def test_port_imports_neither_jax_nor_nice_tpu():
     assert bad.strip() == "[]"
     assert int(count) >= 21  # the walk really imported the package
     for name in ("native", "ops.adaptive_floor", "ops.lsd_filter",
-                 "ops.msd_filter", "ops.residue_filter", "ops.stride_filter"):
+                 "ops.msd_filter", "ops.residue_filter", "ops.stride_filter",
+                 "ckpt.manager", "ckpt.snapshot", "faults.spool",
+                 "daemon.main", "utils.fsio", "utils.resources"):
         assert f"nice_tpu_torch.{name}" in mods.strip().split(",")
 
 

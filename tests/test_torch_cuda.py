@@ -531,3 +531,68 @@ def test_k5_dense_tiers_on_card(card, base, tier):
                 assert torch.equal(got, want) and torch.equal(got, k4), \
                     (base, fused, start, mu)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# The pipelined host loop on the card: pinned uploads, event readbacks
+# --------------------------------------------------------------------------
+
+B40_NEAR_MISS = 3621949312977
+
+
+def _with_launches(run):
+    ce.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(ce.LAUNCHES)
+
+
+@pytest.mark.parametrize("use_mxu", [0, 1])
+def test_pipelined_detailed_equals_synchronous_on_card(card, use_mxu):
+    # Feed depth 0 (items made inline) and 2 (the feed thread): the same
+    # results, launches and checkpoint states, near misses included.
+    field = FieldSize(B40_NEAR_MISS - (1 << 24), B40_NEAR_MISS + (1 << 24))
+    runs, states = {}, {0: [], 2: []}
+    for depth in (0, 2):
+        runs[depth] = _with_launches(lambda: engine.process_range_detailed(
+            field, 40, device=card, batch_size=1 << 16, segment=4,
+            use_mxu=use_mxu, feed_depth=depth,
+            checkpoint_cb=states[depth].append, checkpoint_batches=8))
+        assert engine.LAST_FEED_STATS["feed_depth"] == depth
+    assert runs[0] == runs[2]
+    assert runs[0][0].nice_numbers and runs[0][1]["uniques"] > 0
+    assert len(states[0]) == len(states[2]) == 128 // 8
+    for a, b in zip(states[0], states[2]):
+        assert a["remaining"] == b["remaining"]
+        assert np.array_equal(a["hist"], b["hist"])
+        assert a["nice_numbers"] == b["nice_numbers"]
+
+
+def test_pipelined_dense_equals_synchronous_on_card(card):
+    start = 413428759798923141071530212209627033363  # a b98 field, > 2^128
+    field = FieldSize(start, start + 200_000)
+    runs = {}
+    for depth in (0, 2):
+        adaptive_floor.reset_for_tests(pinned=4096)
+        runs[depth] = _with_launches(lambda: engine.process_range_niceonly(
+            field, 98, device=card, feed_depth=depth))
+    adaptive_floor.reset_for_tests()
+    assert runs[0] == runs[2] and runs[0][1]["niceonly_dense"] > 0
+
+
+def test_start_ring_waits_for_its_copy_on_card(card, monkeypatch):
+    # A ring of one pinned block of start limbs in front of a device that
+    # lags: 0.8 ms segments, so the dispatcher runs a window ahead of the
+    # device and each block's upload comes back to the one slot while the
+    # copy before is still queued behind kernels. (A slow collector alone
+    # would let the device catch up.) The feed must wait for that copy's
+    # event, ring_waits counts the waits, and a block written early would
+    # send wrong starts and change the histogram.
+    field = FieldSize(B40_NEAR_MISS - (1 << 30), B40_NEAR_MISS + (1 << 30))
+    kw = dict(device=card, batch_size=1 << 18, segment=64)
+    want = engine.process_range_detailed(field, 40, feed_depth=0, **kw)
+    monkeypatch.setattr(engine, "FEED_RING_SLOTS", 1)
+    got = engine.process_range_detailed(field, 40, feed_depth=2, **kw)
+    assert got == want
+    assert engine.LAST_FEED_STATS["dispatches"] == 128
+    assert engine.LAST_FEED_STATS["ring_waits"] > 0

@@ -134,7 +134,7 @@ def test_port_checkpoint_resume_roundtrip():
     states = []
     full = engine.process_range_detailed(
         FieldSize(s, e), base, device="cpu", batch_size=BATCH, segment=2,
-        checkpoint_cb=states.append)
+        checkpoint_cb=states.append, checkpoint_batches=1)
     assert len(states) == -(-(e - (s + 500)) // (BATCH * 2))
     assert states[-1]["remaining"] == []
     for st in states[:2]:

@@ -235,13 +235,14 @@ def test_progress_reports_the_filter_front():
 
 def test_checkpoint_resume_roundtrip(monkeypatch):
     # Groups of 8 descriptors at a fine floor: many groups, a checkpoint
-    # after each.
+    # after each (the ticker fires every group).
     monkeypatch.setattr(ce, "STRIDED_DESC_MAX", 8)
     s, e = B40_MID - 500, B40_MID + 400_000  # no sliver: b40's range is wide
     states = []
     adaptive_floor.reset_for_tests(pinned=4096)
     full = engine.process_range_niceonly(
-        FieldSize(s, e), 40, device="cpu", checkpoint_cb=states.append)
+        FieldSize(s, e), 40, device="cpu", checkpoint_cb=states.append,
+        checkpoint_batches=1)
     assert len(states) >= 4
     cursors = [st["cursor"] for st in states]
     assert cursors == sorted(cursors) and s < cursors[0] and cursors[-1] <= e

@@ -348,7 +348,8 @@ def test_checkpoint_resume_roundtrip_b98(small_runs):
     field = FieldSize(B98_FIELD, B98_FIELD + 40_000)
     states = []
     full = engine.process_range_niceonly(field, 98, device="cpu",
-                                         checkpoint_cb=states.append)
+                                         checkpoint_cb=states.append,
+                                         checkpoint_batches=1)
     runs = engine.LAST_NICEONLY_STATS["runs"]
     assert len(states) == runs >= 8
     cursors = [st["cursor"] for st in states]
@@ -403,7 +404,8 @@ def test_interrupted_run_resumes_to_the_oracle_b98(small_runs):
 
     with pytest.raises(KeyboardInterrupt):
         engine.process_range_niceonly(field, 98, device="cpu",
-                                      checkpoint_cb=killed_after_three)
+                                      checkpoint_cb=killed_after_three,
+                                      checkpoint_batches=1)
     got = engine.process_range_niceonly(field, 98, device="cpu",
                                         resume=saved[-1])
     assert _numbers(got) == _numbers(jscalar.process_range_niceonly(
