@@ -6,8 +6,8 @@ Phases, each of which raises (exit code 1) on failure:
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build, all started together: nvcc builds the main library of kernels
      from csrc/ and the per-base library (csrc/plan_kernels.cu: K2, K3 and
-     K5's detailed mode on the plan tier) of each base of PLAN_BASES, g++
-     the host library of
+     K5's detailed mode on the plan tier) of each base of PLAN_BASES but
+     PREFETCH_BASE (b97: phase 2b builds it), g++ the host library of
      the niceonly path (native/), nvcc -cubin the op-count source whose
      SASS bounds the kernels (see 10) at b40 and at b80, and nvcc the
      probe of the tensor cores' integer rate (csrc/imma_probe.cu); ptxas's
@@ -18,6 +18,11 @@ Phases, each of which raises (exit code 1) on failure:
      and each per-base build's nvcc seconds, registers, stack, spills and
      the local loads and stores (LDL, STL) in its SASS (there must be
      none);
+  2b. fleet, the prefetch run: the extra-large field through the client's
+     process_field three times, the second while the client's prefetch
+     hook warms a claimed b97 field on its nice-prefetch thread (b97's
+     per-base nvcc build, in a subprocess): its seconds beside the runs
+     without, the warm's seconds and build facts; equal results;
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
@@ -92,6 +97,15 @@ Phases, each of which raises (exit code 1) on failure:
      1e9), one detailed and one niceonly single-shot client run on the card
      against it; both submits must be accepted and the server's spot check
      must pass;
+  8a. fleet, on the same server: the client's main with --claim-block 3 and
+     --api-base naming a dead port before the live server (the launch
+     counts set to 0 just before and read just after): it must rotate past
+     the dead endpoint, claim 3 b40 fields of 1e9 under one block lease,
+     have each accepted and passing the phase 6 checks, and stamp every
+     request with the server's epoch; the JAX jobs runner then makes the
+     submissions canonical, --validate --base 40 must return 0, and against
+     a second server over a copy of the ledger with its canonical
+     distributions tampered with it must return 1;
   8b. crash and resume: against a second such server, `python -m
      nice_tpu_torch.client detailed --checkpoint-dir D` (CRASH_BATCH lanes a
      batch, so that the 1e9 field takes seconds) is SIGKILLed once its first
@@ -100,6 +114,10 @@ Phases, each of which raises (exit code 1) on failure:
      snapshot, and its histogram and near misses must equal an
      uninterrupted run of the field here; it prints the kill and resume
      cursors and both runs' seconds;
+  8c. bench: `python -m nice_tpu_torch.scripts.bench --only extra-large
+     --reps 3` in a subprocess: the headline first and last with the suite,
+     median, min and max pass seconds and the card's nvidia-smi name on
+     every line, the detailed bins summing to 1e9;
   9. main-path shapes: K1 over one whole 2^18 x 8 segment and K2 (with the
      survivor compaction) over one 2^18 rare-scan sub-batch at b40, from
      extra-large's start and from the segment and sub-batch that hold the
@@ -164,9 +182,12 @@ BASES = (10, 17, 40, 50, 80, 97, 510)
 NICEONLY_BASES = (10, 17, 40, 50, 80)
 # K3's checks: the niceonly bases and b97, the plan tier's 4-limb edge.
 STRIDED_BASES = NICEONLY_BASES + (97,)
-# The bases whose per-base library (K2, K3 on the plan tier) the build
-# phase builds: every base of BASES to b97.
+# The bases with a per-base library (K2, K3 on the plan tier): every base
+# of BASES to b97. The build phase builds each but PREFETCH_BASE, which the
+# prefetch run's warm builds on the client's prefetch thread, before the
+# base's first use (phase 3's K2).
 PLAN_BASES = tuple(b for b in BASES if b <= 97)
+PREFETCH_BASE = 97
 # K4's checks: b99 keeps no residue class (no launch), the others span the
 # small tier (b10, b40) and the generic one (b98 and up, 5+ limbs).
 DENSE_BASES = (10, 40, 98, 100, 510, 99)
@@ -182,6 +203,10 @@ SEED = 20261016
 DEVICE = "cuda"
 SERVER_BASE = 40
 SERVER_FIELD_SIZE = 1_000_000_000  # the server's default --field-size
+FLEET_BLOCK = 3  # fields the fleet phase claims under one block lease
+# The bench phase's command line and its headline field's numbers.
+BENCH_ARGV = ("--only", "extra-large", "--reps", "3")
+BENCH_NUMBERS = 1_000_000_000
 
 # The first descriptor group of each niceonly main-path field, as the
 # pipeline launched it (engine.LAST_NICEONLY_STATS["first_group"]).
@@ -472,6 +497,17 @@ def plan_build_facts(base: int, info: dict) -> dict:
     return {"base": base, "nvcc_secs": info["seconds"], "kernels": kernels}
 
 
+def _check_plan_build(pb: dict) -> None:
+    """A per-base build holds K2, K3 and K5's detailed mode, none with a
+    stack, spills or local loads and stores."""
+    check(sorted(k["kernel"] for k in pb["kernels"])
+          == ["detailed_megaloop_mma_kernel", "strided_niceonly_kernel",
+              "uniques_kernel"]
+          and all(k["stack"] == k["spill_stores"] == k["LDL"] == k["STL"]
+                  == 0 for k in pb["kernels"]),
+          f"b{pb['base']}'s per-base build: {pb}")
+
+
 def _timed(fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -481,7 +517,8 @@ def _timed(fn, *args):
 def phase_build(report: dict, tmp: str) -> dict:
     """The builds, all started together: the main library of kernels
     (nvcc), the niceonly path's host library (g++), the per-base library of
-    each base of PLAN_BASES (nvcc; each with its facts, plan_build_facts),
+    each base of PLAN_BASES but PREFETCH_BASE (nvcc; each with its facts,
+    plan_build_facts),
     the op-count source at b40 and at b80 (nvcc -cubin, counted with
     cuobjdump) and the tensor-core rate probe (nvcc, into tmp). Returns
     the op counts (with K1's runtime-plan SASS counts) and the probe's
@@ -505,7 +542,8 @@ def phase_build(report: dict, tmp: str) -> dict:
     with ThreadPoolExecutor(max_workers=5 + len(PLAN_BASES)) as pool:
         kernels = pool.submit(_timed, cuda_build.load)
         host = pool.submit(_timed, native.load)
-        plans = [pool.submit(plan_build, b) for b in PLAN_BASES]
+        plans = [pool.submit(plan_build, b) for b in PLAN_BASES
+                 if b != PREFETCH_BASE]
         counted = pool.submit(_timed, sass_counts, s.plan, s.table, dp)
         counted80 = pool.submit(sass_counts, s80.plan, s80.table, dp)
         probe = pool.submit(_timed, build_imma_probe, tmp)
@@ -538,16 +576,72 @@ def phase_build(report: dict, tmp: str) -> dict:
           and all(r["stack"] == r["spill_stores"] == r["LDL"] == r["STL"] == 0
                   for r in dense), f"K4's and K5's dense tier: {dense}")
     for pb in builds:
-        check(sorted(k["kernel"] for k in pb["kernels"])
-              == ["detailed_megaloop_mma_kernel", "strided_niceonly_kernel",
-                  "uniques_kernel"]
-              and all(k["stack"] == k["spill_stores"] == k["LDL"] == k["STL"]
-                      == 0 for k in pb["kernels"]),
-              f"b{pb['base']}'s per-base build: {pb}")
+        _check_plan_build(pb)
     counts["k1_runtime"] = next(
         v for v in sass.values()
         if v["kernel"] == "detailed_megaloop_kernel" and v["tier"] == "small")
     return {"counts": counts, "counts80": counts80, "probe_lib": probe_lib}
+
+
+def phase_prefetch(report: dict) -> None:
+    """Fleet, the prefetch run: the extra-large field (b40, detailed)
+    through the client's process_field on the card three times: once
+    first (the process's first 1e9 field), once while the client's prefetch
+    hook (--prefetch, _prefetch_on_claim), handed a claim of a
+    PREFETCH_BASE field, warms that base on its nice-prefetch thread (the
+    base's nvcc build, which the build phase left out, in a subprocess),
+    and once after that warm has finished. The field's seconds with the
+    warm running beside those without, the warm's own seconds, and the
+    facts of the build it made; the results must be equal, and the build
+    must have come from the warm."""
+    import threading
+    from concurrent.futures import Future
+
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.core.types import DataToClient, SearchMode
+    from nice_tpu_torch.ops import cuda_build
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    xl = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
+    plan = get_plan(PREFETCH_BASE)
+    header = ce.plan_header(plan)
+    check(header not in cuda_build.PLAN_BUILDS,
+          f"b{PREFETCH_BASE}'s library was loaded before its warm")
+    args = client.build_parser().parse_args(["detailed", "--device", DEVICE])
+    first, first_secs = client.process_field(xl, args)
+    _check_field(xl, first)
+    claim = Future()
+    client._prefetch_on_claim(claim, args, SearchMode.DETAILED)
+    t0 = time.monotonic()
+    claim.set_result(DataToClient(
+        claim_id=0, base=PREFETCH_BASE, range_start=plan.range_start,
+        range_end=plan.range_start + SERVER_FIELD_SIZE,
+        range_size=SERVER_FIELD_SIZE))
+    during, during_secs = client.process_field(xl, args)
+    warms = [t for t in threading.enumerate() if t.name == "nice-prefetch"]
+    overlapped = any(t.is_alive() for t in warms)
+    for t in warms:
+        t.join()
+    warm_secs = time.monotonic() - t0
+    check(header in cuda_build.PLAN_BUILDS,
+          f"the prefetch warm did not load b{PREFETCH_BASE}'s library")
+    build = plan_build_facts(PREFETCH_BASE, cuda_build.PLAN_BUILDS[header])
+    _check_plan_build(build)
+    # A build (not a library left by an earlier run of this checkout) runs
+    # for seconds: past the 1e9 field it overlaps.
+    check(build["nvcc_secs"] == 0 or overlapped,
+          "the warm's build did not overlap the field")
+    after, after_secs = client.process_field(xl, args)
+    check(_pairs(first) == _pairs(during) == _pairs(after),
+          "extra-large differs between the prefetch runs")
+    report["fleet_prefetch"] = {
+        "field": "extra-large", "warm_base": PREFETCH_BASE,
+        "first_field_secs": first_secs, "field_secs_with_warm": during_secs,
+        "field_secs_after_warm": after_secs, "warm_secs": warm_secs,
+        "warm_overlapped_field": overlapped, "warm_build": build}
+    emit({"phase": "fleet", "run": "prefetch", **report["fleet_prefetch"]})
 
 
 def _straddle_start(plan, lanes: int) -> int:
@@ -1333,6 +1427,13 @@ WIDE_BASE = 510
 WIDE_SLICE = 1 << 21
 
 
+def _spread(records) -> list:
+    """Each swept config's shape with its mean, min and max pass seconds."""
+    return [{k: r.get(k) for k in ("batch_size", "megaloop", "use_mxu",
+                                   "elapsed_secs", "min_secs", "max_secs",
+                                   "reps")} for r in records]
+
+
 def phase_tuned(report: dict, tmp: str) -> None:
     """The tuned path at full width:
       1. sweeps on the card (autotune.sweep, the harness in a subprocess)
@@ -1369,17 +1470,20 @@ def phase_tuned(report: dict, tmp: str) -> None:
                                batch_shifts=[18, 19], segments=[8, 16],
                                mxu="auto", slice_size=100_000_000, timeout=400)
         t1 = time.monotonic()
+        spread = {"detailed": _spread(autotune.LAST_SWEEP)}
         won_n = autotune.sweep("niceonly", DEVICE,
                                field=(DENSE_BASE, b98.range_start, b98.range_size),
                                batch_shifts=[18], segments=[8], mxu="auto",
                                slice_size=b98.range_size, timeout=400)
         t2 = time.monotonic()
+        spread["niceonly"] = _spread(autotune.LAST_SWEEP)
         wide_start = get_plan(WIDE_BASE).range_start
         won_w = autotune.sweep("detailed", DEVICE,
                                field=(WIDE_BASE, wide_start, WIDE_SLICE),
                                batch_shifts=[18], segments=[8], mxu="auto",
                                slice_size=WIDE_SLICE, timeout=300)
         t3 = time.monotonic()
+        spread["detailed_b510"] = _spread(autotune.LAST_SWEEP)
         wide_k1 = _pairs(engine.process_range_detailed(
             FieldSize(wide_start, wide_start + WIDE_SLICE), WIDE_BASE,
             device=DEVICE, use_mxu=0))
@@ -1448,7 +1552,8 @@ def phase_tuned(report: dict, tmp: str) -> None:
                        "sweep_wide_secs": t3 - t2, "winners": {
                            "detailed": won_d, "niceonly": won_n,
                            "detailed_b510": won_w},
-                       "swept": swept, "fresh": fresh, "k5_runs": runs,
+                       "swept": swept, "sweep_spread": spread,
+                       "fresh": fresh, "k5_runs": runs,
                        "launches": k5_launches}
     report["main_path_launches"].update(
         detailed_megaloop_mma=k5_launches["detailed_megaloop_mma"]
@@ -1482,15 +1587,17 @@ def _get_json(url: str):
         return json.loads(resp.read())
 
 
-def _start_server(tmp: str, port: int):
-    """The repository's coordination server in a separate process, seeded
-    with SERVER_BASE fields of SERVER_FIELD_SIZE; (process, url, log)."""
+def _start_server(tmp: str, port: int, seed: bool = True):
+    """The repository's coordination server in a separate process over
+    tmp/nice.db, seeded with SERVER_BASE fields of SERVER_FIELD_SIZE unless
+    seed is False; (process, url, log)."""
     log_path = os.path.join(tmp, "server.log")
+    init = (["--init-base", str(SERVER_BASE), "--field-size",
+             str(SERVER_FIELD_SIZE)] if seed else [])
     with open(log_path, "wb") as log_f:
         server = subprocess.Popen(
             [sys.executable, "-m", "nice_tpu.server", "--db",
-             os.path.join(tmp, "nice.db"), "--init-base", str(SERVER_BASE),
-             "--field-size", str(SERVER_FIELD_SIZE),
+             os.path.join(tmp, "nice.db"), *init,
              "--host", "127.0.0.1", "--port", str(port)],
             cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT,
         )
@@ -1527,47 +1634,44 @@ def _await_spot_check(api: str) -> dict:
     return spot
 
 
-def phase_server(report: dict) -> None:
+def phase_server(report: dict, api: str) -> None:
+    """Claim -> process -> submit against the server at `api`: one detailed
+    and one niceonly single-shot client run on the card."""
     from nice_tpu_torch.client import main as client
     from nice_tpu_torch.core.types import FieldResults
     from nice_tpu_torch.ops import cuda_engine as ce
 
-    with tempfile.TemporaryDirectory(prefix="nice-chip-smoke-") as tmp:
-        server, api, _ = _start_server(tmp, _free_port())
-        try:
-            args = client.build_parser().parse_args(
-                ["detailed", "--api-base", api, "--username", "chip-smoke",
-                 "--device", DEVICE])
-            ce.reset_launches()
-            t0 = time.monotonic()
-            data, sub, resp = client.run_single_iteration(args)
-            elapsed = time.monotonic() - t0
-            launches = dict(ce.LAUNCHES)
-            check(resp.get("status") == "OK" and not resp.get("duplicate"),
-                  f"submit not accepted: {resp}")
-            # The server's fields are 1e9 wide except the base's last one.
-            check(data.base == SERVER_BASE
-                  and 0 < data.range_size <= SERVER_FIELD_SIZE,
-                  f"claimed {data}, not a b{SERVER_BASE} field")
-            _check_field(data, FieldResults(tuple(sub.unique_distribution),
-                                            tuple(sub.nice_numbers)))
-            spot = _await_spot_check(api)
-            # A niceonly round against the same server.
-            args = client.build_parser().parse_args(
-                ["niceonly", "--api-base", api, "--username", "chip-smoke",
-                 "--device", DEVICE])
-            ce.reset_launches()
-            t0 = time.monotonic()
-            n_data, n_sub, n_resp = client.run_single_iteration(args)
-            n_elapsed = time.monotonic() - t0
-            check(n_resp.get("status") == "OK" and not n_resp.get("duplicate"),
-                  f"niceonly submit not accepted: {n_resp}")
-            check(n_data.base == SERVER_BASE and n_sub.unique_distribution is None,
-                  f"niceonly round: claimed {n_data}, sent {n_sub}")
-            _check_niceonly(n_data, FieldResults((), tuple(n_sub.nice_numbers)))
-            n_launches = dict(ce.LAUNCHES)
-        finally:
-            _stop(server)
+    args = client.build_parser().parse_args(
+        ["detailed", "--api-base", api, "--username", "chip-smoke",
+         "--device", DEVICE])
+    ce.reset_launches()
+    t0 = time.monotonic()
+    data, sub, resp = client.run_single_iteration(args)
+    elapsed = time.monotonic() - t0
+    launches = dict(ce.LAUNCHES)
+    check(resp.get("status") == "OK" and not resp.get("duplicate"),
+          f"submit not accepted: {resp}")
+    # The server's fields are 1e9 wide except the base's last one.
+    check(data.base == SERVER_BASE
+          and 0 < data.range_size <= SERVER_FIELD_SIZE,
+          f"claimed {data}, not a b{SERVER_BASE} field")
+    _check_field(data, FieldResults(tuple(sub.unique_distribution),
+                                    tuple(sub.nice_numbers)))
+    spot = _await_spot_check(api)
+    # A niceonly round against the same server.
+    args = client.build_parser().parse_args(
+        ["niceonly", "--api-base", api, "--username", "chip-smoke",
+         "--device", DEVICE])
+    ce.reset_launches()
+    t0 = time.monotonic()
+    n_data, n_sub, n_resp = client.run_single_iteration(args)
+    n_elapsed = time.monotonic() - t0
+    check(n_resp.get("status") == "OK" and not n_resp.get("duplicate"),
+          f"niceonly submit not accepted: {n_resp}")
+    check(n_data.base == SERVER_BASE and n_sub.unique_distribution is None,
+          f"niceonly round: claimed {n_data}, sent {n_sub}")
+    _check_niceonly(n_data, FieldResults((), tuple(n_sub.nice_numbers)))
+    n_launches = dict(ce.LAUNCHES)
     report["server"] = {"claim_id": data.claim_id, "numbers": data.range_size,
                         "client_secs": elapsed, "launches": launches,
                         "near_misses": len(sub.nice_numbers), "reply": resp,
@@ -1580,6 +1684,204 @@ def phase_server(report: dict) -> None:
                                      "nice": len(n_sub.nice_numbers),
                                      "reply": n_resp}}
     emit({"phase": "server", **report["server"]})
+
+
+def _blocks(db_path: str) -> dict:
+    """The server's block claims: block_id -> [(claim_id, the field as a
+    DataToClient)], from its sqlite file (ranges are zero-padded decimal
+    text)."""
+    import sqlite3
+
+    from nice_tpu_torch.core.types import DataToClient
+
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute(
+            "SELECT c.block_id, c.id, f.base_id, f.range_start, f.range_end "
+            "FROM claims c JOIN fields f ON f.id = c.field_id "
+            "WHERE c.block_id IS NOT NULL ORDER BY c.id").fetchall()
+    finally:
+        conn.close()
+    out: dict = {}
+    for block, claim_id, base, lo, hi in rows:
+        lo, hi = int(lo), int(hi)
+        out.setdefault(block, []).append(DataToClient(
+            claim_id=claim_id, base=base, range_start=lo, range_end=hi,
+            range_size=hi - lo))
+    return out
+
+
+def _tamper_canon(src_path: str, dst_path: str) -> int:
+    """A copy of the server's ledger (sqlite's backup, consistent under a
+    live writer) with one count moved between two bins of every canonical
+    SERVER_BASE distribution (the bins still sum to the field, so the server
+    serves it); returns how many it changed."""
+    import sqlite3
+
+    src, dst = sqlite3.connect(src_path), sqlite3.connect(dst_path)
+    try:
+        src.backup(dst)
+        rows = dst.execute(
+            "SELECT s.id, s.distribution FROM submissions s JOIN fields f ON "
+            "f.canon_submission_id = s.id WHERE f.base_id = ?",
+            (SERVER_BASE,)).fetchall()
+        for sid, dist in rows:
+            dist = json.loads(dist)
+            full = [d for d in dist if int(d["count"]) > 0]
+            full[0]["count"] = int(full[0]["count"]) - 1
+            full[1]["count"] = int(full[1]["count"]) + 1
+            dst.execute("UPDATE submissions SET distribution = ? WHERE id = ?",
+                        (json.dumps(dist), sid))
+        dst.commit()
+    finally:
+        src.close()
+        dst.close()
+    return len(rows)
+
+
+def phase_fleet(report: dict, api: str, server_dir: str) -> None:
+    """Fleet, on the server phase's server (its ledger in server_dir):
+      1. `python -m nice_tpu_torch.client detailed --claim-block 3` (its
+         main, in this process) with --api-base naming a dead 127.0.0.1 port
+         before the live server, on the card, the launch counts set to 0
+         just before and read just after: the client must rotate past the
+         dead endpoint (marked dead, the failover cursor on the live one),
+         claim FLEET_BLOCK b40 fields of 1e9 under one block lease (a
+         partial block, which the server hands out when its random pivot
+         lands near a chunk's end, is processed and submitted like any and
+         the run repeated, at most twice more), and every member must be
+         accepted and pass _check_field; every request must carry the
+         server's epoch (X-Nice-Epoch);
+      2. the JAX jobs runner (`python -m nice_tpu.jobs`, which imports no
+         jax) makes every submitted field canonical; `--validate --base 40`
+         on the card must return 0;
+      3. a second server over a copy of the ledger whose canonical
+         distributions were tampered with: `--validate --base 40` must
+         return 1."""
+    from urllib.parse import urlsplit
+
+    from nice_tpu_torch.client import api_client
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.ops import cuda_engine as ce
+
+    db_path = os.path.join(server_dir, "nice.db")
+    dead = f"http://127.0.0.1:{_free_port()}"
+    servers = f"{dead},{api}"
+    stamps: list = []
+    real_headers = api_client._headers
+
+    def headers(body):
+        out = real_headers(body)
+        stamps.append(out.get("X-Nice-Epoch"))
+        return out
+
+    argv = ["detailed", "--api-base", servers, "--username",
+            "chip-smoke-fleet", "--claim-block", str(FLEET_BLOCK),
+            "--device", DEVICE, "--renew-secs", "5"]
+    api_client._headers = headers
+    runs = []
+    try:
+        ce.reset_launches()
+        for _ in range(3):
+            t0 = time.monotonic()
+            check(client.main(argv) == 0, "the block client failed")
+            runs.append(time.monotonic() - t0)
+            blocks = _blocks(db_path)
+            full = [b for b in blocks.values() if len(b) == FLEET_BLOCK]
+            if full:
+                break
+        launches = dict(ce.LAUNCHES)
+    finally:
+        api_client._headers = real_headers
+    check(bool(full), f"no block of {FLEET_BLOCK} in {len(runs)} runs: "
+          f"{[len(b) for b in blocks.values()]}")
+    epoch = _get_json(api + "/status")["epoch"]
+    check(stamps and all(st == str(epoch) for st in stamps)
+          and api_client.last_seen_epoch() == epoch,
+          f"requests without the server's epoch {epoch}: {stamps}")
+    key = ",".join(api_client.split_servers(servers))
+    check(("http", urlsplit(dead).netloc) in api_client._dead_hosts
+          and api_client._failover_idx.get(key) == 1,
+          "the client did not rotate past the dead endpoint")
+    members = []
+    for data in (d for b in blocks.values() for d in b):
+        got = _read_submission(db_path, data.claim_id)
+        check(data.base == SERVER_BASE
+              and 0 < data.range_size <= SERVER_FIELD_SIZE,
+              f"block member {data}")
+        members.append({"claim_id": data.claim_id,
+                        "range_start": data.range_start,
+                        "near_misses": _check_field(data, got)})
+    check(launches["detailed_megaloop"] > 0, f"K1 not launched: {launches}")
+
+    jobs = subprocess.run([sys.executable, "-m", "nice_tpu.jobs", "--db",
+                           db_path], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    check(jobs.returncode == 0, "the jobs runner failed:\n" + jobs.stderr[-3000:])
+    validate = ["--validate", "--base", str(SERVER_BASE), "--username",
+                "chip-smoke-validate", "--device", DEVICE]
+    t0 = time.monotonic()
+    canon_rc = client.main(validate + ["--api-base", api])
+    canon_secs = time.monotonic() - t0
+    check(canon_rc == 0, f"--validate on the canon returned {canon_rc}")
+    tampered_dir = os.path.join(server_dir, "tampered")
+    os.makedirs(tampered_dir)
+    n_tampered = _tamper_canon(db_path, os.path.join(tampered_dir, "nice.db"))
+    check(n_tampered >= FLEET_BLOCK, f"{n_tampered} canonical submissions")
+    server2, api2, _ = _start_server(tampered_dir, _free_port(), seed=False)
+    try:
+        tampered_rc = client.main(validate + ["--api-base", api2])
+    finally:
+        _stop(server2)
+    check(tampered_rc == 1,
+          f"--validate on the tampered canon returned {tampered_rc}")
+    report["fleet"] = {"block_runs_secs": runs, "blocks": len(blocks),
+                       "members": members, "launches": launches,
+                       "requests": len(stamps), "epoch": epoch,
+                       "validate_canon_rc": canon_rc,
+                       "validate_canon_secs": canon_secs,
+                       "canonical_tampered": n_tampered,
+                       "validate_tampered_rc": tampered_rc}
+    emit({"phase": "fleet", **report["fleet"]})
+
+
+def phase_bench(report: dict) -> None:
+    """`python -m nice_tpu_torch.scripts.bench --only extra-large --reps 3`
+    in a subprocess: the headline (detailed extra-large) first and last,
+    the suite embedded in the last; every line with its median, min and max
+    pass seconds and the card as nvidia-smi names it; the detailed bins
+    summing to the 1e9 field."""
+    card = nvidia_smi("name,power.limit")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nice_tpu_torch.scripts.bench", *BENCH_ARGV,
+         "--device", DEVICE], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    secs = time.monotonic() - t0
+    check(proc.returncode == 0, "the bench failed:\n" + proc.stderr[-3000:])
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    first, last = lines[0], lines[-1]
+    check(first["metric"] == "numbers/sec/chip detailed (extra-large, base 40)"
+          and {k: v for k, v in last.items() if k not in
+               ("suite", "budget_secs", "budget_used_secs")} == first
+          and len(last["suite"]) == len(lines) - 1,
+          "the headline is not first and last")
+    check(first["range_size"] == sum(first["distribution"]) == BENCH_NUMBERS,
+          "the headline's bins do not sum to its field")
+    for line in lines[:-1]:
+        check(line["min_secs"] <= line["elapsed_secs"] <= line["max_secs"]
+              and len(line["pass_secs"]) == line["reps"]
+              and line["device"] == card, f"bench line {line['metric']}")
+    keys = ("metric", "value", "elapsed_secs", "min_secs", "max_secs",
+            "first_field_secs", "warm_secs", "build_secs", "launches")
+    report["bench"] = {"secs": secs, "device": first["device"],
+                       "lines": [{k: line.get(k) for k in keys}
+                                 for line in lines[:-1]],
+                       "feed_ab": {d: {k: v for k, v in ab.items()
+                                       if k != "feed_stats"}
+                                   for d, ab in first["feed_ab"].items()}}
+    emit({"phase": "bench", **report["bench"]})
 
 
 # The pipeline phase's kernels, by the profiler's kernel names.
@@ -2506,6 +2808,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     emit(f"card: {card} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
     built = phase_build(report, tmp)
+    phase_prefetch(report)
     phase_kernel_vs_plain(report)
     phase_strided_vs_plain(report)
     phase_dense_vs_plain(report)
@@ -2516,8 +2819,16 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_full_width_dense(report)
     phase_pipeline(report)
     phase_tuned(report, tmp)
-    phase_server(report)
+    server_dir = os.path.join(tmp, "server")
+    os.makedirs(server_dir)
+    server, api, _ = _start_server(server_dir, _free_port())
+    try:
+        phase_server(report, api)
+        phase_fleet(report, api, server_dir)
+    finally:
+        _stop(server)
     phase_crash_resume(report)
+    phase_bench(report)
     phase_main_shapes(report)
     timed = phase_timing(report, built, sms, clk_mhz)
     phase_profile(report)

@@ -1,58 +1,102 @@
-"""Client HTTP transport: claim, submit and lease renewal with retry and
-backoff, and the thread-backed AsyncApi of the pipelined loop (the port's
-cut of nice_tpu/client/api_client.py:282-681).
+"""Client HTTP transport: claim, submit, lease renewal, block claims and
+validation data, with retry, backoff and multi-server failover, and the
+thread-backed AsyncApi of the pipelined loops (the port's cut of
+nice_tpu/client/api_client.py).
 
 Stdlib only. Network errors, 5xx and 429 retry with full-jitter exponential
 backoff (uniform(0, min(2^attempt, cap)) seconds, or the server's
 Retry-After when it sent one); any other 4xx raises at once with the
-server's message. One server: no failover, claim blocks, epochs, journal
-or telemetry.
+server's message.
+
+Every request goes through a per-thread pool of keep-alive connections, one
+a server, and stamps X-Nice-Epoch with the highest fencing epoch any reply
+has carried, so a deposed primary learns it is fenced from the first client
+that saw the promotion. An endpoint a thread found dead is marked for every
+thread: sockets born before the mark are dropped on their next use instead
+of each timing out in turn. api_base may be a comma-separated list of
+servers (failover_request): each request rotates past servers that are
+down, shed load or answer with the fence (410/421), and the process sticks
+to the server that last answered.
+
+Left out against the JAX transport: its fault-injection sites (the http.*
+faults) and its spans, metrics and traceparent header.
 """
 
 from __future__ import annotations
 
+import contextlib
+import http.client
+import io
 import json
 import logging
 import random
+import threading
 import time
 import urllib.error
 import urllib.parse
-import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
+from urllib.parse import urlsplit
 
 from nice_tpu_torch.core.constants import CLIENT_REQUEST_TIMEOUT_SECS
-from nice_tpu_torch.core.types import DataToClient, DataToServer, SearchMode
+from nice_tpu_torch.core.types import (
+    DataToClient,
+    DataToServer,
+    SearchMode,
+    ValidationData,
+)
 
 log = logging.getLogger(__name__)
 
 DEFAULT_MAX_RETRIES = 10
 MAX_BACKOFF_SECS = 512
 
+# Backoff jitter source; module-level so tests can reseed for determinism.
+_backoff_rng = random.Random()
+
+# Replication fencing: the highest epoch this process has seen in any server
+# response, stamped on every request as X-Nice-Epoch (claim GETs mutate
+# server state too, so every request carries it).
+_epoch_lock = threading.Lock()
+_last_epoch = 0
+
+
+def _note_epoch(parsed: Any) -> None:
+    """Learn the fencing epoch from a response body: top-level "epoch"
+    (write replies, /status) or the nested /status repl block."""
+    global _last_epoch
+    if not isinstance(parsed, dict):
+        return
+    epoch = parsed.get("epoch")
+    if epoch is None and isinstance(parsed.get("repl"), dict):
+        epoch = parsed["repl"].get("epoch")
+    try:
+        epoch = int(epoch)
+    except (TypeError, ValueError):
+        return
+    with _epoch_lock:
+        if epoch > _last_epoch:
+            _last_epoch = epoch
+
+
+def last_seen_epoch() -> int:
+    with _epoch_lock:
+        return _last_epoch
+
 
 class ApiError(Exception):
     """Non-retryable API failure. status: the HTTP status when the server
-    answered definitively, None when retries ran out on transient errors."""
+    answered definitively, None when retries ran out on transient errors
+    (the request may still succeed later; the submission spool uses the
+    distinction)."""
 
     def __init__(self, message: str, status: Optional[int] = None):
         super().__init__(message)
         self.status = status
 
 
-def _request_json(url: str, body: Optional[dict], timeout: float) -> Any:
-    data = None
-    headers = {"Accept": "application/json"}
-    if body is not None:
-        data = json.dumps(body).encode()
-        headers["Content-Type"] = "application/json"
-    req = urllib.request.Request(url, data=data, headers=headers,
-                                 method="GET" if body is None else "POST")
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        payload = resp.read()
-    return json.loads(payload) if payload else None
-
-
 def _retry_after_secs(err: Exception) -> Optional[float]:
+    """Delay-seconds from a server-sent Retry-After header, if any."""
     headers = getattr(err, "headers", None)
     value = headers.get("Retry-After") if headers is not None else None
     if value is None:
@@ -63,12 +107,134 @@ def _retry_after_secs(err: Exception) -> Optional[float]:
         return None
 
 
+# Per-thread keep-alive connections, keyed by (scheme, host:port):
+# http.client connections are not thread-safe, and the AsyncApi pool and the
+# renewer threads each need their own.
+_conn_local = threading.local()
+
+# Errors that mean a REUSED socket went stale (the server closed an idle
+# keep-alive connection): retried once on a fresh socket. On a fresh
+# connection they are real failures and go to retry_request's backoff.
+_STALE_ERRORS = (
+    http.client.BadStatusLine,
+    http.client.RemoteDisconnected,
+    BrokenPipeError,
+    ConnectionResetError,
+    ConnectionAbortedError,
+)
+
+# Endpoints a thread found dead, for every thread's pool: (scheme,
+# host:port) -> the monotonic time of the failure.
+_dead_hosts_lock = threading.Lock()
+_dead_hosts: dict = {}
+
+
+def _mark_host_dead(key) -> None:
+    with _dead_hosts_lock:
+        _dead_hosts[key] = time.monotonic()
+
+
+def _conn_pool() -> dict:
+    pool = getattr(_conn_local, "pool", None)
+    if pool is None:
+        pool = _conn_local.pool = {}
+    return pool
+
+
+def _drop_connection(key) -> None:
+    conn = _conn_pool().pop(key, None)
+    if conn is not None:
+        with contextlib.suppress(Exception):
+            conn.close()
+
+
+def close_connections(netloc: Optional[str] = None) -> None:
+    """Close this thread's pooled connections: all of them, or only those to
+    one host:port when netloc is given."""
+    pool = _conn_pool()
+    for key in list(pool):
+        if netloc is not None and key[1] != netloc:
+            continue
+        conn = pool.pop(key)
+        with contextlib.suppress(Exception):
+            conn.close()
+
+
+def _headers(body: Optional[dict]) -> dict:
+    """The headers of one request: JSON, and the fencing epoch once one was
+    seen."""
+    headers = {"Accept": "application/json"}
+    if body is not None:
+        headers["Content-Type"] = "application/json"
+    epoch = last_seen_epoch()
+    if epoch > 0:
+        headers["X-Nice-Epoch"] = str(epoch)
+    return headers
+
+
+def _request_json(url: str, body: Optional[dict] = None,
+                  timeout: float = CLIENT_REQUEST_TIMEOUT_SECS) -> Any:
+    parts = urlsplit(url)
+    if parts.scheme not in ("http", "https"):
+        raise urllib.error.URLError(f"unsupported scheme in {url!r}")
+    target = parts.path or "/"
+    if parts.query:
+        target += "?" + parts.query
+    data = None if body is None else json.dumps(body).encode()
+    headers = _headers(body)
+    method = "GET" if body is None else "POST"
+    key = (parts.scheme, parts.netloc)
+    pool = _conn_pool()
+    for fresh_retry in (False, True):
+        conn = pool.get(key)
+        if conn is not None:
+            # A socket born before another thread marked this endpoint dead
+            # is dropped rather than probed through its own timeout.
+            with _dead_hosts_lock:
+                dead_mark = _dead_hosts.get(key)
+            if dead_mark is not None and conn._nice_born <= dead_mark:
+                _drop_connection(key)
+                conn = None
+        reused = conn is not None
+        if conn is None:
+            cls = (http.client.HTTPSConnection if parts.scheme == "https"
+                   else http.client.HTTPConnection)
+            conn = cls(parts.netloc, timeout=timeout)
+            conn._nice_born = time.monotonic()
+            pool[key] = conn
+        conn.timeout = timeout
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        try:
+            conn.request(method, target, body=data, headers=headers)
+            resp = conn.getresponse()
+            payload = resp.read()
+        except _STALE_ERRORS as e:
+            _drop_connection(key)
+            if reused and not fresh_retry:
+                continue
+            # A fresh connection failing so means the endpoint is down.
+            _mark_host_dead(key)
+            raise urllib.error.URLError(f"{e.__class__.__name__}: {e}") from e
+        except OSError:
+            # Connect or socket failure: state unknown, never resent here.
+            _drop_connection(key)
+            _mark_host_dead(key)
+            raise
+        if resp.will_close:
+            _drop_connection(key)
+        if resp.status >= 400:
+            raise urllib.error.HTTPError(url, resp.status, resp.reason,
+                                         resp.headers, io.BytesIO(payload))
+        parsed = json.loads(payload) if payload else None
+        _note_epoch(parsed)
+        return parsed
+
+
 def retry_request(url: str, body: Optional[dict] = None,
                   max_retries: int = DEFAULT_MAX_RETRIES,
-                  timeout: float = CLIENT_REQUEST_TIMEOUT_SECS,
-                  rng: Optional[random.Random] = None) -> Any:
+                  timeout: float = CLIENT_REQUEST_TIMEOUT_SECS) -> Any:
     """GET (body None) or POST JSON, retrying transient failures."""
-    rng = rng or random.Random()
     attempt = 0
     while True:
         try:
@@ -82,34 +248,113 @@ def retry_request(url: str, body: Optional[dict] = None,
         except (urllib.error.URLError, TimeoutError, OSError) as e:
             err = e
         if attempt >= max_retries:
+            # A definite server answer (429/5xx) keeps its status, so a
+            # caller tells "rate limited" from a dead transport.
             raise ApiError(
                 f"request to {url} failed after {attempt} retries: {err}",
                 status=getattr(err, "code", None),
             )
         hinted = _retry_after_secs(err)
         delay = (min(hinted, MAX_BACKOFF_SECS) if hinted is not None
-                 else rng.uniform(0, min(2**attempt, MAX_BACKOFF_SECS)))
+                 else _backoff_rng.uniform(0, min(2**attempt, MAX_BACKOFF_SECS)))
         log.warning("request failed (%s); retry %d in %.2fs", err,
                     attempt + 1, delay)
         time.sleep(delay)
         attempt += 1
 
 
+# Multi-server failover: one cursor a server list, shared by every thread,
+# so that one failover reroutes the whole process; its generation is bumped
+# on every store, so a store computed before a concurrent rotation does not
+# undo it.
+_failover_lock = threading.Lock()
+_failover_idx: dict = {}
+_failover_gen: dict = {}
+
+# Statuses that rotate to the next server (besides transport failures and
+# 5xx): timeouts and load shedding clear elsewhere, and 410/421 are the
+# epoch fence saying "not me: ask the promoted server".
+_ROTATE_STATUSES = frozenset({408, 410, 421, 429})
+
+
+def split_servers(api_base: str) -> list:
+    """Endpoint list from an api_base that may be comma-separated."""
+    return [s.strip().rstrip("/") for s in api_base.split(",") if s.strip()]
+
+
+def failover_request(api_base: str, path: str, body: Optional[dict] = None,
+                     max_retries: int = DEFAULT_MAX_RETRIES,
+                     timeout: float = CLIENT_REQUEST_TIMEOUT_SECS) -> Any:
+    """retry_request over one or many servers.
+
+    One server: exactly retry_request. Several: each cycle tries every
+    server once, from the last one that answered, rotating on transport
+    errors, 5xx and _ROTATE_STATUSES; any other 4xx raises at once (a
+    definite answer from a live primary). A failed cycle sleeps the
+    full-jitter backoff; after max_retries + 1 cycles the last ApiError is
+    raised (its status None kept, so the spool still sees a dead
+    transport)."""
+    servers = split_servers(api_base)
+    if len(servers) <= 1:
+        base = servers[0] if servers else api_base.rstrip("/")
+        return retry_request(base + path, body, max_retries=max_retries,
+                             timeout=timeout)
+    key = ",".join(servers)
+    with _failover_lock:
+        start = _failover_idx.get(key, 0) % len(servers)
+        gen = _failover_gen.get(key, 0)
+    last_err: Optional[ApiError] = None
+    for cycle in range(max_retries + 1):
+        for off in range(len(servers)):
+            i = (start + off) % len(servers)
+            try:
+                result = retry_request(servers[i] + path, body, max_retries=0,
+                                       timeout=timeout)
+            except ApiError as e:
+                last_err = e
+                if (e.status is not None and e.status < 500
+                        and e.status not in _ROTATE_STATUSES):
+                    raise
+                log.warning("server %s failed %s (%s); rotating to next "
+                            "endpoint", servers[i], path,
+                            e.status if e.status is not None
+                            else f"transport: {e}")
+                continue
+            with _failover_lock:
+                # Only if no other thread moved the cursor meanwhile: a
+                # concurrent rotation away from a dead server wins.
+                if _failover_gen.get(key, 0) == gen:
+                    _failover_idx[key], _failover_gen[key] = i, gen + 1
+            return result
+        if cycle >= max_retries:
+            break
+        delay = _backoff_rng.uniform(0, min(2**cycle, MAX_BACKOFF_SECS))
+        log.warning("all %d servers failed %s; cycle %d backoff %.2fs",
+                    len(servers), path, cycle + 1, delay)
+        time.sleep(delay)
+    assert last_err is not None
+    raise last_err
+
+
+def _mode_arg(mode: SearchMode) -> str:
+    return "detailed" if mode == SearchMode.DETAILED else "niceonly"
+
+
 def get_field_from_server(mode: SearchMode, api_base: str, username: str,
                           max_retries: int = DEFAULT_MAX_RETRIES) -> DataToClient:
     """GET /claim/{detailed|niceonly}."""
-    endpoint = "detailed" if mode == SearchMode.DETAILED else "niceonly"
-    url = (f"{api_base.rstrip('/')}/claim/{endpoint}"
-           f"?username={urllib.parse.quote(username)}")
-    return DataToClient.from_json(retry_request(url, max_retries=max_retries))
+    path = (f"/claim/{_mode_arg(mode)}"
+            f"?username={urllib.parse.quote(username)}")
+    return DataToClient.from_json(
+        failover_request(api_base, path, max_retries=max_retries))
 
 
 def submit_field_to_server(api_base: str, submit_data: DataToServer,
                            max_retries: int = DEFAULT_MAX_RETRIES) -> dict:
     """POST /submit. {"duplicate": true} in the reply means a retried submit
     had already been accepted (exactly-once via submit_id): success."""
-    resp = retry_request(f"{api_base.rstrip('/')}/submit", submit_data.to_json(),
-                         max_retries=max_retries)
+    resp = failover_request(api_base, "/submit", submit_data.to_json(),
+                            max_retries=max_retries)
     return resp if isinstance(resp, dict) else {"status": "OK"}
 
 
@@ -120,13 +365,65 @@ def renew_claim(api_base: str, claim_id: int, max_retries: int = 1) -> None:
     next one, or the submit itself, lands well inside the expiry window), so
     the renewer thread must never sit in a 10-deep backoff while the scan it
     protects finishes."""
-    retry_request(f"{api_base.rstrip('/')}/renew_claim",
-                  {"claim_id": claim_id}, max_retries=max_retries)
+    failover_request(api_base, "/renew_claim", {"claim_id": claim_id},
+                     max_retries=max_retries)
+
+
+def claim_block_from_server(mode: SearchMode, api_base: str, username: str,
+                            count: int,
+                            max_retries: int = DEFAULT_MAX_RETRIES,
+                            ) -> tuple[str, list[DataToClient]]:
+    """POST /claim_block — count fields per round trip under one block
+    lease. Returns (block_id, fields); a partial block is success. A server
+    without block leases answers 404, which callers take as "fall back to
+    per-field claims"."""
+    payload = {"mode": _mode_arg(mode), "count": count, "username": username}
+    resp = failover_request(api_base, "/claim_block", payload,
+                            max_retries=max_retries)
+    return resp["block_id"], [DataToClient.from_json(f) for f in resp["fields"]]
+
+
+def submit_block_to_server(api_base: str, block_id: str,
+                           submissions: list[DataToServer],
+                           max_retries: int = DEFAULT_MAX_RETRIES) -> dict:
+    """POST /submit_block — a block's results at once. The reply has one
+    result per submission, in order, and the accepted / duplicates /
+    rejected counts; a duplicate is an exactly-once replay, a success."""
+    body = {"block_id": block_id,
+            "submissions": [s.to_json() for s in submissions]}
+    resp = failover_request(api_base, "/submit_block", body,
+                            max_retries=max_retries)
+    if isinstance(resp, dict) and resp.get("duplicates"):
+        log.info("submit_block %s: %d of %d results were duplicates "
+                 "(retried requests already accepted)", block_id,
+                 resp["duplicates"], len(submissions))
+    return resp if isinstance(resp, dict) else {"status": "OK"}
+
+
+def renew_block(api_base: str, block_id: str, max_retries: int = 1) -> None:
+    """POST /renew_claim {block_id} — one heartbeat re-arms every member of
+    the block lease (the retry budget of renew_claim, for its reason)."""
+    failover_request(api_base, "/renew_claim", {"block_id": block_id},
+                     max_retries=max_retries)
+
+
+def get_validation_data_from_server(api_base: str, username: str,
+                                    base: Optional[int] = None,
+                                    max_retries: int = DEFAULT_MAX_RETRIES,
+                                    ) -> ValidationData:
+    """GET /claim/validate: a double-checked field and its canonical
+    results, of one base when `base` is given."""
+    path = f"/claim/validate?username={urllib.parse.quote(username)}"
+    if base is not None:
+        path += f"&base={base}"
+    return ValidationData.from_json(
+        failover_request(api_base, path, max_retries=max_retries))
 
 
 class AsyncApi:
-    """Thread-backed async facade so claim N+1 / submit N-1 overlap compute
-    (the reference's 3-stage pipeline)."""
+    """Thread-backed async facade so that claim N+1 and submit N-1 overlap
+    processing N (the reference's 3-stage pipeline), per field or per
+    block."""
 
     def __init__(self, api_base: str, username: str,
                  max_retries: int = DEFAULT_MAX_RETRIES):
@@ -143,6 +440,15 @@ class AsyncApi:
     def submit_async(self, data: DataToServer):
         return self._pool.submit(submit_field_to_server, self.api_base, data,
                                  self.max_retries)
+
+    def claim_block_async(self, mode: SearchMode, count: int):
+        return self._pool.submit(claim_block_from_server, mode, self.api_base,
+                                 self.username, count, self.max_retries)
+
+    def submit_block_async(self, block_id: str,
+                           submissions: list[DataToServer]):
+        return self._pool.submit(submit_block_to_server, self.api_base,
+                                 block_id, submissions, self.max_retries)
 
     def shutdown(self) -> None:
         self._pool.shutdown(wait=True)

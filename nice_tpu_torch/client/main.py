@@ -5,6 +5,16 @@
     through the strided pipeline and b98 and up through the dense loop;
   * --repeat: the 3-stage pipeline — claim N+1 and submit N-1 overlap
     processing N, until interrupted;
+  * --claim-block N: N fields a round trip under one block lease
+    (/claim_block, /submit_block, one heartbeat for the block), single shot
+    or with --repeat, falling back to per-field claims against a server
+    without block leases;
+  * --api-base may list several servers, and --servers and the servers.json
+    beside the checkpoints add more: every request fails over between them
+    (client/api_client.py), fenced by the highest epoch seen;
+  * --prefetch (on by default): when the next claim resolves, a thread
+    builds what its fields need (engine.warm_detailed / warm_niceonly)
+    while the current field runs;
   * --checkpoint-dir: crash-safe snapshots of the field being scanned
     (ckpt/), written on the engine's checkpoint ticker; a restarted client
     resumes the claim it died holding from its newest snapshot, and a
@@ -14,14 +24,16 @@
     every loop boundary;
   * --renew-secs: a lease heartbeat (/renew_claim) while a field scans;
   * --benchmark <field>: process a built-in benchmark field offline and
-    print one JSON summary line (the JAX client's keys).
+    print one JSON summary line (the JAX client's keys);
+  * --validate [--base B]: recompute a double-checked field and compare it
+    with the server's canonical submission; exit code 0 when they agree.
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
 versions, and --backend scalar the Python-int oracle (which neither
 checkpoints nor resumes). Every knob is a flag: the port reads no
-environment variable. Left out against the JAX client: multi-server
-failover (--servers), claim blocks, tenants, --validate, --threads and
-telemetry.
+environment variable. Left out against the JAX client: tenants, --threads
+and the native backend, telemetry (with it the learning of the server list
+from /status beyond the one read at startup) and the fault-injection sites.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import argparse
 import hashlib
 import json
 import logging
+import os
 import sys
 import threading
 import time
@@ -50,6 +63,7 @@ from nice_tpu_torch.core.types import (
 from nice_tpu_torch.faults import spool as spool_mod
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.ops.limbs import get_plan
+from nice_tpu_torch.utils import fsio
 
 log = logging.getLogger("nice_tpu_torch.client")
 
@@ -70,7 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "niceonly (nice numbers only: strided up to b97, dense "
                    "from b98)")
     p.add_argument("--api-base", default="https://api.nicenumbers.net",
-                   help="API base URL")
+                   help="API base URL; may be a comma-separated list for "
+                   "failover")
+    p.add_argument("--servers", default=None,
+                   help="additional comma-separated server endpoints merged "
+                   "into --api-base for multi-server failover")
     p.add_argument("--username", default="anonymous",
                    help="username credited with submissions")
     p.add_argument("--max-retries", type=int,
@@ -108,12 +126,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dispatched segments, runs or descriptor groups "
                    "between snapshots (whichever of this and "
                    "--checkpoint-secs fires first; 0 disables this trigger)")
+    p.add_argument("--claim-block", type=int, default=1,
+                   help="fields per claim round trip: >1 claims through the "
+                   "block-lease endpoints (/claim_block, /submit_block) with "
+                   "one lease covering the whole block; 1 = per-field. Falls "
+                   "back to per-field claims against a server without block "
+                   "support")
+    p.add_argument("--prefetch", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="when the next claim resolves, build what its fields "
+                   "need on a background thread while the current field runs")
     p.add_argument("--renew-secs", type=float, default=900.0,
                    help="seconds between claim-lease renewal heartbeats to "
                    "/renew_claim; 0 disables")
     p.add_argument("--benchmark", default=None,
                    choices=[m.value for m in BenchmarkMode],
                    help="process a benchmark field offline")
+    p.add_argument("--validate", action="store_true",
+                   help="self-check against a canonical double-checked field")
+    p.add_argument("--base", type=int, default=None,
+                   help="restrict --validate to a specific base")
     p.add_argument("--log-level", default="info", choices=list(_LOG_LEVELS),
                    help="log verbosity")
     return p
@@ -150,13 +182,18 @@ def _progress_logger(every_secs: float):
 
 
 def process_field(data: DataToClient, args, *, checkpointer=None,
-                  resume=None) -> tuple[FieldResults, float]:
-    """Process one field in args.mode; returns results and elapsed seconds.
+                  resume=None, mode: Optional[SearchMode] = None,
+                  ) -> tuple[FieldResults, float]:
+    """Process one field in `mode` (args.mode when None); returns results
+    and elapsed seconds.
 
     checkpointer: an optional ckpt.FieldCheckpointer whose save() becomes
     the engine's checkpoint_cb (on the ticker of args.checkpoint_batches /
     args.checkpoint_secs); resume: a validated state from its load() or
-    find_resumable, to continue from instead of restarting the scan."""
+    find_resumable, to continue from instead of restarting the scan. A
+    detailed field's libraries are built (engine.warm_detailed) before the
+    timed window, as the JAX client warms its executables."""
+    mode = mode if mode is not None else _mode(args)
     kwargs = {"device": args.device, "backend": args.backend,
               "progress": _progress_logger(args.progress_secs)}
     if checkpointer is not None or resume is not None:
@@ -164,7 +201,10 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
                                      else None),
                       resume=resume, checkpoint_batches=args.checkpoint_batches,
                       checkpoint_secs=args.checkpoint_secs)
-    if args.mode == "detailed":
+    if mode == SearchMode.DETAILED:
+        if args.backend == "device":
+            engine.resolve_device(args.device)  # no card: raise, not build
+            engine.warm_detailed(data.base, device=args.device)
         process = engine.process_range_detailed
         kwargs["batch_size"] = args.batch_size
     else:
@@ -232,23 +272,29 @@ class _ClaimRenewer:
     every_secs. Failures are logged and swallowed — a missed heartbeat is
     recoverable, killing the scan over one is not."""
 
+    kind = "claim"
+
     def __init__(self, api_base: str, claim_id: int, every_secs: float):
         self.api_base = api_base
-        self.claim_id = claim_id
+        self.lease = claim_id
         self.every_secs = every_secs
         self.renewals = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(
-            target=self._run, name="claim-renew", daemon=True
+            target=self._run, name=f"{self.kind}-renew", daemon=True
         )
+
+    def _renew(self) -> None:
+        api_client.renew_claim(self.api_base, self.lease)
 
     def _renew_once(self) -> None:
         try:
-            api_client.renew_claim(self.api_base, self.claim_id)
+            self._renew()
             self.renewals += 1
-            log.debug("renewed claim %d lease", self.claim_id)
+            log.debug("renewed %s %s lease", self.kind, self.lease)
         except Exception as e:  # noqa: BLE001 — a missed heartbeat is logged
-            log.warning("claim %d lease renewal failed: %s", self.claim_id, e)
+            log.warning("%s %s lease renewal failed: %s", self.kind,
+                        self.lease, e)
 
     def _run(self) -> None:
         self._renew_once()
@@ -264,9 +310,25 @@ class _ClaimRenewer:
         self._thread.join(timeout=5)
 
 
+class _BlockRenewer(_ClaimRenewer):
+    """The heartbeat of a block claim: one POST /renew_claim {block_id}
+    re-arms every member field's lease."""
+
+    kind = "block"
+
+    def _renew(self) -> None:
+        api_client.renew_block(self.api_base, self.lease)
+
+
 def _maybe_renewer(args, claim_id: int):
     if args.renew_secs and args.renew_secs > 0 and claim_id > 0:
         return _ClaimRenewer(args.api_base, claim_id, args.renew_secs)
+    return nullcontext()
+
+
+def _maybe_block_renewer(args, block_id: str):
+    if args.renew_secs and args.renew_secs > 0 and block_id:
+        return _BlockRenewer(args.api_base, block_id, args.renew_secs)
     return nullcontext()
 
 
@@ -277,40 +339,51 @@ def _new_checkpointer(args, data: DataToClient, mode: SearchMode):
                                   args.backend, args.batch_size, args.device)
 
 
+def _find_resumable(args, mode: SearchMode):
+    if not args.checkpoint_dir:
+        return None
+    return ckpt.find_resumable(args.checkpoint_dir, mode, args.backend,
+                               args.batch_size, args.device)
+
+
 def _resume_or_claim(args, api: api_client.AsyncApi, mode: SearchMode):
     """(data, resume_state, checkpointer): the newest matching snapshot in
     --checkpoint-dir if one exists (same claim, no re-claim round-trip), else
     a fresh server claim."""
-    if args.checkpoint_dir:
-        found = ckpt.find_resumable(args.checkpoint_dir, mode, args.backend,
-                                    args.batch_size, args.device)
-        if found is not None:
-            data, state, ckptr = found
-            log.info(
-                "resuming claim %d from checkpoint: base %d, range [%d, %d), "
-                "cursor %d",
-                data.claim_id, data.base, data.range_start, data.range_end,
-                state["cursor"],
-            )
-            return data, state, ckptr
+    found = _find_resumable(args, mode)
+    if found is not None:
+        data, state, ckptr = found
+        log.info(
+            "resuming claim %d from checkpoint: base %d, range [%d, %d), "
+            "cursor %d",
+            data.claim_id, data.base, data.range_start, data.range_end,
+            state["cursor"],
+        )
+        return data, state, ckptr
     data = api.claim_async(mode).result()
     log.info("claimed field (claim %d): base %d, range [%d, %d)",
              data.claim_id, data.base, data.range_start, data.range_end)
     return data, None, _new_checkpointer(args, data, mode)
 
 
+def _spool_or_raise(err: api_client.ApiError, spool) -> None:
+    """A failed submit is journaled when the spool can replay it: a 4xx
+    rejection (or no spool) raises, since a replay of a rejected payload can
+    never succeed."""
+    if spool is None or (err.status is not None and 400 <= err.status < 500):
+        raise err
+
+
 def _await_submit(future, submission: DataToServer, spool) -> Optional[dict]:
     """Confirm a submit, journaling to the spool when the server stayed
     unreachable past the retry budget; returns the server's reply, or None
-    when spooled. A 4xx rejection always raises — a replay of a rejected
-    payload can never succeed. Once this returns, delivery is OWNED
-    (accepted, already-accepted duplicate, or spooled), so the field's
-    snapshot may be retired."""
+    when spooled. A 4xx rejection always raises. Once this returns,
+    delivery is OWNED (accepted, already-accepted duplicate, or spooled),
+    so the field's snapshot may be retired."""
     try:
         resp = future.result()
     except api_client.ApiError as e:
-        if spool is None or (e.status is not None and 400 <= e.status < 500):
-            raise
+        _spool_or_raise(e, spool)
         spool.add(submission)
         return None
     log.info("submitted claim %d%s", submission.claim_id,
@@ -333,7 +406,7 @@ def run_single_iteration(args, api: Optional[api_client.AsyncApi] = None,
         data, resume, ckptr = _resume_or_claim(args, api, mode)
         with _maybe_renewer(args, data.claim_id):
             results, _ = process_field(data, args, checkpointer=ckptr,
-                                       resume=resume)
+                                       resume=resume, mode=mode)
         submission = compile_results(data, results, mode, args.username)
         resp = _await_submit(api.submit_async(submission), submission, spool)
     finally:
@@ -344,6 +417,53 @@ def run_single_iteration(args, api: Optional[api_client.AsyncApi] = None,
     if ckptr is not None:
         ckptr.delete()
     return data, submission, resp
+
+
+def _warm_field(data: DataToClient, mode: SearchMode, args) -> None:
+    """Build what one claimed field will need; a failure is logged (the
+    field's own first launch builds again, and raises)."""
+    try:
+        if mode == SearchMode.DETAILED:
+            engine.warm_detailed(data.base, device=args.device,
+                                 backend=args.backend)
+        else:
+            engine.warm_niceonly(data.base, data.range_size,
+                                 device=args.device, backend=args.backend)
+    except Exception:  # noqa: BLE001 — the field's dispatch raises it again
+        log.warning("prefetch warm failed for base %d", data.base,
+                    exc_info=True)
+
+
+def _prefetch_on_claim(future, args, mode: SearchMode) -> None:
+    """--prefetch: when the next claim (one field, or a block's
+    (block_id, fields)) resolves, typically while the current field still
+    runs, warm what its fields need on a thread named nice-prefetch, each
+    distinct (base, size) once (detailed fields need the same libraries at
+    every size), so that a base change at the field boundary costs no
+    foreground nvcc build. The warms make no launch and no torch call, so
+    they do not contend with the running field's threads."""
+    if not args.prefetch:
+        return
+
+    def _cb(fut) -> None:
+        try:
+            resolved = fut.result()
+        except Exception:  # noqa: BLE001 — the loop's .result() raises it
+            return
+        fields = resolved[1] if isinstance(resolved, tuple) else [resolved]
+        todo = {}
+        for data in fields:
+            size = data.range_size if mode == SearchMode.NICEONLY else 0
+            todo.setdefault((data.base, size), data)
+
+        def _warm_all() -> None:
+            for data in todo.values():
+                _warm_field(data, mode, args)
+
+        threading.Thread(target=_warm_all, name="nice-prefetch",
+                         daemon=True).start()
+
+    future.add_done_callback(_cb)
 
 
 def run_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
@@ -358,9 +478,10 @@ def run_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
             # moment to drain journaled submissions once the server is back.
             spool.replay(args.api_base)
         next_claim = api.claim_async(mode)  # overlap with processing
+        _prefetch_on_claim(next_claim, args, mode)
         with _maybe_renewer(args, data.claim_id):
             results, _ = process_field(data, args, checkpointer=ckptr,
-                                       resume=resume)
+                                       resume=resume, mode=mode)
         if pending_submit is not None:
             # Settle the previous submit before queueing the next one; only
             # an owned submit (confirmed or spooled) retires its snapshot.
@@ -377,6 +498,196 @@ def run_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
                  data.claim_id, data.base, f"{data.range_size:,}")
 
 
+def _process_block(args, mode: SearchMode, block_id: str, fields):
+    """Process every field of a block in turn under ONE block-lease
+    renewer; returns [(submission, checkpointer), ...] in field order."""
+    submissions = []
+    with _maybe_block_renewer(args, block_id):
+        for data in fields:
+            ckptr = _new_checkpointer(args, data, mode)
+            results, _ = process_field(data, args, checkpointer=ckptr,
+                                       mode=mode)
+            submissions.append(
+                (compile_results(data, results, mode, args.username), ckptr))
+    return submissions
+
+
+def _await_block_submit(future, submissions, spool) -> Optional[dict]:
+    """Settle one /submit_block: per-item rejections are logged (a replay of
+    a rejected payload can never succeed, so they retire their snapshots
+    too); retries that run out spool every member for per-field replay
+    (the server keeps /submit for that). Returns the server's reply, or
+    None when spooled. Once this returns, every member's delivery is
+    owned."""
+    resp = None
+    try:
+        resp = future.result()
+        for (sub, _), result in zip(submissions, resp.get("results", [])):
+            if result.get("status") == "error":
+                log.error("block submission for claim %d rejected (%s): %s",
+                          sub.claim_id, result.get("code"),
+                          result.get("message"))
+            else:
+                log.info("submitted claim %d%s", sub.claim_id,
+                         " (duplicate)" if result.get("duplicate") else "")
+    except api_client.ApiError as e:
+        _spool_or_raise(e, spool)
+        for sub, _ in submissions:
+            spool.add(sub)
+    for _, ck in submissions:
+        if ck is not None:
+            ck.delete()
+    return resp
+
+
+def _drain_resumable(args, api: api_client.AsyncApi, mode: SearchMode,
+                     spool) -> None:
+    """A lone per-field snapshot cannot resume into a block, so a
+    crash-recovered scan finishes through the per-field path first."""
+    while _find_resumable(args, mode) is not None:
+        run_single_iteration(args, api, mode, spool=spool)
+
+
+def _claim_block(args, api: api_client.AsyncApi, mode: SearchMode):
+    """(block_id, fields), or None when the server predates block leases
+    (404): the caller falls back to per-field claims."""
+    try:
+        return api.claim_block_async(mode, args.claim_block).result()
+    except api_client.ApiError as e:
+        if e.status == 404:
+            log.warning("server has no /claim_block; falling back to "
+                        "per-field claims")
+            return None
+        raise
+
+
+def run_block_iteration(args, api: api_client.AsyncApi, mode: SearchMode,
+                        spool=None) -> bool:
+    """Claim one block, process every member, submit them at once. False
+    means the server predates block leases and the caller falls back."""
+    _drain_resumable(args, api, mode, spool)
+    claimed = _claim_block(args, api, mode)
+    if claimed is None:
+        return False
+    block_id, fields = claimed
+    log.info("claimed block %s: %d fields", block_id, len(fields))
+    submissions = _process_block(args, mode, block_id, fields)
+    future = api.submit_block_async(block_id, [s for s, _ in submissions])
+    _await_block_submit(future, submissions, spool)
+    return True
+
+
+def run_block_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
+                             spool=None) -> bool:
+    """claim block N+1 || process block N || settle the submit of block
+    N-1: the 3-stage pipeline over block leases, one round trip per
+    --claim-block fields at each stage, until interrupted or a claim fails.
+    False = the server has no block support."""
+    _drain_resumable(args, api, mode, spool)
+    claimed = _claim_block(args, api, mode)
+    if claimed is None:
+        return False
+    block_id, fields = claimed
+    pending_submit = None  # (future, submissions) awaiting confirmation
+    while True:
+        if spool is not None:
+            spool.replay(args.api_base)
+        log.info("claimed block %s: %d fields", block_id, len(fields))
+        next_block = api.claim_block_async(mode, args.claim_block)
+        _prefetch_on_claim(next_block, args, mode)
+        submissions = _process_block(args, mode, block_id, fields)
+        if pending_submit is not None:
+            _await_block_submit(*pending_submit, spool)
+        pending_submit = (api.submit_block_async(
+            block_id, [s for s, _ in submissions]), submissions)
+        block_id, fields = next_block.result()
+
+
+def run_validate(args) -> int:
+    """Recompute a double-checked field (of --base, when given) and diff it
+    against the server's canonical submission: 0 when the distribution and
+    the near misses agree, else 1. No canonical field raises (the server's
+    404)."""
+    vdata = api_client.get_validation_data_from_server(
+        args.api_base, args.username, args.base, args.max_retries)
+    log.info("validating field %d: base %d, range [%d, %d)", vdata.field_id,
+             vdata.base, vdata.range_start, vdata.range_end)
+    data = DataToClient(claim_id=0, base=vdata.base,
+                        range_start=vdata.range_start,
+                        range_end=vdata.range_end,
+                        range_size=vdata.range_size)
+    results, _ = process_field(data, args, mode=SearchMode.DETAILED)
+    ok = True
+    canon_dist = {d.num_uniques: d.count for d in vdata.unique_distribution}
+    local_dist = {d.num_uniques: d.count for d in results.distribution}
+    if canon_dist != local_dist:
+        ok = False
+        for k in sorted(set(canon_dist) | set(local_dist)):
+            if canon_dist.get(k) != local_dist.get(k):
+                log.error("distribution mismatch at %d uniques: canon=%s "
+                          "local=%s", k, canon_dist.get(k), local_dist.get(k))
+    canon_nums = {(n.number, n.num_uniques) for n in vdata.nice_numbers}
+    local_nums = {(n.number, n.num_uniques) for n in results.nice_numbers}
+    if canon_nums != local_nums:
+        ok = False
+        log.error("nice-number mismatch: only-canon=%s only-local=%s",
+                  sorted(canon_nums - local_nums),
+                  sorted(local_nums - canon_nums))
+    if ok:
+        log.info("validation passed: local results match canonical submission")
+        return 0
+    log.error("validation FAILED")
+    return 1
+
+
+def _known_servers_path(checkpoint_dir: str) -> str:
+    return os.path.join(checkpoint_dir, "servers.json")
+
+
+def _load_known_servers(checkpoint_dir: Optional[str]) -> list[str]:
+    """Server endpoints a previous run learned from /status (this package's
+    or the JAX client's: the file is the same), merged into the failover
+    list at startup, so a restarted client can fail over even when its
+    configured primary is the server that died."""
+    if not checkpoint_dir:
+        return []
+    try:
+        with open(_known_servers_path(checkpoint_dir)) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return []
+    if not isinstance(data, list):
+        return []
+    return [s.rstrip("/") for s in data if isinstance(s, str) and s.strip()]
+
+
+def _save_known_servers(checkpoint_dir: Optional[str],
+                        servers: list[str]) -> None:
+    if not checkpoint_dir or not servers:
+        return
+    try:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        fsio.atomic_write_json(
+            _known_servers_path(checkpoint_dir),
+            list(dict.fromkeys(s.rstrip("/") for s in servers)),
+        )
+    except OSError as e:
+        log.debug("failed to persist known servers: %s", e)
+
+
+def _learn_servers(args) -> None:
+    """Persist the server list /status advertises (the primary and its live
+    standbys) beside the checkpoints, so that the next run's failover list
+    covers them. Read once at startup; best-effort."""
+    try:
+        status = api_client.failover_request(args.api_base, "/status",
+                                             max_retries=0)
+        servers = (status.get("repl") or {}).get("servers") or []
+        _save_known_servers(args.checkpoint_dir, servers)
+    except Exception as e:  # noqa: BLE001 — the list is an optimisation
+        log.debug("server-list learn failed: %s", e)
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -384,6 +695,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         stream=sys.stderr,
     )
+    if args.backend == "device":
+        engine.resolve_device(args.device)  # no card: raise before a claim
     if args.benchmark:
         return run_benchmark(args)
     if args.checkpoint_dir and args.backend == "scalar":
@@ -391,6 +704,18 @@ def main(argv: Optional[list[str]] = None) -> int:
         log.warning("--checkpoint-dir is not supported with backend "
                     "'scalar'; checkpointing disabled")
         args.checkpoint_dir = None
+    # The failover list: --api-base (itself maybe a list), --servers and
+    # what a previous run learned. The joined list IS the api_base from here
+    # on: every api_client call (spool replay included) rotates across it.
+    server_list = api_client.split_servers(args.api_base)
+    if args.servers:
+        server_list += api_client.split_servers(args.servers)
+    server_list += _load_known_servers(args.checkpoint_dir)
+    args.api_base = ",".join(dict.fromkeys(server_list))
+    if args.checkpoint_dir:
+        _learn_servers(args)
+    if args.validate:
+        return run_validate(args)
     mode = _mode(args)
     api = api_client.AsyncApi(args.api_base, args.username, args.max_retries)
     spool = spool_mod.maybe_spool(args.spool_dir, args.checkpoint_dir)
@@ -399,10 +724,19 @@ def main(argv: Optional[list[str]] = None) -> int:
             # Startup replay: deliver anything journaled by a previous run
             # before claiming new work.
             spool.replay(args.api_base)
-        if args.repeat:
-            run_pipelined_loop(args, api, mode, spool=spool)
-        else:
-            run_single_iteration(args, api, mode, spool=spool)
+        handled = False
+        if args.claim_block > 1:
+            # The block-lease path; False means the server predates
+            # /claim_block, and the per-field loop below runs instead.
+            if args.repeat:
+                handled = run_block_pipelined_loop(args, api, mode, spool)
+            else:
+                handled = run_block_iteration(args, api, mode, spool)
+        if not handled:
+            if args.repeat:
+                run_pipelined_loop(args, api, mode, spool=spool)
+            else:
+                run_single_iteration(args, api, mode, spool=spool)
     except KeyboardInterrupt:
         log.info("interrupted; shutting down")
     finally:

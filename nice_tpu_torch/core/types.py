@@ -66,6 +66,55 @@ class NiceNumberSimple:
     num_uniques: int
 
 
+@dataclass
+class ValidationData:
+    """Field info plus canonical results for the self-check endpoint
+    (/claim/validate)."""
+
+    base: int
+    field_id: int
+    range_start: int
+    range_end: int
+    range_size: int
+    unique_distribution: list[UniquesDistributionSimple]
+    nice_numbers: list[NiceNumberSimple]
+
+    @staticmethod
+    def from_json(d: dict[str, Any]) -> "ValidationData":
+        return ValidationData(
+            base=int(d["base"]),
+            field_id=int(d["field_id"]),
+            range_start=int(d["range_start"]),
+            range_end=int(d["range_end"]),
+            range_size=int(d["range_size"]),
+            unique_distribution=[
+                UniquesDistributionSimple(int(x["num_uniques"]), int(x["count"]))
+                for x in d["unique_distribution"]
+            ],
+            nice_numbers=[
+                NiceNumberSimple(int(x["number"]), int(x["num_uniques"]))
+                for x in d["nice_numbers"]
+            ],
+        )
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "base": self.base,
+            "field_id": self.field_id,
+            "range_start": self.range_start,
+            "range_end": self.range_end,
+            "range_size": self.range_size,
+            "unique_distribution": [
+                {"num_uniques": d_.num_uniques, "count": d_.count}
+                for d_ in self.unique_distribution
+            ],
+            "nice_numbers": [
+                {"number": n.number, "num_uniques": n.num_uniques}
+                for n in self.nice_numbers
+            ],
+        }
+
+
 @dataclass(frozen=True)
 class FieldResults:
     """Results of processing a field: bins 1..base and the near-miss list."""

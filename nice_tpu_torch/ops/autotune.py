@@ -51,6 +51,11 @@ PARAMS = ("batch_size", "megaloop", "use_mxu")
 EVENTS = {"hit": 0, "miss": 0, "invalidated": 0, "store": 0, "sweep": 0,
           "override": 0}
 
+# The harness's records of the last sweep (every config, with its mean,
+# min and max pass seconds), beside the table, whose entries keep their
+# format.
+LAST_SWEEP: list = []
+
 _lock = threading.Lock()
 _cache: dict = {"path": None, "mtime": None, "table": None}
 
@@ -202,6 +207,7 @@ def sweep(mode: str, device, *, bench_mode: str | None = None,
                if line.startswith("{")]
     if not results or not all(r.get("numbers_per_sec") for r in results):
         raise RuntimeError(f"tune_kernels timed nothing:\n{proc.stdout[-2000:]}")
+    LAST_SWEEP[:] = results
     best = max(results, key=lambda r: r["numbers_per_sec"])
     new_params = {k: best[k] for k in PARAMS if best.get(k) is not None}
     record(mode, int(best["base"]), device, new_params,

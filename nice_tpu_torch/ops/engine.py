@@ -68,7 +68,7 @@ from nice_tpu_torch.core.types import (
     NiceNumberSimple,
     UniquesDistributionSimple,
 )
-from nice_tpu_torch.ops import adaptive_floor, autotune, msd_filter, mxu
+from nice_tpu_torch.ops import adaptive_floor, autotune, cuda_build, msd_filter, mxu
 from nice_tpu_torch.ops import stride_filter
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
@@ -1544,3 +1544,61 @@ def process_range_niceonly(
                         for n in found)
     nice_numbers.sort(key=lambda n: n.number)
     return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
+
+# ---------------------------------------------------------------------------
+# Warm-up: a field's builds, made before the field runs
+# ---------------------------------------------------------------------------
+
+def _device_type(device) -> str:
+    """"cuda" or "cpu" of an entry point's `device` argument, without a torch
+    call (a client warms on a thread of its own while a field runs)."""
+    kind = str(device).split(":")[0]
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return kind
+
+
+def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
+    """Build and load the libraries a detailed field of this base launches:
+    the main library (K1; K2 and K5 above b97) and, at the plan tier's bases
+    (b10-b97), the base's own library (K2 of the rare path and K5's detailed
+    arm). The JAX engine's warm_detailed compiles the executables of the
+    field's tuned shape; here either arm of any shape runs from these two
+    libraries, so no tuning is resolved. On the CPU (the plain versions) and
+    for the scalar oracle there is nothing to build.
+
+    No kernel launch and no torch call: the client's prefetch runs this on
+    its own thread while another field runs, and nvcc runs as a subprocess.
+    A failed build raises; the field's own first launch would build again
+    and raise too."""
+    if backend == "scalar" or _device_type(device) == "cpu":
+        return
+    plan = get_plan(base)
+    if not ce.supports_base(plan):
+        raise ValueError(f"base {base} exceeds the kernels' histogram")
+    cuda_build.load()
+    if ce.plan_tier_takes(plan):
+        ce.plan_library(plan)
+
+
+def warm_niceonly(base: int, field_size: int = 0, *, device="cuda",
+                  backend: str = "device") -> None:
+    """Make what a niceonly field of this base and size needs before its
+    first number: the host library of the MSD filter; at the strided bases
+    (b10-b97) the field's strided setup (MSD floor, stride depth and table,
+    as strided_setup derives them from field_size) and, on the card, the
+    base's own library (K3); above b97 the main library (K4, K5 and K2).
+    The host work runs on the CPU too. No kernel launch and no torch call
+    (see warm_detailed); a failed build raises."""
+    if backend == "scalar":
+        return
+    on_card = _device_type(device) == "cuda"
+    native.load()
+    plan = get_plan(base)
+    if plan.limbs_n > 4:
+        if on_card:
+            cuda_build.load()
+        return
+    if strided_setup(base, max(1, field_size)) is not None and on_card:
+        ce.plan_library(plan)

@@ -4,12 +4,15 @@ niceonly).
 
 Each configuration is passed to the engine as explicit arguments
 (batch_size, segment, use_mxu; the niceonly kind also pins the MSD floor
-with adaptive_floor.reset_for_tests), never through the environment. Before
-it is timed, its kernel is built (at first use) and launched once at its
-shape. --json prints one JSON line per configuration, with the JAX
-harness's keys; ops/autotune.sweep() runs this module that way and records
-the best one. A configuration that raises ends the run with a non-zero exit
-code (the JAX harness keeps the configurations that finished).
+with adaptive_floor.reset_for_tests), never through the environment. The
+slice runs once untimed at the configuration's shape (its kernel built at
+first use), then REPS times timed (5 detailed, 10 niceonly, the JAX
+harness's repetitions): elapsed_secs is the mean pass, the ranking value,
+with min_secs and max_secs beside it. --json prints one JSON line per
+configuration, with the JAX harness's keys; ops/autotune.sweep() runs this
+module that way and records the best one. A configuration that raises ends
+the run with a non-zero exit code (the JAX harness keeps the
+configurations that finished).
 
     python -m nice_tpu_torch.scripts.tune_kernels detailed --mode extra-large \\
         --slice 100000000 --batches 17,18,19 --segments 4,8,16 --mxu auto
@@ -37,10 +40,11 @@ from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
 from nice_tpu_torch.core.types import FieldSize
 from nice_tpu_torch.ops import adaptive_floor, engine
 from nice_tpu_torch.ops import cuda_engine as ce
-from nice_tpu_torch.ops import vector_engine as ve
 from nice_tpu_torch.ops.limbs import get_plan
 
 MXU_SWEEP = {"auto": [0, 1], "on": [1], "off": [0]}
+# Timed passes a configuration (scripts/tune_kernels.py's reps).
+REPS = {"detailed": 5, "niceonly": 10}
 
 
 def _ints(text: str) -> list[int]:
@@ -54,22 +58,6 @@ def _field(args) -> tuple[str, int, int, int]:
         return f"b{base}@{start}", base, start, size
     data = get_benchmark_field(BenchmarkMode(args.mode))
     return args.mode, data.base, data.range_start, data.range_size
-
-
-def warm(kind: str, base: int, start: int, batch: int, seg: int, arm: int,
-         dev) -> None:
-    """Build the kernel (at first use) and launch it once at the shape."""
-    plan = get_plan(base)
-    st = ve.start_limbs_tensor(start, plan, dev)
-    if kind == "detailed":
-        acc = torch.zeros(plan.base + 2, dtype=torch.int32, device=dev)
-        ce.detailed_accum_megaloop(plan, batch, seg, acc, st, 1, arm)
-    else:
-        classes = ce.niceonly_classes(plan, True, str(dev))
-        ce.niceonly_dense_megaloop(plan, batch, seg, classes, st, 1,
-                                   use_mxu=arm)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main(argv=None) -> int:
@@ -114,31 +102,40 @@ def main(argv=None) -> int:
         if batch is not None:
             batch, seg, arm = engine.resolve_tuning(args.kind, base, dev, batch,
                                                     seg, arm)
-            warm(args.kind, base, start, batch, seg, arm, dev)
-        before = dict(ce.LAUNCHES)
-        t0 = time.monotonic()
         if args.kind == "detailed":
-            engine.process_range_detailed(rng, base, device=dev,
-                                          batch_size=batch, segment=seg,
-                                          use_mxu=arm)
+            process = engine.process_range_detailed
         else:
-            engine.process_range_niceonly(rng, base, device=dev,
-                                          batch_size=batch, segment=seg,
-                                          use_mxu=arm)
-        el = time.monotonic() - t0
+            process = engine.process_range_niceonly
+
+        def run():
+            process(rng, base, device=dev, batch_size=batch, segment=seg,
+                    use_mxu=arm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        run()  # the same-shape warm-up
+        before = dict(ce.LAUNCHES)
+        times = []
+        for _ in range(REPS[args.kind]):
+            t0 = time.monotonic()
+            run()
+            times.append(time.monotonic() - t0)
+        el = sum(times) / len(times)
         rec = {"kind": args.kind, "mode": name, "base": base,
                "backend": "device", "device": str(dev), "batch_size": batch,
                "block_rows": None, "carry_interval": None, "use_mxu": arm,
                "megaloop": seg, "msd_floor": floor, "elapsed_secs": el,
+               "min_secs": min(times), "max_secs": max(times),
+               "reps": len(times),
                "numbers_per_sec": rng.size() / el if el > 0 else None,
-               "launches": {k: v - before[k] for k, v in ce.LAUNCHES.items()
-                            if v != before[k]}}
+               "launches": {k: (v - before[k]) // len(times)
+                            for k, v in ce.LAUNCHES.items() if v != before[k]}}
         if args.json:
             print(json.dumps(rec), flush=True)
         else:
             print(f"  floor {floor} batch {batch} segment {seg} use_mxu {arm}: "
-                  f"{el:8.4f}s {rec['numbers_per_sec'] / 1e6:10.1f} M n/s",
-                  flush=True)
+                  f"{el:8.4f}s (min {min(times):.4f}, max {max(times):.4f}) "
+                  f"{rec['numbers_per_sec'] / 1e6:10.1f} M n/s", flush=True)
     if args.kind == "niceonly":
         adaptive_floor.reset_for_tests()
     return 0

@@ -175,7 +175,8 @@ def test_port_imports_neither_jax_nor_nice_tpu():
     for name in ("native", "ops.adaptive_floor", "ops.lsd_filter",
                  "ops.msd_filter", "ops.residue_filter", "ops.stride_filter",
                  "ckpt.manager", "ckpt.snapshot", "faults.spool",
-                 "daemon.main", "utils.fsio", "utils.resources"):
+                 "daemon.main", "utils.fsio", "utils.resources",
+                 "scripts.bench", "scripts.tune_kernels"):
         assert f"nice_tpu_torch.{name}" in mods.strip().split(",")
 
 

@@ -596,3 +596,128 @@ def test_start_ring_waits_for_its_copy_on_card(card, monkeypatch):
     assert got == want
     assert engine.LAST_FEED_STATS["dispatches"] == 128
     assert engine.LAST_FEED_STATS["ring_waits"] > 0
+
+
+def _torch_calls_on_thread(target, name="nice-prefetch"):
+    """target() on a thread of that name, profiled: the torch functions it
+    called (Python frames in the torch package, C functions of its
+    modules)."""
+    import sys
+    import threading
+
+    root = torch.__file__.rsplit("/", 1)[0]
+    calls = []
+
+    def prof(frame, event, arg):
+        if event == "call" and frame.f_code.co_filename.startswith(root):
+            calls.append(frame.f_code.co_name)
+        elif event == "c_call" and (getattr(arg, "__module__", None)
+                                    or "").startswith("torch"):
+            calls.append(arg.__name__)
+
+    def run():
+        sys.setprofile(prof)
+        try:
+            target()
+        finally:
+            sys.setprofile(None)
+
+    t = threading.Thread(target=run, name=name)
+    t.start()
+    t.join(600)
+    return calls
+
+
+def test_warm_builds_the_field_libraries_without_torch_on_card(card):
+    # b23 is used by no other test: its per-base library is built by the
+    # warm, on the prefetch thread, with no torch call and no launch; the
+    # field's K2 then loads nothing new.
+    from nice_tpu_torch.ops import cuda_build
+
+    plan = get_plan(23)
+    header = ce.plan_header(plan)
+    ce.plan_library.cache_clear()
+    ce.reset_launches()
+    calls = _torch_calls_on_thread(lambda: engine.warm_detailed(23))
+    assert calls == [] and sum(ce.LAUNCHES.values()) == 0
+    assert header in cuda_build.PLAN_BUILDS
+    builds = dict(cuda_build.PLAN_BUILDS)
+    start = ve.start_limbs_tensor(plan.range_start, plan, card)
+    ce.uniques_batch(plan, 1024, start)
+    torch.cuda.synchronize()
+    assert cuda_build.PLAN_BUILDS == builds and ce.LAUNCHES["uniques"] == 1
+    calls = _torch_calls_on_thread(
+        lambda: engine.warm_niceonly(98, 1 << 20) or engine.warm_niceonly(
+            23, 1 << 20))
+    assert calls == []
+
+
+def test_block_iteration_on_card(card, tmp_path):
+    # The JAX package's server in a process of its own (this file imports
+    # nothing of nice_tpu), seeded with b40 fields of 1e9; one block of 3
+    # through the port's client on the card, each member accepted and
+    # equal to the engine's run of its field.
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from nice_tpu_torch.client import api_client
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.types import SearchMode
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with open(tmp_path / "server.log", "wb") as log_f:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "nice_tpu.server", "--db",
+             str(tmp_path / "nice.db"), "--init-base", "40", "--field-size",
+             "1000000000", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=repo, stdout=log_f, stderr=subprocess.STDOUT)
+    api = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(api + "/status", timeout=5) as r:
+                    json.loads(r.read())
+                break
+            except OSError:
+                assert server.poll() is None and time.monotonic() < deadline
+                time.sleep(0.5)
+        args = client.build_parser().parse_args(
+            ["detailed", "--api-base", api, "--claim-block", "3",
+             "--renew-secs", "1", "--max-retries", "2"])
+        api_obj = api_client.AsyncApi(api, "card", max_retries=2)
+        claimed, sent = [], []
+        real_claim, real_submit = (api_obj.claim_block_async,
+                                   api_obj.submit_block_async)
+        api_obj.claim_block_async = lambda *a: claimed.append(
+            real_claim(*a)) or claimed[-1]
+        api_obj.submit_block_async = lambda b, subs: sent.append(
+            (subs, real_submit(b, subs))) or sent[-1][1]
+        try:
+            assert client.run_block_iteration(args, api_obj,
+                                              SearchMode.DETAILED)
+        finally:
+            api_obj.shutdown()
+            api_client.close_connections()
+        _, fields = claimed[0].result()
+        subs, fut = sent[0]
+        assert fut.result()["accepted"] == len(fields) == len(subs) >= 1
+        assert api_client.last_seen_epoch() >= 1
+        for data, sub in zip(fields, subs):
+            want = engine.process_range_detailed(data.to_field_size(), 40,
+                                                 device=card)
+            assert sub.claim_id == data.claim_id
+            assert sub.unique_distribution == list(want.distribution)
+            assert sub.nice_numbers == list(want.nice_numbers)
+            assert sum(d.count for d in want.distribution) == data.range_size
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
