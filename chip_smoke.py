@@ -55,8 +55,22 @@ Phases, each of which raises (exit code 1) on failure:
      oracle's histogram; default (1e6 @ b40) on the card must equal the same
      field through the plain path on the CPU; in niceonly mode base-ten must
      give [69] through K3 (its hit re-scanned on the host), and default on
-     the card must equal the plain path on the CPU; base-ten through the
-     dense loop must give [69] through K4 and K2;
+     the card must equal the plain path on the CPU (both with
+     host_niceonly_max=0, which holds them on K3 whatever the default
+     limit of the host route); base-ten
+     through the dense loop must give [69] through K4 and K2;
+  5b. host engines: the native backend through the client (--backend
+     native --threads 0) on the default and large (1e8 @ b40) fields in
+     both modes, equal to the card's runs, with its thread count and
+     numbers/s; the large field again beside the client's prefetch warm of
+     a native niceonly b64 claim, and after it; the route sweep
+     (scripts/host_route_sweep.py: b50 fields of 2^20-2^27 numbers and the
+     msd-ineffective cell through the host route and through K3, the
+     median of 5 after a warm pass, equal results, K3 launches 0 on the
+     route and at least 1 on K3) and the HOST_NICEONLY_MAX it chooses; a
+     scalar field checkpointed into a snapshot file every chunk, stopped
+     after its second snapshot and resumed from it, equal to the
+     uninterrupted run;
   6. full width, detailed (the main path, launch counts read around it):
      the extra-large field (1e9 numbers @ b40) and a seeded mid-range b40
      field of 1e9, through the client's process_field; bins 1..40 must sum
@@ -1107,16 +1121,19 @@ def phase_golden(report: dict) -> None:
 
     # Niceonly: base-ten through K3, its one hit re-scanned on the host by
     # the collector; default on the card against the plain path on the CPU.
+    # host_niceonly_max=0 holds these small fields on K3 whatever the host
+    # route's default limit (phase host_engines holds the route).
     ce.reset_launches()
     r = engine.process_range_niceonly(ten.to_field_size(), ten.base,
-                                      device=DEVICE)
+                                      device=DEVICE, host_niceonly_max=0)
     stats = dict(engine.LAST_NICEONLY_STATS)
     nice = [n.number for n in r.nice_numbers]
     check(nice == [69], f"base-ten niceonly gives {nice}")
     check(ce.LAUNCHES["strided_niceonly"] >= 1 and stats.get("nice") == 1,
           f"base-ten niceonly did not find 69 through K3: {ce.LAUNCHES}, {stats}")
     card = engine.process_range_niceonly(default.to_field_size(),
-                                         default.base, device=DEVICE)
+                                         default.base, device=DEVICE,
+                                         host_niceonly_max=0)
     cpu = engine.process_range_niceonly(default.to_field_size(),
                                         default.base, device="cpu")
     check(card == cpu, "default niceonly: card differs from the CPU plain path")
@@ -1141,6 +1158,172 @@ def phase_golden(report: dict) -> None:
                               "k4_launches": ce.LAUNCHES["niceonly_dense"],
                               "k2_launches": ce.LAUNCHES["uniques"]}
     emit({"phase": "golden_dense", **report["golden_dense"]})
+
+
+# The host_engines phase: the native backend's fields (benchmark modes) and
+# the route sweep's repetitions (a warm pass, then this many timed).
+NATIVE_FIELDS = ("default", "large")
+HOST_SWEEP_SIZES = tuple(1 << k for k in range(20, 28))
+HOST_SWEEP_REPS = 5
+# The next claim the prefetch warm builds for beside the native field: a
+# niceonly b64 field, whose host stride table (k = 3, 1.6M residues) is the
+# largest a host-route base builds.
+NATIVE_WARM_BASE = 64
+# The scalar drill's field (b40, its range's start) and chunk.
+SCALAR_DRILL = (40, 1 << 16, 1 << 13)
+
+
+def phase_host_engines(report: dict) -> None:
+    """The host engines on the card's machine, after the golden fields:
+      * the native backend through the client (--backend native --threads
+        0) on the default (1e6 @ b40) and large (1e8 @ b40) fields in both
+        modes, each equal to the card's run of the field through the client
+        (niceonly with --host-niceonly-max 0, so that K3 runs it); the
+        thread count and the numbers/s;
+      * the large field natively once more while the client's prefetch
+        warms a claimed niceonly b64 field for the native backend (its host
+        stride table) on the nice-prefetch thread, and once after: the
+        seconds with the warm beside the seconds after it;
+      * the route sweep (scripts/host_route_sweep.py): b50 fields of 2^20 to
+        2^27 numbers from the msd-ineffective cell's start, and that cell,
+        each through the host route and through K3 (a warm pass, then the
+        median of HOST_SWEEP_REPS), equal results, no K3 launch on the
+        route and at least one on K3; the limit the sweep chooses beside
+        engine.HOST_NICEONLY_MAX;
+      * a scalar field checkpointed into a snapshot file every chunk and
+        stopped by an exception from its callback after the second
+        snapshot, resumed from that file: equal to the uninterrupted run."""
+    import threading
+    from concurrent.futures import Future
+
+    from nice_tpu_torch import ckpt
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.core.types import DataToClient, SearchMode
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+    from nice_tpu_torch.scripts import host_route_sweep
+
+    out: dict = {"cores": os.cpu_count(),
+                 "threads": engine.resolve_threads(None)}
+    runs = []
+    large = None
+    for mode in ("detailed", "niceonly"):
+        native_args = client.build_parser().parse_args(
+            [mode, "--backend", "native", "--threads", "0"])
+        card_args = client.build_parser().parse_args(
+            [mode, "--device", DEVICE, "--host-niceonly-max", "0"])
+        for name in NATIVE_FIELDS:
+            data = get_benchmark_field(BenchmarkMode(name))
+            before = sum(ce.LAUNCHES.values())
+            got, secs = client.process_field(data, native_args)
+            check(sum(ce.LAUNCHES.values()) == before,
+                  f"native {mode} {name} launched a kernel")
+            want, card_secs = client.process_field(data, card_args)
+            check(_pairs(got) == _pairs(want),
+                  f"native {mode} {name} differs from the card's run")
+            if mode == "detailed":
+                _check_field(data, got)
+                if name == NATIVE_FIELDS[-1]:
+                    large = (data, got, secs)
+            runs.append({"mode": mode, "field": name, "base": data.base,
+                         "numbers": data.range_size, "native_secs": secs,
+                         "native_numbers_per_sec": data.range_size / secs,
+                         "card_secs": card_secs,
+                         "hits": len(got.nice_numbers)})
+            emit({"phase": "host_engines", "run": "native", **runs[-1],
+                  "threads": out["threads"]})
+    out["native"] = runs
+
+    # The native large field (the last of NATIVE_FIELDS) beside the
+    # prefetch warm of a native niceonly claim (the host stride table of
+    # NATIVE_WARM_BASE), then after it.
+    data, want, alone_secs = large
+    args = client.build_parser().parse_args(
+        ["detailed", "--backend", "native", "--threads", "0"])
+    warm_args = client.build_parser().parse_args(
+        ["niceonly", "--backend", "native", "--threads", "0"])
+    plan = get_plan(NATIVE_WARM_BASE)
+    claim = Future()
+    client._prefetch_on_claim(claim, warm_args, SearchMode.NICEONLY)
+    t0 = time.monotonic()
+    claim.set_result(DataToClient(
+        claim_id=0, base=NATIVE_WARM_BASE, range_start=plan.range_start,
+        range_end=plan.range_start + SERVER_FIELD_SIZE,
+        range_size=SERVER_FIELD_SIZE))
+    during, during_secs = client.process_field(data, args)
+    warms = [t for t in threading.enumerate() if t.name == "nice-prefetch"]
+    for t in warms:
+        t.join()
+    warm_secs = time.monotonic() - t0
+    after, after_secs = client.process_field(data, args)
+    check(_pairs(during) == _pairs(after) == _pairs(want),
+          "the native large field differs beside the warm")
+    out["native_prefetch"] = {
+        "field": NATIVE_FIELDS[-1], "warm_base": NATIVE_WARM_BASE,
+        "field_secs_alone": alone_secs, "field_secs_with_warm": during_secs,
+        "field_secs_after_warm": after_secs, "warm_secs": warm_secs,
+        "with_over_after": during_secs / after_secs}
+    emit({"phase": "host_engines", "run": "native_prefetch",
+          **out["native_prefetch"]})
+
+    # The route sweep: the measurement behind engine.HOST_NICEONLY_MAX.
+    sweep = host_route_sweep.sweep(
+        list(HOST_SWEEP_SIZES), HOST_SWEEP_REPS, device=DEVICE,
+        emit=lambda line: emit({"phase": "host_engines", "run": "route_sweep",
+                                **json.loads(line)}))
+    out["route_sweep"] = sweep
+    emit({"phase": "host_engines", "run": "route_sweep_table", "rows": [
+        {"field": r["field"], "numbers": r["numbers"],
+         "host_median_secs": r["host"]["median_secs"],
+         "k3_median_secs": r["k3"]["median_secs"],
+         "host_over_k3": r["host_over_k3"]} for r in sweep["rows"]],
+        "chosen_host_niceonly_max": sweep["chosen_host_niceonly_max"],
+        "engine_host_niceonly_max": engine.HOST_NICEONLY_MAX})
+
+    # The scalar drill: checkpoint every chunk into a snapshot file, stop
+    # after the second, resume from the file.
+    base, size, chunk = SCALAR_DRILL
+    lo = get_plan(base).range_start
+    field = DataToClient(claim_id=0, base=base, range_start=lo,
+                         range_end=lo + size, range_size=size)
+    t0 = time.monotonic()
+    full = engine.process_range_detailed(field.to_field_size(), base,
+                                         backend="scalar")
+    full_secs = time.monotonic() - t0
+    with tempfile.TemporaryDirectory() as d:
+        ckptr = ckpt.FieldCheckpointer(d, field, SearchMode.DETAILED,
+                                       "scalar", chunk, DEVICE)
+        saved = []
+
+        def save(state):
+            ckptr.save(state)
+            saved.append(state["cursor"])
+            if len(saved) == 2:
+                raise InterruptedError("stopped after the second snapshot")
+
+        try:
+            engine.process_range_detailed(
+                field.to_field_size(), base, backend="scalar",
+                batch_size=chunk, checkpoint_cb=save, checkpoint_batches=1)
+            check(False, "the scalar drill was not stopped")
+        except InterruptedError:
+            pass
+        state = ckptr.load()
+        check(state is not None and state["cursor"] == lo + 2 * chunk,
+              f"the scalar drill's snapshot: {state and state['cursor']}")
+        resumed = engine.process_range_detailed(
+            field.to_field_size(), base, backend="scalar", batch_size=chunk,
+            resume=state)
+    check(resumed == full, "the resumed scalar field differs")
+    _check_field(field, full)
+    out["scalar_drill"] = {"base": base, "numbers": size, "chunk": chunk,
+                           "snapshots": saved, "resume_cursor":
+                           state["cursor"], "full_secs": full_secs}
+    emit({"phase": "host_engines", "run": "scalar_drill",
+          **out["scalar_drill"]})
+    report["host_engines"] = out
 
 
 def _check_field(data, results) -> int:
@@ -2814,6 +2997,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_dense_vs_plain(report)
     phase_mxu_vs_plain(report)
     phase_golden(report)
+    phase_host_engines(report)
     phase_full_width(report)
     phase_full_width_niceonly(report)
     phase_full_width_dense(report)

@@ -29,11 +29,16 @@
     with the server's canonical submission; exit code 0 when they agree.
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
-versions, and --backend scalar the Python-int oracle (which neither
-checkpoints nor resumes). Every knob is a flag: the port reads no
-environment variable. Left out against the JAX client: tenants, --threads
-and the native backend, telemetry (with it the learning of the server list
-from /status beyond the one read at startup) and the fault-injection sites.
+versions, --backend scalar the Python-int oracle (checkpointed in chunks
+like the device loops) and --backend native the host library on --threads
+cores (0: all), which neither checkpoints nor resumes: with it
+--checkpoint-dir is dropped, as the JAX client drops it. A niceonly field
+on the card of at most --host-niceonly-max numbers that the host library's
+polynomial-residue kernel takes runs on the host instead (the small-field
+host route; off by default, engine.HOST_NICEONLY_MAX). Every knob is a flag: the port reads no environment variable.
+Left out against the JAX client: tenants, telemetry (with it the learning
+of the server list from /status beyond the one read at startup) and the
+fault-injection sites.
 """
 
 from __future__ import annotations
@@ -99,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "(claim N+1 and submit N-1 while N is processed)")
     p.add_argument("--backend", default="device", choices=list(engine.BACKENDS),
                    help="device: the kernels (or their plain versions with "
-                   "--device cpu); scalar: the Python-int oracle")
+                   "--device cpu); scalar: the Python-int oracle; native: "
+                   "the multithreaded C++ host engine")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the device backend runs")
     p.add_argument("--batch-size", type=lambda v: int(v) or None, default=None,
@@ -107,6 +113,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "= the tuned winner, else "
                    f"{engine.DEFAULT_BATCH_SIZE} (the strided pipeline "
                    "takes its shapes from the MSD floor)")
+    p.add_argument("--threads", type=int, default=0,
+                   help="host threads of the native backend and of the "
+                   "niceonly host route; 0 = all cores")
+    p.add_argument("--host-niceonly-max", type=int, default=None,
+                   help="niceonly fields on the card of at most this many "
+                   "numbers go to the host engine when its polynomial-residue "
+                   "kernel takes them; 0 disables (default: "
+                   f"{engine.HOST_NICEONLY_MAX}, measured on the card's "
+                   "machine, where the host route won at no size)")
     p.add_argument("--progress-secs", type=float, default=5.0,
                    help="seconds between in-field progress lines; 0 disables")
     p.add_argument("--checkpoint-dir", default=None,
@@ -195,7 +210,8 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
     timed window, as the JAX client warms its executables."""
     mode = mode if mode is not None else _mode(args)
     kwargs = {"device": args.device, "backend": args.backend,
-              "progress": _progress_logger(args.progress_secs)}
+              "progress": _progress_logger(args.progress_secs),
+              "threads": args.threads or None}
     if checkpointer is not None or resume is not None:
         kwargs.update(checkpoint_cb=(checkpointer.save if checkpointer
                                      else None),
@@ -209,7 +225,10 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
         kwargs["batch_size"] = args.batch_size
     else:
         process = engine.process_range_niceonly
-        if get_plan(data.base).limbs_n > 4:  # the dense loop's runs
+        kwargs["host_niceonly_max"] = args.host_niceonly_max
+        # The dense loop's runs and the oracle's checkpoint chunks; the
+        # strided pipeline takes no batch.
+        if args.backend == "scalar" or get_plan(data.base).limbs_n > 4:
             kwargs["batch_size"] = args.batch_size
     t0 = time.monotonic()
     results = process(data.to_field_size(), data.base, **kwargs)
@@ -428,7 +447,9 @@ def _warm_field(data: DataToClient, mode: SearchMode, args) -> None:
                                  backend=args.backend)
         else:
             engine.warm_niceonly(data.base, data.range_size,
-                                 device=args.device, backend=args.backend)
+                                 device=args.device, backend=args.backend,
+                                 field_start=data.range_start,
+                                 host_niceonly_max=args.host_niceonly_max)
     except Exception:  # noqa: BLE001 — the field's dispatch raises it again
         log.warning("prefetch warm failed for base %d", data.base,
                     exc_info=True)
@@ -699,10 +720,11 @@ def main(argv: Optional[list[str]] = None) -> int:
         engine.resolve_device(args.device)  # no card: raise before a claim
     if args.benchmark:
         return run_benchmark(args)
-    if args.checkpoint_dir and args.backend == "scalar":
-        # The oracle scans in one call and has no cursor to snapshot.
+    if args.checkpoint_dir and args.backend == "native":
+        # The native engine's thread fan-out has no consistent cursor to
+        # snapshot; disable rather than write unresumable state.
         log.warning("--checkpoint-dir is not supported with backend "
-                    "'scalar'; checkpointing disabled")
+                    "'native'; checkpointing disabled")
         args.checkpoint_dir = None
     # The failover list: --api-base (itself maybe a list), --servers and
     # what a previous run learned. The joined list IS the api_base from here

@@ -1,13 +1,18 @@
 """ctypes bindings of the port's host library (nice_native.cpp): the MSD
-prefix filter and the CRT stride iteration of the niceonly path (the port's
-counterpart of nice_tpu/native/__init__.py, cut to those two entry points).
+prefix filter, the CRT stride iteration (generic loop, and the
+polynomial-residue kernel of k >= 3 tables), the detailed range loop and the
+fast-path test hook (the port's counterpart of nice_tpu/native/__init__.py,
+cut to those entry points).
 
 g++ builds the library at first use into nice_tpu_torch/_build/native-<key>/,
 where the key hashes the source and the command, so an edited source
 rebuilds. A failed build raises: the niceonly path has no Python fallback.
 
-Both functions are pure; ctypes releases the GIL for each call, so the
-engine's filter threads and collector run them in parallel.
+Every entry is pure; the library loads as ctypes.CDLL, which releases the
+GIL for each call, so the engine's filter threads, its collector and the
+native backend's thread pool run them in parallel. Where the JAX bindings
+return None (no library, a base or value the C++ does not take), these
+raise.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ _MASK64 = (1 << 64) - 1
 
 _lock = threading.Lock()
 _lib = None
+# Whether this thread's last iterate_range_strided call ran the
+# polynomial-residue kernel (used_poly() reads it; tests assert on it).
+_POLY_USED = threading.local()
 # Facts of the build that loaded the library: g++ seconds (0.0 when the
 # library was already built) and its path.
 BUILD_INFO: dict = {}
@@ -76,6 +84,20 @@ def load():
             os.replace(tmp, lib_path)
             log.info("built %s in %.1fs", lib_path, seconds)
         lib = ctypes.CDLL(lib_path)
+        lib.nice_process_range_detailed.restype = None
+        lib.nice_process_range_detailed.argtypes = [
+            _U64, _U64, _U64, _U64, _U64,
+            ctypes.POINTER(_U64), ctypes.POINTER(_U64), _U64,
+            ctypes.POINTER(_U64),
+        ]
+        lib.nice_iterate_range_strided_poly.restype = None
+        lib.nice_iterate_range_strided_poly.argtypes = [
+            _U64, _U64, _U64, _U64, _U64, _U64, _U64,
+            ctypes.POINTER(ctypes.c_uint32), _U64, ctypes.POINTER(_U64), _U64,
+            ctypes.POINTER(_U64), ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.nice_strided_fast_enabled.restype = ctypes.c_int
+        lib.nice_strided_fast_enabled.argtypes = [ctypes.c_int]
         lib.nice_iterate_range_strided.restype = None
         lib.nice_iterate_range_strided.argtypes = [
             _U64, _U64, _U64, _U64, _U64, _U64,
@@ -114,11 +136,52 @@ def _split(n: int) -> tuple[int, int]:
     return n & _MASK64, n >> 64
 
 
+def process_range_detailed(start: int, count: int, base: int, cutoff: int
+                           ) -> tuple[list[int], list[tuple[int, int]]]:
+    """(histogram list[base + 2], [(n, num_uniques), ...] of the near misses,
+    num_uniques > cutoff) of [start, start + count)."""
+    _check(base, start + count)
+    lib = load()
+    lo, hi = _split(start)
+    hist = (_U64 * (base + 2))()
+    cap = 4096
+    while True:
+        misses = (_U64 * (3 * cap))()
+        miss_count = _U64(0)
+        for i in range(base + 2):
+            hist[i] = 0
+        lib.nice_process_range_detailed(
+            lo, hi, count, base, cutoff, hist, misses, cap,
+            ctypes.byref(miss_count),
+        )
+        if miss_count.value <= cap:
+            break
+        cap = int(miss_count.value)
+    out_misses = [
+        (misses[i * 3] | (misses[i * 3 + 1] << 64), int(misses[i * 3 + 2]))
+        for i in range(int(miss_count.value))
+    ]
+    return list(hist), out_misses
+
+
+def strided_fast_enabled(enable: bool) -> bool:
+    """Test hook: turn the fast strided paths (the polynomial-residue kernel
+    and the magic-divide loop) on or off for the process; returns the
+    previous setting."""
+    return bool(load().nice_strided_fast_enabled(1 if enable else 0))
+
+
 def iterate_range_strided(first: int, start_idx: int, end: int, base: int,
-                          gap_array: np.ndarray) -> list[int]:
+                          gap_array: np.ndarray, modulus: int | None = None,
+                          residues: np.ndarray | None = None) -> list[int]:
     """Nice numbers among stride candidates in [first, end), starting from
     candidate `first` at residue index start_idx and stepping through
-    gap_array (a StrideTable's u64 gap twin)."""
+    gap_array (a StrideTable's u64 gap twin).
+
+    Given the table's modulus and residues_u32 as well, the call tries the
+    polynomial-residue kernel first; where that kernel does not take the
+    table or the range (used_poly() is then False), the generic loop
+    runs."""
     _check(base, end)
     if not (isinstance(gap_array, np.ndarray) and gap_array.dtype == np.uint64
             and gap_array.ndim == 1 and gap_array.flags.c_contiguous
@@ -128,8 +191,32 @@ def iterate_range_strided(first: int, start_idx: int, end: int, base: int,
     lib = load()
     flo, fhi = _split(first)
     elo, ehi = _split(end)
-    gaps = gap_array.ctypes.data_as(ctypes.POINTER(_U64))
     cap = 1024
+    if modulus is not None and residues is not None:
+        if not (isinstance(residues, np.ndarray)
+                and residues.dtype == np.uint32 and residues.ndim == 1
+                and residues.flags.c_contiguous):
+            raise ValueError("residues must be a contiguous 1-D uint32 array")
+        res_ptr = residues.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+        while True:
+            out = (_U64 * (2 * cap))()
+            count = _U64(0)
+            used = ctypes.c_int(0)
+            lib.nice_iterate_range_strided_poly(
+                flo, fhi, start_idx, elo, ehi, base, modulus, res_ptr,
+                len(residues), out, cap, ctypes.byref(count),
+                ctypes.byref(used),
+            )
+            _POLY_USED.used = used.value
+            if not used.value:
+                break  # not eligible: the generic loop below
+            if count.value <= cap:
+                return [out[i * 2] | (out[i * 2 + 1] << 64)
+                        for i in range(int(count.value))]
+            cap = int(count.value)
+    else:
+        _POLY_USED.used = 0
+    gaps = gap_array.ctypes.data_as(ctypes.POINTER(_U64))
     while True:
         out = (_U64 * (2 * cap))()
         count = _U64(0)
@@ -141,6 +228,12 @@ def iterate_range_strided(first: int, start_idx: int, end: int, base: int,
             break
         cap = int(count.value)
     return [out[i * 2] | (out[i * 2 + 1] << 64) for i in range(int(count.value))]
+
+
+def used_poly() -> bool:
+    """True when this thread's last iterate_range_strided call ran the
+    polynomial-residue kernel, False when it ran the generic loop."""
+    return bool(getattr(_POLY_USED, "used", 0))
 
 
 def msd_valid_ranges(start: int, end: int, base: int, max_depth: int,

@@ -1,19 +1,25 @@
-// Host library of the port's niceonly path (nice_tpu_torch/native): a copy
-// of the parts of nice_tpu/native/nice_native.cpp that two entry points
-// reach, exposed through a small extern "C" surface loaded with ctypes:
+// Host library of the port (nice_tpu_torch/native): a copy of the parts of
+// nice_tpu/native/nice_native.cpp that the port's entry points reach,
+// exposed through a small extern "C" surface loaded with ctypes:
 //
 //   * nice_msd_valid_ranges (+ the nice_ranges_* handle functions): the
 //     recursive MSD prefix filter that turns a field into the surviving
 //     ranges the strided kernel (K3) gets descriptors for;
 //   * nice_iterate_range_strided: CRT stride-table iteration with an
 //     early-exit niceness check per candidate, the host re-scan of the
-//     descriptors the kernel counted hits in (and of the audited ones).
+//     descriptors the kernel counted hits in (and of the audited ones);
+//   * nice_iterate_range_strided_poly: the polynomial-residue kernel of
+//     k >= 3 stride tables, the host engine of the native backend and of
+//     the small-field niceonly host route;
+//   * nice_process_range_detailed: the native backend's detailed loop;
+//   * nice_strided_fast_enabled: a test hook that turns both fast strided
+//     paths off, so that tests can hold them against the generic loop.
 //
 // Arithmetic: candidates n fit in 128 bits for every base the strided path
 // takes (n < 2^128, four u32 limbs); squares fit 256 bits, cubes 384.
 // Fixed-width u64-limb routines with __int128 intermediates. All functions
 // are pure and thread-safe; ctypes releases the GIL for each call, so the
-// engine's filter threads run in parallel.
+// engine's filter threads and the native backend's pool run in parallel.
 
 #include <cstdint>
 #include <cstring>
@@ -94,6 +100,15 @@ inline int cmp_2(const u64 a[2], const u64 b[2]) {
     return 0;
 }
 
+// OR the digits of value (destroyed) into a u128 indicator; digits peeled
+// until the value is zero (the CPU rule, reference client_process.rs:76-127).
+inline void or_digits(u64* value, int len, u64 base, u128& indicator) {
+    while (limbs_nonzero(value, len)) {
+        u64 d = div_limbs_inplace(value, len, base);
+        indicator |= (u128)1 << d;
+    }
+}
+
 // Early-exit variant: returns false as soon as a duplicate digit appears
 // (reference client_process.rs:222-253).
 inline bool or_digits_distinct(u64* value, int len, u64 base, u128& indicator) {
@@ -106,10 +121,25 @@ inline bool or_digits_distinct(u64* value, int len, u64 base, u128& indicator) {
     return true;
 }
 
+inline int popcount128(u128 x) {
+    return __builtin_popcountll((u64)x) + __builtin_popcountll((u64)(x >> 64));
+}
+
 inline int limb_len(const u64* v, int cap) {
     int len = cap;
     while (len > 0 && v[len - 1] == 0) --len;
     return len;
+}
+
+inline int num_unique_digits_impl(const u64 n[2], u64 base) {
+    u64 sq[4], cu[6];
+    mul_2x2(n, n, sq);
+    mul_4x2(sq, n, cu);
+    u128 indicator = 0;
+    int sq_len = limb_len(sq, 4), cu_len = limb_len(cu, 6);
+    or_digits(sq, sq_len, base, indicator);
+    or_digits(cu, cu_len, base, indicator);
+    return popcount128(indicator);
 }
 
 inline bool is_nice_impl(const u64 n[2], u64 base) {
@@ -398,10 +428,12 @@ FastCtx* build_fast_ctx(u64 base) {
 
 std::mutex g_fast_mutex;
 FastCtx* g_fast_cache[FAST_BASE_MAX + 1] = {};
+bool g_fast_enabled = true;
 
 const FastCtx* get_fast_ctx(u64 base) {
     if (base < 4 || base > FAST_BASE_MAX) return nullptr;
     std::lock_guard<std::mutex> lock(g_fast_mutex);
+    if (!g_fast_enabled) return nullptr;
     FastCtx*& slot = g_fast_cache[base];
     if (slot == nullptr) slot = build_fast_ctx(base);
     return slot->ok ? slot : nullptr;
@@ -590,6 +622,320 @@ inline bool cube_survives(u64 n, const FastCtx& c, u64 seen) {
     return peel_value(c0, (u64)t2, (u64)(t2 >> 64), c, seen);
 }
 
+// ---------------------------------------------------------------------------
+// Polynomial-residue fast path (k >= 3 stride tables)
+//
+// When the CRT stride modulus M is a multiple of d3 = base^3 (true for every
+// table of depth k >= 3, M = (base-1) * base^k), a candidate n = q*M + res
+// has
+//     n^2 = q^2 M^2 + 2 q M res + res^2,   M = (base-1) * d3 * base^(k-3)
+// so n^2 mod d3 = res^2 mod d3 — the square's LOW 3-digit block depends only
+// on the residue and is PRECOMPUTED per table entry (likewise the cube's;
+// their joint distinctness is already guaranteed by the CRT table
+// construction, so the per-candidate work starts at block 1 with a seeded
+// digit mask). The remaining square blocks follow from an all-u64 peeling of
+//     n^2 / d3 = d3*(F q^2) + C,   F = (M/d3)^2,  C = 2(M/d3) q res + res^2/d3
+// where q (and therefore the q-split F*Q1 / F*R1 constants below) only
+// changes when the residue index wraps — once per M-span, amortized over
+// num_residues candidates. Per candidate that leaves ONE multiply and ~6
+// single u64 magic divides, about 3x fewer dependent operations than the
+// generic 2^32-limb long division above.
+// ---------------------------------------------------------------------------
+
+struct PolyCtx {
+    const FastCtx* fc;
+    u64 modulus;
+    u64 mdiv;  // M / d3  (= (base-1) * base^(k-3))
+    // Packed per-residue stream: low 32 bits the residue, high 32 bits
+    // floor(res^2 / d3) — one load per candidate instead of two.
+    std::vector<u64> rr;
+    std::vector<u64> seed;  // digit mask of sq/cube low blocks; 0 = reject
+    bool ok = false;
+};
+
+PolyCtx* build_poly_ctx(const FastCtx* fc, u64 modulus, const u32* residues,
+                        u64 num) {
+    auto* p = new PolyCtx();
+    p->fc = fc;
+    p->modulus = modulus;
+    p->mdiv = modulus / fc->d3;
+    p->rr.resize(num);
+    p->seed.resize(num);
+    for (u64 i = 0; i < num; ++i) {
+        u64 r = residues[i];
+        u128 r2 = (u128)r * r;
+        u64 sq0 = (u64)(r2 % fc->d3);
+        p->rr[i] = r | ((u64)(r2 / fc->d3) << 32);
+        u64 cu0 = (u64)(((r2 % fc->d3) * (r % fc->d3)) % fc->d3);
+        // Low 3-digit blocks of the candidate's square and cube, exact.
+        // The CRT table's LSD filter mirrors the reference's WEAKER rule
+        // (stop-at-zero digit extraction, cross sq/cube overlap only,
+        // lsd_filter.py:62-84) — so residues with an intra-block duplicate
+        // or a zero-digit collision DO appear in the table. Those can never
+        // produce a nice number (for in-range candidates both blocks are
+        // full: sq >= base^4, cube >= base^6 — eligibility requires
+        // first >= base^2); seed == 0 marks them and the gather loop skips
+        // their candidates outright, a ~10-25%% free kill the per-candidate
+        // filters would otherwise pay full price for.
+        u64 m1 = fc->table3[sq0], m2 = fc->table3[cu0];
+        p->seed[i] = (m1 == 0 || m2 == 0 || (m1 & m2)) ? 0 : (m1 | m2);
+    }
+    p->ok = true;
+    return p;
+}
+
+std::vector<std::pair<std::pair<u64, u64>, PolyCtx*>> g_poly_cache;
+
+const PolyCtx* get_poly_ctx(u64 base, u64 modulus, const u32* residues,
+                            u64 num) {
+    const FastCtx* fc = get_fast_ctx(base);
+    if (fc == nullptr) return nullptr;
+    u64 d3 = fc->d3;
+    if (modulus % d3 != 0 || modulus >= ((u64)1 << 32)) return nullptr;
+    std::lock_guard<std::mutex> lock(g_fast_mutex);
+    for (auto& e : g_poly_cache) {
+        if (e.first.first == base && e.first.second == modulus) {
+            return e.second->ok ? e.second : nullptr;
+        }
+    }
+    PolyCtx* p = build_poly_ctx(fc, modulus, residues, num);
+    g_poly_cache.push_back({{base, modulus}, p});
+    return p->ok ? p : nullptr;
+}
+
+// Cube check for a square survivor with the LOW block skipped (its digits
+// are in the seed mask already): one discarded block step, then the generic
+// exact peel.
+inline bool cube_survives_skip0(u64 n, const FastCtx& c, u64 seen) {
+    constexpr u64 LO32 = 0xFFFFFFFFULL;
+    u128 sq = (u128)n * n;
+    u128 t = (u128)(u64)sq * n;
+    u64 l0 = (u64)t;
+    u128 t2 = (u128)(u64)(sq >> 64) * n + (u64)(t >> 64);
+    u64 l1 = (u64)t2, l2 = (u64)(t2 >> 64);
+    // one 3-limb block step, remainder (block 0) discarded
+    u64 q4 = magic_div(l2, c.m_d3);
+    u64 r = l2 - q4 * c.d3;
+    u64 ta = (r << 32) | (l1 >> 32);
+    u64 q3 = magic_div(ta, c.m_d3);
+    r = ta - q3 * c.d3;
+    u64 tb = (r << 32) | (l1 & LO32);
+    u64 q2 = magic_div(tb, c.m_d3);
+    r = tb - q2 * c.d3;
+    u64 tc = (r << 32) | (l0 >> 32);
+    u64 q1 = magic_div(tc, c.m_d3);
+    r = tc - q1 * c.d3;
+    u64 td = (r << 32) | (l0 & LO32);
+    u64 q0 = magic_div(td, c.m_d3);
+    return peel_value((q1 << 32) | q0, (q3 << 32) | q2, q4, c, seen);
+}
+
+// Lockstep width: enough independent quotient chains to cover the ~6-cycle
+// magic-divide latency at the core's issue width. The reference's sweep on
+// its own bench host (a b50 1e7 field) found 4 lanes fastest: the kernel is
+// issue-bound, not latency-bound, so wider only adds spills.
+#ifndef POLY_LANES
+#define POLY_LANES 4
+#endif
+
+// Digit mask of a whole value (full blocks + top partial block).
+// ok_out: all-ones when the value's digits are internally distinct.
+inline void value_digit_mask(u64 v, const FastCtx& c, u64* mask_out,
+                             u64* ok_out) {
+    u64 s = 0;
+    bool ok = true;
+    while (v >= c.d3) {
+        u64 q = magic_div(v, c.m_d3);
+        u64 r = v - q * c.d3;
+        u64 m = c.table3[r];
+        if (m == 0 || (s & m)) ok = false;
+        s |= m;
+        v = q;
+    }
+    if (!peel_top_block(v, c, s)) ok = false;
+    *mask_out = s;
+    *ok_out = ok ? ~(u64)0 : 0;
+}
+
+template <int PL>
+void iterate_strided_poly(u64 first, u64 start_idx, u64 end, const PolyCtx& p,
+                          u64* out_nice, u64 cap, u64* nice_count) {
+    const FastCtx& c = *p.fc;
+    const u64 M = p.modulus, d3 = c.d3;
+    const u64 F = p.mdiv * p.mdiv;
+    const u64 num = p.rr.size();
+    u64 found = 0;
+    u64 q = first / M;
+    // High-digit shortcut: Z = F*Q1 + t3 where F*Q1 is a per-wrap constant
+    // and t3 < ~2*(M/d3)*end/d3^2. Splitting F*Q1 = d3^2*H + hiL, the
+    // candidate-varying part Y = hiL + t3 spans exactly two 3-digit blocks
+    // plus a carry c into H of at most 1 (guaranteed by the gate below), so
+    // the per-candidate peel is TWO divides plus a lookup of the per-wrap
+    // digit masks of H and H+1 — instead of a variable lockstep round loop
+    // over ~4 more blocks. H >= 1 keeps those two blocks full-width.
+    u64 d3sq = d3 * d3;
+    u64 t3_max = (u64)((u128)2 * p.mdiv * (end + M) / d3 / d3) + 2 * F + 2;
+    bool use_hi = t3_max < d3sq && first / d3 / d3sq >= 1;
+    u64 FQ1 = 0, FR1 = 0, q2m = 0;
+    u64 hiL = 0, hi_mask[2] = {0, 0}, hi_okf[2] = {0, 0};
+    auto wrap_setup = [&]() {
+        u64 a = magic_div(q, c.m_d3), r = q - a * d3;
+        u64 rr = r * r;
+        u64 t = magic_div(rr, c.m_d3), R1 = rr - t * d3;
+        u64 Q1 = d3 * a * a + 2 * a * r + t;
+        FQ1 = F * Q1;
+        FR1 = F * R1;
+        q2m = 2 * p.mdiv * q;
+        if (use_hi) {
+            u64 H = FQ1 / d3sq;
+            hiL = FQ1 - H * d3sq;
+            value_digit_mask(H, c, &hi_mask[0], &hi_okf[0]);
+            value_digit_mask(H + 1, c, &hi_mask[1], &hi_okf[1]);
+        }
+    };
+    wrap_setup();
+    // use_hi also requires H >= 1 on every wrap; q (hence FQ1) only grows,
+    // so probing the FIRST wrap suffices — but FQ1 is only known after
+    // wrap_setup, so re-check and recompute once if the probe was wrong.
+    if (use_hi && FQ1 / d3sq < 1) {
+        use_hi = false;
+        wrap_setup();
+    }
+    u64 idx = start_idx;
+    u64 n = first;
+    u64 lanes[PL], lidx[PL];
+    constexpr u64 LO32 = 0xFFFFFFFFULL;
+    auto advance = [&]() {
+        if (++idx == num) {
+            idx = 0;
+            ++q;
+            wrap_setup();
+            n = q * M + (p.rr[0] & LO32);
+        } else {
+            n += (p.rr[idx] & LO32) - (p.rr[idx - 1] & LO32);
+        }
+    };
+    u64 seen[PL], okm[PL], Z[PL];
+    while (n < end) {
+        int kk = 0;
+        u64 lC[PL], lFR1[PL], lFQ1[PL];
+        while (kk < PL && n < end) {
+            u64 sd = p.seed[idx];
+            u64 rrv = p.rr[idx];
+            if (sd == 0) {  // residue provably dead: skip the lane slot
+                advance();
+                continue;
+            }
+            lanes[kk] = n;
+            lidx[kk] = idx;
+            lC[kk] = q2m * (rrv & LO32) + (rrv >> 32);
+            seen[kk] = sd;
+            lFR1[kk] = FR1;
+            lFQ1[kk] = FQ1;
+            ++kk;
+            advance();
+        }
+        for (int j = kk; j < PL; ++j) {  // tail: idle lanes peel zeros
+            lC[j] = lFR1[j] = lFQ1[j] = seen[j] = 0;
+        }
+        // Blocks 1 and 2 (block 0 came precomputed in the seed): one magic
+        // divide each, all four lanes' chains interleaving as straight-line
+        // code. Tracking is branch-free: a duplicate clears the lane's okm
+        // word; seen keeps accumulating harmlessly afterwards. The 3-digit
+        // block classifies through the L1-resident table2 plus one extra
+        // divide for its top digit — table3's base^3-sized random loads sat
+        // on the serial seen-chain and dominated the whole kernel.
+        auto track = [&](int j, u64 r) {
+            u64 d2 = magic_div(r, c.m_b2);
+            u64 m2 = c.table2[r - d2 * c.b2];
+            u64 bit = (u64)1 << d2;
+            u64 mask = m2 | bit;
+            u64 bad = (u64)0 - (u64)((m2 == 0) | ((m2 & bit) != 0) |
+                                     ((seen[j] & mask) != 0));
+            okm[j] &= ~bad;
+            seen[j] |= mask;
+        };
+        if (use_hi) {
+            // Blocks 1-4 are four straight-line divides per lane; the
+            // square's remaining high digits come from the per-wrap H masks
+            // (carry selected by whether Y overflowed its two blocks).
+            for (int j = 0; j < PL; ++j) {
+                okm[j] = ~(u64)0;
+                u64 X = lC[j];
+                u64 t2 = magic_div(X, c.m_d3);
+                track(j, X - t2 * d3);
+                u64 X2 = lFR1[j] + t2;
+                u64 t3 = magic_div(X2, c.m_d3);
+                track(j, X2 - t3 * d3);
+                u64 Y = hiL + t3;
+                u64 y1 = magic_div(Y, c.m_d3);
+                track(j, Y - y1 * d3);
+                u64 cf = (u64)(y1 >= d3);
+                track(j, y1 - (d3 & ((u64)0 - cf)));
+                u64 hm = hi_mask[cf];
+                u64 bad = (~hi_okf[cf]) |
+                          ((u64)0 - (u64)((seen[j] & hm) != 0));
+                okm[j] &= ~bad;
+                seen[j] |= hm;
+            }
+        } else {
+            for (int j = 0; j < PL; ++j) {
+                okm[j] = ~(u64)0;
+                u64 X = lC[j];
+                u64 t2 = magic_div(X, c.m_d3);
+                track(j, X - t2 * d3);
+                u64 X2 = lFR1[j] + t2;
+                u64 t3 = magic_div(X2, c.m_d3);
+                track(j, X2 - t3 * d3);
+                Z[j] = lFQ1[j] + t3;
+            }
+            // Remaining full blocks in lockstep rounds so the four quotient
+            // chains overlap; lanes below base^3 hold their value (top
+            // partial block, peeled digit-wise afterwards).
+            for (;;) {
+                u64 any_z = 0, any_ok = 0;
+                for (int j = 0; j < PL; ++j) {
+                    any_z |= (u64)(Z[j] >= d3);
+                    any_ok |= okm[j];
+                }
+                if (!any_z || !any_ok) break;
+                for (int j = 0; j < PL; ++j) {
+                    u64 v = Z[j];
+                    u64 q0 = magic_div(v, c.m_d3);
+                    u64 r = v - q0 * d3;
+                    u64 ge = (u64)0 - (u64)(v >= d3);
+                    u64 d2 = magic_div(r, c.m_b2);
+                    u64 m2 = c.table2[r - d2 * c.b2];
+                    u64 bit = (u64)1 << d2;
+                    u64 mask = m2 | bit;
+                    u64 bad = ((u64)0 -
+                               (u64)((m2 == 0) | ((m2 & bit) != 0) |
+                                     ((seen[j] & mask) != 0))) &
+                              ge;
+                    okm[j] &= ~bad;
+                    seen[j] |= mask & ge;
+                    Z[j] = (q0 & ge) | (v & ~ge);
+                }
+            }
+        }
+        for (int j = 0; j < kk; ++j) {
+            if (okm[j] != 0 &&
+                (use_hi || peel_top_block(Z[j], c, seen[j])) &&
+                cube_survives_skip0(lanes[j], c, seen[j])) {
+                u64 c2[2] = {lanes[j], 0};
+                if (is_nice_impl(c2, c.base)) {
+                    if (found < cap) {
+                        out_nice[found * 2] = lanes[j];
+                        out_nice[found * 2 + 1] = 0;
+                    }
+                    ++found;
+                }
+            }
+        }
+    }
+    *nice_count = found;
+}
+
 void iterate_strided_fast(u64 first, u64 start_idx, u64 end, u64 base,
                           const u64* gap_table, u64 num_residues,
                           const FastCtx& ctx, u64* out_nice, u64 cap,
@@ -638,6 +984,32 @@ void iterate_strided_fast(u64 first, u64 start_idx, u64 end, u64 base,
 
 extern "C" {
 
+// Detailed range loop over [start, start+count). hist must hold base+2 u64
+// slots. Near misses (num_uniques > cutoff) append (n_lo, n_hi, uniques)
+// triples to out_misses (capacity cap triples); the true count is returned
+// via *miss_count (callers re-run with a bigger buffer if it exceeds cap —
+// the reference treats overflow as a hard error, client_process_gpu.rs:859).
+void nice_process_range_detailed(u64 start_lo, u64 start_hi, u64 count,
+                                 u64 base, u64 cutoff, u64* hist,
+                                 u64* out_misses, u64 cap, u64* miss_count) {
+    u64 n[2] = {start_lo, start_hi};
+    u64 misses = 0;
+    for (u64 i = 0; i < count; ++i) {
+        int uniques = num_unique_digits_impl(n, base);
+        hist[uniques] += 1;
+        if ((u64)uniques > cutoff) {
+            if (misses < cap) {
+                out_misses[misses * 3] = n[0];
+                out_misses[misses * 3 + 1] = n[1];
+                out_misses[misses * 3 + 2] = (u64)uniques;
+            }
+            ++misses;
+        }
+        add_2(n, 1);
+    }
+    *miss_count = misses;
+}
+
 // Niceonly stride iteration over [start, end): start at the first valid
 // candidate at-or-after start (residue index start_idx, computed host-side
 // by the Python stride table), jump via the gap table, early-exit check each
@@ -674,6 +1046,58 @@ void nice_iterate_range_strided(u64 first_lo, u64 first_hi, u64 start_idx,
         if (++idx == num_residues) idx = 0;
     }
     *nice_count = found;
+}
+
+// Polynomial-residue strided iteration (k >= 3 stride tables; see PolyCtx
+// above). Sets *used_poly to 1 and fills results when eligible; leaves it 0
+// (results untouched) when the caller should use the generic entry point.
+// Eligibility guards the u64 arithmetic: modulus a multiple of base^3 and
+// < 2^32; first/end below 2^64; 2*(M/d3)*q*res and F*Q1 must fit u64.
+void nice_iterate_range_strided_poly(u64 first_lo, u64 first_hi, u64 start_idx,
+                                     u64 end_lo, u64 end_hi, u64 base,
+                                     u64 modulus, const u32* residues,
+                                     u64 num_residues, u64* out_nice, u64 cap,
+                                     u64* nice_count, int* used_poly) {
+    *used_poly = 0;
+    if (first_hi != 0 || end_hi != 0 || base < 4 || base > FAST_BASE_MAX ||
+        num_residues == 0 || first_lo < base * base) {
+        return;  // first >= base^2 keeps the low sq/cube blocks full-width
+    }
+    u64 d3 = base * base * base;
+    if (modulus % d3 != 0 || modulus >= ((u64)1 << 32)) return;
+    // Require n >= base^4.5 (first^2 >= d3^3 == base^9): below that, n^2 has
+    // fewer than three full base^3 blocks and the fixed block-1/2 decompose
+    // misclassifies digits. Small n fall back to the generic limb loop.
+    if ((u128)first_lo * first_lo < (u128)d3 * d3 * d3) return;
+    // 2*(M/d3)*q*res < 2*(base-1)*base^(k-3)*...*n stays under 2^63 when
+    // end * 2 * (M/d3) * (d3 margin) does; and F*Q1 ~ end^2 / d3^3 < 2^62.
+    u64 mdiv = modulus / d3;
+    u128 e = end_lo;
+    // X = F*R1 + 2*(M/d3)*q*res + r2d must fit u64: q*res < n < end, and
+    // F*R1 < (M/d3)^2 * d3.
+    if ((((u128)2 * mdiv) * (e + modulus) + (u128)mdiv * mdiv * d3) >> 64)
+        return;
+    // Z = F*Q1 + t3 ~ end^2/d3^3 + 2^47 must stay comfortably inside u64.
+    if ((e * e) / ((u128)d3 * d3 * d3) + ((u128)1 << 48) >= ((u128)1 << 63))
+        return;
+    const PolyCtx* p = get_poly_ctx(base, modulus, residues, num_residues);
+    if (p == nullptr || !g_fast_enabled) return;
+    if (start_idx >= p->rr.size() ||
+        first_lo % modulus != (p->rr[start_idx] & 0xFFFFFFFFULL)) {
+        return;  // caller/table mismatch: use the generic loop
+    }
+    iterate_strided_poly<POLY_LANES>(first_lo, start_idx, end_lo, *p,
+                                     out_nice, cap, nice_count);
+    *used_poly = 1;
+}
+
+// Test hook: force the generic strided loop (differential tests compare the
+// fast filter against it over identical ranges). Returns the previous value.
+int nice_strided_fast_enabled(int enable) {
+    std::lock_guard<std::mutex> lock(g_fast_mutex);
+    int prev = g_fast_enabled ? 1 : 0;
+    g_fast_enabled = enable != 0;
+    return prev;
 }
 
 // Recursive MSD filter. Returns an opaque handle; read size + data, then free.

@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from nice_tpu_torch import native
-from nice_tpu_torch.core import base_range
+from nice_tpu_torch.core import base_range, number_stats
 from nice_tpu_torch.core.types import (
     FieldResults,
     FieldSize,
@@ -86,7 +86,9 @@ MEGALOOP_SEGMENT_DEFAULT = 8
 RARE_SCAN_BATCH = 1 << 20
 SURVIVOR_CAP = 4096
 
-BACKENDS = ("device", "scalar")
+# device: the kernels (or their plain versions on the CPU); scalar: the
+# Python-int oracle; native: the host library on a thread pool.
+BACKENDS = ("device", "scalar", "native")
 
 
 def resolve_device(device) -> torch.device:
@@ -678,12 +680,16 @@ def process_range_detailed(
     checkpoint_batches: int | None = None,
     checkpoint_secs: float | None = None,
     feed_depth: int = FEED_DEPTH_DEFAULT,
+    threads: int | None = None,
 ) -> FieldResults:
     """Histogram (bins 1..base) and near-miss list of a field, exact.
 
     device: "cuda" (the default) runs the kernels; "cpu" runs their plain
     PyTorch versions, through the same feed, window, ticker and markers.
-    backend "scalar" runs the Python-int oracle instead (no checkpoints).
+    backend "scalar" runs the Python-int oracle instead, in resumable
+    chunks of batch_size numbers when it checkpoints or resumes
+    (_chunked_host_scan); backend "native" runs the host library on a pool
+    of `threads` (None: one a core), and neither checkpoints nor resumes.
     batch_size, segment and use_mxu (1: K5 in place of K1) resolve through
     resolve_tuning: the argument, else the tuned winner, else the default.
     feed_depth: segments the feed thread prepares ahead (0: inline).
@@ -698,13 +704,22 @@ def process_range_detailed(
     in. resume takes such a state (from this engine or the JAX engine) and
     finishes the field without recomputing slivers. A failure in the feed,
     a kernel or the collector (checkpoint_cb included) is raised here, with
-    every thread joined."""
+    every thread joined. A range wholly outside the base's valid range runs
+    on the scalar oracle (chunked when it checkpoints or resumes)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+    if backend == "native":
+        _native_refuses_state(checkpoint_cb, resume)
+        return _native_detailed(range_, base, resolve_threads(threads),
+                                progress)
     if backend == "scalar":
-        if checkpoint_cb is not None or resume is not None:
-            raise ValueError("backend 'scalar' neither checkpoints nor resumes")
-        return scalar.process_range_detailed(range_, base)
+        if checkpoint_cb is None and resume is None:
+            return scalar.process_range_detailed(range_, base)
+        chunk = resolve_tuning("detailed", base, "cpu", batch_size,
+                               backend="scalar")[0]
+        return _chunked_host_scan(range_, base, "detailed", chunk, progress,
+                                  checkpoint_cb, resume, checkpoint_batches,
+                                  checkpoint_secs)
     dev = resolve_device(device)
     batch_size, seg, arm = resolve_tuning("detailed", base, dev, batch_size,
                                           segment, use_mxu)
@@ -714,12 +729,11 @@ def process_range_detailed(
 
     pre, core, post = _clamp_to_base_range(range_, base)
     if core is None:
-        if resume is not None or checkpoint_cb is not None:
-            raise ValueError(
-                f"range {range_} lies outside base {base}'s valid range; "
-                "only the scalar oracle scans it (no checkpoints)"
-            )
-        return scalar.process_range_detailed(range_, base)
+        if resume is None and checkpoint_cb is None:
+            return scalar.process_range_detailed(range_, base)
+        return _chunked_host_scan(range_, base, "detailed", batch_size,
+                                  progress, checkpoint_cb, resume,
+                                  checkpoint_batches, checkpoint_secs)
     plan = get_plan(base)
     if not ce.supports_base(plan):
         raise ValueError(f"base {base} exceeds the kernels' histogram")
@@ -1268,8 +1282,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
         s.ctrl.observe(host_busy[0] / eff, dev_busy[0], core.size())
     LAST_NICEONLY_STATS.clear()
     LAST_NICEONLY_STATS.update(
-        base=base, start=core.start(), end=core.end(), wall=wall,
-        msd_busy=host_busy[0], floor=s.floor, ranges=n_ranges[0],
+        route="device", base=base, start=core.start(), end=core.end(),
+        wall=wall, msd_busy=host_busy[0], floor=s.floor, ranges=n_ranges[0],
         collect_busy=dev_busy[0], k=s.k, periods=periods,
         descriptors=n_desc, groups=n_groups, gen=t_gen, disp=t_disp,
         put=t_put, nice=len(nice), filter_threads=filter_threads,
@@ -1413,8 +1427,9 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     done = sum(v for _, v in runs)
     LAST_NICEONLY_STATS.clear()
     LAST_NICEONLY_STATS.update(
-        base=base, start=core.start(), end=core.end(), msd_secs=msd_secs,
-        floor=floor, ranges=len(segments), loop_secs=loop_secs,
+        route="device", base=base, start=core.start(), end=core.end(),
+        msd_secs=msd_secs, floor=floor, ranges=len(segments),
+        loop_secs=loop_secs,
         runs=len(runs), lanes=done, kept=tally["kept"],
         pruned=tally["pruned"], classes=int(classes.shape[0]),
         launches=ce.LAUNCHES[kernel] - launches0, batch_size=batch_size,
@@ -1446,18 +1461,29 @@ def process_range_niceonly(
     checkpoint_batches: int | None = None,
     checkpoint_secs: float | None = None,
     feed_depth: int = FEED_DEPTH_DEFAULT,
+    threads: int | None = None,
+    host_niceonly_max: int | None = None,
 ) -> FieldResults:
     """The nice numbers of a field (distribution empty), exact.
 
     device: "cuda" (the default) runs the kernels; "cpu" runs their plain
-    PyTorch versions. backend "scalar" runs the Python-int oracle instead
-    (no checkpoints). Out-of-range slivers go to the oracle. Bases of at
-    most 4 u32 limbs (b10-b97) take the strided pipeline (K3); bases above
-    (b98 and up) the dense loop (K4, _niceonly_dense). batch_size, segment
-    and use_mxu (1: K5 in place of K4) shape the dense loop's runs through
-    resolve_tuning; the strided pipeline's shapes come from the MSD floor
-    (K3 has no tensor-core arm), and it takes none of them; feed_depth is
-    the dense loop's (runs its feed thread prepares ahead, 0: inline).
+    PyTorch versions. backend "scalar" runs the Python-int oracle instead,
+    in resumable chunks of batch_size numbers when it checkpoints or
+    resumes; backend "native" the host library's filter cascade on a pool
+    of `threads` (None: one a core), which neither checkpoints nor resumes.
+    Out-of-range slivers go to the oracle, and so does a range wholly
+    outside the base's valid range (chunked when it checkpoints or
+    resumes). Bases of at most 4 u32 limbs (b10-b97) take the strided
+    pipeline (K3), except that a core of at most host_niceonly_max numbers
+    that the polynomial-residue kernel's gate admits goes to the host
+    engine on `threads` (the host route; None: HOST_NICEONLY_MAX on a CUDA
+    device, 0 on the CPU); LAST_NICEONLY_STATS["route"] says which ran.
+    Bases above (b98 and up) take the dense loop (K4, _niceonly_dense).
+    batch_size, segment and use_mxu (1: K5 in place of K4) shape the dense
+    loop's runs through resolve_tuning; the strided pipeline's shapes come
+    from the MSD floor (K3 has no tensor-core arm), and it takes none of
+    them; feed_depth is the dense loop's (runs its feed thread prepares
+    ahead, 0: inline).
     checkpoint_cb fires on a ticker, every checkpoint_batches descriptor
     groups or runs or checkpoint_secs seconds (CKPT_EVERY_BATCHES /
     CKPT_EVERY_SECS when None), from the collector thread.
@@ -1472,19 +1498,26 @@ def process_range_niceonly(
     without recomputing slivers."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+    if backend == "native":
+        _native_refuses_state(checkpoint_cb, resume)
+        return _native_niceonly(range_, base, None, resolve_threads(threads),
+                                progress)
+    chunk = resolve_tuning("niceonly", base, "cpu", batch_size,
+                           backend="scalar")[0]
     if backend == "scalar":
-        if checkpoint_cb is not None or resume is not None:
-            raise ValueError("backend 'scalar' neither checkpoints nor resumes")
-        return scalar.process_range_niceonly(range_, base)
+        if checkpoint_cb is None and resume is None:
+            return scalar.process_range_niceonly(range_, base)
+        return _chunked_host_scan(range_, base, "niceonly", chunk, progress,
+                                  checkpoint_cb, resume, checkpoint_batches,
+                                  checkpoint_secs)
     dev = resolve_device(device)
     pre, core, post = _clamp_to_base_range(range_, base)
     if core is None:
-        if resume is not None or checkpoint_cb is not None:
-            raise ValueError(
-                f"range {range_} lies outside base {base}'s valid range; "
-                "only the scalar oracle scans it (no checkpoints)"
-            )
-        return scalar.process_range_niceonly(range_, base)
+        if resume is None and checkpoint_cb is None:
+            return scalar.process_range_niceonly(range_, base)
+        return _chunked_host_scan(range_, base, "niceonly", chunk, progress,
+                                  checkpoint_cb, resume, checkpoint_batches,
+                                  checkpoint_secs)
 
     nice_numbers: list[NiceNumberSimple] = []
     if resume is None:
@@ -1523,6 +1556,26 @@ def process_range_niceonly(
                         if n.number < pos or n.number >= core_end]
         core = FieldSize(pos, core_end)
 
+    limit = resolve_host_niceonly_max(host_niceonly_max, dev.type)
+    if _host_route_niceonly(core, base, limit):
+        # The host route: the field is small enough that the host library
+        # finishes before the strided pipeline would, and the poly kernel's
+        # gate admits it. A coarse MSD floor keeps the per-range Python and
+        # ctypes overhead small; the filters are those of the strided path.
+        t0 = time.monotonic()
+        n_threads = resolve_threads(threads)
+        routed = _native_niceonly(core, base, None, n_threads, progress,
+                                  msd_floor=max(1 << 20, core.size() // 8))
+        LAST_NICEONLY_STATS.clear()
+        LAST_NICEONLY_STATS.update(
+            route="host", base=base, start=core.start(), end=core.end(),
+            wall=time.monotonic() - t0, threads=n_threads,
+            k=_host_stride_depth(base), nice=len(routed.nice_numbers),
+            first_group=None)
+        nice_numbers.extend(routed.nice_numbers)
+        nice_numbers.sort(key=lambda n: n.number)
+        return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
     found: list[int] = []
     s = strided_setup(base, core.size())
     if s is not None:
@@ -1547,6 +1600,236 @@ def process_range_niceonly(
 
 
 # ---------------------------------------------------------------------------
+# Host engines: the scalar oracle in resumable chunks, the native backend
+# (the host library on a thread pool) and the small-field niceonly host route
+# ---------------------------------------------------------------------------
+
+def _chunked_host_scan(range_: FieldSize, base: int, mode: str, chunk: int,
+                       progress, checkpoint_cb, resume, every_batches,
+                       every_secs) -> FieldResults:
+    """The scalar oracle over the range in resumable chunks of `chunk`
+    numbers: backend "scalar" with a checkpoint_cb or a resume, and a range
+    wholly outside the base's valid range under either (the JAX engine's
+    _chunked_host_scan). A checkpoint state covers every candidate outside
+    its "remaining" segments: {"cursor", "hist" (int64[base + 2], None in
+    niceonly mode), "nice_numbers", "remaining", "filtered"}, on the
+    _CkptTicker cadence, one tick a chunk. A resume state's "filtered"
+    flag (the gaps between its segments were proven empty by the filters)
+    is carried on."""
+    detailed = mode == "detailed"
+    hist = np.zeros(base + 2, dtype=np.int64) if detailed else None
+    nice: list[NiceNumberSimple] = []
+    start, end, total = range_.start(), range_.end(), range_.size()
+    chunk = max(1, chunk)
+    segs = [(start, end)] if total else []
+    filtered = False
+    if resume is not None:
+        segs = _resume_segments(resume, start, end)
+        filtered = bool(resume.get("filtered"))
+        if detailed:
+            if resume.get("hist") is None:
+                raise ValueError("detailed resume state is missing a histogram")
+            h = np.asarray(resume["hist"], dtype=np.int64)
+            if h.shape != hist.shape:
+                raise ValueError(
+                    f"resume histogram shape {h.shape} != {hist.shape}")
+            hist[:] = h
+        nice = [NiceNumberSimple(number=int(n), num_uniques=int(u))
+                for n, u in resume["nice_numbers"]]
+        log.info("%s scalar resume: %d segment(s) remaining (%d of %d "
+                 "numbers already done)", mode, len(segs),
+                 total - sum(e - s for s, e in segs), total)
+    ticker = (_CkptTicker(every_batches, every_secs)
+              if checkpoint_cb is not None else None)
+    done = total - sum(e - s for s, e in segs)
+    while segs:
+        s, e = segs[0]
+        n = min(chunk, e - s)
+        sub = FieldSize(s, s + n)
+        if detailed:
+            part = scalar.process_range_detailed(sub, base)
+            for d in part.distribution:
+                hist[d.num_uniques] += d.count
+        else:
+            part = scalar.process_range_niceonly(sub, base)
+        nice.extend(part.nice_numbers)
+        done += n
+        if s + n >= e:
+            segs.pop(0)
+        else:
+            segs[0] = (s + n, e)
+        if progress is not None:
+            progress(done, total)
+        if ticker is not None and ticker.tick():
+            checkpoint_cb({
+                "cursor": segs[0][0] if segs else end,
+                "hist": None if hist is None else hist.copy(),
+                "nice_numbers": [(x.number, x.num_uniques) for x in nice],
+                "remaining": [[s_, e_] for s_, e_ in segs],
+                "filtered": filtered,
+            })
+    nice.sort(key=lambda x: x.number)
+    if not detailed:
+        return FieldResults(distribution=(), nice_numbers=tuple(nice))
+    distribution = tuple(
+        UniquesDistributionSimple(num_uniques=i, count=int(hist[i]))
+        for i in range(1, base + 1)
+    )
+    return FieldResults(distribution=distribution, nice_numbers=tuple(nice))
+
+
+def _native_refuses_state(checkpoint_cb, resume) -> None:
+    """The native backend's pool has no consistent cursor: it neither
+    resumes (as in the JAX engine) nor checkpoints (the JAX engine ignores
+    a checkpoint_cb; the port refuses it)."""
+    if resume is not None:
+        raise ValueError(
+            "backend 'native' does not support resuming from a checkpoint")
+    if checkpoint_cb is not None:
+        raise ValueError("backend 'native' does not support checkpoints")
+
+
+def resolve_threads(threads: int | None) -> int:
+    """The native backend's pool size: `threads`, else (None or 0) one
+    thread a CPU core (the JAX engine reads NICE_THREADS instead)."""
+    return max(1, threads or os.cpu_count() or 1)
+
+
+def _native_detailed(range_: FieldSize, base: int, threads: int,
+                     progress=None) -> FieldResults:
+    """The native backend's detailed field: the host library's detailed
+    loop over spans of the range on a pool of `threads` (the JAX engine's
+    _native_detailed). The library loads as ctypes.CDLL, so each call
+    releases the GIL and the pool runs in parallel. A base or value the
+    library does not take raises."""
+    native.load()
+    cutoff = number_stats.get_near_miss_cutoff(base)
+    total = range_.size()
+    chunk = max(65536, total // (threads * 8) or 1)
+    spans = [(range_.start() + off, min(chunk, total - off))
+             for off in range(0, total, chunk)]
+    hist = np.zeros(base + 2, dtype=np.int64)
+    nice_numbers: list[NiceNumberSimple] = []
+    done = 0
+    with ThreadPoolExecutor(max_workers=threads,
+                            thread_name_prefix="nice-native") as pool:
+        for span_, (sub_hist, misses) in zip(spans, pool.map(
+                lambda sp: native.process_range_detailed(sp[0], sp[1], base,
+                                                         cutoff), spans)):
+            hist += np.asarray(sub_hist, dtype=np.int64)
+            nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=u)
+                                for n, u in misses)
+            done += span_[1]
+            if progress is not None:
+                progress(done, total)
+    nice_numbers.sort(key=lambda n: n.number)
+    distribution = tuple(
+        UniquesDistributionSimple(num_uniques=i, count=int(hist[i]))
+        for i in range(1, base + 1)
+    )
+    return FieldResults(distribution=distribution,
+                        nice_numbers=tuple(nice_numbers))
+
+
+def _host_stride_depth(base: int) -> int:
+    """The deepest CRT table worth building for host iteration (the JAX
+    engine's _host_stride_depth): a deeper k strictly shrinks the candidate
+    fraction, bounded by the table's memory and build time (about 16 bytes
+    a residue) and the kernels' u32 modulus."""
+    best = 1
+    for k in (2, 3):
+        if (base - 1) * base**k >= 1 << 25:
+            break
+        if stride_filter.stride_residue_count(base, k) > 2_000_000:
+            break
+        best = k
+    return best
+
+
+def _native_niceonly(range_: FieldSize, base: int, stride_table,
+                     threads: int, progress=None,
+                     msd_floor: int | None = None) -> FieldResults:
+    """The native filter cascade (the JAX engine's _native_niceonly): the
+    host library's MSD filter, then its stride iteration over each surviving
+    range with `stride_table` (None: the table at _host_stride_depth),
+    through the polynomial-residue kernel where it takes the table and the
+    range, fanned over a pool of `threads`.
+
+    msd_floor overrides the MSD recursion floor: the small-field host route
+    passes a coarse one, so that the per-range Python and ctypes overhead
+    stays small beside the library's per-candidate time."""
+    native.load()
+    table = stride_table
+    if table is None:
+        table = stride_filter.get_stride_table(base, _host_stride_depth(base))
+    if table.num_residues == 0:
+        return FieldResults(distribution=(), nice_numbers=())
+    gaps, modulus, residues = table.gap_array, table.modulus, table.residues_u32
+
+    def run(sub: FieldSize) -> list[int]:
+        first, idx = table.first_valid_at_or_after(sub.start())
+        if first >= sub.end():
+            return []
+        return native.iterate_range_strided(first, idx, sub.end(), base, gaps,
+                                            modulus=modulus, residues=residues)
+
+    if msd_floor is not None:
+        ranges = msd_filter.get_valid_ranges(
+            range_, base, min_range_size=msd_floor,
+            max_depth=_msd_depth_for(range_.size(), msd_floor))
+    else:
+        ranges = msd_filter.get_valid_ranges(range_, base)
+    total = sum(r.size() for r in ranges)
+    done = 0
+    nice_numbers: list[NiceNumberSimple] = []
+    with ThreadPoolExecutor(max_workers=threads,
+                            thread_name_prefix="nice-native") as pool:
+        for sub, found in zip(ranges, pool.map(run, ranges)):
+            nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
+                                for n in found)
+            done += sub.size()
+            if progress is not None:
+                progress(done, total)
+    nice_numbers.sort(key=lambda n: n.number)
+    return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
+
+# The largest niceonly core (numbers) that process_range_niceonly sends to
+# the host route on the card when the polynomial-residue kernel's gate
+# admits it. The JAX engine's 1 << 25 was set for a TPU's readback round
+# trip; this value was measured on the card's machine (an H100 host with 8
+# cores; scripts/host_route_sweep.py, also chip_smoke.py's host_engines
+# phase): the largest power of two from 2^20 to 2^27 at which the host
+# route's median is no slower than K3's on b50 fields. The two tied at 2^20
+# (0.45-1.17 of K3's time over seven runs) and the host lost from 2^21 up
+# (1.2-10 times slower), so the route is off by default; host_niceonly_max
+# turns it on.
+HOST_NICEONLY_MAX = 0
+
+
+def resolve_host_niceonly_max(limit: int | None, device_type: str) -> int:
+    """The host route's limit of one field: `limit`, else HOST_NICEONLY_MAX
+    on a CUDA device and 0 (no route) on the CPU, whose strided path exists
+    to run K3's plain version."""
+    if limit is not None:
+        return max(0, int(limit))
+    return HOST_NICEONLY_MAX if device_type == "cuda" else 0
+
+
+def _host_route_niceonly(core: FieldSize, base: int, limit: int) -> bool:
+    """Whether a niceonly core of at most `limit` numbers goes to the host
+    engine: the JAX engine's _host_route_niceonly with its limit as an
+    argument, mirroring the fast path's eligibility in nice_native.cpp
+    (candidates and digit masks in u64, the poly kernel's u64 bounds)."""
+    if core.size() > limit:
+        return False
+    if base > 64 or core.end() >= (1 << 63) // (base - 1):
+        return False
+    d3 = base**3
+    return core.end() ** 2 < (1 << 62) * d3**3
+
+
+# ---------------------------------------------------------------------------
 # Warm-up: a field's builds, made before the field runs
 # ---------------------------------------------------------------------------
 
@@ -1566,12 +1849,16 @@ def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
     arm). The JAX engine's warm_detailed compiles the executables of the
     field's tuned shape; here either arm of any shape runs from these two
     libraries, so no tuning is resolved. On the CPU (the plain versions) and
-    for the scalar oracle there is nothing to build.
+    for the scalar oracle there is nothing to build; the native backend
+    loads the host library.
 
     No kernel launch and no torch call: the client's prefetch runs this on
     its own thread while another field runs, and nvcc runs as a subprocess.
     A failed build raises; the field's own first launch would build again
     and raise too."""
+    if backend == "native":
+        native.load()
+        return
     if backend == "scalar" or _device_type(device) == "cpu":
         return
     plan = get_plan(base)
@@ -1582,19 +1869,45 @@ def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
         ce.plan_library(plan)
 
 
+def _warm_probe_routes(base: int, field_size: int, field_start, limit: int
+                       ) -> bool:
+    """Whether a niceonly field of field_size numbers at field_start (None:
+    the top of the base's range) would take the host route."""
+    br = base_range.get_base_range(base)
+    if not field_size or br is None or br[1] <= br[0]:
+        return False
+    if field_start is not None:
+        probe = FieldSize(max(br[0], min(field_start, br[1] - 1)),
+                          max(br[0] + 1, min(field_start + field_size, br[1])))
+    else:
+        probe = FieldSize(max(br[0], br[1] - field_size), br[1])
+    return _host_route_niceonly(probe, base, limit)
+
+
 def warm_niceonly(base: int, field_size: int = 0, *, device="cuda",
-                  backend: str = "device") -> None:
+                  backend: str = "device", field_start: int | None = None,
+                  host_niceonly_max: int | None = None) -> None:
     """Make what a niceonly field of this base and size needs before its
     first number: the host library of the MSD filter; at the strided bases
     (b10-b97) the field's strided setup (MSD floor, stride depth and table,
     as strided_setup derives them from field_size) and, on the card, the
     base's own library (K3); above b97 the main library (K4, K5 and K2).
-    The host work runs on the CPU too. No kernel launch and no torch call
-    (see warm_detailed); a failed build raises."""
+    A field that would take the host route (probed at field_start when
+    given, else at the top of the base's range, the gate's worst case)
+    gets the host stride table at _host_stride_depth instead, and no
+    library of the base; so does the native backend. The host work runs on
+    the CPU too. No kernel launch and no torch call (see warm_detailed); a
+    failed build raises."""
     if backend == "scalar":
         return
-    on_card = _device_type(device) == "cuda"
+    kind = _device_type(device)
+    on_card = kind == "cuda"
     native.load()
+    if backend == "native" or _warm_probe_routes(
+            base, field_size, field_start,
+            resolve_host_niceonly_max(host_niceonly_max, kind)):
+        stride_filter.get_stride_table(base, _host_stride_depth(base))
+        return
     plan = get_plan(base)
     if plan.limbs_n > 4:
         if on_card:

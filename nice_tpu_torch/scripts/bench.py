@@ -14,10 +14,11 @@ Every pass must give the same results. Beside the timing a line carries
 the kernels' launches per field (cuda_engine.LAUNCHES, the last pass), the
 feed stats of the detailed and dense loops (engine.LAST_FEED_STATS), the
 niceonly pipeline's split (engine.LAST_NICEONLY_STATS: MSD busy seconds,
-descriptors, groups), the distribution (detailed) and the nice numbers or
-near misses. Detailed extra-large also times feed depth 0 against the
-default (`feed_ab`); detailed hi-base times K1 against K5 on one slice
-(`mxu_ab`). Every line names the card as nvidia-smi gives it (name, power
+descriptors, groups) and its `route` ("host" where the engine's default
+host_niceonly_max sends the field to the host library, else "device"),
+the distribution (detailed) and the nice numbers or near misses. Detailed
+extra-large also times feed depth 0 against the default (`feed_ab`);
+detailed hi-base times K1 against K5 on one slice (`mxu_ab`). Every line names the card as nvidia-smi gives it (name, power
 limit) and the torch, CUDA and driver versions; a run with --device cpu
 runs the kernels' plain versions and is marked "witness": "cpu": a
 correctness witness, not a speed. Without a card and without --device cpu
@@ -178,7 +179,8 @@ class _Field:
         if self.kind == "detailed":
             engine.warm_detailed(self.base, device=self.dev)
         else:
-            engine.warm_niceonly(self.base, self.size, device=self.dev)
+            engine.warm_niceonly(self.base, self.size, device=self.dev,
+                                 field_start=self.range.start())
 
     def run(self, **kw):
         """(results, seconds, launches) of one pass."""
@@ -250,6 +252,7 @@ def run_case(mode: str, kind: str, args, dev: torch.device) -> dict:
         line["feed_stats"] = dict(engine.LAST_FEED_STATS)
     else:
         line["niceonly_stats"] = _plain(engine.LAST_NICEONLY_STATS)
+        line["route"] = engine.LAST_NICEONLY_STATS.get("route")
         if get_plan(f.base).limbs_n > 4:
             line["feed_stats"] = dict(engine.LAST_FEED_STATS)
     if (mode, kind) == ("extra-large", "detailed"):

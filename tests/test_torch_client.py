@@ -147,7 +147,8 @@ def test_port_imports_neither_jax_nor_nice_tpu():
     # runs in a fresh interpreter that imports every module of the port.
     # It imports every module, then runs niceonly fields (the host
     # library's build, the strided pipeline at b10, the dense loop at b98)
-    # and a detailed one.
+    # and a detailed one, and the host engines: the native backend, the
+    # niceonly host route and the scalar oracle's chunked checkpoints.
     code = (
         "import importlib, pkgutil, sys\n"
         "import nice_tpu_torch\n"
@@ -162,6 +163,12 @@ def test_port_imports_neither_jax_nor_nice_tpu():
         "engine.process_range_niceonly(FieldSize(lo, lo + 5000), 98, device='cpu')\n"
         "assert engine.LAST_NICEONLY_STATS['runs'] > 0\n"
         "engine.process_range_detailed(FieldSize(47, 100), 10, device='cpu')\n"
+        "engine.process_range_detailed(FieldSize(47, 100), 10, backend='native')\n"
+        "engine.process_range_niceonly(FieldSize(47, 100), 10, device='cpu',\n"
+        "                              host_niceonly_max=1 << 25)\n"
+        "assert engine.LAST_NICEONLY_STATS['route'] == 'host'\n"
+        "engine.process_range_niceonly(FieldSize(47, 100), 10, backend='scalar',\n"
+        "                              checkpoint_cb=lambda st: None)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'nice_tpu'))\n"
         "mods = sorted(k for k in sys.modules if k.startswith('nice_tpu_torch'))\n"

@@ -360,8 +360,11 @@ def test_niceonly_engine_on_card_equals_cpu(card):
                               (40, 3621949012977, 3621949612977, 4096)]:
         adaptive_floor.reset_for_tests(pinned=floor)
         ce.reset_launches()
+        # host_niceonly_max=0 holds these small fields on K3 whatever the
+        # host route's default limit.
         on_card = engine.process_range_niceonly(FieldSize(s, e), base,
-                                                device=card)
+                                                device=card,
+                                                host_niceonly_max=0)
         assert ce.LAUNCHES["strided_niceonly"] > 0
         assert on_card == engine.process_range_niceonly(
             FieldSize(s, e), base, device="cpu")
@@ -721,3 +724,46 @@ def test_block_iteration_on_card(card, tmp_path):
     finally:
         server.terminate()
         server.wait(timeout=30)
+
+
+def test_small_b50_field_takes_the_default_route_on_card(card):
+    # A b50 field of 2^20 from the msd-ineffective cell's start: with the
+    # default limit it takes the host route (no K3 launch) when
+    # HOST_NICEONLY_MAX admits it, and equals the K3 path.
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+
+    start = get_benchmark_field(BenchmarkMode.MSD_INEFFECTIVE).range_start
+    field = FieldSize(start, start + (1 << 20))
+    ce.reset_launches()
+    k3 = engine.process_range_niceonly(field, 50, device=card,
+                                       host_niceonly_max=0)
+    assert engine.LAST_NICEONLY_STATS["route"] == "device"
+    assert ce.LAUNCHES["strided_niceonly"] >= 1
+    ce.reset_launches()
+    default = engine.process_range_niceonly(field, 50, device=card)
+    routed = engine.HOST_NICEONLY_MAX >= field.size()
+    assert engine.LAST_NICEONLY_STATS["route"] == ("host" if routed
+                                                   else "device")
+    assert (ce.LAUNCHES["strided_niceonly"] == 0) == routed
+    assert default == k3
+    ce.reset_launches()
+    assert engine.process_range_niceonly(field, 50, device=card,
+                                         host_niceonly_max=1 << 27) == k3
+    assert ce.LAUNCHES["strided_niceonly"] == 0
+
+
+def test_native_fields_equal_the_card(card):
+    lo = get_plan(40).range_start
+    field = FieldSize(lo, lo + 2_000_000)
+    assert engine.process_range_detailed(field, 40, backend="native") == \
+        engine.process_range_detailed(field, 40, device=card)
+    mid = 3621949012977
+    field = FieldSize(mid, mid + 600_000)
+    adaptive_floor.reset_for_tests(pinned=4096)
+    try:
+        assert engine.process_range_niceonly(field, 40, backend="native",
+                                             threads=4) == \
+            engine.process_range_niceonly(field, 40, device=card,
+                                          host_niceonly_max=0)
+    finally:
+        adaptive_floor.reset_for_tests()

@@ -205,9 +205,14 @@ def test_scalar_backend_limits_and_no_silent_cpu():
     rng = FieldSize(47, 100)
     assert engine.process_range_niceonly(rng, 10, backend="scalar") == \
         scalar.process_range_niceonly(rng, 10)
-    with pytest.raises(ValueError):
-        engine.process_range_niceonly(rng, 10, backend="scalar",
-                                      checkpoint_cb=print)
+    # The oracle checkpoints in chunks (tests/test_torch_scalar_ckpt.py
+    # holds its states against the JAX engine's).
+    states = []
+    assert engine.process_range_niceonly(
+        rng, 10, backend="scalar", checkpoint_cb=states.append,
+        batch_size=20, checkpoint_batches=1) == \
+        scalar.process_range_niceonly(rng, 10)
+    assert [st["cursor"] for st in states] == [67, 87, 100]
     lo98 = base_range.get_base_range(98)[0]
     b98 = FieldSize(lo98, lo98 + 100)  # 5 limbs: the dense path
     assert engine.process_range_niceonly(b98, 98, device="cpu") == \
