@@ -110,7 +110,12 @@ Phases, each of which raises (exit code 1) on failure:
      separate process (python -m nice_tpu.server, seeded with b40 fields of
      1e9), one detailed and one niceonly single-shot client run on the card
      against it; both submits must be accepted and the server's spot check
-     must pass;
+     must pass. The detailed run has the observability layer's telemetry
+     beat (--telemetry-secs 1), --stepprof and a local --metrics-port: the
+     server's /status fleet must list the client with the field's numbers,
+     /critpath must see its phase breakdown, the field's timeline must hold
+     its phases event, every submit must carry the claim's traceparent, and
+     the client's /metrics must count K1's launches as detailed dispatches;
   8a. fleet, on the same server: the client's main with --claim-block 3 and
      --api-base naming a dead port before the live server (the launch
      counts set to 0 just before and read just after): it must rotate past
@@ -168,7 +173,15 @@ Phases, each of which raises (exit code 1) on failure:
      field in niceonly mode, under torch.profiler, for the device's busy
      and idle share of each wall time (the pipelined loop's); then the
      pipeline phase's fields at feed depth 0 and the default, for the
-     idle share and K1's/K4's device ms at each.
+     idle share and K1's/K4's device ms at each;
+ 12. obs: the extra-large field through process_field three times in each
+     of three settings of the observability layer, in this order: off (no
+     sampler, no heartbeat), the client's defaults (the pyprof, memwatch
+     and history samplers running), and the defaults with --stepprof; the
+     medians, the stepprof buckets and fences (none off the profiler, one
+     a K1 launch on it; K1's launches equal in every setting); a memwatch
+     sample of the card; a --profile-dir run whose Chrome trace holds one
+     K1 device record per K1 launch. The samplers stay off until here.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -220,6 +233,9 @@ SERVER_FIELD_SIZE = 1_000_000_000  # the server's default --field-size
 FLEET_BLOCK = 3  # fields the fleet phase claims under one block lease
 # The bench phase's command line and its headline field's numbers.
 BENCH_ARGV = ("--only", "extra-large", "--reps", "3")
+# The client flags that start no sampler thread (phase_obs's "off").
+SAMPLERS_OFF = ("--pyprof-hz", "0", "--memwatch-secs", "0",
+                "--history-secs", "0")
 BENCH_NUMBERS = 1_000_000_000
 
 # The first descriptor group of each niceonly main-path field, as the
@@ -1817,23 +1833,79 @@ def _await_spot_check(api: str) -> dict:
     return spot
 
 
-def phase_server(report: dict, api: str) -> None:
+def _field_of_claim(db_path: str, claim_id: int) -> int:
+    import sqlite3
+
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute("SELECT field_id FROM claims WHERE id = ?",
+                            (claim_id,)).fetchall()
+    finally:
+        conn.close()
+    check(len(rows) == 1, f"no claim {claim_id} in the server's ledger")
+    return int(rows[0][0])
+
+
+def _poll(fn, what: str, secs: float = 20.0):
+    """fn() until it returns something true, for at most secs."""
+    deadline = time.monotonic() + secs
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.25)
+
+
+def phase_server(report: dict, api: str, db_path: str) -> None:
     """Claim -> process -> submit against the server at `api`: one detailed
-    and one niceonly single-shot client run on the card."""
+    and one niceonly single-shot client run on the card. The detailed one
+    runs with the observability layer's telemetry beat (--telemetry-secs 1),
+    --stepprof and a local metrics port (the registry set to 0 just before):
+    the server's /status fleet must list the client with the field's
+    numbers, its /critpath must see the phase breakdown the snapshot
+    carried, the field's timeline must hold the phases event, every submit
+    must carry the claim's traceparent, and the client's /metrics must
+    count as many detailed dispatches as K1 launched."""
+    from nice_tpu_torch import obs
+    from nice_tpu_torch.client import api_client
     from nice_tpu_torch.client import main as client
     from nice_tpu_torch.core.types import FieldResults
+    from nice_tpu_torch.obs import stepprof, telemetry
     from nice_tpu_torch.ops import cuda_engine as ce
 
     args = client.build_parser().parse_args(
         ["detailed", "--api-base", api, "--username", "chip-smoke",
-         "--device", DEVICE])
+         "--device", DEVICE, "--telemetry-secs", "1", "--stepprof",
+         "--metrics-port", "0", *SAMPLERS_OFF])
+    obs.reset()
+    client.configure_obs(args)
+    sent = []
+    real_request = api_client._request_json
+
+    def request(url, body=None, timeout=None):
+        sent.append((url.split("?")[0].rsplit("/", 1)[-1],
+                     obs.current_traceparent()))
+        return real_request(url, body) if timeout is None else \
+            real_request(url, body, timeout)
+
+    api_client._request_json = request
     ce.reset_launches()
     t0 = time.monotonic()
-    data, sub, resp = client.run_single_iteration(args)
-    elapsed = time.monotonic() - t0
+    try:
+        with client.telemetry_beat(args):
+            data, sub, resp = client.run_single_iteration(args)
+            elapsed = time.monotonic() - t0
+            # One more beat after the submit carries its journal events.
+            time.sleep(1.5)
+    finally:
+        api_client._request_json = real_request
+        stepprof.configure(False)
     launches = dict(ce.LAUNCHES)
     check(resp.get("status") == "OK" and not resp.get("duplicate"),
           f"submit not accepted: {resp}")
+    obs_checks = _server_obs_checks(api, db_path, data, sub, launches, sent,
+                                    telemetry.client_id("chip-smoke"))
     # The server's fields are 1e9 wide except the base's last one.
     check(data.base == SERVER_BASE
           and 0 < data.range_size <= SERVER_FIELD_SIZE,
@@ -1858,7 +1930,7 @@ def phase_server(report: dict, api: str) -> None:
     report["server"] = {"claim_id": data.claim_id, "numbers": data.range_size,
                         "client_secs": elapsed, "launches": launches,
                         "near_misses": len(sub.nice_numbers), "reply": resp,
-                        "spot_checks": spot,
+                        "spot_checks": spot, "obs": obs_checks,
                         "niceonly": {"claim_id": n_data.claim_id,
                                      "range_start": n_data.range_start,
                                      "numbers": n_data.range_size,
@@ -1867,6 +1939,54 @@ def phase_server(report: dict, api: str) -> None:
                                      "nice": len(n_sub.nice_numbers),
                                      "reply": n_resp}}
     emit({"phase": "server", **report["server"]})
+
+
+def _server_obs_checks(api: str, db_path: str, data, sub, launches: dict,
+                       sent: list, client_id: str) -> dict:
+    """The server phase's observability checks (see phase_server)."""
+    from nice_tpu_torch import obs
+    from nice_tpu_torch.obs import series
+
+    def fleet_row():
+        for c in _get_json(api + "/status")["fleet"]["clients"]:
+            if c["client_id"] == client_id:
+                return c
+        return None
+
+    row = _poll(fleet_row, "the client in /status fleet")
+    check(int(row["numbers_total"]) == data.range_size,
+          f"fleet numbers {row['numbers_total']} != {data.range_size}")
+    check(sub.telemetry is not None
+          and sub.telemetry.get("phase_breakdown"),
+          "the submission carried no phase breakdown")
+    util = _poll(lambda: _get_json(api + "/critpath")["utilization"].get(
+        "device_busy"), "a device_busy share in /critpath", 30.0)
+    field_id = _field_of_claim(db_path, data.claim_id)
+
+    def phases_event():
+        tl = _get_json(f"{api}/fields/{field_id}/timeline")["events"]
+        return next((e for e in tl if e["kind"] == "client_phases"), None)
+
+    phases = _poll(phases_event, "the phases event on the field's timeline")
+    submits = [tp for kind, tp in sent if kind == "submit"]
+    check(submits and all(obs.parse_traceparent(tp)
+                          == obs.claim_trace_id(data.claim_id)
+                          for tp in submits),
+          f"a submit without the claim's traceparent: {submits}")
+    port = int(series.METRICS_BOUND_PORT.value())
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=5) as r:
+        text = r.read().decode()
+    m = re.search(r'^nice_engine_dispatches_total\{mode="detailed"\} (\d+)$',
+                  text, re.M)
+    check(m is not None and int(m.group(1)) == launches["detailed_megaloop"],
+          f"/metrics dispatches {m and m.group(1)} != K1's "
+          f"{launches['detailed_megaloop']} launches")
+    return {"fleet_numbers_total": row["numbers_total"],
+            "critpath_device_busy": util, "phases_event": phases["detail"],
+            "submit_traceparents": len(submits),
+            "metrics_port": port, "metrics_dispatches": int(m.group(1)),
+            "requests": sorted({kind for kind, _ in sent})}
 
 
 def _blocks(db_path: str) -> dict:
@@ -1958,9 +2078,11 @@ def phase_fleet(report: dict, api: str, server_dir: str) -> None:
         stamps.append(out.get("X-Nice-Epoch"))
         return out
 
+    # The samplers stay off until phase_obs, which times the field with
+    # and without them (a sampler thread lives as long as the process).
     argv = ["detailed", "--api-base", servers, "--username",
             "chip-smoke-fleet", "--claim-block", str(FLEET_BLOCK),
-            "--device", DEVICE, "--renew-secs", "5"]
+            "--device", DEVICE, "--renew-secs", "5", *SAMPLERS_OFF]
     api_client._headers = headers
     runs = []
     try:
@@ -2002,7 +2124,7 @@ def phase_fleet(report: dict, api: str, server_dir: str) -> None:
                           timeout=300)
     check(jobs.returncode == 0, "the jobs runner failed:\n" + jobs.stderr[-3000:])
     validate = ["--validate", "--base", str(SERVER_BASE), "--username",
-                "chip-smoke-validate", "--device", DEVICE]
+                "chip-smoke-validate", "--device", DEVICE, *SAMPLERS_OFF]
     t0 = time.monotonic()
     canon_rc = client.main(validate + ["--api-base", api])
     canon_secs = time.monotonic() - t0
@@ -2957,6 +3079,118 @@ def phase_profile(report: dict) -> None:
         emit({"phase": "profile", **report[key]})
 
 
+# Phase obs: the extra-large field through process_field in three settings
+# of the observability layer, each OBS_REPS times, in this order (a sampler
+# thread, once started, lives as long as the process): no sampler and no
+# heartbeat, the client's defaults, and the defaults with --stepprof.
+OBS_REPS = 3
+OBS_SETTINGS = (("off", (*SAMPLERS_OFF, "--telemetry-secs", "0")),
+                ("defaults", ()),
+                ("stepprof", ("--stepprof",)))
+K1_SYMBOL = "detailed_megaloop_kernel"
+
+
+def _k1_records(trace_path: str) -> int:
+    """K1's device records in a torch.profiler Chrome trace (K5's
+    detailed_megaloop_mma_kernel is not K1)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and K1_SYMBOL in e.get("name", ""))
+
+
+def phase_obs(report: dict, tmp: str) -> None:
+    """12. obs: the extra-large field through process_field OBS_REPS times
+    in each of OBS_SETTINGS: each setting's median, min and max seconds,
+    its stepprof fences and K1 launches a run (equal in every setting; no
+    fence off the profiler, one a dispatch on it), the stepprof buckets
+    (device_compute > 0, host_other >= 0); a memwatch sample after the
+    field (in_use > 0, peak >= in_use, limit = mem_get_info's total); and
+    a --profile-dir run whose Chrome trace holds one K1 device record per
+    K1 launch."""
+    import statistics
+
+    import torch
+
+    from nice_tpu_torch.client import main as client
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.obs import memwatch, stepprof, trace
+    from nice_tpu_torch.ops import cuda_engine as ce
+
+    xl = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
+    want = None
+    settings = {}
+    stepprof.reset()  # the server phase's fences are not this phase's
+    for name, extra in OBS_SETTINGS:
+        args = client.build_parser().parse_args(
+            ["detailed", "--device", DEVICE, *extra])
+        client.configure_obs(args)
+        secs, k1, fences = [], [], []
+        for _ in range(OBS_REPS):
+            k1_0 = ce.LAUNCHES["detailed_megaloop"]
+            f0 = stepprof.fence_count()
+            results, elapsed = client.process_field(xl, args)
+            secs.append(elapsed)
+            k1.append(ce.LAUNCHES["detailed_megaloop"] - k1_0)
+            fences.append(stepprof.fence_count() - f0)
+            want = _pairs(results) if want is None else want
+            check(_pairs(results) == want,
+                  f"extra-large differs in the obs setting {name}")
+        entry = {"median_secs": statistics.median(secs),
+                 "min_secs": min(secs), "max_secs": max(secs), "secs": secs,
+                 "k1_launches": k1, "fences": fences,
+                 "fence_count": stepprof.fence_count()}
+        if stepprof.enabled():
+            b = dict(stepprof.LAST_BREAKDOWN)
+            entry["buckets"] = {k: b[k] for k in (*stepprof.PHASES, "wall")}
+            check(b["device_compute"] > 0 and b["host_other"] >= 0,
+                  f"stepprof buckets {entry['buckets']}")
+            check(fences == k1, f"fences {fences} != K1 launches {k1}")
+        else:
+            check(not any(fences), f"fences with the profiler off: {fences}")
+        settings[name] = entry
+    stepprof.configure(False)
+    check(len({tuple(e["k1_launches"]) for e in settings.values()}) == 1
+          and settings["off"]["k1_launches"][0] > 0,
+          f"K1 launches differ between the settings: "
+          f"{ {k: e['k1_launches'] for k, e in settings.items()} }")
+    mem = memwatch.sample()
+    dev = mem["devices"]["0"]
+    limit = torch.cuda.mem_get_info(0)[1]
+    check(dev["in_use"] > 0 and dev["peak"] >= dev["in_use"]
+          and dev["limit"] == limit, f"memwatch {dev}, mem_get_info {limit}")
+    prof_dir = os.path.join(tmp, "profile")
+    attempts = []
+    trace.configure(profile_dir=prof_dir)
+    try:
+        # torch.profiler loses records now and then (see kernel_ab's
+        # device_ms): a run whose trace lost some is made again, three at
+        # most.
+        for _ in range(3):
+            k1_0 = ce.LAUNCHES["detailed_megaloop"]
+            client.process_field(xl, args)
+            launched = ce.LAUNCHES["detailed_megaloop"] - k1_0
+            newest = max(glob.glob(os.path.join(prof_dir, "*.json")),
+                         key=os.path.getmtime)
+            attempts.append({"launches": launched,
+                             "k1_records": _k1_records(newest)})
+            if attempts[-1]["k1_records"] == launched:
+                break
+    finally:
+        trace.configure(None)
+    check(attempts[-1]["k1_records"] == attempts[-1]["launches"] > 0,
+          f"the profile-dir traces' K1 records against launches: {attempts}")
+    report["obs"] = {"field": "extra-large", "card": report["card"],
+                     "settings": settings,
+                     "defaults_over_off": settings["defaults"]["median_secs"]
+                     / settings["off"]["median_secs"],
+                     "stepprof_over_off": settings["stepprof"]["median_secs"]
+                     / settings["off"]["median_secs"],
+                     "memwatch": dev, "mem_get_info_total": limit,
+                     "profile_dir_runs": attempts}
+    emit({"phase": "obs", **report["obs"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the report here")
@@ -3007,7 +3241,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     os.makedirs(server_dir)
     server, api, _ = _start_server(server_dir, _free_port())
     try:
-        phase_server(report, api)
+        phase_server(report, api, os.path.join(server_dir, "nice.db"))
         phase_fleet(report, api, server_dir)
     finally:
         _stop(server)
@@ -3017,6 +3251,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     timed = phase_timing(report, built, sms, clk_mhz)
     phase_profile(report)
     phase_pipeline_profile(report)
+    phase_obs(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())

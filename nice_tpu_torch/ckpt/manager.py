@@ -1,6 +1,6 @@
 """Per-field checkpoint lifecycle: save / validate / resume / delete (the
-port's copy of nice_tpu/ckpt/manager.py, without its metrics, journal and
-flight-recorder calls).
+port's copy of nice_tpu/ckpt/manager.py, with its metrics, journal events
+and flight-recorder records).
 
 The engine produces opaque resume states ({cursor, hist, nice_numbers,
 remaining} — see ops/engine.py's checkpoint_cb contract); this module binds
@@ -35,6 +35,7 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -46,6 +47,8 @@ from nice_tpu_torch.ckpt.snapshot import (
     write_snapshot,
 )
 from nice_tpu_torch.core.types import DataToClient, SearchMode
+from nice_tpu_torch.obs import flight, journal
+from nice_tpu_torch.obs.series import CKPT_BYTES, CKPT_REJECTED, CKPT_WRITES
 
 log = logging.getLogger("nice_tpu_torch.ckpt")
 
@@ -150,6 +153,16 @@ class FieldCheckpointer:
         manifest["field"] = self.data.to_json()
         nbytes = write_snapshot(self.path, manifest, arrays)
         self.saves += 1
+        CKPT_WRITES.inc()
+        CKPT_BYTES.inc(nbytes)
+        flight.record(
+            "checkpoint", claim=self.data.claim_id,
+            cursor=str(manifest["cursor"]), bytes=nbytes,
+        )
+        journal.record_client_event(
+            "ckpt_save", claim_id=self.data.claim_id,
+            cursor=str(manifest["cursor"]), bytes=nbytes,
+        )
         log.debug(
             "checkpoint: claim %d cursor %s (%d bytes)",
             self.data.claim_id, manifest["cursor"], nbytes,
@@ -162,12 +175,14 @@ class FieldCheckpointer:
 
         A rejected snapshot is deleted so the scan restarts cleanly and the
         next checkpoint overwrites nothing stale."""
+        t0 = time.monotonic()
         try:
             manifest, arrays = read_snapshot(self.path)
         except FileNotFoundError:
             return None
         except SnapshotError as e:
             log.warning("rejecting snapshot %s: %s", self.path, e)
+            CKPT_REJECTED.labels(e.reason).inc()
             self.delete()
             return None
         reason = self.mismatch(manifest)
@@ -178,9 +193,22 @@ class FieldCheckpointer:
                 self.path, reason, manifest.get("signature"),
                 manifest.get("field"), self.signature, self.data.to_json(),
             )
+            CKPT_REJECTED.labels(reason).inc()
             self.delete()
             return None
-        return _snapshot_to_state(manifest, arrays)
+        flight.record(
+            "restore", claim=self.data.claim_id,
+            cursor=str(manifest.get("cursor")),
+        )
+        state = _snapshot_to_state(manifest, arrays)
+        # secs covers read + validation + state reconstruction: the
+        # ckpt_resume segment of the field's critical-path waterfall.
+        journal.record_client_event(
+            "ckpt_resume", claim_id=self.data.claim_id,
+            cursor=str(manifest.get("cursor")),
+            secs=round(time.monotonic() - t0, 6),
+        )
+        return state
 
     def mismatch(self, manifest: dict) -> Optional[str]:
         """None when the manifest matches this field and signature, else the
@@ -222,12 +250,14 @@ def find_resumable(
             continue
         except SnapshotError as e:
             log.warning("rejecting snapshot %s: %s", path, e)
+            CKPT_REJECTED.labels(e.reason).inc()
             _remove(path)
             continue
         try:
             data = DataToClient.from_json(manifest["field"])
         except (KeyError, TypeError, ValueError):
             log.warning("rejecting snapshot %s: malformed field record", path)
+            CKPT_REJECTED.labels("corrupt").inc()
             _remove(path)
             continue
         ckptr = FieldCheckpointer(ckpt_dir, data, mode, backend, batch_size,

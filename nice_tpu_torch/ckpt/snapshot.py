@@ -26,6 +26,7 @@ import zlib
 
 import numpy as np
 
+from nice_tpu_torch.faults import injector as faults
 from nice_tpu_torch.utils import fsio
 
 MAGIC = b"NICECKPT"
@@ -68,7 +69,12 @@ def encode_snapshot(manifest: dict, arrays: dict[str, np.ndarray]) -> bytes:
 
 def write_snapshot(path: str, manifest: dict, arrays: dict[str, np.ndarray]) -> int:
     """Atomically write manifest + arrays to `path`; returns bytes written."""
-    return fsio.atomic_write_bytes(path, encode_snapshot(manifest, arrays))
+    blob = encode_snapshot(manifest, arrays)
+    # Fault site ckpt.write: "truncate" persists only half the blob (a
+    # power loss mid-write), which read_snapshot must reject by its CRC.
+    if faults.fire("ckpt.write", path=path) == "truncate":
+        blob = blob[: len(blob) // 2]
+    return fsio.atomic_write_bytes(path, blob)
 
 
 def read_snapshot(path: str) -> tuple[dict, dict[str, np.ndarray]]:

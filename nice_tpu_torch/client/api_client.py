@@ -18,8 +18,16 @@ servers (failover_request): each request rotates past servers that are
 down, shed load or answer with the fence (410/421), and the process sticks
 to the server that last answered.
 
-Left out against the JAX transport: its fault-injection sites (the http.*
-faults) and its spans, metrics and traceparent header.
+Every attempt passes through the http.<endpoint> fault site
+(faults/injector.py, the client's --faults): a synthesized 5xx, a
+connection error, or drop_response, where the request reaches the server
+and is processed but the client sees a network error and retries (the
+exactly-once submit path). Each attempt's latency goes to
+nice_client_request_seconds{endpoint}, each retry to
+nice_client_retries_total and the flight recorder, each rotation to the
+next server to nice_client_failovers_total; every request carries a W3C
+traceparent header from the thread's trace context (obs.trace_context),
+so the server's handler spans join the claim's trace.
 """
 
 from __future__ import annotations
@@ -35,15 +43,23 @@ import time
 import urllib.error
 import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Optional
+from email.message import Message
+from typing import Any, Callable, Optional
 from urllib.parse import urlsplit
 
+from nice_tpu_torch import obs
 from nice_tpu_torch.core.constants import CLIENT_REQUEST_TIMEOUT_SECS
 from nice_tpu_torch.core.types import (
     DataToClient,
     DataToServer,
     SearchMode,
     ValidationData,
+)
+from nice_tpu_torch.faults import injector as faults
+from nice_tpu_torch.obs.series import (
+    CLIENT_FAILOVERS,
+    CLIENT_REQUEST_SECONDS,
+    CLIENT_RETRIES,
 )
 
 log = logging.getLogger(__name__)
@@ -59,6 +75,20 @@ _backoff_rng = random.Random()
 # server state too, so every request carries it).
 _epoch_lock = threading.Lock()
 _last_epoch = 0
+
+
+def reset() -> None:
+    """Forget the fencing epoch, the failover cursors and the dead-host
+    marks, and close this thread's pooled connections (tests)."""
+    global _last_epoch
+    with _epoch_lock:
+        _last_epoch = 0
+    with _failover_lock:
+        _failover_idx.clear()
+        _failover_gen.clear()
+    with _dead_hosts_lock:
+        _dead_hosts.clear()
+    close_connections()
 
 
 def _note_epoch(parsed: Any) -> None:
@@ -93,6 +123,21 @@ class ApiError(Exception):
     def __init__(self, message: str, status: Optional[int] = None):
         super().__init__(message)
         self.status = status
+
+
+def _inject_http_fault(action: str, url: str, body: Optional[dict],
+                       timeout: float) -> Any:
+    """Apply an http.<endpoint> fault action (configure() admits only
+    these): raises for every one."""
+    if action == "drop_response":
+        # The server processes the request; the client never learns.
+        _request_json(url, body, timeout)
+        raise urllib.error.URLError(f"injected fault: response dropped for {url}")
+    if action in ("conn_error", "raise"):
+        raise urllib.error.URLError(f"injected fault: connection error for {url}")
+    code = int(action)
+    raise urllib.error.HTTPError(url, code, f"injected fault: HTTP {code}",
+                                 Message(), io.BytesIO(b"injected fault"))
 
 
 def _retry_after_secs(err: Exception) -> Optional[float]:
@@ -161,11 +206,14 @@ def close_connections(netloc: Optional[str] = None) -> None:
 
 
 def _headers(body: Optional[dict]) -> dict:
-    """The headers of one request: JSON, and the fencing epoch once one was
-    seen."""
+    """The headers of one request: JSON, the traceparent of the thread's
+    trace context, and the fencing epoch once one was seen."""
     headers = {"Accept": "application/json"}
     if body is not None:
         headers["Content-Type"] = "application/json"
+    traceparent = obs.current_traceparent()
+    if traceparent:
+        headers["traceparent"] = traceparent
     epoch = last_seen_epoch()
     if epoch > 0:
         headers["X-Nice-Epoch"] = str(epoch)
@@ -233,19 +281,34 @@ def _request_json(url: str, body: Optional[dict] = None,
 
 def retry_request(url: str, body: Optional[dict] = None,
                   max_retries: int = DEFAULT_MAX_RETRIES,
-                  timeout: float = CLIENT_REQUEST_TIMEOUT_SECS) -> Any:
-    """GET (body None) or POST JSON, retrying transient failures."""
+                  timeout: float = CLIENT_REQUEST_TIMEOUT_SECS,
+                  endpoint: str = "other") -> Any:
+    """GET (body None) or POST JSON, retrying transient failures. endpoint
+    labels the attempt latencies and retries (claim / submit / validate /
+    renew / telemetry / ...) and names the fault site http.<endpoint>."""
     attempt = 0
     while True:
+        t0 = time.monotonic()
         try:
-            return _request_json(url, body, timeout)
+            act = faults.fire(f"http.{endpoint}", url=url, attempt=attempt)
+            if act is not None:
+                result = _inject_http_fault(act, url, body, timeout)
+            else:
+                result = _request_json(url, body, timeout)
+            CLIENT_REQUEST_SECONDS.labels(endpoint).observe(
+                time.monotonic() - t0)
+            return result
         except urllib.error.HTTPError as e:
+            CLIENT_REQUEST_SECONDS.labels(endpoint).observe(
+                time.monotonic() - t0)
             if e.code < 500 and e.code != 429:
                 detail = e.read().decode(errors="replace")
                 raise ApiError(f"HTTP {e.code} from {url}: {detail}",
                                status=e.code) from e
             err: Exception = e
         except (urllib.error.URLError, TimeoutError, OSError) as e:
+            CLIENT_REQUEST_SECONDS.labels(endpoint).observe(
+                time.monotonic() - t0)
             err = e
         if attempt >= max_retries:
             # A definite server answer (429/5xx) keeps its status, so a
@@ -254,6 +317,9 @@ def retry_request(url: str, body: Optional[dict] = None,
                 f"request to {url} failed after {attempt} retries: {err}",
                 status=getattr(err, "code", None),
             )
+        CLIENT_RETRIES.labels(endpoint).inc()
+        obs.flight.record("retry", endpoint=endpoint, attempt=attempt,
+                          error=str(err)[:200])
         hinted = _retry_after_secs(err)
         delay = (min(hinted, MAX_BACKOFF_SECS) if hinted is not None
                  else _backoff_rng.uniform(0, min(2**attempt, MAX_BACKOFF_SECS)))
@@ -284,7 +350,8 @@ def split_servers(api_base: str) -> list:
 
 def failover_request(api_base: str, path: str, body: Optional[dict] = None,
                      max_retries: int = DEFAULT_MAX_RETRIES,
-                     timeout: float = CLIENT_REQUEST_TIMEOUT_SECS) -> Any:
+                     timeout: float = CLIENT_REQUEST_TIMEOUT_SECS,
+                     endpoint: str = "other") -> Any:
     """retry_request over one or many servers.
 
     One server: exactly retry_request. Several: each cycle tries every
@@ -298,7 +365,7 @@ def failover_request(api_base: str, path: str, body: Optional[dict] = None,
     if len(servers) <= 1:
         base = servers[0] if servers else api_base.rstrip("/")
         return retry_request(base + path, body, max_retries=max_retries,
-                             timeout=timeout)
+                             timeout=timeout, endpoint=endpoint)
     key = ",".join(servers)
     with _failover_lock:
         start = _failover_idx.get(key, 0) % len(servers)
@@ -309,12 +376,16 @@ def failover_request(api_base: str, path: str, body: Optional[dict] = None,
             i = (start + off) % len(servers)
             try:
                 result = retry_request(servers[i] + path, body, max_retries=0,
-                                       timeout=timeout)
+                                       timeout=timeout, endpoint=endpoint)
             except ApiError as e:
                 last_err = e
                 if (e.status is not None and e.status < 500
                         and e.status not in _ROTATE_STATUSES):
                     raise
+                CLIENT_FAILOVERS.labels(endpoint).inc()
+                obs.flight.record("failover", endpoint=endpoint,
+                                  server=servers[i], status=e.status,
+                                  cycle=cycle)
                 log.warning("server %s failed %s (%s); rotating to next "
                             "endpoint", servers[i], path,
                             e.status if e.status is not None
@@ -342,19 +413,35 @@ def _mode_arg(mode: SearchMode) -> str:
 
 def get_field_from_server(mode: SearchMode, api_base: str, username: str,
                           max_retries: int = DEFAULT_MAX_RETRIES) -> DataToClient:
-    """GET /claim/{detailed|niceonly}."""
+    """GET /claim/{detailed|niceonly}; the round trip, retries and backoff
+    included, goes to the journal as the claim's claim_rtt."""
     path = (f"/claim/{_mode_arg(mode)}"
             f"?username={urllib.parse.quote(username)}")
-    return DataToClient.from_json(
-        failover_request(api_base, path, max_retries=max_retries))
+    t0 = time.monotonic()
+    data = DataToClient.from_json(
+        failover_request(api_base, path, max_retries=max_retries,
+                         endpoint="claim"))
+    obs.journal.record_client_event(
+        "claim_rtt", claim_id=data.claim_id,
+        secs=round(time.monotonic() - t0, 6))
+    return data
 
 
 def submit_field_to_server(api_base: str, submit_data: DataToServer,
                            max_retries: int = DEFAULT_MAX_RETRIES) -> dict:
     """POST /submit. {"duplicate": true} in the reply means a retried submit
-    had already been accepted (exactly-once via submit_id): success."""
-    resp = failover_request(api_base, "/submit", submit_data.to_json(),
-                            max_retries=max_retries)
+    had already been accepted (exactly-once via submit_id): success. The
+    span and the requests carry the claim's trace id (derived, since the
+    AsyncApi's threads have no trace context), and the round trip goes to
+    the journal as submit_rtt."""
+    t0 = time.monotonic()
+    with obs.trace_context(obs.claim_trace_id(submit_data.claim_id)), \
+            obs.span("client.submit", claim=submit_data.claim_id):
+        resp = failover_request(api_base, "/submit", submit_data.to_json(),
+                                max_retries=max_retries, endpoint="submit")
+    obs.journal.record_client_event(
+        "submit_rtt", claim_id=submit_data.claim_id,
+        secs=round(time.monotonic() - t0, 6))
     return resp if isinstance(resp, dict) else {"status": "OK"}
 
 
@@ -365,8 +452,9 @@ def renew_claim(api_base: str, claim_id: int, max_retries: int = 1) -> None:
     next one, or the submit itself, lands well inside the expiry window), so
     the renewer thread must never sit in a 10-deep backoff while the scan it
     protects finishes."""
-    failover_request(api_base, "/renew_claim", {"claim_id": claim_id},
-                     max_retries=max_retries)
+    with obs.trace_context(obs.claim_trace_id(claim_id)):
+        failover_request(api_base, "/renew_claim", {"claim_id": claim_id},
+                         max_retries=max_retries, endpoint="renew")
 
 
 def claim_block_from_server(mode: SearchMode, api_base: str, username: str,
@@ -379,20 +467,26 @@ def claim_block_from_server(mode: SearchMode, api_base: str, username: str,
     per-field claims"."""
     payload = {"mode": _mode_arg(mode), "count": count, "username": username}
     resp = failover_request(api_base, "/claim_block", payload,
-                            max_retries=max_retries)
+                            max_retries=max_retries, endpoint="claim_block")
     return resp["block_id"], [DataToClient.from_json(f) for f in resp["fields"]]
 
 
 def submit_block_to_server(api_base: str, block_id: str,
                            submissions: list[DataToServer],
+                           telemetry: Optional[dict] = None,
                            max_retries: int = DEFAULT_MAX_RETRIES) -> dict:
-    """POST /submit_block — a block's results at once. The reply has one
-    result per submission, in order, and the accepted / duplicates /
-    rejected counts; a duplicate is an exactly-once replay, a success."""
-    body = {"block_id": block_id,
-            "submissions": [s.to_json() for s in submissions]}
-    resp = failover_request(api_base, "/submit_block", body,
-                            max_retries=max_retries)
+    """POST /submit_block — a block's results at once, with the client's
+    fleet snapshot when given. The reply has one result per submission, in
+    order, and the accepted / duplicates / rejected counts; a duplicate is
+    an exactly-once replay, a success."""
+    body: dict = {"block_id": block_id,
+                  "submissions": [s.to_json() for s in submissions]}
+    if telemetry is not None:
+        body["telemetry"] = telemetry
+    with obs.span("client.submit_block", block=block_id, n=len(submissions)):
+        resp = failover_request(api_base, "/submit_block", body,
+                                max_retries=max_retries,
+                                endpoint="submit_block")
     if isinstance(resp, dict) and resp.get("duplicates"):
         log.info("submit_block %s: %d of %d results were duplicates "
                  "(retried requests already accepted)", block_id,
@@ -404,7 +498,14 @@ def renew_block(api_base: str, block_id: str, max_retries: int = 1) -> None:
     """POST /renew_claim {block_id} — one heartbeat re-arms every member of
     the block lease (the retry budget of renew_claim, for its reason)."""
     failover_request(api_base, "/renew_claim", {"block_id": block_id},
-                     max_retries=max_retries)
+                     max_retries=max_retries, endpoint="renew")
+
+
+def post_telemetry(api_base: str, snap: dict, max_retries: int = 1) -> None:
+    """POST /telemetry — the fleet-visibility heartbeat. Best-effort by
+    design (the retry budget of renew_claim, for its reason)."""
+    failover_request(api_base, "/telemetry", snap, max_retries=max_retries,
+                     endpoint="telemetry")
 
 
 def get_validation_data_from_server(api_base: str, username: str,
@@ -417,19 +518,23 @@ def get_validation_data_from_server(api_base: str, username: str,
     if base is not None:
         path += f"&base={base}"
     return ValidationData.from_json(
-        failover_request(api_base, path, max_retries=max_retries))
+        failover_request(api_base, path, max_retries=max_retries,
+                         endpoint="validate"))
 
 
 class AsyncApi:
     """Thread-backed async facade so that claim N+1 and submit N-1 overlap
     processing N (the reference's 3-stage pipeline), per field or per
-    block."""
+    block. telemetry: a callable returning the fleet snapshot a block
+    submit carries (taken on the calling thread), or None."""
 
     def __init__(self, api_base: str, username: str,
-                 max_retries: int = DEFAULT_MAX_RETRIES):
+                 max_retries: int = DEFAULT_MAX_RETRIES,
+                 telemetry: Optional[Callable[[], dict]] = None):
         self.api_base = api_base
         self.username = username
         self.max_retries = max_retries
+        self.telemetry = telemetry
         self._pool = ThreadPoolExecutor(max_workers=2,
                                         thread_name_prefix="nice-api")
 
@@ -447,8 +552,9 @@ class AsyncApi:
 
     def submit_block_async(self, block_id: str,
                            submissions: list[DataToServer]):
+        snap = self.telemetry() if self.telemetry is not None else None
         return self._pool.submit(submit_block_to_server, self.api_base,
-                                 block_id, submissions, self.max_retries)
+                                 block_id, submissions, snap, self.max_retries)
 
     def shutdown(self) -> None:
         self._pool.shutdown(wait=True)

@@ -26,7 +26,16 @@
   * --benchmark <field>: process a built-in benchmark field offline and
     print one JSON summary line (the JAX client's keys);
   * --validate [--base B]: recompute a double-checked field and compare it
-    with the server's canonical submission; exit code 0 when they agree.
+    with the server's canonical submission; exit code 0 when they agree;
+  * observability (obs/): --telemetry-secs (a /telemetry heartbeat that also
+    learns the server list from /status; the fleet snapshot rides on every
+    submit too), --metrics-port (local /metrics, /debug/flight, /history,
+    /debug/profile), --stepprof (the per-field phase breakdown, fenced on
+    CUDA events), --memwatch-secs, --pyprof-hz, --history-secs, --trace /
+    --trace-max-bytes (JSON spans joined by the claim's trace id, sent as
+    traceparent), --profile-dir (a torch.profiler Chrome trace a field),
+    --flight-dir / --flight-events (the crash flight recorder), --log-file
+    (JSON log lines), and --faults / --faults-seed (the fault sites).
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
 versions, --backend scalar the Python-int oracle (checkpointed in chunks
@@ -35,10 +44,9 @@ cores (0: all), which neither checkpoints nor resumes: with it
 --checkpoint-dir is dropped, as the JAX client drops it. A niceonly field
 on the card of at most --host-niceonly-max numbers that the host library's
 polynomial-residue kernel takes runs on the host instead (the small-field
-host route; off by default, engine.HOST_NICEONLY_MAX). Every knob is a flag: the port reads no environment variable.
-Left out against the JAX client: tenants, telemetry (with it the learning
-of the server list from /status beyond the one read at startup) and the
-fault-injection sites.
+host route; off by default, engine.HOST_NICEONLY_MAX). Every knob is a
+flag: the port reads no environment variable. Left out against the JAX
+client: tenants (the scheduler is not ported yet).
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from contextlib import nullcontext
 from typing import Optional
 
 from nice_tpu_torch import CLIENT_VERSION
-from nice_tpu_torch import ckpt
+from nice_tpu_torch import ckpt, obs
 from nice_tpu_torch.client import api_client
 from nice_tpu_torch.core import number_stats
 from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
@@ -65,16 +73,31 @@ from nice_tpu_torch.core.types import (
     FieldResults,
     SearchMode,
 )
+from nice_tpu_torch.faults import injector as faults
 from nice_tpu_torch.faults import spool as spool_mod
+from nice_tpu_torch.obs import (
+    flight,
+    history,
+    journal,
+    logsink,
+    memwatch,
+    pyprof,
+    stepprof,
+    trace,
+)
+from nice_tpu_torch.obs.series import (
+    CKPT_RENEWALS,
+    CLIENT_FIELD_SECONDS,
+    CLIENT_FIELDS,
+    CLIENT_NUMBERS,
+)
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.ops.limbs import get_plan
 from nice_tpu_torch.utils import fsio
 
 log = logging.getLogger("nice_tpu_torch.client")
 
-_LOG_LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
-               "info": logging.INFO, "warn": logging.WARNING,
-               "error": logging.ERROR}
+_LOG_LEVELS = ("trace", "debug", "info", "warn", "error")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -163,7 +186,73 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restrict --validate to a specific base")
     p.add_argument("--log-level", default="info", choices=list(_LOG_LEVELS),
                    help="log verbosity")
+    p.add_argument("--log-file", default=None,
+                   help="also append the JSON log lines to this file")
+    p.add_argument("--telemetry-secs", type=float, default=60.0,
+                   help="seconds between fleet-telemetry heartbeats to "
+                   "/telemetry (throughput, backend, spool depth, phase "
+                   "breakdown); each beat also learns the server list from "
+                   "/status; 0 disables")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics, /debug/flight, /history and "
+                   "/debug/profile on this localhost port (0: a free port, "
+                   "exported as nice_metrics_bound_port)")
+    p.add_argument("--stepprof", action="store_true",
+                   help="attribute each field's wall time to compile / "
+                   "h2d_feed / device_compute / fold / readback / host_other "
+                   "(one CUDA-event fence a dispatch)")
+    p.add_argument("--memwatch-secs", type=float,
+                   default=memwatch.DEFAULT_INTERVAL_SECS,
+                   help="seconds between device-memory / RSS / disk samples; "
+                   "0 disables")
+    p.add_argument("--pyprof-hz", type=float, default=pyprof.DEFAULT_HZ,
+                   help="samples a second of the statistical Python "
+                   "profiler; 0 disables")
+    p.add_argument("--history-secs", type=float,
+                   default=history.DEFAULT_INTERVAL_SECS,
+                   help="seconds between samples of the metrics history "
+                   "behind /history; 0 disables")
+    p.add_argument("--trace", default=None,
+                   help="JSON trace-span sink: stderr, or a file path")
+    p.add_argument("--trace-max-bytes", type=int,
+                   default=trace.DEFAULT_MAX_SINK_BYTES,
+                   help="rotate a file trace sink past this size; 0 disables")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of each field "
+                   "into this directory")
+    p.add_argument("--flight-dir", default=None,
+                   help="directory of flight-recorder dumps (crash, SIGUSR2, "
+                   "spool quarantine); default: the system temp dir")
+    p.add_argument("--flight-events", type=int,
+                   default=flight.DEFAULT_CAPACITY,
+                   help="events the flight recorder's ring keeps")
+    p.add_argument("--faults", default=None,
+                   help="fault-injection spec, site:action[@selector],... "
+                   "(sites http.<endpoint>, engine.dispatch, ckpt.write)")
+    p.add_argument("--faults-seed", type=int, default=faults.DEFAULT_SEED,
+                   help="seed of the fault spec's probability draws")
     return p
+
+
+def configure_obs(args) -> None:
+    """Arm the observability layer from the client's flags: the span sink
+    and profiler directory, the flight recorder's ring, stepprof, the fault
+    plan, the local metrics endpoint and the history, memwatch and pyprof
+    samplers (each once a process; a rate or interval of 0 starts no
+    thread). A bad fault spec, an unopenable sink or a port that cannot be
+    bound raises. The flight recorder's crash and SIGUSR2 dumps hook the
+    process (sys.excepthook, a signal handler): the command line's entry
+    (client/__main__.py) arms them with flight.install(), and so may a
+    program that owns its process and calls main()."""
+    trace.configure(args.trace, args.trace_max_bytes, args.profile_dir)
+    flight.configure(args.flight_dir, args.flight_events)
+    stepprof.configure(args.stepprof)
+    faults.configure(args.faults, args.faults_seed)
+    pyprof.configure(args.pyprof_hz)
+    obs.maybe_serve_metrics(args.metrics_port)
+    history.maybe_start_sampler(args.history_secs)
+    memwatch.maybe_start_sampler(args.memwatch_secs)
+    pyprof.maybe_start()
 
 
 def _mode(args) -> SearchMode:
@@ -230,9 +319,29 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
         # strided pipeline takes no batch.
         if args.backend == "scalar" or get_plan(data.base).limbs_n > 4:
             kwargs["batch_size"] = args.batch_size
+    mode_label = "detailed" if mode == SearchMode.DETAILED else "niceonly"
+    profiled0 = stepprof.finished()
     t0 = time.monotonic()
-    results = process(data.to_field_size(), data.base, **kwargs)
+    with obs.span("client.process_field", base=data.base,
+                  size=data.range_size, mode=mode_label,
+                  backend=args.backend), obs.profiler("process_field"):
+        results = process(data.to_field_size(), data.base, **kwargs)
     elapsed = time.monotonic() - t0
+    CLIENT_FIELD_SECONDS.labels(mode_label).observe(elapsed)
+    CLIENT_FIELDS.labels(mode_label).inc()
+    CLIENT_NUMBERS.inc(data.range_size)
+    if stepprof.finished() > profiled0:
+        # The field's phase breakdown, keyed to its claim, for the server's
+        # critical-path waterfall: only when a profiled loop ran this field
+        # (the strided and host niceonly routes have none).
+        lb = dict(stepprof.LAST_BREAKDOWN)
+        if lb.get("base") == data.base:
+            phases = {p: round(float(lb.get(p, 0.0) or 0.0), 6)
+                      for p in stepprof.PHASES}
+            journal.record_client_event(
+                "phases", claim_id=data.claim_id,
+                wall=round(float(lb.get("wall", elapsed) or elapsed), 6),
+                **phases)
     rate = data.range_size / elapsed if elapsed > 0 else float("inf")
     log.info("processed %s numbers in %.2fs (%s numbers/sec)",
              f"{data.range_size:,}", elapsed, f"{rate:,.0f}")
@@ -310,6 +419,7 @@ class _ClaimRenewer:
         try:
             self._renew()
             self.renewals += 1
+            CKPT_RENEWALS.inc()
             log.debug("renewed %s %s lease", self.kind, self.lease)
         except Exception as e:  # noqa: BLE001 — a missed heartbeat is logged
             log.warning("%s %s lease renewal failed: %s", self.kind,
@@ -410,6 +520,39 @@ def _await_submit(future, submission: DataToServer, spool) -> Optional[dict]:
     return resp
 
 
+def _process_claimed(data: DataToClient, args, mode: SearchMode, *,
+                     checkpointer=None, resume=None, block: str | None = None,
+                     renewer=None):
+    """process_field of a claimed field inside the claim's trace context
+    (one distributed trace a claim: the id derives from the claim id, so
+    the server's handler spans and the engine's share it), with its claim
+    event and flight record, under `renewer` when given."""
+    extra = {} if block is None else {"block": block}
+    with obs.trace_context(obs.claim_trace_id(data.claim_id)):
+        obs.trace_event("client.claim", claim=data.claim_id, base=data.base,
+                        range_start=str(data.range_start),
+                        size=data.range_size, resumed=resume is not None,
+                        **extra)
+        flight.record("claim", claim=data.claim_id, base=data.base, **extra)
+        with renewer if renewer is not None else nullcontext():
+            results, _ = process_field(data, args, checkpointer=checkpointer,
+                                       resume=resume, mode=mode)
+    return results
+
+
+def _fleet_snapshot(args, spool) -> dict:
+    """This client's obs.telemetry snapshot, spool depth included."""
+    depth = 0
+    if spool is not None:
+        try:
+            depth = len(spool.pending())
+        except OSError:
+            pass
+    return obs.telemetry.snapshot(username=args.username,
+                                  backend=args.backend, spool_depth=depth,
+                                  client_version=CLIENT_VERSION)
+
+
 def run_single_iteration(args, api: Optional[api_client.AsyncApi] = None,
                          mode: Optional[SearchMode] = None, spool=None):
     """Claim (or resume) one field of args.mode, process it, submit it;
@@ -423,10 +566,13 @@ def run_single_iteration(args, api: Optional[api_client.AsyncApi] = None,
     mode = mode if mode is not None else _mode(args)
     try:
         data, resume, ckptr = _resume_or_claim(args, api, mode)
-        with _maybe_renewer(args, data.claim_id):
-            results, _ = process_field(data, args, checkpointer=ckptr,
-                                       resume=resume, mode=mode)
+        results = _process_claimed(data, args, mode, checkpointer=ckptr,
+                                   resume=resume,
+                                   renewer=_maybe_renewer(args, data.claim_id))
         submission = compile_results(data, results, mode, args.username)
+        # The snapshot rides along AFTER submit_id is stamped: it must not
+        # perturb the content hash that makes replays idempotent.
+        submission.telemetry = _fleet_snapshot(args, spool)
         resp = _await_submit(api.submit_async(submission), submission, spool)
     finally:
         if own:
@@ -500,9 +646,9 @@ def run_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
             spool.replay(args.api_base)
         next_claim = api.claim_async(mode)  # overlap with processing
         _prefetch_on_claim(next_claim, args, mode)
-        with _maybe_renewer(args, data.claim_id):
-            results, _ = process_field(data, args, checkpointer=ckptr,
-                                       resume=resume, mode=mode)
+        results = _process_claimed(data, args, mode, checkpointer=ckptr,
+                                   resume=resume,
+                                   renewer=_maybe_renewer(args, data.claim_id))
         if pending_submit is not None:
             # Settle the previous submit before queueing the next one; only
             # an owned submit (confirmed or spooled) retires its snapshot.
@@ -511,6 +657,7 @@ def run_pipelined_loop(args, api: api_client.AsyncApi, mode: SearchMode,
             if prev_ckptr is not None:
                 prev_ckptr.delete()
         submission = compile_results(data, results, mode, args.username)
+        submission.telemetry = _fleet_snapshot(args, spool)
         pending_submit = (api.submit_async(submission), ckptr, submission)
         data = next_claim.result()
         resume = None
@@ -526,8 +673,8 @@ def _process_block(args, mode: SearchMode, block_id: str, fields):
     with _maybe_block_renewer(args, block_id):
         for data in fields:
             ckptr = _new_checkpointer(args, data, mode)
-            results, _ = process_field(data, args, checkpointer=ckptr,
-                                       mode=mode)
+            results = _process_claimed(data, args, mode, checkpointer=ckptr,
+                                       block=block_id)
             submissions.append(
                 (compile_results(data, results, mode, args.username), ckptr))
     return submissions
@@ -699,23 +846,68 @@ def _save_known_servers(checkpoint_dir: Optional[str],
 def _learn_servers(args) -> None:
     """Persist the server list /status advertises (the primary and its live
     standbys) beside the checkpoints, so that the next run's failover list
-    covers them. Read once at startup; best-effort."""
+    covers them. Called on every telemetry beat; best-effort."""
+    if not args.checkpoint_dir:
+        return
     try:
         status = api_client.failover_request(args.api_base, "/status",
-                                             max_retries=0)
+                                             max_retries=0,
+                                             endpoint="telemetry")
         servers = (status.get("repl") or {}).get("servers") or []
         _save_known_servers(args.checkpoint_dir, servers)
     except Exception as e:  # noqa: BLE001 — the list is an optimisation
         log.debug("server-list learn failed: %s", e)
 
 
+class _TelemetryReporter:
+    """The fleet-visibility heartbeat: POSTs /telemetry at once on entry and
+    then every args.telemetry_secs, so a long-scanning client shows on the
+    server's fleet views before its first submission, and learns the server
+    list from /status on each beat (_learn_servers). Failures are logged
+    and the scan goes on: telemetry is a side channel. The thread makes no
+    torch call."""
+
+    def __init__(self, args, spool):
+        self.args = args
+        self.spool = spool
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="telemetry-report", daemon=True)
+
+    def _report_once(self) -> None:
+        try:
+            api_client.post_telemetry(self.args.api_base,
+                                      _fleet_snapshot(self.args, self.spool))
+        except Exception as e:  # noqa: BLE001 — a missed beat is logged
+            log.warning("telemetry heartbeat failed: %s", e)
+        _learn_servers(self.args)
+
+    def _run(self) -> None:
+        self._report_once()
+        while not self._stop.wait(self.args.telemetry_secs):
+            self._report_once()
+
+    def __enter__(self) -> "_TelemetryReporter":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def telemetry_beat(args, spool=None):
+    """The heartbeat of --telemetry-secs as a context manager (nothing when
+    it is 0)."""
+    if args.telemetry_secs and args.telemetry_secs > 0:
+        return _TelemetryReporter(args, spool)
+    return nullcontext()
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=_LOG_LEVELS[args.log_level],
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        stream=sys.stderr,
-    )
+    logsink.install(args.log_level, args.log_file)
+    configure_obs(args)
     if args.backend == "device":
         engine.resolve_device(args.device)  # no card: raise before a claim
     if args.benchmark:
@@ -734,31 +926,36 @@ def main(argv: Optional[list[str]] = None) -> int:
         server_list += api_client.split_servers(args.servers)
     server_list += _load_known_servers(args.checkpoint_dir)
     args.api_base = ",".join(dict.fromkeys(server_list))
-    if args.checkpoint_dir:
-        _learn_servers(args)
     if args.validate:
         return run_validate(args)
     mode = _mode(args)
-    api = api_client.AsyncApi(args.api_base, args.username, args.max_retries)
     spool = spool_mod.maybe_spool(args.spool_dir, args.checkpoint_dir)
+    api = api_client.AsyncApi(args.api_base, args.username, args.max_retries,
+                              telemetry=lambda: _fleet_snapshot(args, spool))
+    # On-disk footprints the resource sampler watches.
+    if spool is not None:
+        memwatch.watch_path("spool", spool.dir)
+    memwatch.watch_path("ckpt", args.checkpoint_dir)
+    memwatch.watch_path("trace", trace.sink_path())
     try:
         if spool is not None:
             # Startup replay: deliver anything journaled by a previous run
             # before claiming new work.
             spool.replay(args.api_base)
-        handled = False
-        if args.claim_block > 1:
-            # The block-lease path; False means the server predates
-            # /claim_block, and the per-field loop below runs instead.
-            if args.repeat:
-                handled = run_block_pipelined_loop(args, api, mode, spool)
-            else:
-                handled = run_block_iteration(args, api, mode, spool)
-        if not handled:
-            if args.repeat:
-                run_pipelined_loop(args, api, mode, spool=spool)
-            else:
-                run_single_iteration(args, api, mode, spool=spool)
+        with telemetry_beat(args, spool):
+            handled = False
+            if args.claim_block > 1:
+                # The block-lease path; False means the server predates
+                # /claim_block, and the per-field loop below runs instead.
+                if args.repeat:
+                    handled = run_block_pipelined_loop(args, api, mode, spool)
+                else:
+                    handled = run_block_iteration(args, api, mode, spool)
+            if not handled:
+                if args.repeat:
+                    run_pipelined_loop(args, api, mode, spool=spool)
+                else:
+                    run_single_iteration(args, api, mode, spool=spool)
     except KeyboardInterrupt:
         log.info("interrupted; shutting down")
     finally:

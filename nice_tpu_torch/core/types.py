@@ -159,8 +159,12 @@ class DataToClient:
 @dataclass
 class DataToServer:
     """Compiled results sent to the server. submit_id (claim id + content
-    hash) is the server's exactly-once idempotency key; it is omitted from
-    the JSON when unset."""
+    hash) is the server's exactly-once idempotency key; telemetry
+    piggybacks the client's fleet snapshot (obs.telemetry). Both are
+    omitted from the JSON when unset. telemetry is attached AFTER submit_id
+    is computed: it must never perturb the content hash (a recomputed
+    submission would otherwise mint a new submit_id and defeat exactly-once
+    dedup)."""
 
     claim_id: int
     username: str
@@ -168,6 +172,7 @@ class DataToServer:
     unique_distribution: Optional[list[UniquesDistributionSimple]]
     nice_numbers: list[NiceNumberSimple]
     submit_id: Optional[str] = None
+    telemetry: Optional[dict] = None
 
     def to_json(self) -> dict[str, Any]:
         out = {
@@ -187,6 +192,8 @@ class DataToServer:
         }
         if self.submit_id is not None:
             out["submit_id"] = self.submit_id
+        if self.telemetry is not None:
+            out["telemetry"] = dict(self.telemetry)
         return out
 
     @staticmethod
@@ -208,4 +215,5 @@ class DataToServer:
                 for x in d.get("nice_numbers", [])
             ],
             submit_id=None if submit_id is None else str(submit_id),
+            telemetry=d.get("telemetry"),
         )

@@ -3,7 +3,10 @@ hard-codes the JAX client): watches system CPU usage, spawns
 `python -m nice_tpu_torch.client` once the machine has been idle long
 enough, stops it with SIGINT on shutdown, and restarts it with a crash-loop
 backoff whenever it exits. Every setting is a flag (the port reads no
-environment variable); metrics and the flight recorder are left out.
+environment variable). The daemon's nice_daemon_* series (heartbeat, CPU
+sample, restarts, restart backoff) are served on --metrics-port, and it
+arms the flight recorder and the memwatch and pyprof samplers as the
+client does (its crash and SIGUSR2 dumps armed by daemon/__main__.py).
 
     python -m nice_tpu_torch.daemon [--checkpoint-dir DIR] [-- CLIENT ARGS]
 
@@ -21,6 +24,14 @@ import sys
 import time
 from typing import Optional
 
+from nice_tpu_torch import obs
+from nice_tpu_torch.obs import flight, logsink, memwatch, pyprof
+from nice_tpu_torch.obs.series import (
+    DAEMON_CPU,
+    DAEMON_HEARTBEAT,
+    DAEMON_RESTART_BACKOFF,
+    DAEMON_RESTARTS,
+)
 from nice_tpu_torch.utils import resources
 
 log = logging.getLogger("nice_tpu_torch.daemon")
@@ -84,6 +95,7 @@ class ProcessManager:
         self.proc = subprocess.Popen(cmd)
         self._started_at = time.monotonic()
         self.starts += 1
+        DAEMON_RESTARTS.inc()
 
     def stop(self) -> None:
         if not self.running():
@@ -114,6 +126,7 @@ class ProcessManager:
                     RESTART_BACKOFF_CAP_SECS,
                 )
                 self._backoff_until = time.monotonic() + delay
+                DAEMON_RESTART_BACKOFF.set(delay)
                 log.warning(
                     "client crashed %.1fs after spawn (crash %d in a row); "
                     "holding next spawn for %.0fs",
@@ -122,6 +135,7 @@ class ProcessManager:
             elif self.consecutive_crashes:
                 self.consecutive_crashes = 0
                 self._backoff_until = 0.0
+                DAEMON_RESTART_BACKOFF.set(0)
                 log.info("client ran healthily; restart backoff reset")
             return True
         return False
@@ -141,6 +155,23 @@ def build_parser() -> argparse.ArgumentParser:
                    "its spawn counts as a crash (restart backoff)")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
+    p.add_argument("--log-file", default=None,
+                   help="also append the JSON log lines to this file")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve the daemon's /metrics on this localhost port "
+                   "(0: a free port)")
+    p.add_argument("--memwatch-secs", type=float,
+                   default=memwatch.DEFAULT_INTERVAL_SECS,
+                   help="seconds between RSS / disk samples; 0 disables")
+    p.add_argument("--pyprof-hz", type=float, default=pyprof.DEFAULT_HZ,
+                   help="samples a second of the statistical Python "
+                   "profiler; 0 disables")
+    p.add_argument("--flight-dir", default=None,
+                   help="directory of flight-recorder dumps; default: the "
+                   "system temp dir")
+    p.add_argument("--flight-events", type=int,
+                   default=flight.DEFAULT_CAPACITY,
+                   help="events the flight recorder's ring keeps")
     p.add_argument("--checkpoint-dir", default=None,
                    help="passed through to the client: snapshot directory so "
                    "a client that is restarted resumes its field")
@@ -160,11 +191,14 @@ def client_args_of(args) -> list[str]:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=getattr(logging, args.log_level.upper()),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        stream=sys.stderr,
-    )
+    logsink.install(args.log_level, args.log_file)
+    # The local endpoint: the heartbeat gauge and restart counter make a
+    # silently dead supervisor loop visible from outside.
+    obs.maybe_serve_metrics(args.metrics_port)
+    flight.configure(args.flight_dir, args.flight_events)
+    memwatch.maybe_start_sampler(args.memwatch_secs)
+    pyprof.configure(args.pyprof_hz)
+    pyprof.maybe_start()
     monitor = CpuMonitor(args.sample_interval)
     log.info("cpu sampler backend: %s", monitor.backend)
     manager = ProcessManager(client_args_of(args), args.healthy_secs)
@@ -172,6 +206,8 @@ def main(argv=None) -> int:
     try:
         while True:
             usage = monitor.sample()
+            DAEMON_HEARTBEAT.set(time.time())
+            DAEMON_CPU.set(usage)
             manager.reap()
             if manager.running():
                 # While our client runs the CPU is busy by design.

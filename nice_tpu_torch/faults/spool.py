@@ -1,6 +1,6 @@
 """On-disk submission spool: graceful degradation for the submit path (the
-port's copy of nice_tpu/faults/spool.py, without its metrics, journal and
-flight-recorder calls; its retention bounds are arguments).
+port's copy of nice_tpu/faults/spool.py, with its metrics, journal events
+and flight-recorder records; its retention bounds are arguments).
 
 When a submit exhausts its HTTP retries (server down for longer than the
 backoff budget), the client journals the full DataToServer payload here —
@@ -31,6 +31,12 @@ from typing import Optional
 
 from nice_tpu_torch.client import api_client
 from nice_tpu_torch.core.types import DataToServer
+from nice_tpu_torch.obs import flight, journal
+from nice_tpu_torch.obs.series import (
+    SPOOL_JOURNALED,
+    SPOOL_QUARANTINE_PRUNED,
+    SPOOL_REPLAYS,
+)
 from nice_tpu_torch.utils import fsio
 
 log = logging.getLogger(__name__)
@@ -62,6 +68,8 @@ class SubmissionSpool:
         """Atomically journal a submission; returns the entry path."""
         path = self._path_for(data)
         fsio.atomic_write_json(path, data.to_json(), sort_keys=True)
+        SPOOL_JOURNALED.inc()
+        flight.record("spool", claim=data.claim_id, path=path)
         log.warning(
             "journaled undeliverable submission for claim %d to %s "
             "(will replay)", data.claim_id, path,
@@ -93,7 +101,9 @@ class SubmissionSpool:
         # new gets rejected.
         self.prune_quarantine()
         for path in self.pending():
-            counts[self._replay_one(path, api_base, max_retries)] += 1
+            outcome = self._replay_one(path, api_base, max_retries)
+            counts[outcome] += 1
+            SPOOL_REPLAYS.labels(outcome).inc()
         if sum(counts.values()):
             log.info(
                 "spool replay: %d delivered, %d rejected, %d deferred",
@@ -104,6 +114,7 @@ class SubmissionSpool:
     def _replay_one(
         self, path: str, api_base: str, max_retries: int
     ) -> str:
+        t0 = time.monotonic()
         try:
             with open(path, "r", encoding="utf-8") as f:
                 data = DataToServer.from_json(json.load(f))
@@ -123,6 +134,11 @@ class SubmissionSpool:
                     data.claim_id, e, path,
                 )
                 self._quarantine(path)
+                journal.record_client_event(
+                    "spool_replay", claim_id=data.claim_id,
+                    outcome="rejected", status=e.status,
+                    secs=round(time.monotonic() - t0, 6),
+                )
                 return "rejected"
             log.warning(
                 "spooled submission for claim %d still undeliverable (%s); "
@@ -135,6 +151,13 @@ class SubmissionSpool:
             if resp.get("duplicate") else "",
         )
         self._remove(path)
+        # secs is the replay round trip only; the time the submission sat
+        # spooled on disk shows in the journal as the gap before the event.
+        journal.record_client_event(
+            "spool_replay", claim_id=data.claim_id, outcome="delivered",
+            duplicate=bool(resp.get("duplicate")),
+            secs=round(time.monotonic() - t0, 6),
+        )
         return "delivered"
 
     @staticmethod
@@ -149,6 +172,10 @@ class SubmissionSpool:
             os.replace(path, path + ".rejected")
         except OSError:
             pass
+        # A definitively rejected submission is when the preceding event
+        # history matters: dump the flight ring next to the wreckage.
+        flight.record("quarantine", path=path + ".rejected")
+        flight.dump(reason="quarantine")
         self.prune_quarantine()
 
     def prune_quarantine(self) -> dict:
@@ -200,6 +227,11 @@ class SubmissionSpool:
             pruned_entries += 1
             pruned_bytes += size
         if pruned_entries:
+            SPOOL_QUARANTINE_PRUNED.inc(pruned_bytes)
+            flight.record(
+                "quarantine_pruned", dir=self.dir,
+                entries=pruned_entries, bytes=pruned_bytes,
+            )
             log.info(
                 "pruned %d quarantined spool entries (%d bytes) under the"
                 " retention bounds", pruned_entries, pruned_bytes,

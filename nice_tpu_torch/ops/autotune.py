@@ -21,8 +21,9 @@ as empty.
 
 The table is a module constant, not an environment variable: the port reads
 none. Tests and chip_smoke.py point WINNERS_PATH at a file of their own.
-EVENTS counts the lookups (the Prometheus series waits for the port's
-observability slice).
+EVENTS counts the lookups, and each one also goes to the
+nice_autotune_events_total series ("override", an explicit argument, is
+the port's counterpart of the reference's "env_override").
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import threading
 
 import torch
 
+from nice_tpu_torch.obs.series import AUTOTUNE_EVENTS
 from nice_tpu_torch.ops import cuda_build
 from nice_tpu_torch.ops.limbs import get_plan
 
@@ -97,6 +99,11 @@ def reset_events() -> None:
         EVENTS[k] = 0
 
 
+def _count(event: str) -> None:
+    EVENTS[event] += 1
+    AUTOTUNE_EVENTS.labels(event).inc()
+
+
 def _load() -> dict:
     """The winners table, cached per (path, mtime)."""
     path = WINNERS_PATH
@@ -126,7 +133,7 @@ def params(mode: str, base: int, device) -> dict | None:
     if not isinstance(entry, dict):
         return None
     if entry.get("signature") != signature(base, device):
-        EVENTS["invalidated"] += 1
+        _count("invalidated")
         return None
     return entry.get("params") or None
 
@@ -135,13 +142,13 @@ def choose(mode: str, base: int, device, param: str, default: int,
            explicit: int | None = None) -> int:
     """One knob under the explicit > tuned > default precedence."""
     if explicit is not None:
-        EVENTS["override"] += 1
+        _count("override")
         return int(explicit)
     tuned = params(mode, base, device)
     if tuned is not None and param in tuned:
-        EVENTS["hit"] += 1
+        _count("hit")
         return int(tuned[param])
-    EVENTS["miss"] += 1
+    _count("miss")
     return default
 
 
@@ -165,7 +172,7 @@ def record(mode: str, base: int, device, new_params: dict,
     with open(tmp, "w") as f:
         json.dump(table, f, indent=1, sort_keys=True)
     os.replace(tmp, path)
-    EVENTS["store"] += 1
+    _count("store")
     reset_for_tests()
     return path
 
@@ -197,7 +204,7 @@ def sweep(mode: str, device, *, bench_mode: str | None = None,
         cmd += ["--segments", ",".join(str(s) for s in segments)]
     if floors:
         cmd += ["--floors", ",".join(str(f) for f in floors)]
-    EVENTS["sweep"] += 1
+    _count("sweep")
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, cwd=REPO_DIR)
     if proc.returncode != 0:

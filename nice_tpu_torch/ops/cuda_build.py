@@ -29,6 +29,8 @@ import subprocess
 import threading
 import time
 
+from nice_tpu_torch.obs import stepprof
+
 log = logging.getLogger(__name__)
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,6 +121,8 @@ def nvcc_library(lib_path: str, sources, csrc: str | None = None,
             f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     log.info("built %s in %.1fs", lib_path, seconds)
+    # A build on a thread bound to a profiled field is that field's compile.
+    stepprof.note_compile(seconds)
     return {"path": lib_path, "seconds": seconds,
             "ptxas": proc.stdout + proc.stderr}
 

@@ -28,6 +28,9 @@ main library at every base.
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
 two. LAUNCHES counts launches, one per kernel launch and nowhere else.
+DISPATCH_SECONDS keeps each launch call's wall time (a list append, no
+lock), and fold_dispatch_seconds() moves them into the
+nice_pallas_dispatch_seconds series, once a field (the engine calls it).
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import time
 
 import torch
 
+from nice_tpu_torch.obs.series import PALLAS_DISPATCH_SECONDS
 from nice_tpu_torch.ops import cuda_build, mxu
 from nice_tpu_torch.ops import vector_engine as ve
 from nice_tpu_torch.ops.limbs import BasePlan, digit_chunk, log2_fx
@@ -63,12 +68,24 @@ LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
             "niceonly_dense": 0, "detailed_megaloop_mma": 0,
             "niceonly_dense_mma": 0}
 
+# Wall seconds of each launch call since the last fold, by LAUNCHES key.
+DISPATCH_SECONDS: dict = {k: [] for k in LAUNCHES}
+
 _U64_MAX = (1 << 64) - 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def fold_dispatch_seconds() -> None:
+    """Observe the launch times kept since the last fold in
+    nice_pallas_dispatch_seconds{kernel} and drop them."""
+    for name in DISPATCH_SECONDS:
+        times, DISPATCH_SECONDS[name] = DISPATCH_SECONDS[name], []
+        if times:
+            PALLAS_DISPATCH_SECONDS.labels(name).observe_many(times)
 
 
 def supports_base(plan: BasePlan) -> bool:
@@ -250,6 +267,7 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     else:
         _check(nm_out, "nm_out", torch.int32, (), device)
         nm = nm_out
+    t0 = time.perf_counter()
     with _on_device(device):
         rc = launch(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
@@ -258,6 +276,7 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     name = "detailed_megaloop_mma" if use_mxu else "detailed_megaloop"
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    DISPATCH_SECONDS[name].append(time.perf_counter() - t0)
     return hist_acc, nm
 
 
@@ -277,11 +296,13 @@ def uniques_batch(plan: BasePlan, batch_size: int, start_limbs: torch.Tensor):
         lib = cuda_build.load()
         launch = lib.nice_uniques
     out = torch.empty(batch_size, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
     with _on_device(device):
         rc = launch(words, start_limbs.data_ptr(), batch_size, out.data_ptr(),
                     _stream(device))
     _raise_on(lib, rc, "uniques")
     LAUNCHES["uniques"] += 1
+    DISPATCH_SECONDS["uniques"].append(time.perf_counter() - t0)
     return out
 
 
@@ -338,6 +359,7 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     counts = torch.zeros(rows, dtype=torch.int32, device=device)
     if n_real == 0:
         return counts
+    t0 = time.perf_counter()
     with _on_device(device):
         rc = lib.nice_plan_strided_niceonly(
             words, desc.data_ptr(), n_real, residues.data_ptr(), num_res,
@@ -346,6 +368,7 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
         )
     _raise_on(lib, rc, "strided_niceonly")
     LAUNCHES["strided_niceonly"] += 1
+    DISPATCH_SECONDS["strided_niceonly"].append(time.perf_counter() - t0)
     return counts
 
 
@@ -408,6 +431,7 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
         out = torch.zeros(2, dtype=torch.int32, device=device)
     else:
         _check(out, "out", torch.int32, (2,), device)
+    t0 = time.perf_counter()
     with _on_device(device):
         rc = lib.nice_niceonly_dense(
             words, start_limbs.data_ptr(), classes.data_ptr(), num_cls,
@@ -416,4 +440,5 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     name = "niceonly_dense_mma" if use_mxu else "niceonly_dense"
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    DISPATCH_SECONDS[name].append(time.perf_counter() - t0)
     return out

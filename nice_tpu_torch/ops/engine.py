@@ -42,7 +42,21 @@ K5) counts a run's nice lanes among the residue classes the congruence
 keeps, and the collector re-scans a run that counts any through K2 (a
 count that disagrees is an error).
 
-A kernel failure raises: there is no downgrade to another backend.
+A kernel failure raises: there is no downgrade to another backend, and
+neither has the engine.dispatch fault site (faults/injector.py), whose
+injected fault raises out of the field.
+
+Observability (obs/): each device field runs in an engine.detailed /
+engine.niceonly-strided / -dense / -host span (engine.scalar for the
+oracle) and feeds the JAX engine's series (dispatches, numbers, readback
+bytes, stats transfers, batch kernel seconds, descriptors, audits, filter
+pruned, host fallback, feed idle, kernel dispatch seconds). On the
+dispatcher and collector threads the instrumentation is list appends and
+int increments; the series take them once a field, after the collector has
+drained, so no registry lock is taken a segment. The detailed and dense
+loops carry the device-step profiler (obs/stepprof.py): h2d_feed around
+the feed's get, device_compute and a fence after each dispatch, readback
+and fold on the collector; off, it costs one attribute check an item.
 """
 
 from __future__ import annotations
@@ -60,13 +74,30 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nice_tpu_torch import native
+from nice_tpu_torch import native, obs
 from nice_tpu_torch.core import base_range, number_stats
 from nice_tpu_torch.core.types import (
     FieldResults,
     FieldSize,
     NiceNumberSimple,
     UniquesDistributionSimple,
+)
+from nice_tpu_torch.faults import injector as faults
+from nice_tpu_torch.obs import stepprof
+from nice_tpu_torch.obs.series import (
+    CKPT_BATCHES_SKIPPED,
+    CKPT_RESTORES,
+    ENGINE_AUDITS,
+    ENGINE_BATCH_KERNEL_SECONDS,
+    ENGINE_DESCRIPTORS,
+    ENGINE_DISPATCHES,
+    ENGINE_FILTER_PRUNED,
+    ENGINE_HOST_FALLBACK,
+    ENGINE_NUMBERS,
+    ENGINE_READBACK_BYTES,
+    ENGINE_STATS_TRANSFERS,
+    ENGINE_SURVIVOR_OVERFLOW,
+    MESH_FEED_IDLE,
 )
 from nice_tpu_torch.ops import adaptive_floor, autotune, cuda_build, msd_filter, mxu
 from nice_tpu_torch.ops import stride_filter
@@ -206,14 +237,16 @@ class _Collector:
     block forever; shutdown() joins without raising (safe in a finally) and
     raise_if_failed() re-raises the worker's exception on the caller. As a
     context manager, __exit__ always shuts the worker down. With `stream`
-    the worker enqueues on that stream (_adopt)."""
+    the worker enqueues on that stream (_adopt); with `prof` (a
+    StepProfiler) a build on the worker counts as the field's compile."""
 
     def __init__(self, fn, maxsize: int, name: str, on_fail=None,
-                 stream=None):
+                 stream=None, prof=None):
         self._fn = fn
         self._err: list = [None]
         self._on_fail = on_fail
         self._stream = stream
+        self._prof = prof
         self._q: queue.Queue = queue.Queue(maxsize=maxsize)
         self._t = threading.Thread(target=self._run, name=name, daemon=True)
         self._t.start()
@@ -221,6 +254,8 @@ class _Collector:
     def _run(self):
         try:
             _adopt(self._stream)
+            if self._prof is not None:
+                self._prof.bind()  # its builds are the field's compile
             while True:
                 item = self._q.get()
                 if item is None:
@@ -600,25 +635,47 @@ def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
     })
 
 
+def _fire_dispatch_fault(n_batch: int, start: int) -> None:
+    """The engine.dispatch fault site: any action configured there raises
+    out of the field (the port has no downgrade chain to exercise)."""
+    act = faults.fire("engine.dispatch", batch=n_batch, start=start)
+    if act is not None:
+        raise RuntimeError(f"injected engine.dispatch fault: {act}")
+
+
 def _dispatch_loop(feed: _SliceFeed, collector: _Collector, dispatch,
-                   after, progress, total: int, done: int):
+                   after, progress, total: int, done: int,
+                   prof: stepprof.StepProfiler):
     """The dispatcher shared by the detailed and dense loops: take each item
-    from the feed, dispatch(item) (enqueue its kernel and hand its readback
-    to the collector), then after(markers) (ticker, flushes), then
-    progress(done, total). Stops when the feed is exhausted or the collector
-    failed. Returns (dispatches, the host's gaps between dispatches)."""
+    from the feed, dispatch(item) (enqueue its kernel, hand its readback to
+    the collector, return the device tensor the kernel writes), then
+    after(markers) (ticker, flushes), then progress(done, total). Stops
+    when the feed is exhausted or the collector failed. With the profiler
+    on, the feed's get is h2d_feed, and the dispatch with a fence on its
+    tensor device_compute. Returns (dispatches, the host's gaps between
+    dispatches)."""
     gaps: list[float] = []
     n_batch = 0
     t_prev = None
+    prof_on = prof.enabled  # hoisted: the disabled per-item cost is a load
+    faults_on = faults.armed("engine.dispatch")
     try:
         while not collector.failed():
+            t_feed = time.monotonic() if prof_on else 0.0
             item = feed.get()
             if item is None:
                 break
             now = time.monotonic()
+            if prof_on:
+                prof.add("h2d_feed", now - t_feed)
             if t_prev is not None and len(gaps) < 65536:
                 gaps.append(now - t_prev)
-            dispatch(item)
+            if faults_on:
+                _fire_dispatch_fault(n_batch, item.seg[0])
+            out = dispatch(item)
+            if prof_on:
+                prof.add("device_compute", time.monotonic() - now)
+                prof.fence(out)
             t_prev = time.monotonic()
             n_batch += 1
             done += item.lanes
@@ -654,11 +711,19 @@ def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
             plan, sub_size, thresh, cap, start, sub_valid), dev)
         _wait(ev)
         count = int(count)
-        if 0 < count <= cap:
+        if count == 0:
+            ENGINE_READBACK_BYTES.labels("survivors").inc(4)
+        elif count <= cap:
+            ENGINE_READBACK_BYTES.labels("survivors").inc(
+                4 + idx.nbytes + uniq.nbytes)
             for i, u in zip(idx[:count].tolist(), uniq[:count].tolist()):
                 yield sub_start + i, u
-        elif count > cap:
-            u = ce.uniques_batch(plan, sub_size, start)[:sub_valid]
+        else:
+            ENGINE_SURVIVOR_OVERFLOW.inc()
+            u = ce.uniques_batch(plan, sub_size, start)
+            ENGINE_READBACK_BYTES.labels("survivors-dense").inc(
+                4 + u.numel() * u.element_size())
+            u = u[:sub_valid]
             hits = torch.nonzero(u > thresh).flatten()
             for i, v in zip(hits.tolist(), u[hits].tolist()):
                 yield sub_start + i, v
@@ -714,7 +779,9 @@ def process_range_detailed(
                                 progress)
     if backend == "scalar":
         if checkpoint_cb is None and resume is None:
-            return scalar.process_range_detailed(range_, base)
+            with obs.span("engine.scalar", base=base, size=range_.size(),
+                          mode="detailed", backend="scalar"):
+                return scalar.process_range_detailed(range_, base)
         chunk = resolve_tuning("detailed", base, "cpu", batch_size,
                                backend="scalar")[0]
         return _chunked_host_scan(range_, base, "detailed", chunk, progress,
@@ -744,6 +811,7 @@ def process_range_detailed(
     if resume is None:
         for part in (pre, post):
             if part is not None:
+                ENGINE_HOST_FALLBACK.labels("sliver").inc()
                 sub = scalar.process_range_detailed(part, base)
                 for d in sub.distribution:
                     hist[d.num_uniques] += d.count
@@ -762,6 +830,10 @@ def process_range_detailed(
         segments = _resume_segments(resume, core.start(), core.end())
 
     lanes = batch_size * seg
+    if resume is not None:
+        CKPT_RESTORES.inc()
+        CKPT_BATCHES_SKIPPED.inc(
+            (core.size() - sum(e - s for s, e in segments)) // lanes)
     # Every segment adds at most `lanes` to one bin (padding included), so
     # flushing every flush_every segments keeps int32 bins far from 2^31.
     flush_every = max(1, ((1 << 31) - 1) // (2 * lanes))
@@ -774,11 +846,19 @@ def process_range_detailed(
     ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
               if checkpoint_cb is not None else None)
     t0 = time.monotonic()
+    # Started here, stopped once the collector has drained, so that fold
+    # and readback attribution is complete.
+    prof = stepprof.StepProfiler("detailed", base, dev.type).start()
+    # The collector's tallies, folded into the series once the field ends.
+    item_secs: list[float] = []
+    tally = {"nm_bytes": 0, "stats_bytes": 0, "transfers": 0}
 
     def collect_item(kind, *payload):
+        t_item = time.monotonic()
         if kind == "nm":  # a block of segments' near-miss counts
             segs, nms, ev = payload
             _wait(ev)
+            tally["nm_bytes"] += 4 * len(segs)
             for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
                 if nm > 0:
                     nice_numbers.extend(
@@ -790,6 +870,8 @@ def process_range_detailed(
             (h,), ev = payload
             _wait(ev)
             hist[:] += h.numpy().astype(np.int64)
+            tally["stats_bytes"] += h.numel() * h.element_size()
+            tally["transfers"] += 1
         else:  # "ckpt": after its "nm" and "stats", so the state matches
             # its cursor
             (rem,) = payload
@@ -801,48 +883,71 @@ def process_range_detailed(
                 ],
                 "remaining": [[s, e] for s, e in rem],
             })
+        dt = time.monotonic() - t_item
+        item_secs.append(dt)
+        if prof.enabled:
+            if kind == "nm":
+                prof.add("readback", dt)
+            elif kind == "stats":
+                prof.add("fold", dt)
 
     queues = [segments]
     st = {"acc": torch.zeros(plan.base + 2, dtype=torch.int32, device=dev),
           "since_flush": 0}
 
-    with _Collector(collect_item, window, "detailed-collect",
-                    stream=stream) as collector:
+    try:
+        with obs.span("engine.detailed", base=base, size=total,
+                      backend=dev.type), \
+                _Collector(collect_item, window, "detailed-collect",
+                           stream=stream, prof=prof) as collector:
 
-        def read_back():
-            if len(readbacks):
-                collector.put(("nm", *readbacks.fetch()))
+            def read_back():
+                if len(readbacks):
+                    collector.put(("nm", *readbacks.fetch()))
 
-        def flush():
-            read_back()
-            collector.put(("stats", *_to_host((st["acc"],), dev, stream)))
-            st["acc"] = torch.zeros(plan.base + 2, dtype=torch.int32,
-                                    device=dev)
-            st["since_flush"] = 0
-
-        def dispatch(item):
-            st["acc"], nm = ce.detailed_accum_megaloop(
-                plan, batch_size, seg, st["acc"], item.start, item.seg[1], arm,
-                nm_out=readbacks.slot())
-            readbacks.add(nm, item.seg)
-            st["since_flush"] += 1
-            if len(readbacks) == FEED_BLOCK:
+            def flush():
                 read_back()
+                collector.put(("stats",
+                               *_to_host((st["acc"],), dev, stream)))
+                st["acc"] = torch.zeros(plan.base + 2, dtype=torch.int32,
+                                        device=dev)
+                st["since_flush"] = 0
 
-        def after(markers):
-            if ticker is not None and ticker.tick():
-                flush()
-                collector.put(("ckpt", _SliceFeed.remaining(queues, markers)))
-            elif st["since_flush"] >= flush_every:
-                flush()
+            def dispatch(item):
+                st["acc"], nm = ce.detailed_accum_megaloop(
+                    plan, batch_size, seg, st["acc"], item.start,
+                    item.seg[1], arm, nm_out=readbacks.slot())
+                readbacks.add(nm, item.seg)
+                st["since_flush"] += 1
+                if len(readbacks) == FEED_BLOCK:
+                    read_back()
+                return nm
 
-        feed = _SliceFeed(plan, queues, lanes, dev, feed_depth, stream=stream)
-        n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
-                                       progress, total, done0)
-        if not collector.failed():
-            read_back()
-            if st["since_flush"]:
-                flush()
+            def after(markers):
+                if ticker is not None and ticker.tick():
+                    flush()
+                    collector.put(("ckpt",
+                                   _SliceFeed.remaining(queues, markers)))
+                elif st["since_flush"] >= flush_every:
+                    flush()
+
+            feed = _SliceFeed(plan, queues, lanes, dev, feed_depth,
+                              stream=stream)
+            n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
+                                           progress, total, done0, prof)
+            if not collector.failed():
+                read_back()
+                if st["since_flush"]:
+                    flush()
+    finally:
+        prof.stop()
+        ce.fold_dispatch_seconds()
+    ENGINE_DISPATCHES.labels("detailed").inc(n_batch)
+    MESH_FEED_IDLE.labels("detailed").observe_many(gaps)
+    ENGINE_BATCH_KERNEL_SECONDS.labels("detailed").observe_many(item_secs)
+    ENGINE_READBACK_BYTES.labels("nm").inc(tally["nm_bytes"])
+    ENGINE_READBACK_BYTES.labels("stats").inc(tally["stats_bytes"])
+    ENGINE_STATS_TRANSFERS.labels("detailed").inc(tally["transfers"])
     _record_feed_stats("detailed", gaps, n_batch, feed_depth, feed.ring.waits)
     collector.raise_if_failed()
     log.debug(
@@ -851,6 +956,7 @@ def process_range_detailed(
         range_.end(), dev, batch_size, seg, arm, feed_depth,
         time.monotonic() - t0, n_batch, len(nice_numbers),
     )
+    ENGINE_NUMBERS.labels("detailed").inc(range_.size())
 
     nice_numbers.sort(key=lambda n: n.number)
     distribution = tuple(
@@ -1184,6 +1290,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                 yield r.start(), r.end()
 
     audit_seen = [0]  # zero-count descriptors seen so far
+    audits = [0]      # zero-count descriptors re-scanned
+    group_secs: list[float] = []
 
     def collect(cols, counts_dev, launched):
         t0 = time.monotonic()
@@ -1216,6 +1324,7 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                         f"[{lo},{hi})) counted 0 on device but host found "
                         f"{len(found)} nice numbers (audit)"
                     )
+                audits[0] += 1
             audit_seen[0] += len(zeros)
         if checkpoint is not None and (ticker is None or ticker.tick()):
             # The coverage frontier of this group: the end of its last
@@ -1223,7 +1332,9 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
             watermark = min(desc_value(cols, 2, k - 1),
                             desc_value(cols, 0, k - 1) + span)
             checkpoint(watermark, list(nice))
-        dev_busy[0] += time.monotonic() - t0
+        secs = time.monotonic() - t0
+        dev_busy[0] += secs
+        group_secs.append(secs)
 
     producer = threading.Thread(target=produce, name="niceonly-msd",
                                 daemon=True)
@@ -1247,6 +1358,7 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                     if collector.failed():
                         break
                     k_real = len(cols[0])
+                    _fire_dispatch_fault(n_groups, desc_value(cols, 0, 0))
                     n_desc += k_real
                     n_groups += 1
                     if first_group is None:
@@ -1270,6 +1382,10 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                 stop.set()
     finally:
         producer.join()
+        ce.fold_dispatch_seconds()
+    ENGINE_DESCRIPTORS.inc(n_desc)
+    ENGINE_AUDITS.inc(audits[0])
+    ENGINE_BATCH_KERNEL_SECONDS.labels("strided").observe_many(group_secs)
     if prod_err[0] is not None:
         raise prod_err[0]
     collector.raise_if_failed()
@@ -1339,6 +1455,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     nice0 = len(nice_numbers)
     ctrl = adaptive_floor.get_floor_controller("dense")
     floor = ctrl.current()
+    # As in the JAX dense loop, the MSD filter up front lands in host_other.
+    prof = stepprof.StepProfiler("niceonly", base, dev.type).start()
     t0 = time.monotonic()
     ran_filter = resume is None or not resume.get("filtered")
     segments = ([(core.start(), core.end())] if resume is None
@@ -1362,8 +1480,10 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     readbacks = _Readbacks((2,), dev, window, stream)
     ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
               if checkpoint_cb is not None else None)
+    item_secs: list[float] = []
 
     def collect_item(kind, *payload):
+        t_item = time.monotonic()
         if kind == "count":  # a block of runs' [count, pruned]
             block, counts, ev = payload
             _wait(ev)
@@ -1390,35 +1510,54 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
                 "remaining": [[a, b] for a, b in rem],
                 "filtered": True,
             })
+        dt = time.monotonic() - t_item
+        item_secs.append(dt)
+        if prof.enabled and kind == "count":
+            prof.add("readback", dt)
 
     queues = [segments]
     t1 = time.monotonic()
-    with _Collector(collect_item, window, "dense-collect",
-                    stream=stream) as collector:
+    try:
+        with obs.span("engine.niceonly-dense", base=base, size=core.size(),
+                      backend=dev.type), \
+                _Collector(collect_item, window, "dense-collect",
+                           stream=stream, prof=prof) as collector:
 
-        def read_back():
-            if len(readbacks):
-                collector.put(("count", *readbacks.fetch()))
+            def read_back():
+                if len(readbacks):
+                    collector.put(("count", *readbacks.fetch()))
 
-        def dispatch(item):
-            readbacks.add(ce.niceonly_dense_megaloop(
-                plan, batch_size, seg, classes, item.start, item.seg[1],
-                use_mxu=arm, out=readbacks.slot()), item.seg)
-            runs.append(item.seg)
-            if len(readbacks) == FEED_BLOCK:
+            def dispatch(item):
+                out = ce.niceonly_dense_megaloop(
+                    plan, batch_size, seg, classes, item.start, item.seg[1],
+                    use_mxu=arm, out=readbacks.slot())
+                readbacks.add(out, item.seg)
+                runs.append(item.seg)
+                if len(readbacks) == FEED_BLOCK:
+                    read_back()
+                return out
+
+            def after(markers):
+                if ticker is not None and ticker.tick():
+                    read_back()
+                    collector.put(("ckpt",
+                                   _SliceFeed.remaining(queues, markers)))
+
+            feed = _SliceFeed(plan, queues, lanes, dev, feed_depth,
+                              stream=stream)
+            n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
+                                           progress, total, 0, prof)
+            if not collector.failed():
                 read_back()
-
-        def after(markers):
-            if ticker is not None and ticker.tick():
-                read_back()
-                collector.put(("ckpt", _SliceFeed.remaining(queues, markers)))
-
-        feed = _SliceFeed(plan, queues, lanes, dev, feed_depth, stream=stream)
-        n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
-                                       progress, total, 0)
-        if not collector.failed():
-            read_back()
+    finally:
+        prof.stop()
+        ce.fold_dispatch_seconds()
     loop_secs = time.monotonic() - t1
+    ENGINE_DISPATCHES.labels("niceonly").inc(n_batch)
+    MESH_FEED_IDLE.labels("niceonly").observe_many(gaps)
+    ENGINE_BATCH_KERNEL_SECONDS.labels("dense").observe_many(item_secs)
+    ENGINE_READBACK_BYTES.labels("count").inc(8 * len(runs))
+    ENGINE_FILTER_PRUNED.labels("niceonly", str(base)).inc(tally["pruned"])
     _record_feed_stats("niceonly", gaps, n_batch, feed_depth, feed.ring.waits)
     collector.raise_if_failed()
     if ran_filter:
@@ -1506,7 +1645,9 @@ def process_range_niceonly(
                            backend="scalar")[0]
     if backend == "scalar":
         if checkpoint_cb is None and resume is None:
-            return scalar.process_range_niceonly(range_, base)
+            with obs.span("engine.scalar", base=base, size=range_.size(),
+                          mode="niceonly", backend="scalar"):
+                return scalar.process_range_niceonly(range_, base)
         return _chunked_host_scan(range_, base, "niceonly", chunk, progress,
                                   checkpoint_cb, resume, checkpoint_batches,
                                   checkpoint_secs)
@@ -1523,6 +1664,7 @@ def process_range_niceonly(
     if resume is None:
         for part in (pre, post):
             if part is not None:
+                ENGINE_HOST_FALLBACK.labels("sliver").inc()
                 nice_numbers.extend(
                     scalar.process_range_niceonly(part, base).nice_numbers)
     else:
@@ -1531,7 +1673,11 @@ def process_range_niceonly(
             for n, u in resume["nice_numbers"]
         ]
         segments = _resume_segments(resume, core.start(), core.end())
+        CKPT_RESTORES.inc()
+        CKPT_BATCHES_SKIPPED.inc(
+            (core.size() - sum(e - s for s, e in segments)) // max(1, chunk))
         if not segments:
+            ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
             nice_numbers.sort(key=lambda n: n.number)
             return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
@@ -1541,6 +1687,7 @@ def process_range_niceonly(
                         batch_size=batch_size, segment=segment,
                         use_mxu=use_mxu, checkpoint_batches=checkpoint_batches,
                         checkpoint_secs=checkpoint_secs, feed_depth=feed_depth)
+        ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
@@ -1564,8 +1711,12 @@ def process_range_niceonly(
         # ctypes overhead small; the filters are those of the strided path.
         t0 = time.monotonic()
         n_threads = resolve_threads(threads)
-        routed = _native_niceonly(core, base, None, n_threads, progress,
-                                  msd_floor=max(1 << 20, core.size() // 8))
+        ENGINE_HOST_FALLBACK.labels("host-route").inc()
+        with obs.span("engine.niceonly-host", base=base, size=core.size(),
+                      backend="native"):
+            routed = _native_niceonly(core, base, None, n_threads, progress,
+                                      msd_floor=max(1 << 20,
+                                                    core.size() // 8))
         LAST_NICEONLY_STATS.clear()
         LAST_NICEONLY_STATS.update(
             route="host", base=base, start=core.start(), end=core.end(),
@@ -1573,6 +1724,7 @@ def process_range_niceonly(
             k=_host_stride_depth(base), nice=len(routed.nice_numbers),
             first_group=None)
         nice_numbers.extend(routed.nice_numbers)
+        ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
@@ -1590,11 +1742,14 @@ def process_range_niceonly(
                     "nice_numbers": prior + [(n, base) for n in nice_so_far],
                 })
 
-        found = _niceonly_strided(
-            core, base, s, dev, progress, ckpt,
-            _CkptTicker(checkpoint_batches, checkpoint_secs))
+        with obs.span("engine.niceonly-strided", base=base,
+                      size=core.size(), backend=dev.type):
+            found = _niceonly_strided(
+                core, base, s, dev, progress, ckpt,
+                _CkptTicker(checkpoint_batches, checkpoint_secs))
     nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
                         for n in found)
+    ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
     nice_numbers.sort(key=lambda n: n.number)
     return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
@@ -1636,38 +1791,45 @@ def _chunked_host_scan(range_: FieldSize, base: int, mode: str, chunk: int,
             hist[:] = h
         nice = [NiceNumberSimple(number=int(n), num_uniques=int(u))
                 for n, u in resume["nice_numbers"]]
+        done0 = total - sum(e - s for s, e in segs)
+        CKPT_RESTORES.inc()
+        CKPT_BATCHES_SKIPPED.inc(done0 // chunk)
         log.info("%s scalar resume: %d segment(s) remaining (%d of %d "
-                 "numbers already done)", mode, len(segs),
-                 total - sum(e - s for s, e in segs), total)
+                 "numbers already done)", mode, len(segs), done0, total)
     ticker = (_CkptTicker(every_batches, every_secs)
               if checkpoint_cb is not None else None)
     done = total - sum(e - s for s, e in segs)
-    while segs:
-        s, e = segs[0]
-        n = min(chunk, e - s)
-        sub = FieldSize(s, s + n)
-        if detailed:
-            part = scalar.process_range_detailed(sub, base)
-            for d in part.distribution:
-                hist[d.num_uniques] += d.count
-        else:
-            part = scalar.process_range_niceonly(sub, base)
-        nice.extend(part.nice_numbers)
-        done += n
-        if s + n >= e:
-            segs.pop(0)
-        else:
-            segs[0] = (s + n, e)
-        if progress is not None:
-            progress(done, total)
-        if ticker is not None and ticker.tick():
-            checkpoint_cb({
-                "cursor": segs[0][0] if segs else end,
-                "hist": None if hist is None else hist.copy(),
-                "nice_numbers": [(x.number, x.num_uniques) for x in nice],
-                "remaining": [[s_, e_] for s_, e_ in segs],
-                "filtered": filtered,
-            })
+    n_batch = 0
+    with obs.span("engine.scalar", base=base, size=total, mode=mode,
+                  backend="scalar"):
+        while segs:
+            s, e = segs[0]
+            n = min(chunk, e - s)
+            _fire_dispatch_fault(n_batch, s)
+            n_batch += 1
+            sub = FieldSize(s, s + n)
+            if detailed:
+                part = scalar.process_range_detailed(sub, base)
+                for d in part.distribution:
+                    hist[d.num_uniques] += d.count
+            else:
+                part = scalar.process_range_niceonly(sub, base)
+            nice.extend(part.nice_numbers)
+            done += n
+            if s + n >= e:
+                segs.pop(0)
+            else:
+                segs[0] = (s + n, e)
+            if progress is not None:
+                progress(done, total)
+            if ticker is not None and ticker.tick():
+                checkpoint_cb({
+                    "cursor": segs[0][0] if segs else end,
+                    "hist": None if hist is None else hist.copy(),
+                    "nice_numbers": [(x.number, x.num_uniques) for x in nice],
+                    "remaining": [[s_, e_] for s_, e_ in segs],
+                    "filtered": filtered,
+                })
     nice.sort(key=lambda x: x.number)
     if not detailed:
         return FieldResults(distribution=(), nice_numbers=tuple(nice))

@@ -4,6 +4,7 @@ and again last with the whole suite embedded (the twin of bench.py).
 
     python -m nice_tpu_torch.scripts.bench [--only MODE] [--suite M:K,...]
         [--size N] [--batch N] [--budget SECS] [--reps N] [--device cuda|cpu]
+        [--stepprof]
 
 Each case builds and loads its libraries (engine.warm_detailed /
 warm_niceonly, `build_secs`), times a first field (`first_field_secs`: the
@@ -16,7 +17,12 @@ feed stats of the detailed and dense loops (engine.LAST_FEED_STATS), the
 niceonly pipeline's split (engine.LAST_NICEONLY_STATS: MSD busy seconds,
 descriptors, groups) and its `route` ("host" where the engine's default
 host_niceonly_max sends the field to the host library, else "device"),
-the distribution (detailed) and the nice numbers or near misses. Detailed
+the distribution (detailed) and the nice numbers or near misses, and the
+case's memory axis (`peak_mem`: the process's peak RSS at the case's end,
+the RSS the case added and the card's peak allocated bytes, from
+obs/memwatch.py). With --stepprof every pass runs under the device-step
+profiler and the line carries the case's `phase_breakdown` (phase seconds
+by mode|base|backend over all its passes, obs/stepprof.py). Detailed
 extra-large also times feed depth 0 against the default (`feed_ab`);
 detailed hi-base times K1 against K5 on one slice (`mxu_ab`). Every line names the card as nvidia-smi gives it (name, power
 limit) and the torch, CUDA and driver versions; a run with --device cpu
@@ -46,9 +52,11 @@ import torch
 
 from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
 from nice_tpu_torch.core.types import FieldSize
+from nice_tpu_torch.obs import memwatch, stepprof
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.ops.limbs import get_plan
+from nice_tpu_torch.utils import resources
 
 DEFAULT_BUDGET = 480.0
 DEFAULT_REPS = 5
@@ -125,6 +133,43 @@ def _stats(times: list[float]) -> dict:
     median = s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
     return {"median_secs": median, "min_secs": s[0], "max_secs": s[-1],
             "secs": times}
+
+
+def _stepprof_delta(before: dict, after: dict) -> dict:
+    """Per-(mode|base|backend) phase-seconds delta between two snapshots of
+    stepprof.cumulative() (the keys with fields in the window)."""
+    out = {}
+    for key, cur in after.items():
+        prev = before.get(key, {})
+        fields = int(cur.get("fields", 0)) - int(prev.get("fields", 0))
+        if not fields:
+            continue
+        d = {k: round(float(v) - float(prev.get(k, 0.0)), 6)
+             for k, v in cur.items() if k != "fields"}
+        d["fields"] = fields
+        out[key] = d
+    return out
+
+
+def _mem_snapshot() -> dict:
+    """Host RSS and peak RSS, and the largest per-device peak of allocated
+    bytes once CUDA is initialized: the memory axis of a line."""
+    out = {"rss_bytes": resources.rss_bytes() or 0,
+           "peak_rss_bytes": resources.peak_rss_bytes() or 0}
+    peaks = [e["peak"] for e in memwatch.device_memory()["devices"].values()]
+    if peaks:
+        out["device_peak_bytes"] = max(peaks)
+    return out
+
+
+def _mem_delta(before: dict, after: dict) -> dict:
+    """A window's memory: the peaks reached by its end and the resident set
+    the window itself added."""
+    out = {"peak_rss_bytes": after["peak_rss_bytes"],
+           "rss_delta_bytes": after["rss_bytes"] - before["rss_bytes"]}
+    if "device_peak_bytes" in after:
+        out["device_peak_bytes"] = after["device_peak_bytes"]
+    return out
 
 
 def _launches(before: dict) -> dict:
@@ -213,6 +258,7 @@ class _Field:
 
 
 def run_case(mode: str, kind: str, args, dev: torch.device) -> dict:
+    mem0, prof0 = _mem_snapshot(), stepprof.cumulative()
     f = _Field.of_case(mode, kind, args, dev)
     clamped = f.size < get_benchmark_field(BenchmarkMode(mode)).range_size
     t0 = time.monotonic()
@@ -259,6 +305,10 @@ def run_case(mode: str, kind: str, args, dev: torch.device) -> dict:
         line["feed_ab"] = _feed_ab(f, args.reps, _pairs(results))
     if (mode, kind) == ("hi-base", "detailed"):
         line["mxu_ab"] = _mxu_ab(f, args.reps)
+    line["peak_mem"] = _mem_delta(mem0, _mem_snapshot())
+    prof = _stepprof_delta(prof0, stepprof.cumulative())
+    if prof:
+        line["phase_breakdown"] = prof
     return line
 
 
@@ -366,6 +416,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reps", type=int, default=DEFAULT_REPS,
                    help="timed passes a case, after the first and a warm pass")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--stepprof", action="store_true",
+                   help="run every pass under the device-step profiler and "
+                   "report each case's phase_breakdown")
     return p
 
 
@@ -378,6 +431,7 @@ def main(argv=None) -> int:
                         format="INFO:%(name)s: %(message)s")
     dev = engine.resolve_device(args.device)  # no card: raise
     facts = device_facts(dev)
+    stepprof.configure(args.stepprof)
     try:
         suite = select_suite(args)
     except ValueError as exc:

@@ -33,6 +33,11 @@ from nice_tpu_torch.core.types import DataToClient, SearchMode
 from nice_tpu_torch.faults import spool as spool_mod
 from nice_tpu_torch.ops import engine
 
+# In-process client runs start no sampler thread and no telemetry beat:
+# those would outlive the test in this worker and post to its JAX server.
+QUIET = ("--telemetry-secs", "0", "--pyprof-hz", "0", "--memwatch-secs", "0",
+         "--history-secs", "0")
+
 FIELD = 1 << 16
 NEAR_MISS = 3621949312977  # num_uniques 37 at b40, in the second field
 SEED_START = NEAR_MISS - FIELD - 4000
@@ -166,7 +171,8 @@ def test_claim_404_falls_back_to_per_field(server, monkeypatch):
     monkeypatch.setattr(api_client, "claim_block_from_server", no_blocks)
     assert client.main(["niceonly", "--api-base", api, "--username", "fb",
                         "--device", "cpu", "--claim-block", "3",
-                        "--renew-secs", "0", "--max-retries", "0"]) == 0
+                        "--renew-secs", "0", "--max-retries", "0",
+                        *QUIET]) == 0
     rows = _query(db_path, "SELECT c.block_id FROM submissions s JOIN claims "
                   "c ON c.id = s.claim_id WHERE s.username = 'fb'")
     assert [r["block_id"] for r in rows] == [None]

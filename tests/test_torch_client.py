@@ -104,7 +104,11 @@ def test_niceonly_round_matches_jax_client(tmp_path):
     jres, _ = jclient.process_field(jdata, JSearchMode.NICEONLY, "scalar", None)
     jsub = jclient.compile_results(jdata, jres, JSearchMode.NICEONLY,
                                    "torch-test").to_json()
-    assert sub.to_json() == jsub
+    # The fleet snapshot rides on the submit after submit_id is stamped, as
+    # the JAX client attaches it after compile_results.
+    mine = sub.to_json()
+    assert mine.pop("telemetry")["v"] == 1
+    assert mine == jsub
     assert jsub["unique_distribution"] is None
     assert jsub["nice_numbers"] == [{"number": 69, "num_uniques": 10}]
 

@@ -66,7 +66,9 @@ def test_sigkilled_client_resumes_its_claim(tmp_path):
            "--api-base", api, "--checkpoint-dir", ckpt_dir,
            "--device", "cpu", "--batch-size", "2048",
            "--checkpoint-batches", "1", "--renew-secs", "2",
-           "--username", "crash-test"]
+           "--username", "crash-test",
+           # no heartbeat: it would count in this process's server series
+           "--telemetry-secs", "0"]
     try:
         with open(tmp_path / "run1.log", "wb") as log1:
             proc = subprocess.Popen(cmd, cwd=REPO, env=_env(), stdout=log1,

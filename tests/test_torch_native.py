@@ -29,6 +29,11 @@ from nice_tpu_torch.core import base_range, number_stats
 from nice_tpu_torch.core.types import FieldSize
 from nice_tpu_torch.ops import engine, stride_filter
 
+# In-process client runs start no sampler thread and no telemetry beat:
+# those would outlive the test in this worker and post to its JAX server.
+QUIET = ("--telemetry-secs", "0", "--pyprof-hz", "0", "--memwatch-secs", "0",
+         "--history-secs", "0")
+
 # b50 values far below its valid range: the squares and cubes are short, so
 # many candidates have all-distinct digits, the accept-rich range on which
 # the polynomial-residue kernel is held to the generic loop.
@@ -178,7 +183,7 @@ def test_host_stride_depth_equals_jax():
 # --------------------------------------------------------------------------
 
 def _summary(capsys, *argv):
-    assert client.main(list(argv)) == 0
+    assert client.main([*argv, *QUIET]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     return {k: v for k, v in out.items()
             if k not in ("elapsed_secs", "numbers_per_sec", "backend",
@@ -243,7 +248,8 @@ def test_client_native_drops_checkpoint_dir(server, tmp_path, caplog,
     with caplog.at_level(logging.WARNING, logger="nice_tpu_torch.client"):
         assert client.main(["detailed", "--api-base", server, "--backend",
                             "native", "--threads", "2", "--checkpoint-dir",
-                            str(ckpt_dir), "--renew-secs", "0"]) == 0
+                            str(ckpt_dir), "--renew-secs", "0",
+                            *QUIET]) == 0
     assert any("--checkpoint-dir is not supported with backend 'native'"
                in r.getMessage() for r in caplog.records)
     assert seen["checkpointer"] is None and seen["threads"] == 2

@@ -25,6 +25,11 @@ from nice_tpu_torch.core import base_range
 from nice_tpu_torch.core.types import FieldSize
 from nice_tpu_torch.ops import engine
 
+# In-process client runs start no sampler thread and no telemetry beat:
+# those would outlive the test in this worker and post to its JAX server.
+QUIET = ("--telemetry-secs", "0", "--pyprof-hz", "0", "--memwatch-secs", "0",
+         "--history-secs", "0")
+
 B40_MID = sum(base_range.get_base_range(40)) // 2
 
 # (mode, base, start, end, chunk): b10 with slivers on both sides of its
@@ -182,7 +187,8 @@ def test_client_scalar_checkpoint_dir_snapshots_and_resumes(server, tmp_path,
     ckpt_dir = str(tmp_path / "ckpt")
     argv = ["detailed", "--api-base", server, "--backend", "scalar",
             "--checkpoint-dir", ckpt_dir, "--checkpoint-batches", "1",
-            "--batch-size", "500", "--renew-secs", "0", "--max-retries", "1"]
+            "--batch-size", "500", "--renew-secs", "0", "--max-retries", "1",
+            *QUIET]
     saved = []
     real_save = ckpt.FieldCheckpointer.save
 

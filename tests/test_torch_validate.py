@@ -22,6 +22,11 @@ from nice_tpu_torch.client import api_client
 from nice_tpu_torch.client import main as client
 from nice_tpu_torch.core.types import ValidationData
 
+# In-process client runs start no sampler thread and no telemetry beat:
+# those would outlive the test in this worker and post to its JAX server.
+QUIET = ("--telemetry-secs", "0", "--pyprof-hz", "0", "--memwatch-secs", "0",
+         "--history-secs", "0")
+
 
 @pytest.fixture(autouse=True)
 def _client_state():
@@ -87,7 +92,8 @@ def canon(tmp_path_factory):
 
 def _validate(api: str, *extra: str) -> int:
     return client.main(["--validate", "--api-base", api, "--username", "v",
-                        "--device", "cpu", "--max-retries", "0", *extra])
+                        "--device", "cpu", "--max-retries", "0", *QUIET,
+                        *extra])
 
 
 def test_validate_passes_on_the_canon(canon, caplog):
@@ -154,4 +160,5 @@ def test_validate_base_without_canon_raises(canon):
 
 def test_validate_without_a_card_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        client.main(["--validate", "--api-base", "http://127.0.0.1:9"])
+        client.main(["--validate", "--api-base", "http://127.0.0.1:9",
+                     *QUIET])
