@@ -125,6 +125,12 @@ Phases, each of which raises (exit code 1) on failure:
      submissions canonical, --validate --base 40 must return 0, and against
      a second server over a copy of the ledger with its canonical
      distributions tampered with it must return 1;
+  8d. tenants, on the same server: `python -m nice_tpu_torch.client
+     --tenants "canon:detailed:40:prio=3;nice:niceonly:40:prio=1;
+     mining:near-miss:40"` in a subprocess on the card: exit code 0, one
+     claim row stamped with each tenant's name (claims.tenant), and each
+     claim's submission in the server's ledger, passing the phase 6 / 7
+     checks;
   8b. crash and resume: against a second such server, `python -m
      nice_tpu_torch.client detailed --checkpoint-dir D` (CRASH_BATCH lanes a
      batch, so that the 1e9 field takes seconds) is SIGKILLed once its first
@@ -174,6 +180,22 @@ Phases, each of which raises (exit code 1) on failure:
      and idle share of each wall time (the pipelined loop's); then the
      pipeline phase's fields at feed depth 0 and the default, for the
      idle share and K1's/K4's device ms at each;
+ 11b. sched: the multi-tenant scheduler at full width (the main path of
+     sched/, launch counts set to 0 just before each run and read just
+     after): canon (detailed extra-large, prio 3), mining (near-miss, the
+     mid-range b40 field, prio 0), nice (niceonly extra-large, prio 1) and
+     dense (niceonly b98-surviving, prio 1), 1e9 numbers each, built and
+     run solo first; then under deficit at the default page size (4
+     segments) and quantum (5 s), and under rr with a preemption at every
+     page boundary together with a hi-base sweep tenant (b520, the first
+     2^24 numbers of its range, 2 pages). Every assembled field must equal
+     its solo run exactly, and the tenants must have launched K1 (canon,
+     mining, sweep), K2 (mining), K3 (nice) and K4 (dense); printed: pages,
+     preemptions, starved counts, occupancy shares, launches and seconds a
+     page by tenant, busy seconds against solo seconds, and vs_sequential
+     (the solo seconds' sum over the interleaved seconds); the closing
+     where_time_goes lines split each tenant's busy time into its kernels'
+     estimate and a fixed cost a page;
  12. obs: the extra-large field through process_field three times in each
      of three settings of the observability layer, in this order: off (no
      sampler, no heartbeat), the client's defaults (the pyprof, memwatch
@@ -2397,8 +2419,8 @@ def phase_crash_resume(report: dict) -> None:
 
 def _read_submission(db_path: str, claim_id: int):
     """The server's record of the submission for a claim, read from its
-    sqlite file (JSON rows of num_uniques/count and number/num_uniques), as
-    FieldResults."""
+    sqlite file (JSON rows of num_uniques/count and number/num_uniques; a
+    niceonly submission has no distribution), as FieldResults."""
     import sqlite3
 
     from nice_tpu_torch.core.types import (FieldResults, NiceNumberSimple,
@@ -2411,7 +2433,7 @@ def _read_submission(db_path: str, claim_id: int):
     finally:
         conn.close()
     check(len(rows) == 1, f"{len(rows)} submissions for claim {claim_id}")
-    dist, nums = (json.loads(col) for col in rows[0])
+    dist, nums = (json.loads(col or "[]") for col in rows[0])  # niceonly: NULL
     return FieldResults(
         distribution=tuple(sorted(
             (UniquesDistributionSimple(num_uniques=int(d["num_uniques"]),
@@ -3191,6 +3213,240 @@ def phase_obs(report: dict, tmp: str) -> None:
     emit({"phase": "obs", **report["obs"]})
 
 
+# The sched phase's tenants (name, kind, field, priority); the hi-base sweep
+# tenant's base and numbers (the first of its range: two pages at the
+# default shape).
+SCHED_SWEEP_BASE = 520
+SCHED_SWEEP_NUMBERS = 1 << 24
+SCHED_TENANTS_SPEC = ("canon:detailed:40:prio=3;nice:niceonly:40:prio=1;"
+                      "mining:near-miss:40")
+# Kernels each local tenant must launch (cuda_engine.LAUNCHES keys).
+SCHED_KERNELS = {"canon": ("detailed_megaloop",),
+                 "mining": ("detailed_megaloop", "uniques"),
+                 "nice": ("strided_niceonly",),
+                 "dense": ("niceonly_dense",),
+                 "sweep": ("detailed_megaloop",)}
+
+
+def _sched_class():
+    """MultiTenantScheduler that keeps, by tenant, each page's seconds, the
+    kernels its pages launched (cuda_engine.LAUNCHES deltas) and the
+    engine's split of each page (the niceonly pipelines' stats)."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.sched import MultiTenantScheduler
+
+    class Counting(MultiTenantScheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.page_secs = {s.name: [] for s in self.registry}
+            self.launches = {s.name: {} for s in self.registry}
+            self.split = {s.name: {} for s in self.registry}
+
+        def _execute_page(self, spec, page):
+            before = dict(ce.LAUNCHES)
+            t0 = time.monotonic()
+            out = super()._execute_page(spec, page)
+            self.page_secs[spec.name].append(time.monotonic() - t0)
+            mine = self.launches[spec.name]
+            for k, v in ce.LAUNCHES.items():
+                if v != before[k]:
+                    mine[k] = mine.get(k, 0) + v - before[k]
+            if spec.mode == "niceonly":
+                st = engine.LAST_NICEONLY_STATS
+                split = self.split[spec.name]
+                for k in ("wall", "msd_busy", "collect_busy", "gen", "disp",
+                          "msd_secs", "loop_secs"):
+                    if k in st:
+                        split[k] = split.get(k, 0.0) + float(st[k])
+            return out
+
+    return Counting
+
+
+def _sched_run(fields: dict, specs: list, solo: dict, policy: str,
+               quantum_secs: float) -> dict:
+    """One scheduler run of `fields` ({tenant: DataToClient}) on the card,
+    the launch counts set to 0 just before it and read just after; every
+    assembled field must equal its solo run. Returns the run's record."""
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.sched import StaticSource, TenantRegistry
+
+    source = StaticSource({name: [(name, d.base, d.range_start, d.range_end)]
+                           for name, d in fields.items()})
+    scheduler = _sched_class()(TenantRegistry(specs), source, policy=policy,
+                               quantum_secs=quantum_secs, device=DEVICE)
+    ce.reset_launches()
+    t0 = time.monotonic()
+    stats = scheduler.run()
+    secs = time.monotonic() - t0
+    launches = dict(ce.LAUNCHES)
+    check(scheduler.table.check_invariants() == [], "page table invariants")
+    for name in fields:
+        got = source.results[name].get(name)
+        check(got is not None and _pairs(got) == _pairs(solo[name][0]),
+              f"{policy}: tenant {name}'s field differs from its solo run")
+        for k in SCHED_KERNELS[name]:
+            check(scheduler.launches[name].get(k, 0) > 0,
+                  f"{policy}: tenant {name} never launched {k}: "
+                  f"{scheduler.launches[name]}")
+    check(sum(v for k, v in launches.items()) ==
+          sum(sum(t.values()) for t in scheduler.launches.values()),
+          "launches outside the tenants' pages")
+    solo_secs = sum(solo[name][1] for name in fields)
+    tenants = {}
+    for name, t in stats["tenants"].items():
+        ps = scheduler.page_secs[name]
+        tenants[name] = {
+            "numbers": fields[name].range_size,
+            "pages": t["pages"], "preemptions": t["preemptions"],
+            "starved": t["starved"], "busy_secs": t["busy_secs"],
+            "solo_secs": solo[name][1],
+            "busy_vs_solo": t["busy_secs"] / solo[name][1],
+            "page_secs_mean": sum(ps) / len(ps), "page_secs_max": max(ps),
+            "page_secs_min": min(ps),
+            "share": scheduler.meter.shares().get(name, 0.0),
+            "launches": scheduler.launches[name],
+            "split": scheduler.split[name]}
+    return {"policy": policy, "quantum_secs": quantum_secs,
+            "page_batches": scheduler.table.page_batches,
+            "rounds": stats["rounds"], "interleaved_secs": secs,
+            "solo_secs_sum": solo_secs, "vs_sequential": solo_secs / secs,
+            "occupancy": stats["occupancy"], "launches": launches,
+            "tenants": tenants}
+
+
+def phase_sched(report: dict) -> None:
+    """The multi-tenant scheduler on the card, at full width: the tenants
+    canon (detailed, extra-large, prio 3), mining (near-miss, the mid-range
+    b40 field, prio 0), nice (niceonly, extra-large, prio 1) and dense
+    (niceonly, b98-surviving, prio 1), each field 1e9 numbers, built
+    (scheduler.warm) and then run solo through process_range_* (timed);
+    then a run under deficit at the default page size and quantum, and one
+    under rr with quantum_secs=1e-9 (a preemption at every page boundary)
+    that also holds the hi-base sweep tenant (b520, the first 2^24 numbers
+    of its range). Each run sets the launch counts to 0 just before and
+    reads them just after; every assembled field must equal its solo run
+    exactly, and each tenant must have launched its kernels (canon K1,
+    mining K1 and K2, nice K3, dense K4, sweep K1). Printed: pages,
+    preemptions, starved counts, occupancy shares and launches by tenant,
+    seconds a page, each tenant's busy seconds against its solo seconds,
+    and the interleaved seconds against the sum of the solo seconds
+    (vs_sequential)."""
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.core.types import DataToClient
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+    from nice_tpu_torch.sched import (MultiTenantScheduler, StaticSource,
+                                      TenantRegistry, TenantSpec,
+                                      hi_base_sweep_tenant, near_miss_tenant)
+
+    xl = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
+    lo = get_plan(SCHED_SWEEP_BASE).range_start
+    fields = {"canon": xl, "mining": _mid_range_field(SERVER_BASE), "nice": xl,
+              "dense": FIELD_RESULTS[("niceonly", "b98-surviving")][0],
+              "sweep": DataToClient(claim_id=0, base=SCHED_SWEEP_BASE,
+                                    range_start=lo,
+                                    range_end=lo + SCHED_SWEEP_NUMBERS,
+                                    range_size=SCHED_SWEEP_NUMBERS)}
+    specs = {"canon": TenantSpec(name="canon", mode="detailed", base=40,
+                                 priority=3),
+             "mining": near_miss_tenant(40, name="mining"),
+             "nice": TenantSpec(name="nice", mode="niceonly", base=40,
+                                priority=1),
+             "dense": TenantSpec(name="dense", mode="niceonly",
+                                 base=DENSE_BASE, priority=1),
+             "sweep": hi_base_sweep_tenant(SCHED_SWEEP_BASE, name="sweep")}
+    t0 = time.monotonic()
+    MultiTenantScheduler(TenantRegistry(specs.values()), StaticSource({}),
+                         device=DEVICE).warm()
+    warm_secs = time.monotonic() - t0
+    solo = {}
+    for name, data in fields.items():
+        process = (engine.process_range_detailed
+                   if specs[name].mode == "detailed"
+                   else engine.process_range_niceonly)
+        t0 = time.monotonic()
+        results = process(data.to_field_size(), data.base, device=DEVICE)
+        solo[name] = (results, time.monotonic() - t0)
+    for name in ("canon", "mining", "dense"):
+        mode = "detailed" if specs[name].mode == "detailed" else "niceonly"
+        key = {"canon": "extra-large", "mining": "mid-range",
+               "dense": "b98-surviving"}[name]
+        check(_pairs(solo[name][0]) == _pairs(FIELD_RESULTS[(mode, key)][1]),
+              f"the solo run of {name} differs from phase 6/7b's")
+    check(solo["mining"][0].nice_numbers != (), "mid-range holds no near miss")
+    four = ("canon", "mining", "nice", "dense")
+    runs = [
+        _sched_run({n: fields[n] for n in four}, [specs[n] for n in four],
+                   solo, "deficit", 5.0),
+        _sched_run(fields, list(specs.values()), solo, "rr", 1e-9),
+    ]
+    check(runs[1]["tenants"]["sweep"]["pages"] == 2,
+          f"the sweep tenant ran {runs[1]['tenants']['sweep']['pages']} pages")
+    check(all(t["preemptions"] > 0 for name, t in runs[1]["tenants"].items()
+              if t["pages"] > 1), "rr: a tenant was never preempted")
+    report["sched"] = {"warm_secs": warm_secs,
+                       "solo_secs": {n: s for n, (_, s) in solo.items()},
+                       "runs": runs}
+    for run in runs:
+        emit({"phase": "sched", **run})
+
+
+def phase_sched_server(report: dict, api: str, db_path: str) -> None:
+    """`python -m nice_tpu_torch.client --tenants "canon:detailed:40:prio=3;
+    nice:niceonly:40:prio=1;mining:near-miss:40"` in a subprocess against
+    the server at `api`, on the card: exit code 0, one claim row stamped
+    with each tenant's name (the server's claims.tenant), and each claim's
+    submission accepted (its row in the server's ledger) and passing the
+    phase 6 / 7 checks."""
+    import sqlite3
+
+    from nice_tpu_torch.core.types import DataToClient, FieldResults
+
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nice_tpu_torch.client", "--api-base", api,
+         "--username", "chip-smoke-tenants", "--tenants", SCHED_TENANTS_SPEC,
+         "--device", DEVICE, *SAMPLERS_OFF],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"the --tenants client failed ({proc.returncode}):\n"
+          + proc.stderr[-3000:])
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute(
+            "SELECT c.id, c.tenant, c.search_mode, f.base_id, f.range_start, "
+            "f.range_end FROM claims c JOIN fields f ON f.id = c.field_id "
+            "WHERE c.tenant IS NOT NULL ORDER BY c.id").fetchall()
+    finally:
+        conn.close()
+    check(sorted(r[1] for r in rows) == ["canon", "mining", "nice"],
+          f"tenant claim rows: {rows}")
+    claims = []
+    for claim_id, tenant, mode, base, start, end in rows:
+        start, end = int(start), int(end)
+        data = DataToClient(claim_id=claim_id, base=int(base),
+                            range_start=start, range_end=end,
+                            range_size=end - start)
+        got = _read_submission(db_path, claim_id)  # exactly one row
+        if tenant == "nice":
+            check(mode == "niceonly", f"nice claimed {mode}")
+            checked = _check_niceonly(data, FieldResults((), got.nice_numbers))
+        else:
+            check(mode == "detailed", f"{tenant} claimed {mode}")
+            checked = {"near_misses": _check_field(data, got)}
+        claims.append({"tenant": tenant, "claim_id": claim_id, "mode": mode,
+                       "base": data.base, "range_start": start,
+                       "numbers": data.range_size, **checked})
+    done = [line for line in proc.stderr.splitlines()
+            if "scheduler done" in line]
+    report["sched_server"] = {"secs": secs, "claims": claims,
+                              "log": done[-1][-300:] if done else None}
+    emit({"phase": "sched_server", **report["sched_server"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the report here")
@@ -3243,6 +3499,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     try:
         phase_server(report, api, os.path.join(server_dir, "nice.db"))
         phase_fleet(report, api, server_dir)
+        phase_sched_server(report, api, os.path.join(server_dir, "nice.db"))
     finally:
         _stop(server)
     phase_crash_resume(report)
@@ -3251,6 +3508,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     timed = phase_timing(report, built, sms, clk_mhz)
     phase_profile(report)
     phase_pipeline_profile(report)
+    phase_sched(report)
     phase_obs(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
@@ -3291,6 +3549,21 @@ def _run(args, t_start: float, tmp: str) -> int:
               "runs": st["runs"], "k4_launches": run["launches"]["niceonly_dense"],
               "k4_ms_est": k4_est,
               "host_loop_ms_est": st["loop_secs"] * 1e3 - k4_est})
+
+    for run in report["sched"]["runs"]:
+        # A tenant's busy seconds less its kernels' estimated time, over its
+        # pages: the fixed cost a page pays for being its own engine call.
+        for name, t in run["tenants"].items():
+            if name == "sweep":  # b520: no kernel timed at that base
+                continue
+            est = sum(n * kernel_ms[k] for k, n in t["launches"].items())
+            emit({"phase": "where_time_goes", "sched": run["policy"],
+                  "tenant": name, "pages": t["pages"],
+                  "busy_ms": t["busy_secs"] * 1e3,
+                  "solo_ms": t["solo_secs"] * 1e3, "kernel_ms_est": est,
+                  "fixed_ms_per_page_est":
+                      (t["busy_secs"] * 1e3 - est) / t["pages"],
+                  "split_ms": {k: v * 1e3 for k, v in t["split"].items()}})
 
     for run in report["tuned"]["k5_runs"]:
         # K5 in K1's and K4's place on the same fields, the same process.

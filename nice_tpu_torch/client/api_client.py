@@ -412,11 +412,25 @@ def _mode_arg(mode: SearchMode) -> str:
 
 
 def get_field_from_server(mode: SearchMode, api_base: str, username: str,
-                          max_retries: int = DEFAULT_MAX_RETRIES) -> DataToClient:
+                          max_retries: int = DEFAULT_MAX_RETRIES,
+                          tenant: str | None = None,
+                          base_min: int | None = None,
+                          base_max: int | None = None) -> DataToClient:
     """GET /claim/{detailed|niceonly}; the round trip, retries and backoff
-    included, goes to the journal as the claim's claim_rtt."""
+    included, goes to the journal as the claim's claim_rtt.
+
+    tenant / base_min / base_max are the multi-tenant scheduler's claim
+    routing: the server stamps the claim row with the tenant name and draws
+    the field from the tenant's base window (a server that predates them
+    ignores the query parameters)."""
     path = (f"/claim/{_mode_arg(mode)}"
             f"?username={urllib.parse.quote(username)}")
+    if tenant is not None:
+        path += f"&tenant={urllib.parse.quote(tenant)}"
+    if base_min is not None:
+        path += f"&base_min={int(base_min)}"
+    if base_max is not None:
+        path += f"&base_max={int(base_max)}"
     t0 = time.monotonic()
     data = DataToClient.from_json(
         failover_request(api_base, path, max_retries=max_retries,

@@ -35,7 +35,15 @@
     --trace-max-bytes (JSON spans joined by the claim's trace id, sent as
     traceparent), --profile-dir (a torch.profiler Chrome trace a field),
     --flight-dir / --flight-events (the crash flight recorder), --log-file
-    (JSON log lines), and --faults / --faults-seed (the fault sites).
+    (JSON log lines), and --faults / --faults-seed (the fault sites);
+  * --tenants "name:mode:base[:opt...];...": the multi-tenant scheduler
+    (sched/) in place of the single-workload loop: each tenant claims with
+    its name and base window, its fields run page by page interleaved with
+    the other tenants' on the card, and each finished field is submitted;
+    --sched-policy, --sched-page-batches, --sched-quantum-secs,
+    --sched-starvation-rounds, --sched-slo-boost, --slo-window-scale and
+    --slo-override set the scheduler and its per-tenant SLOs (the JAX
+    client's NICE_TPU_SCHED_* and NICE_TPU_SLO_* knobs).
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
 versions, --backend scalar the Python-int oracle (checkpointed in chunks
@@ -45,8 +53,7 @@ cores (0: all), which neither checkpoints nor resumes: with it
 on the card of at most --host-niceonly-max numbers that the host library's
 polynomial-residue kernel takes runs on the host instead (the small-field
 host route; off by default, engine.HOST_NICEONLY_MAX). Every knob is a
-flag: the port reads no environment variable. Left out against the JAX
-client: tenants (the scheduler is not ported yet).
+flag: the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -92,7 +99,7 @@ from nice_tpu_torch.obs.series import (
     CLIENT_NUMBERS,
 )
 from nice_tpu_torch.ops import engine
-from nice_tpu_torch.ops.limbs import get_plan
+from nice_tpu_torch.sched import scheduler as sched_defaults
 from nice_tpu_torch.utils import fsio
 
 log = logging.getLogger("nice_tpu_torch.client")
@@ -231,7 +238,52 @@ def build_parser() -> argparse.ArgumentParser:
                    "(sites http.<endpoint>, engine.dispatch, ckpt.write)")
     p.add_argument("--faults-seed", type=int, default=faults.DEFAULT_SEED,
                    help="seed of the fault spec's probability draws")
+    p.add_argument("--tenants", default=None,
+                   help="run the multi-tenant scheduler instead of the "
+                   "single-workload loop: semicolon-separated "
+                   "name:mode:base[:opt...] tenant specs (modes detailed, "
+                   "niceonly, near-miss, hi-base; opts prio=N, slo=SECS, "
+                   "bases=LO-HI, batch=N, backend=NAME); each tenant claims "
+                   "one field, or until the server runs dry with --repeat")
+    p.add_argument("--sched-policy", default=sched_defaults.POLICY_DEFAULT,
+                   choices=list(sched_defaults.POLICIES),
+                   help="tenant selection: deficit (priority-weighted "
+                   "deficit round-robin), priority (strict) or rr")
+    p.add_argument("--sched-page-batches", type=int,
+                   default=sched_defaults.PAGE_BATCHES_DEFAULT,
+                   help="loop segments a scheduler page")
+    p.add_argument("--sched-quantum-secs", type=float,
+                   default=sched_defaults.QUANTUM_SECS_DEFAULT,
+                   help="a tenant's time slice: it yields at the next page "
+                   "boundary after this many seconds; <=0 disables")
+    p.add_argument("--sched-starvation-rounds", type=int,
+                   default=sched_defaults.STARVATION_ROUNDS_DEFAULT,
+                   help="a runnable tenant skipped this many rounds runs "
+                   "next; <=0 disables the bound")
+    p.add_argument("--sched-slo-boost", type=int,
+                   default=sched_defaults.SLO_BOOST_DEFAULT,
+                   help="priority points a tenant whose page-latency SLO "
+                   "burns earns per burn level (warn 1, page 2)")
+    p.add_argument("--slo-window-scale", type=float, default=1.0,
+                   help="scale of every SLO burn-rate window")
+    p.add_argument("--slo-override", action="append", default=[],
+                   type=_slo_override, metavar="NAME_THRESHOLD=V",
+                   help="replace an SLO's threshold or objective, e.g. "
+                   "TENANT_CANON_THRESHOLD=2 (repeatable)")
     return p
+
+
+def _slo_override(item: str) -> tuple[str, float]:
+    """One --slo-override NAME_{THRESHOLD,OBJECTIVE}=VALUE item."""
+    key, sep, value = item.partition("=")
+    key = key.strip().upper()
+    if not sep or not key.endswith(("_THRESHOLD", "_OBJECTIVE")):
+        raise argparse.ArgumentTypeError(
+            f"{item!r}: want NAME_THRESHOLD=V or NAME_OBJECTIVE=V")
+    try:
+        return key, float(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{item!r}: {value!r} is no number")
 
 
 def configure_obs(args) -> None:
@@ -315,9 +367,7 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
     else:
         process = engine.process_range_niceonly
         kwargs["host_niceonly_max"] = args.host_niceonly_max
-        # The dense loop's runs and the oracle's checkpoint chunks; the
-        # strided pipeline takes no batch.
-        if args.backend == "scalar" or get_plan(data.base).limbs_n > 4:
+        if engine.niceonly_takes_batch(data.base, args.backend):
             kwargs["batch_size"] = args.batch_size
     mode_label = "detailed" if mode == SearchMode.DETAILED else "niceonly"
     profiled0 = stepprof.finished()
@@ -808,6 +858,53 @@ def run_validate(args) -> int:
     return 1
 
 
+def run_tenants(args) -> int:
+    """--tenants: parse the tenant specs, claim with tenant routing and run
+    every tenant's pages interleaved on this process's device, under the
+    sched-slo thread. Each tenant runs one field, or claims until the
+    server runs dry with --repeat. 2 when the specs name no tenant."""
+    from nice_tpu_torch import sched
+    from nice_tpu_torch.ops import autotune
+
+    registry = sched.TenantRegistry(sched.parse_tenants(args.tenants))
+    if not len(registry):
+        log.error("--tenants parsed to zero tenants")
+        return 2
+    source = sched.ServerSource(
+        args.api_base, args.username,
+        fields_per_tenant=None if args.repeat else 1,
+        max_retries=args.max_retries,
+    )
+    scheduler = sched.MultiTenantScheduler(
+        registry, source, policy=args.sched_policy,
+        page_batches=args.sched_page_batches,
+        quantum_secs=args.sched_quantum_secs,
+        starvation_rounds=args.sched_starvation_rounds,
+        slo_boost=args.sched_slo_boost,
+        slo_window_scale=args.slo_window_scale,
+        slo_overrides=dict(args.slo_override),
+        device=args.device,
+    )
+    for row in autotune.tenant_report(
+            [(s.name, s.mode, s.base, s.backend) for s in registry],
+            args.device):
+        log.info("tenant %s: %s tuned=%s batch=%d megaloop=%d use_mxu=%d "
+                 "page_quantum=%d", row["tenant"], row["key"], row["tuned"],
+                 row["batch_size"], row["megaloop"], row["use_mxu"],
+                 row["page_quantum"])
+    scheduler.start_slo_thread()
+    try:
+        stats = scheduler.run()
+    finally:
+        scheduler.stop_slo_thread()
+    log.info(
+        "scheduler done: %d rounds, occupancy %.2f; per-tenant %s",
+        stats["rounds"], stats["occupancy"],
+        {t: (v["fields"], v["pages"]) for t, v in stats["tenants"].items()},
+    )
+    return 0
+
+
 def _known_servers_path(checkpoint_dir: str) -> str:
     return os.path.join(checkpoint_dir, "servers.json")
 
@@ -928,6 +1025,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     args.api_base = ",".join(dict.fromkeys(server_list))
     if args.validate:
         return run_validate(args)
+    if args.tenants:
+        with telemetry_beat(args):
+            return run_tenants(args)
     mode = _mode(args)
     spool = spool_mod.maybe_spool(args.spool_dir, args.checkpoint_dir)
     api = api_client.AsyncApi(args.api_base, args.username, args.max_retries,

@@ -21,9 +21,13 @@ nice_tpu/obs, with the reference's public names, series and wire formats).
 - ``serve``: the local /metrics, /debug/flight, /history and
   /debug/profile endpoint.
 
+- ``slo``: declarative SLOs with multi-window burn-rate states over a
+  HistoryStore; the multi-tenant scheduler's per-tenant page-latency specs
+  (sched/) are its user here.
+
 Every knob is an argument (the client's flags): no environment variable is
-read. The server-side modules of the reference (anomaly, critpath, slo,
-stream) stay the JAX package's, as the server does.
+read. The server-side modules of the reference (anomaly, critpath, stream)
+stay the JAX package's, as the server does.
 """
 
 from . import (  # noqa: F401 — importing pre-seeds
@@ -34,6 +38,7 @@ from . import (  # noqa: F401 — importing pre-seeds
     memwatch,
     pyprof,
     series,
+    slo,
     stepprof,
     telemetry,
 )
@@ -75,6 +80,7 @@ __all__ = [
     "series",
     "flight",
     "history",
+    "slo",
     "stepprof",
     "telemetry",
     "journal",

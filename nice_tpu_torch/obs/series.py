@@ -238,6 +238,17 @@ STEPPROF_PHASE_SECONDS = metrics.histogram(
     buckets=(0.001, 0.005, 0.025, 0.1, 0.5, 2.0, 10.0, 60.0),
 )
 
+SLO_STATE = metrics.gauge(
+    "nice_slo_state",
+    "Burn-rate alert state per SLO (0 = ok, 1 = warn, 2 = page).",
+    labelnames=("slo",),
+)
+SLO_TRANSITIONS = metrics.counter(
+    "nice_slo_transitions_total",
+    "SLO alert state transitions, by SLO and entered state.",
+    labelnames=("slo", "state"),
+)
+
 METRICS_BOUND_PORT = metrics.gauge(
     "nice_metrics_bound_port",
     "TCP port the local /metrics endpoint actually bound (matters when "
@@ -347,6 +358,58 @@ PYPROF_OVERFLOW = metrics.counter(
     "nice_pyprof_overflow_total",
     "Samples collapsed into a root's (other) bucket because the folded-"
     "stack table hit NICE_TPU_PYPROF_MAX_STACKS.",
+)
+
+# --- multi-tenant scheduler (sched/) ------------------------------------
+# Tenant labels are operator-chosen names, so nothing here is pre-seeded:
+# the series appear the moment the scheduler dispatches its first page.
+SCHED_PAGES = metrics.counter(
+    "nice_sched_pages_total",
+    "Device pages dispatched by the multi-tenant scheduler, by tenant. One "
+    "page = one batch-aligned megaloop-segment quantum of a field.",
+    labelnames=("tenant",),
+)
+SCHED_PAGE_SECONDS = metrics.histogram(
+    "nice_sched_page_seconds",
+    "Wall time of one scheduled page (engine dispatch + fold), by tenant. "
+    "The per-tenant SLO specs (obs/slo.tenant_specs) burn against this.",
+    labelnames=("tenant",),
+    buckets=(0.01, 0.05, 0.25, 1.0, 2.5, 5.0, 15.0, 60.0, 300.0),
+)
+SCHED_PREEMPTIONS = metrics.counter(
+    "nice_sched_preemptions_total",
+    "Tenant turns ended at a segment boundary before their work drained, "
+    "by preempted tenant and reason (quantum = time-slice expiry; "
+    "slo_boost = a burning tenant took the mesh).",
+    labelnames=("tenant", "reason"),
+)
+SCHED_OCCUPANCY = metrics.gauge(
+    "nice_sched_tenant_occupancy",
+    "Share of scheduler device-busy time attributed to each tenant over "
+    "the run so far (0..1; sums to ~1 across tenants once work flows).",
+    labelnames=("tenant",),
+)
+SCHED_MESH_OCCUPANCY = metrics.gauge(
+    "nice_sched_mesh_occupancy",
+    "Fraction of scheduler wall-clock the mesh spent executing pages "
+    "(0..1) — the interleaving win over sequential single-tenant runs.",
+)
+SCHED_SLO_BURN = metrics.gauge(
+    "nice_sched_slo_burn",
+    "Short-window SLO burn rate per tenant (1.0 = burning exactly at the "
+    "objective; drives the scheduler's priority boost).",
+    labelnames=("tenant",),
+)
+SCHED_STARVED = metrics.counter(
+    "nice_sched_tenant_starved_total",
+    "Anti-starvation interventions: rounds where a runnable tenant had "
+    "been skipped past the starvation bound and was force-scheduled.",
+    labelnames=("tenant",),
+)
+SCHED_FIELDS = metrics.counter(
+    "nice_sched_fields_total",
+    "Fields fully drained (all pages folded) by the scheduler, by tenant.",
+    labelnames=("tenant",),
 )
 
 FLIGHT_EVENTS = metrics.counter(

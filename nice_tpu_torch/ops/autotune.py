@@ -152,6 +152,32 @@ def choose(mode: str, base: int, device, param: str, default: int,
     return default
 
 
+def tenant_report(workloads, device="cuda") -> list[dict]:
+    """Tuning status for a set of scheduler tenants: one row a (name, mode,
+    base, backend) workload saying whether a signature-valid winner exists
+    on `device` and the shape the tenant will run with (resolve_tuning's
+    precedence applied per tenant, not per process): batch_size, megaloop
+    (the segment), use_mxu and the page quantum. The reference's
+    block_rows and carry_interval have no counterpart (resolve_tuning)."""
+    from nice_tpu_torch.ops import engine
+
+    out = []
+    for name, mode, base, backend in workloads:
+        batch, seg, arm = engine.resolve_tuning(mode, base, device,
+                                                backend=backend)
+        out.append({
+            "tenant": name,
+            "key": key(mode, base, device),
+            "tuned": params(mode, base, device) is not None,
+            "batch_size": batch,
+            "megaloop": seg,
+            "use_mxu": arm,
+            "page_quantum": engine.page_quantum(mode, base, device=device,
+                                                backend=backend),
+        })
+    return out
+
+
 def record(mode: str, base: int, device, new_params: dict,
            throughput: float | None = None, swept: list | None = None) -> str:
     """Store a winner; the file is replaced whole (tmp + os.replace), so a

@@ -170,6 +170,28 @@ def clamp_segment(segment: int, batch_size: int) -> int:
     return max(1, min(int(segment), ((1 << 31) - 1) // (2 * batch_size)))
 
 
+def niceonly_takes_batch(base: int, backend: str = "device") -> bool:
+    """Whether a niceonly field of this base takes a batch_size: the dense
+    loop (b98 and up) and the oracle's checkpoint chunks do; the strided
+    pipeline (b10-b97 on the device) takes its shapes from the MSD floor
+    and refuses one."""
+    return backend == "scalar" or get_plan(base).limbs_n > 4
+
+
+def page_quantum(mode: str, base: int, *, device="cuda",
+                 backend: str = "device", batch_size: int | None = None) -> int:
+    """Numbers per loop segment of this workload's shape: batch_size x
+    clamp_segment(segment, batch_size), each resolved as the field's own
+    loop resolves it (resolve_tuning: the argument, else the tuned winner,
+    else the default). The scheduler's page alignment quantum: a page cut
+    at a multiple of it from its field's start starts and ends on a segment
+    boundary of the field's uninterrupted detailed loop, so a page handoff
+    never splits a segment."""
+    batch, seg, _ = resolve_tuning(mode, base, device, batch_size,
+                                   backend=backend)
+    return max(1, batch) * clamp_segment(seg, max(1, batch))
+
+
 def _clamp_to_base_range(range_: FieldSize, base: int):
     """(pre, core, post): core is the part inside the base's valid range."""
     br = base_range.get_base_range(base)

@@ -34,8 +34,20 @@ The wall budget (--budget, from the start of the process) skips a case
 whose estimate exceeds what is left with a {"skipped": "budget"} line; each
 case runs in a worker thread under a cap that keeps the later cases' share;
 a case past its cap and a grace is recorded as an error and the remaining
-cases are skipped ("timeout-wedge"). The scheduler case (multi-tenant) is
-not ported and prints a skip line. The exit code is 1 when a case failed.
+cases are skipped ("timeout-wedge"). The exit code is 1 when a case failed.
+
+The multi-tenant case (bench.py's _run_multi_tenant) times the scheduler
+(sched/): a detailed and a niceonly tenant on two 2^20-number slices of
+extra-large (clamped by --size), built and run once first, then --reps
+rounds of the two run back to back through the engine (`sequential_secs`,
+the median) and interleaved page by page under the deficit policy with a
+preemption at every page boundary (`elapsed_secs`, the median);
+`vs_sequential` is the first over the second, `results_equal` whether
+every pass gave the first pass's fields; `pages`, `preemptions` and
+`launches` (the last interleaved pass) are by tenant, and so are the
+medians over the passes of each page's busy seconds (`busy_secs`) and of
+each sequential call's (`sequential_by_tenant`), beside the median of
+what an interleaved pass spent outside its pages (`outside_pages_secs`).
 """
 
 from __future__ import annotations
@@ -76,7 +88,6 @@ DEFAULT_SUITE = (
 HEADLINE = ("extra-large", "detailed")
 _MODE_KIND = {"massive": "niceonly", "msd-effective": "niceonly",
               "msd-ineffective": "niceonly"}
-NOT_PORTED = {"multi-tenant": "not ported: scheduler (ROADMAP queue 1 item 7)"}
 
 # Conservative wall estimates of a case on the card, a first nvcc build of
 # the base's library included (6-14 s a base); used only for the
@@ -87,6 +98,7 @@ _EST_SECS = {
     ("msd-ineffective", "niceonly"): 20.0,
     ("extra-large", "niceonly"): 10.0,
     ("hi-base", "detailed"): 40.0,
+    ("multi-tenant", "detailed"): 10.0,
     ("massive", "niceonly"): 120.0,
 }
 _EST_DEFAULT = 60.0
@@ -257,7 +269,119 @@ class _Field:
         return results, _stats(times), launches, warm_secs
 
 
+# The multi-tenant case's slice of extra-large, each tenant's field.
+MULTI_TENANT_SLICE = 1 << 20
+
+
+def _interleaved(det: _Field, nice: _Field, args, dev: torch.device):
+    """One interleaved pass of the two fields: (the assembled results by
+    tenant, seconds, the scheduler's stats, the launches)."""
+    from nice_tpu_torch.sched import (MultiTenantScheduler, StaticSource,
+                                      TenantRegistry, TenantSpec)
+
+    registry = TenantRegistry([
+        TenantSpec(name="det", mode="detailed", base=det.base, priority=2,
+                   batch_size=args.batch or None),
+        TenantSpec(name="nice", mode="niceonly", base=nice.base, priority=1),
+    ])
+    source = StaticSource({
+        name: [(f"{name}/f0", f.base, f.range.start(), f.range.end())]
+        for name, f in (("det", det), ("nice", nice))})
+    scheduler = MultiTenantScheduler(registry, source, policy="deficit",
+                                     page_batches=1, quantum_secs=1e-9,
+                                     device=dev)
+    before = dict(ce.LAUNCHES)
+    t0 = time.monotonic()
+    stats = scheduler.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    secs = time.monotonic() - t0
+    results = {name: source.results[name][f"{name}/f0"]
+               for name in ("det", "nice")}
+    return results, secs, stats, _launches(before)
+
+
+def run_multi_tenant(args, dev: torch.device) -> dict:
+    """The scheduler's A/B (module doc): after the builds and a first pass
+    of each field, --reps rounds of the two fields back to back and then
+    interleaved, so vs_sequential (the medians' ratio) isolates what
+    switching tenants at every page boundary costs."""
+    data = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
+    size = MULTI_TENANT_SLICE
+    if 0 < args.size < size:
+        size = args.size
+    start = data.range_start
+    det = _Field(data.base, "detailed", FieldSize(start, start + size), dev,
+                 {"batch_size": args.batch} if args.batch else {})
+    nice = _Field(data.base, "niceonly",
+                  FieldSize(start + size, start + 2 * size), dev, {})
+    t0 = time.monotonic()
+    det.warm()
+    nice.warm()
+    build_secs = time.monotonic() - t0
+    want = {}
+    first_secs = 0.0
+    for name, f in (("det", det), ("nice", nice)):
+        results, secs, _ = f.run()
+        want[name] = _pairs(results)
+        first_secs += secs
+    seq, inter = [], []
+    # Each pass's seconds by tenant: the sequential call, and the page's
+    # busy seconds in the interleaved pass (the rest is outside the pages).
+    seq_by = {name: [] for name in want}
+    busy_by = {name: [] for name in want}
+    equal = True
+    for _ in range(args.reps):
+        seq_launches = {}
+        for name, f in (("det", det), ("nice", nice)):
+            results, secs, seq_launches[name] = f.run()
+            equal = equal and _pairs(results) == want[name]
+            seq_by[name].append(secs)
+        seq.append(sum(by[-1] for by in seq_by.values()))
+        results, secs, stats, launches = _interleaved(det, nice, args, dev)
+        equal = equal and all(_pairs(results[n]) == want[n] for n in want)
+        inter.append(secs)
+        for name in want:
+            busy_by[name].append(stats["tenants"][name]["busy_secs"])
+    st, seq_st = _stats(inter), _stats(seq)
+    outside = [t - sum(by[i] for by in busy_by.values())
+               for i, t in enumerate(inter)]
+    total = 2 * size
+    return {
+        "metric": f"numbers/sec/chip sched (multi-tenant, base {data.base})",
+        "value": total / st["median_secs"],
+        "unit": UNIT,
+        "vs_sequential": seq_st["median_secs"] / st["median_secs"],
+        "elapsed_secs": st["median_secs"],
+        "min_secs": st["min_secs"],
+        "max_secs": st["max_secs"],
+        "reps": args.reps,
+        "pass_secs": st["secs"],
+        "sequential_secs": seq_st["median_secs"],
+        "sequential_pass_secs": seq_st["secs"],
+        "first_field_secs": first_secs,
+        "build_secs": build_secs,
+        "range_size": total,
+        "base": data.base,
+        "range_start": start,
+        "hits": sum(len(nums) for _, nums in want.values()),
+        "pages": {t: s["pages"] for t, s in stats["tenants"].items()},
+        "preemptions": {t: s["preemptions"]
+                        for t, s in stats["tenants"].items()},
+        "occupancy": stats["occupancy"],
+        "busy_secs": {t: _stats(v)["median_secs"] for t, v in busy_by.items()},
+        "sequential_by_tenant": {t: _stats(v)["median_secs"]
+                                 for t, v in seq_by.items()},
+        "outside_pages_secs": _stats(outside)["median_secs"],
+        "launches": launches,
+        "sequential_launches": seq_launches,
+        "results_equal": equal,
+    }
+
+
 def run_case(mode: str, kind: str, args, dev: torch.device) -> dict:
+    if mode == "multi-tenant":
+        return run_multi_tenant(args, dev)
     mem0, prof0 = _mem_snapshot(), stepprof.cumulative()
     f = _Field.of_case(mode, kind, args, dev)
     clamped = f.size < get_benchmark_field(BenchmarkMode(mode)).range_size
@@ -447,9 +571,7 @@ def main(argv=None) -> int:
     for idx, (mode, kind) in enumerate(suite):
         t_case = time.monotonic()
         case_budget = None
-        if mode in NOT_PORTED:
-            line = _skip_line(mode, kind, NOT_PORTED[mode])
-        elif wedged:
+        if wedged:
             line = _skip_line(mode, kind, "timeout-wedge")
         elif ((mode, kind) != HEADLINE
               and _EST_SECS.get((mode, kind), _EST_DEFAULT) > remaining()):
@@ -460,7 +582,7 @@ def main(argv=None) -> int:
             # their estimate, capped), so one slow case cannot starve them.
             reserve = sum(min(_EST_SECS.get(c, _EST_DEFAULT),
                               _CAP_SECS.get(c, _CAP_DEFAULT))
-                          for c in suite[idx + 1:] if c[0] not in NOT_PORTED)
+                          for c in suite[idx + 1:])
             cap = _CAP_SECS.get((mode, kind), _CAP_DEFAULT)
             if (mode, kind) == HEADLINE:
                 cap = max(30.0, min(cap, remaining() - 10.0))

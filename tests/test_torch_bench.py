@@ -2,7 +2,8 @@
 is a correctness witness: the headline line first and last with the suite
 embedded, the clamped extra-large field's distribution equal to the JAX
 engine's (jnp backend) on the same slice, the budget's skip lines, the
-scheduler case's "not ported" line, and no run without a card unless asked.
+scheduler case's line (the interleaved fields equal to the sequential ones,
+pages by tenant), and no run without a card unless asked.
 """
 
 import json
@@ -71,8 +72,16 @@ def test_budget_skips_and_the_scheduler_case(capsys):
     assert rc == 0
     ineffective, tenants, massive, last = lines
     assert ineffective["hits"] == 0 and "skipped" not in ineffective
-    assert tenants["skipped"] == \
-        "not ported: scheduler (ROADMAP queue 1 item 7)"
+    assert "skipped" not in tenants and "error" not in tenants
+    assert tenants["metric"] == \
+        "numbers/sec/chip sched (multi-tenant, base 40)"
+    assert tenants["results_equal"] is True
+    assert tenants["pages"] == {"det": 1, "nice": 1}  # one page a tenant
+    assert tenants["preemptions"] == {"det": 0, "nice": 0}
+    assert tenants["range_size"] == 2 * 4096 and tenants["witness"] == "cpu"
+    assert tenants["vs_sequential"] == \
+        tenants["sequential_secs"] / tenants["elapsed_secs"]
+    assert tenants["launches"] == {}  # the plain versions launch nothing
     assert massive["skipped"] == "budget"  # its estimate exceeds 25 s
     assert massive["budget_remaining_secs"] < 25
     assert last["suite"]["niceonly/massive"]["skipped"] == "budget"

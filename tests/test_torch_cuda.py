@@ -767,3 +767,36 @@ def test_native_fields_equal_the_card(card):
                                           host_niceonly_max=0)
     finally:
         adaptive_floor.reset_for_tests()
+
+
+def test_two_tenants_interleaved_on_card_equal_solo_runs(card):
+    # A detailed tenant (b40, a stretch with a near miss: K1 and K2) and a
+    # niceonly tenant (b40 strided: K3) interleaved at every page boundary
+    # on the card; each assembled field equals its solo run there, and
+    # every page launched on the card.
+    from nice_tpu_torch import sched
+
+    near_miss = 3621949312977  # num_uniques 37 at b40
+    det_rng = (near_miss - (5 << 20), near_miss + (3 << 20))
+    nice_rng = (det_rng[1], det_rng[1] + (8 << 20))
+    reg = sched.TenantRegistry([
+        sched.TenantSpec(name="det", mode="detailed", base=40, priority=2,
+                         batch_size=1 << 18),
+        sched.TenantSpec(name="nice", mode="niceonly", base=40, priority=1)])
+    source = sched.StaticSource({
+        "det": [("det/f0", 40, *det_rng)], "nice": [("nice/f0", 40, *nice_rng)]})
+    scheduler = sched.MultiTenantScheduler(reg, source, page_batches=1,
+                                           quantum_secs=1e-9)
+    ce.reset_launches()
+    stats = scheduler.run()
+    assert stats["tenants"]["det"]["pages"] == 4  # 8 Mi numbers / 2^21
+    assert stats["tenants"]["det"]["preemptions"] > 0
+    assert ce.LAUNCHES["detailed_megaloop"] >= 4
+    assert ce.LAUNCHES["uniques"] > 0 and ce.LAUNCHES["strided_niceonly"] > 0
+    want_det = engine.process_range_detailed(FieldSize(*det_rng), 40,
+                                             batch_size=1 << 18)
+    want_nice = engine.process_range_niceonly(FieldSize(*nice_rng), 40)
+    assert source.results["det"]["det/f0"] == want_det
+    assert source.results["nice"]["nice/f0"] == want_nice
+    assert near_miss in [n.number for n in want_det.nice_numbers]
+    assert scheduler.table.check_invariants() == []
