@@ -203,7 +203,16 @@ Phases, each of which raises (exit code 1) on failure:
      medians, the stepprof buckets and fences (none off the profiler, one
      a K1 launch on it; K1's launches equal in every setting); a memwatch
      sample of the card; a --profile-dir run whose Chrome trace holds one
-     K1 device record per K1 launch. The samplers stay off until here.
+     K1 device record per K1 launch. The samplers stay off until here;
+ 13. mesh: fields on a mesh of slices through
+     nice_tpu_torch/scripts/multichip_scaling.py (phase_mesh): extra-large
+     detailed on 1, 2 and 4 logical slices of the card (cuda:0 repeated,
+     one stream a slice) with a downshift drill on 4, mid-range on 4 (K2
+     on the slices), extra-large niceonly and b98-surviving on 1 and 2 (a
+     drill at b98), each equal to the one-device field; a checkpointed
+     field on 4 slices failing with elastic off, resumed on 2 slices and on
+     1; a --devices cuda:0,cuda:0 client against a fresh server; and the
+     same on distinct cards where the machine has more than one.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -3213,6 +3222,200 @@ def phase_obs(report: dict, tmp: str) -> None:
     emit({"phase": "obs", **report["obs"]})
 
 
+# The mesh phase: the slice counts of the logical-slice scaling run, its
+# drills (mesh.dispatch specs; the item index puts the loss mid-field) and
+# the item at which the checkpointed field fails with elastic off.
+MESH_COUNTS = (1, 2, 4)
+MESH_DRILL = "mesh.dispatch:dead:1@100"
+MESH_DENSE_DRILL = "mesh.dispatch:dead@100"
+MESH_CKPT_FAULT = "mesh.dispatch:dead@60"
+
+
+def phase_mesh(report: dict, tmp: str) -> None:
+    """13. mesh: fields on a mesh of slices (parallel/mesh.py and the
+    engine's mesh path) through scripts/multichip_scaling.py, the launch
+    counts set to 0 just before and read just after:
+      * extra-large detailed on ["cuda:0"] * k for k in MESH_COUNTS (logical
+        slices of the one card, each on its own stream; k = 1 is the
+        one-device path): every pass equal to phase 6's one-device field;
+        each k's median of 3 passes after a warm pass, a pass at feed depth
+        0, its K1 launches and LAST_FEED_STATS; the drill MESH_DRILL on 4
+        slices: equal, one reshard, 3 slices at the end;
+      * the mid-range b40 field on 4 slices once, equal to phase 6's, with
+        K2 on the slices that hold its near misses;
+      * extra-large niceonly (K3) and b98-surviving (K4) on 1 and 2 slices,
+        equal to phases 7 and 7b; b98 also runs MESH_DENSE_DRILL;
+      * checkpoints across layouts: extra-large detailed on 4 slices,
+        checkpointed every 16 items, with elastic off and MESH_CKPT_FAULT:
+        it must raise DispatchError with a state of several remaining
+        segments, which resumes on 2 slices and on 1, equal to phase 6;
+      * the client: a single-shot detailed client with --devices
+        cuda:0,cuda:0 against a fresh server: its log shows the field on 2
+        slices, its submission is in the server's ledger and passes phase
+        6's checks;
+      * distinct cards: with more than one card, extra-large detailed on
+        cuda:0..n-1 as above; with one, a line that says so and no pass."""
+    import sqlite3
+
+    import torch
+
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+    from nice_tpu_torch.core.types import DataToClient
+    from nice_tpu_torch.faults import injector as faults
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.parallel import mesh as pmesh
+    from nice_tpu_torch.scripts import multichip_scaling as ms
+
+    t0 = time.monotonic()
+    card = report["card"]
+    out: dict = {"card": card}
+
+    def scale(key, mode, name, devices, counts, drill, want_drill_end=None,
+              profile=False):
+        if (mode, name) in FIELD_RESULTS:
+            data, want = FIELD_RESULTS[(mode, name)]
+        else:  # phase 7 keeps no result: the one-device field's, here
+            data = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
+            want = engine.process_range_niceonly(data.to_field_size(),
+                                                 data.base, device=DEVICE)
+        ce.reset_launches()
+        rep = ms.scaling(data.to_field_size(), data.base, devices, counts,
+                         mode=mode, reps=3, want=ms.result_pairs(want),
+                         drill=drill, profile=profile)
+        rep["launches"] = dict(ce.LAUNCHES)
+        out[key] = rep
+        emit({"phase": "mesh", "run": key, "card": card, **{
+            k: v for k, v in rep.items() if k != "counts"},
+            "counts": [{k: r[k] for k in ("slices", "median_secs", "min_secs",
+                                          "max_secs", "secs_vs_first",
+                                          "depth0_secs", "idle_p50_us",
+                                          "idle_p95_us", "launches", "equal",
+                                          "profile")
+                        if k in r}
+                       | {"n_dev": (r["feed"]["n_dev_start"],
+                                    r["feed"]["n_dev_end"]),
+                          "dispatches": r["feed"].get("dispatches")}
+                       for r in rep["counts"]]})
+        check(all(r["equal"] for r in rep["counts"]),
+              f"mesh {key}: a pass differs from the one-device field")
+        for r in rep["counts"]:
+            check(r["feed"]["n_dev_start"] == r["feed"]["n_dev_end"]
+                  == r["slices"], f"mesh {key}: {r['feed']}")
+        if drill is not None:
+            d = rep["drill"]
+            check(d["equal"] and d["reshards"] == 1
+                  and d["n_dev_end"] == want_drill_end,
+                  f"mesh {key}: the drill {d}")
+        return rep
+
+    slice0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    logical = [slice0] * max(MESH_COUNTS)
+    xl = scale("extra_large", "detailed", "extra-large", logical, MESH_COUNTS,
+               MESH_DRILL, 3, profile=DEVICE == "cuda")
+    check(all(r["launches"].get("detailed_megaloop", 0) > 0
+              for r in xl["counts"]), "mesh: K1 was not launched")
+
+    # The rare path on the slices: mid-range's near misses.
+    data, want = FIELD_RESULTS[("detailed", "mid-range")]
+    ce.reset_launches()
+    got = engine.process_range_detailed(data.to_field_size(), data.base,
+                                        device=DEVICE, devices=logical)
+    mid_launches = dict(ce.LAUNCHES)
+    check(_pairs(got) == _pairs(want), "mesh: mid-range differs")
+    check(mid_launches["uniques"] > 0, "mesh: mid-range never reached K2")
+    out["mid_range"] = {"launches": mid_launches,
+                        "feed": dict(engine.LAST_FEED_STATS)}
+    emit({"phase": "mesh", "run": "mid_range", **out["mid_range"]})
+
+    xn = scale("extra_large_niceonly", "niceonly", "extra-large", logical,
+               (1, 2), None)
+    check(xn["launches"]["strided_niceonly"] > 0, "mesh: K3 never launched")
+    dn = scale("b98_surviving", "niceonly", "b98-surviving", logical, (1, 2),
+               MESH_DENSE_DRILL, 1)
+    check(dn["launches"]["niceonly_dense"] > 0, "mesh: K4 never launched")
+
+    # Checkpoints across layouts.
+    data, want = FIELD_RESULTS[("detailed", "extra-large")]
+    states = []
+    faults.configure(MESH_CKPT_FAULT)
+    try:
+        engine.process_range_detailed(
+            data.to_field_size(), data.base, device=DEVICE, devices=logical,
+            elastic=False, checkpoint_cb=states.append, checkpoint_batches=16,
+            checkpoint_secs=0)
+        raise SmokeFailure("mesh: the elastic-off field did not raise")
+    except engine.DispatchError as e:
+        state = e.state
+    finally:
+        faults.reset()
+        pmesh.heal_devices()
+    check(state is not None and len(state["remaining"]) > 1,
+          f"mesh: the failed field's state: {state and state['remaining']}")
+    resumed = {}
+    for name, devices in (("2 slices", logical[:2]), ("1", None)):
+        got = engine.process_range_detailed(data.to_field_size(), data.base,
+                                            device=DEVICE, devices=devices,
+                                            resume=state)
+        check(_pairs(got) == _pairs(want), f"mesh: resumed on {name} differs")
+        resumed[name] = dict(engine.LAST_FEED_STATS)
+    out["ckpt"] = {"states": len(states), "remaining": len(state["remaining"]),
+                   "cursor": state["cursor"],
+                   "resumed_n_dev": {k: v["n_dev_start"]
+                                     for k, v in resumed.items()}}
+    emit({"phase": "mesh", "run": "ckpt", **out["ckpt"]})
+
+    # The client against a fresh server.
+    server_dir = os.path.join(tmp, "mesh-server")
+    os.makedirs(server_dir)
+    server, api, _ = _start_server(server_dir, _free_port())
+    try:
+        t1 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nice_tpu_torch.client", "detailed",
+             "--api-base", api, "--username", "chip-smoke-mesh",
+             "--device", DEVICE, "--devices", ",".join(logical[:2]),
+             "--telemetry-secs", "0", *SAMPLERS_OFF],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        secs = time.monotonic() - t1
+    finally:
+        _stop(server)
+    check(proc.returncode == 0, f"the --devices client failed "
+          f"({proc.returncode}):\n" + proc.stderr[-3000:])
+    check("on 2 slices" in proc.stderr,
+          "the --devices client's field did not run on 2 slices")
+    db_path = os.path.join(server_dir, "nice.db")
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute(
+            "SELECT c.id, f.base_id, f.range_start, f.range_end FROM claims c "
+            "JOIN fields f ON f.id = c.field_id").fetchall()
+    finally:
+        conn.close()
+    check(len(rows) == 1, f"the --devices client's claims: {rows}")
+    claim_id, base, start, end = rows[0]
+    start, end = int(start), int(end)
+    claim = DataToClient(claim_id=claim_id, base=int(base), range_start=start,
+                         range_end=end, range_size=end - start)
+    near = _check_field(claim, _read_submission(db_path, claim_id))
+    out["client"] = {"secs": secs, "claim_id": claim_id, "base": int(base),
+                     "range_start": start, "near_misses": near}
+    emit({"phase": "mesh", "run": "client", **out["client"]})
+
+    n_cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if n_cards > 1:
+        cards = [f"cuda:{i}" for i in range(n_cards)]
+        scale("distinct_cards", "detailed", "extra-large", cards,
+              (1, n_cards), "mesh.dispatch:dead@40", n_cards - 1)
+    else:
+        out["distinct_cards"] = "not run: this machine has one card"
+        emit({"phase": "mesh", "run": "distinct_cards",
+              "not_run": f"{n_cards} card"})
+    out["secs"] = time.monotonic() - t0
+    report["mesh"] = out
+    emit({"phase": "mesh", "secs": out["secs"]})
+
+
 # The sched phase's tenants (name, kind, field, priority); the hi-base sweep
 # tenant's base and numbers (the first of its range: two pages at the
 # default shape).
@@ -3510,6 +3713,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_pipeline_profile(report)
     phase_sched(report)
     phase_obs(report, tmp)
+    phase_mesh(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())

@@ -43,7 +43,15 @@
     --sched-policy, --sched-page-batches, --sched-quantum-secs,
     --sched-starvation-rounds, --sched-slo-boost, --slo-window-scale and
     --slo-override set the scheduler and its per-tenant SLOs (the JAX
-    client's NICE_TPU_SCHED_* and NICE_TPU_SLO_* knobs).
+    client's NICE_TPU_SCHED_* and NICE_TPU_SLO_* knobs);
+  * --devices cuda:0,cuda:1 (or cuda:0,cuda:0: logical slices of one card):
+    the device backend's fields run on a mesh of those slices (one process,
+    one stream a slice, ops/engine.resolve_mesh; the JAX client's device
+    set, which JAX takes from its environment); without it a bare --device
+    cuda takes every visible card. --no-shard keeps a field on one device
+    and --no-elastic makes a lost slice fail the field (with a resumable
+    state) instead of downshifting onto the survivors (the JAX client's
+    NICE_TPU_SHARD and NICE_TPU_ELASTIC).
 
 The default device is cuda; --device cpu runs the kernels' plain PyTorch
 versions, --backend scalar the Python-int oracle (checkpointed in chunks
@@ -99,12 +107,29 @@ from nice_tpu_torch.obs.series import (
     CLIENT_NUMBERS,
 )
 from nice_tpu_torch.ops import engine
+from nice_tpu_torch.parallel import mesh as pmesh
 from nice_tpu_torch.sched import scheduler as sched_defaults
 from nice_tpu_torch.utils import fsio
 
 log = logging.getLogger("nice_tpu_torch.client")
 
 _LOG_LEVELS = ("trace", "debug", "info", "warn", "error")
+
+
+def _device_list(value: str) -> list[str]:
+    """--devices: a comma-separated device list of one kind."""
+    devices = [d.strip() for d in value.split(",") if d.strip()]
+    try:
+        pmesh.device_kind(devices)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return devices
+
+
+def _mesh_kwargs(args) -> dict:
+    """The engine's and the warms' mesh arguments from the flags."""
+    return {"devices": args.devices, "shard": args.shard,
+            "elastic": args.elastic}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -138,6 +163,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "the multithreaded C++ host engine")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the device backend runs")
+    p.add_argument("--devices", type=_device_list, default=None,
+                   help="comma-separated slices of a mesh, e.g. "
+                   "cuda:0,cuda:1 or cuda:0,cuda:0 (logical slices of one "
+                   "card), or cpu,cpu with --device cpu; default: every "
+                   "visible card")
+    p.add_argument("--shard", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="run a field on a mesh when the device list has at "
+                   "least two live slices")
+    p.add_argument("--elastic", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="on a lost slice, downshift onto the survivors "
+                   "(--no-elastic: the field fails with a resumable state)")
     p.add_argument("--batch-size", type=lambda v: int(v) or None, default=None,
                    help="lanes per batch of the detailed and dense loops; 0 "
                    "= the tuned winner, else "
@@ -352,7 +390,7 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
     mode = mode if mode is not None else _mode(args)
     kwargs = {"device": args.device, "backend": args.backend,
               "progress": _progress_logger(args.progress_secs),
-              "threads": args.threads or None}
+              "threads": args.threads or None, **_mesh_kwargs(args)}
     if checkpointer is not None or resume is not None:
         kwargs.update(checkpoint_cb=(checkpointer.save if checkpointer
                                      else None),
@@ -361,7 +399,8 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
     if mode == SearchMode.DETAILED:
         if args.backend == "device":
             engine.resolve_device(args.device)  # no card: raise, not build
-            engine.warm_detailed(data.base, device=args.device)
+            engine.warm_detailed(data.base, device=args.device,
+                                 devices=args.devices)
         process = engine.process_range_detailed
         kwargs["batch_size"] = args.batch_size
     else:
@@ -640,12 +679,13 @@ def _warm_field(data: DataToClient, mode: SearchMode, args) -> None:
     try:
         if mode == SearchMode.DETAILED:
             engine.warm_detailed(data.base, device=args.device,
-                                 backend=args.backend)
+                                 backend=args.backend, devices=args.devices)
         else:
             engine.warm_niceonly(data.base, data.range_size,
                                  device=args.device, backend=args.backend,
                                  field_start=data.range_start,
-                                 host_niceonly_max=args.host_niceonly_max)
+                                 host_niceonly_max=args.host_niceonly_max,
+                                 devices=args.devices)
     except Exception:  # noqa: BLE001 — the field's dispatch raises it again
         log.warning("prefetch warm failed for base %d", data.base,
                     exc_info=True)
@@ -884,6 +924,7 @@ def run_tenants(args) -> int:
         slo_window_scale=args.slo_window_scale,
         slo_overrides=dict(args.slo_override),
         device=args.device,
+        **_mesh_kwargs(args),
     )
     for row in autotune.tenant_report(
             [(s.name, s.mode, s.base, s.backend) for s in registry],

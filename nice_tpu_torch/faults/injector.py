@@ -27,6 +27,12 @@ The port's sites (SITES) and their actions:
                     HTTP status code (client/api_client.py);
   engine.dispatch   raise: the field raises (there is no downgrade chain;
                     ops/engine.py);
+  mesh.dispatch     dead (the mesh's last slice is lost), dead:<i>[+<j>...]
+                    (the slices at those positions are lost: MeshDeviceLost,
+                    which the elastic downshift consumes) or raise (a plain
+                    failure: the field raises with a resume state), before
+                    an item of a field on a mesh of slices is dispatched; its
+                    context is batch, n_dev and start (ops/engine.py);
   ckpt.write        truncate: the snapshot is written short
                     (ckpt/snapshot.py).
 
@@ -57,6 +63,7 @@ DEFAULT_SEED = 0
 SITES = {
     "http.": ("drop_response", "conn_error", "raise", "<status>"),
     "engine.dispatch": ("raise",),
+    "mesh.dispatch": ("dead", "dead:<i>[+<j>...]", "raise"),
     "ckpt.write": ("truncate",),
 }
 
@@ -166,13 +173,22 @@ def check_rule(rule: _Rule) -> None:
         if (rule.site.startswith(site) and len(rule.site) > len(site)
                 if site.endswith(".") else rule.site == site):
             if rule.action in actions or (
-                    "<status>" in actions and rule.action.isdigit()):
+                    "<status>" in actions and rule.action.isdigit()) or (
+                    "dead:<i>[+<j>...]" in actions
+                    and _dead_positions(rule.action)):
                 return
             raise FaultSpecError(
                 f"site {rule.site!r} has no action {rule.action!r} "
                 f"(one of {', '.join(actions)})")
     raise FaultSpecError(f"the port has no fault site {rule.site!r} "
                          f"(sites: {', '.join(SITES)})")
+
+
+def _dead_positions(action: str) -> bool:
+    """Whether a mesh.dispatch action is dead:<i>[+<j>...] with each
+    position a non-negative integer."""
+    head, _, positions = action.partition(":")
+    return head == "dead" and all(p.isdigit() for p in positions.split("+"))
 
 
 class FaultPlan:

@@ -6,10 +6,11 @@ names and buckets, so that dashboards keyed on them read a port client
 unchanged). Importing this module pre-seeds the label combinations the port
 emits, so a scrape of a fresh process shows each series at 0.
 
-Some series stay at their seed by design: the port has one device and no
-downgrade chain, so nice_mesh_devices is 1 and
-nice_mesh_reshard_events_total and nice_engine_backend_downgrades_total stay
-0. nice_pallas_dispatch_seconds keeps its name: its kernel label is the
+nice_mesh_devices is set by parallel/mesh.make_mesh (1 until a field runs
+on a mesh of slices), and a downshift counts in
+nice_mesh_reshard_events_total and nice_mesh_reshard_seconds. The port has
+no downgrade chain, so nice_engine_backend_downgrades_total stays 0.
+nice_pallas_dispatch_seconds keeps its name: its kernel label is the
 cuda_engine.LAUNCHES key of the launched CUDA kernel.
 """
 
@@ -112,6 +113,21 @@ MESH_RESHARDS = metrics.counter(
     "raised MeshDeviceLost; probe = a post-failure device probe found the "
     "loss).",
     labelnames=("reason",),
+)
+
+MESH_RESHARD_SECONDS = metrics.histogram(
+    "nice_mesh_reshard_seconds",
+    "Wall time of one elastic downshift: partial-accumulator flush, mesh "
+    "rebuild over survivors, re-slice of the remaining cursor range.",
+    buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0),
+)
+
+MESH_SLICE_CURSOR = metrics.gauge(
+    "nice_mesh_slice_cursor",
+    "Per-slice scan cursor of the in-flight field (float: precision-lossy "
+    "above 2^53, observability only — the checkpoint manifest carries the "
+    "exact cursors).",
+    labelnames=("slice",),
 )
 
 AUTOTUNE_EVENTS = metrics.counter(

@@ -1,6 +1,6 @@
-"""Field engine: detailed and niceonly fields on one device (the port's
-counterpart of nice_tpu/ops/engine.py process_range_detailed and
-process_range_niceonly).
+"""Field engine: detailed and niceonly fields on one device or on a mesh of
+slices (the port's counterpart of nice_tpu/ops/engine.py
+process_range_detailed and process_range_niceonly).
 
 Detailed and dense niceonly share the pipelined host loop (the JAX
 engine's _SliceFeed, _Collector and _CkptTicker on one device): a feed
@@ -45,6 +45,14 @@ count that disagrees is an error).
 A kernel failure raises: there is no downgrade to another backend, and
 neither has the engine.dispatch fault site (faults/injector.py), whose
 injected fault raises out of the field.
+
+On a mesh (resolve_mesh: a device list of at least two live slices, one
+process driving them all; parallel/mesh.py) the core's remaining segments
+are partitioned into one queue a slice, a _MeshFeed yields an item of one
+segment a slice, and each slice's kernel (K1, K3 or K4) is enqueued on the
+slice's own stream by the one dispatcher thread (_mesh_loop); the detailed
+rows fold at each flush. A failed dispatch downshifts onto the surviving
+slices (elastic) or raises DispatchError with a resume state.
 
 Observability (obs/): each device field runs in an engine.detailed /
 engine.niceonly-strided / -dense / -host span (engine.scalar for the
@@ -98,12 +106,16 @@ from nice_tpu_torch.obs.series import (
     ENGINE_STATS_TRANSFERS,
     ENGINE_SURVIVOR_OVERFLOW,
     MESH_FEED_IDLE,
+    MESH_RESHARD_SECONDS,
+    MESH_RESHARDS,
+    MESH_SLICE_CURSOR,
 )
 from nice_tpu_torch.ops import adaptive_floor, autotune, cuda_build, msd_filter, mxu
 from nice_tpu_torch.ops import stride_filter
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
 from nice_tpu_torch.ops.limbs import BasePlan, get_plan, int_to_limbs
+from nice_tpu_torch.parallel import mesh as pmesh
 
 log = logging.getLogger(__name__)
 
@@ -164,10 +176,24 @@ def resolve_tuning(mode: str, base: int, device, batch_size: int | None = None,
     return batch, max(1, seg), 1 if arm else 0
 
 
-def clamp_segment(segment: int, batch_size: int) -> int:
-    """Cap the segment so one segment's lanes stay under half the int32
-    range: the histogram flush cadence below assumes it."""
-    return max(1, min(int(segment), ((1 << 31) - 1) // (2 * batch_size)))
+# The int32 histogram bins' budget: a flush hands the accumulator to the
+# collector before any bin could pass half of it.
+ACC_LIMIT = (1 << 31) - 1
+
+
+def clamp_segment(segment: int, batch_size: int, n_dev: int = 1) -> int:
+    """Cap the segment so that one dispatch's lanes, batch_size * segment on
+    each of n_dev slices, stay under half the int32 range: the histogram
+    flush cadence (_flush_every) assumes it. The reference's rule
+    (_clamp_segment), which budgets every slice's lanes against one row:
+    the bound holds for the folded sum as well as for each slice's row."""
+    return max(1, min(int(segment), ACC_LIMIT // (2 * batch_size * n_dev)))
+
+
+def _flush_every(lanes: int) -> int:
+    """Dispatches between flushes when each adds at most `lanes` to a bin
+    (padding included): the bins stay under half of ACC_LIMIT."""
+    return max(1, ACC_LIMIT // (2 * lanes))
 
 
 def niceonly_takes_batch(base: int, backend: str = "device") -> bool:
@@ -246,8 +272,9 @@ CKPT_EVERY_BATCHES = 256
 CKPT_EVERY_SECS = 30.0
 
 # Feed stats of the most recent detailed or dense loop, the keys of the JAX
-# engine's _record_feed_stats (one device: no reshards) plus ring_waits, the
-# uploads that found their ring slot's last copy still in flight.
+# engine's _record_feed_stats (n_dev_start and n_dev_end are 1 and reshards
+# 0 off a mesh) plus ring_waits, the uploads that found their ring slot's
+# last copy still in flight (summed over the slices on a mesh).
 LAST_FEED_STATS: dict = {}
 
 
@@ -430,6 +457,16 @@ class _Readbacks:
     def __len__(self) -> int:
         return len(self._pending)
 
+    def clear(self) -> None:
+        """Drop what is pending and zero every device block: a cached
+        mesh step's readbacks start a field as new ones."""
+        self._pending.clear()
+        self._metas.clear()
+        self._b = 0
+        if self._cuda:
+            for blk in self._dev:
+                blk.zero_()
+
     def slot(self):
         if not self._cuda:
             return None
@@ -526,6 +563,9 @@ class _SliceFeed:
                               else ring_slots, (FEED_BLOCK, plan.limbs_n),
                               dev, stream)
         self._blocks = self._generate(plan, queues, lanes)
+        self._start(depth)
+
+    def _start(self, depth: int) -> None:
         self._items: deque = deque()
         self._depth = depth
         if depth > 0:
@@ -604,15 +644,19 @@ class _SliceFeed:
                 except queue.Full:
                     continue
 
+    def _next_block(self):
+        """The next block, inline or from the producer; None at the end."""
+        if self._depth == 0:
+            return next(self._blocks, None)
+        block = self._q.get()
+        if block is None and self._err[0] is not None:
+            raise self._err[0]
+        return block
+
     def get(self):
         """Next _FeedItem, or None once the queue is exhausted."""
         if not self._items:
-            if self._depth == 0:
-                block = next(self._blocks, None)
-            else:
-                block = self._q.get()
-                if block is None and self._err[0] is not None:
-                    raise self._err[0]
+            block = self._next_block()
             if block is None:
                 return None
             rows, metas = block
@@ -636,8 +680,89 @@ class _SliceFeed:
         self._t.join()
 
 
+class _MeshItem(NamedTuple):
+    starts: tuple   # per slice: its start limbs on its device (None: no lanes)
+    segs: tuple     # per slice: (start, valid) as Python ints
+    markers: tuple  # per slice: (seg_idx, cursor) AFTER this item
+    lanes: int      # valid lanes of the item, over its slices
+
+
+class _MeshFeed(_SliceFeed):
+    """The feed over one work queue a slice (the JAX engine's _SliceFeed in
+    full): each item takes up to `lanes` candidates from the head of every
+    slice's queue, never across a segment boundary within a slice; a slice
+    whose queue is exhausted contributes (core_end, 0) and launches
+    nothing, so its markers stay put. The producer computes a block's start
+    limbs for every slice at once (numpy, no torch call); get() uploads each
+    slice's column of the block with upload(d, rows), through the slice's
+    own ring on its stream, on the dispatcher thread only. markers, start
+    markers and remaining() are _SliceFeed's, one marker a slice."""
+
+    def __init__(self, plan: BasePlan, queues, lanes: int, core_end: int,
+                 upload, depth: int):
+        self._upload = upload
+        self._n = len(queues)
+        self._blocks = self._generate_mesh(plan, queues, lanes, core_end)
+        self._start(depth)
+
+    @staticmethod
+    def _generate_mesh(plan, queues, lanes, core_end):
+        """(start limbs int64[n, slices, limbs_n], [(segs, markers, lanes)]
+        * n) of up to FEED_BLOCK items at a time."""
+        pos = [[0, q[0][0] if q else 0] for q in queues]
+        while True:
+            metas = []
+            while len(metas) < FEED_BLOCK:
+                segs, markers, total = [], [], 0
+                for d, q in enumerate(queues):
+                    si, cur = pos[d]
+                    if si >= len(q):
+                        segs.append((core_end, 0))
+                        markers.append((si, cur))
+                        continue
+                    take = min(lanes, q[si][1] - cur)
+                    segs.append((cur, take))
+                    total += take
+                    cur += take
+                    if cur >= q[si][1]:
+                        si += 1
+                        if si < len(q):
+                            cur = q[si][0]
+                    pos[d] = [si, cur]
+                    markers.append((si, cur))
+                if total == 0:
+                    break
+                metas.append((tuple(segs), tuple(markers), total))
+            if not metas:
+                return
+            yield (np.array([[int_to_limbs(st if v else 0, plan.limbs_n)
+                              for st, v in segs] for segs, _, _ in metas],
+                            dtype=np.int64), metas)
+            if len(metas) < FEED_BLOCK:
+                return
+
+    def get(self):
+        """Next _MeshItem, or None once every slice's queue is exhausted."""
+        if not self._items:
+            block = self._next_block()
+            if block is None:
+                return None
+            rows, metas = block
+            starts = [self._upload(d, rows[:, d])
+                      if any(segs[d][1] for segs, _, _ in metas) else None
+                      for d in range(self._n)]
+            self._items.extend(
+                _MeshItem(tuple(st[j] if segs[d][1] else None
+                                for d, st in enumerate(starts)),
+                          segs, markers, total)
+                for j, (segs, markers, total) in enumerate(metas))
+        return self._items.popleft()
+
+
 def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
-                       ring_waits: int) -> None:
+                       ring_waits: int, n_dev_start: int = 1,
+                       n_dev_end: int = 1, reshards: int = 0,
+                       reshard_secs: float = 0.0) -> None:
     g = np.asarray(gaps, dtype=np.float64)
     LAST_FEED_STATS.clear()
     LAST_FEED_STATS.update({
@@ -649,10 +774,10 @@ def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
         "idle_p95": float(np.percentile(g, 95)) if g.size else 0.0,
         "idle_mean": float(g.mean()) if g.size else 0.0,
         "idle_total": float(g.sum()) if g.size else 0.0,
-        "n_dev_start": 1,
-        "n_dev_end": 1,
-        "reshards": 0,
-        "reshard_secs": 0.0,
+        "n_dev_start": int(n_dev_start),
+        "n_dev_end": int(n_dev_end),
+        "reshards": int(reshards),
+        "reshard_secs": float(reshard_secs),
         "ring_waits": int(ring_waits),
     })
 
@@ -663,6 +788,118 @@ def _fire_dispatch_fault(n_batch: int, start: int) -> None:
     act = faults.fire("engine.dispatch", batch=n_batch, start=start)
     if act is not None:
         raise RuntimeError(f"injected engine.dispatch fault: {act}")
+
+
+class DispatchError(RuntimeError):
+    """A field on a mesh of slices failed mid-dispatch and did not (or could
+    not) downshift: elastic off, no slice left, or a failure no probe
+    pinned on a slice. state: a resume state (the checkpoint_cb contract)
+    covering everything folded before the failure, or None when nothing
+    could be salvaged; cause: the original exception. The JAX engine's
+    BackendDispatchError, which there starts the downgrade chain; the port
+    has none, so the field raises."""
+
+    def __init__(self, state, cause: BaseException):
+        super().__init__(f"mesh dispatch failed: {cause!r}")
+        self.state = state
+        self.cause = cause
+
+
+def _fire_mesh_fault(n_batch: int, n_dev: int, batch_start: int) -> None:
+    """The mesh.dispatch fault site: "dead[:i[+j...]]" loses the mesh
+    positions i... (default: the last slice) by raising MeshDeviceLost, the
+    signal the elastic downshift consumes; "raise" raises a plain
+    RuntimeError."""
+    act = faults.fire("mesh.dispatch", batch=n_batch, n_dev=n_dev,
+                      start=batch_start)
+    if act is None:
+        return
+    if act == "dead" or act.startswith("dead:"):
+        lost = ([int(x) for x in act.split(":", 1)[1].split("+")]
+                if ":" in act else [n_dev - 1])
+        lost = [i for i in lost if 0 <= i < n_dev]
+        if lost:
+            raise pmesh.MeshDeviceLost(lost)
+    raise RuntimeError(f"injected mesh.dispatch fault: {act}")
+
+
+def _diagnose_survivors(mesh: pmesh.Mesh, err: BaseException):
+    """After a failed mesh dispatch: (surviving slices, reason) when one or
+    more slices dropped while at least one survives, else (None, "").
+    MeshDeviceLost names the positions (and registers the lost slices, so
+    the fields after this one start without them); any other failure
+    probes every slice."""
+    slices = list(mesh.slices)
+    if isinstance(err, pmesh.MeshDeviceLost):
+        lost = set(i for i in err.lost if i < len(slices))
+        if lost and len(lost) < len(slices):
+            pmesh.simulate_device_loss(slices[i].id for i in lost)
+            return ([s for i, s in enumerate(slices) if i not in lost],
+                    "device_lost")
+        return None, ""
+    alive, lost = pmesh.probe_devices(slices)
+    if lost and alive:
+        return alive, "probe"
+    return None, ""
+
+
+# Slice tuple -> mesh, as the JAX engine's _MESH_CACHE: a store lands only
+# if no invalidation (a downshift) happened while the mesh was built.
+_MESH_CACHE: dict = {}
+_MESH_CACHE_GEN = 0
+_mesh_cache_lock = threading.Lock()
+
+
+def _cached_mesh(slices: tuple) -> pmesh.Mesh:
+    with _mesh_cache_lock:
+        mesh = _MESH_CACHE.get(slices)
+        gen = _MESH_CACHE_GEN
+    if mesh is not None:
+        return mesh
+    built = pmesh.make_mesh(slices)
+    with _mesh_cache_lock:
+        if _MESH_CACHE_GEN == gen:
+            return _MESH_CACHE.setdefault(slices, built)
+    return built
+
+
+def _invalidate_mesh_cache() -> None:
+    global _MESH_CACHE_GEN
+    with _mesh_cache_lock:
+        _MESH_CACHE_GEN += 1
+        _MESH_CACHE.clear()
+
+
+def resolve_mesh(dev: torch.device, devices=None, shard: bool = True):
+    """(device, mesh) of a field on `dev` (resolve_device's) over `devices`
+    (the JAX engine's _mesh_or_none, with the device list an argument where
+    JAX takes jax.devices()): devices=None means every visible card on a
+    bare "cuda" (cuda:0, cuda:1, ...) and one slice anywhere else. A list
+    of at least two live slices (live_devices: the slices no downshift
+    marked lost) gives a mesh over them; fewer, or shard=False, give None
+    and the one-device path on the list's first live entry (`dev` when
+    devices is None). A device list of another kind than `dev`'s raises, and
+    so does one whose every slice is marked lost."""
+    if devices is None:
+        if dev.type != "cuda" or dev.index is not None or not shard:
+            return dev, None
+        n = torch.cuda.device_count()
+        if n < 2:
+            return dev, None
+        devices = [f"cuda:{i}" for i in range(n)]
+    if pmesh.device_kind(devices) != dev.type:
+        raise ValueError(f"devices {list(map(str, devices))} are not of "
+                         f"device {str(dev)!r}'s kind")
+    slices = pmesh.slices_of(devices)
+    if not shard:
+        return slices[0].device, None
+    live = pmesh.live_devices(slices)
+    if not live:
+        raise RuntimeError(f"every slice of {list(map(str, devices))} is "
+                           "marked lost (parallel/mesh.heal_devices)")
+    if len(live) < 2:
+        return live[0].device, None
+    return live[0].device, _cached_mesh(tuple(live))
 
 
 def _dispatch_loop(feed: _SliceFeed, collector: _Collector, dispatch,
@@ -768,6 +1005,9 @@ def process_range_detailed(
     checkpoint_secs: float | None = None,
     feed_depth: int = FEED_DEPTH_DEFAULT,
     threads: int | None = None,
+    devices=None,
+    shard: bool = True,
+    elastic: bool = True,
 ) -> FieldResults:
     """Histogram (bins 1..base) and near-miss list of a field, exact.
 
@@ -792,7 +1032,20 @@ def process_range_detailed(
     finishes the field without recomputing slivers. A failure in the feed,
     a kernel or the collector (checkpoint_cb included) is raised here, with
     every thread joined. A range wholly outside the base's valid range runs
-    on the scalar oracle (chunked when it checkpoints or resumes)."""
+    on the scalar oracle (chunked when it checkpoints or resumes).
+
+    devices, shard and elastic (resolve_mesh; the reference's device set,
+    NICE_TPU_SHARD and NICE_TPU_ELASTIC): a list of at least two live
+    slices ("cuda:0", "cuda:1", ..., or "cuda:0" repeated: logical slices
+    of one card; "cpu" repeated on the CPU) runs the core on a mesh
+    (_detailed_on_mesh): partition_segments gives each slice a queue, K1
+    runs a slice on its own stream, and the rows fold at each flush. The
+    shape resolves as above, but the mesh runs K1 whatever use_mxu
+    resolves to (the reference's sharded steps take no MXU arm). Checkpoint
+    states are the same contract, their "remaining" list one segment or
+    more a slice. A failed dispatch with `elastic` on downshifts onto the
+    surviving slices and finishes the field; otherwise (or with no
+    survivor) the field raises DispatchError, whose state resumes it."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
     if backend == "native":
@@ -809,12 +1062,12 @@ def process_range_detailed(
         return _chunked_host_scan(range_, base, "detailed", chunk, progress,
                                   checkpoint_cb, resume, checkpoint_batches,
                                   checkpoint_secs)
-    dev = resolve_device(device)
+    dev, mesh = resolve_mesh(resolve_device(device), devices, shard)
     batch_size, seg, arm = resolve_tuning("detailed", base, dev, batch_size,
                                           segment, use_mxu)
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
-    seg = clamp_segment(seg, batch_size)
+    seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
 
     pre, core, post = _clamp_to_base_range(range_, base)
     if core is None:
@@ -856,9 +1109,16 @@ def process_range_detailed(
         CKPT_RESTORES.inc()
         CKPT_BATCHES_SKIPPED.inc(
             (core.size() - sum(e - s for s, e in segments)) // lanes)
+    if mesh is not None:
+        return _detailed_on_mesh(
+            range_, base, plan, core, mesh, hist, nice_numbers, segments,
+            batch_size=batch_size, seg=seg, progress=progress,
+            checkpoint_cb=checkpoint_cb, checkpoint_batches=checkpoint_batches,
+            checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
+            elastic=elastic)
     # Every segment adds at most `lanes` to one bin (padding included), so
     # flushing every flush_every segments keeps int32 bins far from 2^31.
-    flush_every = max(1, ((1 << 31) - 1) // (2 * lanes))
+    flush_every = _flush_every(lanes)
     total = core.size()
     done0 = total - sum(e - s for s, e in segments)
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
@@ -986,6 +1246,332 @@ def process_range_detailed(
         for i in range(1, base + 1)
     )
     return FieldResults(distribution=distribution, nice_numbers=tuple(nice_numbers))
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: a field's detailed or dense loop over a mesh of slices (the
+# JAX engine's sharded dispatch, elastic downshift and per-slice cursors)
+# ---------------------------------------------------------------------------
+
+class _MeshRun(NamedTuple):
+    dispatches: int
+    gaps: list
+    n_dev_start: int
+    n_dev_end: int
+    reshards: int
+    reshard_secs: float
+    ring_waits: int
+    err: tuple | None  # (failure, remaining segments or None) when it raised
+
+
+def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
+               mesh: pmesh.Mesh, segments, *, batch_size: int, seg: int,
+               collector: _Collector, accumulate: bool, ticker, progress,
+               total: int, done: int, prof: stepprof.StepProfiler,
+               feed_depth: int, elastic: bool) -> _MeshRun:
+    """The dispatcher of a field on a mesh (detailed: accumulate, K1 a slice
+    into its histogram row; dense: K4 a slice). partition_segments cuts the
+    remaining segments into one queue a slice; a _MeshFeed yields items of
+    up to batch_size * seg lanes a slice; each item fires the engine.dispatch
+    and mesh.dispatch fault sites, then enqueues each slice's launch on the
+    slice's stream, its output into the slice's readbacks, which go to the
+    collector a block at a time as ("rb", mesh, slice, its rare-path ring,
+    metas, host rows, event). Detailed flushes fold the rows through
+    make_sharded_stats_fold as ("stats", host, event), every flush_every
+    items (the reference's budget over every slice's lanes) and before each
+    checkpoint; ("ckpt", remaining) follows each ticker flush.
+
+    Markers are per slice, and a slice's advances only once its launch is
+    enqueued, so remaining() stays exact when a launch fails part-way
+    through an item. On a failure with `elastic` on, _diagnose_survivors
+    names the survivors: the dispatched work is read back, the rows folded
+    synchronously (("stats_host", int64 rows)), the dead mesh's steps
+    evicted, the mesh rebuilt over the survivors (their slice ids kept) and
+    the remaining segments re-sliced. With elastic off, no survivor, or a
+    fold that fails, the run ends with err = (failure, remaining or None)
+    once what was dispatched has reached the collector."""
+    lanes = batch_size * seg
+    make = (pmesh.make_sharded_megaloop_accum_step if accumulate
+            else pmesh.make_sharded_megaloop_count_step)
+    restore = mesh.saved_streams()
+    n_dev0 = mesh.size
+    gaps: list[float] = []
+    n_batch = reshards = ring_waits = since_flush = 0
+    reshard_secs = 0.0
+    prof_on = prof.enabled
+    faults_on = faults.armed("engine.dispatch")
+    mesh_faults_on = faults.armed("mesh.dispatch")
+    err = None
+    markers: tuple = ()
+
+    def read_back(d):
+        rb = step.loops[d].readbacks
+        if len(rb):
+            mesh.use(d)
+            collector.put(("rb", mesh, d, step.loops[d].rare_ring,
+                           *rb.fetch()))
+
+    def flush():
+        """Everything dispatched so far on its way to the collector."""
+        nonlocal since_flush
+        for d in range(mesh.size):
+            read_back(d)
+        if accumulate and since_flush:
+            collector.put(("stats", *fold([lp.acc for lp in step.loops])))
+        since_flush = 0
+
+    def cursors():
+        for d, (_si, cur) in enumerate(markers):
+            MESH_SLICE_CURSOR.labels(str(d)).set(cur)
+
+    try:
+        step = make(plan, batch_size, seg, mesh)
+        step.begin()
+        fold = pmesh.make_sharded_stats_fold(mesh) if accumulate else None
+        flush_every = _flush_every(lanes * mesh.size)
+        while segments and not collector.failed():
+            queues = pmesh.partition_segments(segments, mesh.size, lanes)
+
+            def upload(d, rows):
+                mesh.use(d)
+                return step.loops[d].ring.upload(rows)
+
+            feed = _MeshFeed(plan, queues, lanes, core.end(), upload,
+                             feed_depth)
+            markers = _SliceFeed.start_markers(queues)
+            failure = None
+            t_prev = None
+            try:
+                while not collector.failed():
+                    t_feed = time.monotonic() if prof_on else 0.0
+                    item = feed.get()
+                    if item is None:
+                        segments = []
+                        break
+                    now = time.monotonic()
+                    if prof_on:
+                        prof.add("h2d_feed", now - t_feed)
+                    if t_prev is not None and len(gaps) < 65536:
+                        gaps.append(now - t_prev)
+                    launched = list(markers)
+                    try:
+                        if faults_on:
+                            _fire_dispatch_fault(n_batch, item.segs[0][0])
+                        if mesh_faults_on:
+                            _fire_mesh_fault(n_batch, mesh.size,
+                                             item.segs[0][0])
+                        for d, (start, valid) in enumerate(item.segs):
+                            if valid:
+                                mesh.use(d)
+                                out = step.launch(d, item.starts[d], valid)
+                                rb = step.loops[d].readbacks
+                                rb.add(out, (start, valid))
+                                if len(rb) == FEED_BLOCK:
+                                    read_back(d)
+                                if prof_on:
+                                    prof.fence(out)
+                            launched[d] = item.markers[d]
+                    except Exception as e:  # noqa: BLE001 — the boundary
+                        failure = e
+                    markers = tuple(launched)
+                    if failure is not None:
+                        break
+                    t_prev = time.monotonic()
+                    if prof_on:
+                        prof.add("device_compute", t_prev - now)
+                    n_batch += 1
+                    since_flush += 1
+                    done += item.lanes
+                    if n_batch % FEED_BLOCK == 0:
+                        cursors()
+                    if ticker is not None and ticker.tick():
+                        flush()
+                        collector.put(("ckpt",
+                                       _SliceFeed.remaining(queues, markers)))
+                    elif accumulate and since_flush >= flush_every:
+                        flush()
+                    if progress is not None:
+                        progress(done, total)
+            finally:
+                feed.stop()
+                ring_waits += sum(lp.ring.waits for lp in step.loops)
+            if failure is None:
+                continue  # exhausted, or the collector failed
+            rem = _SliceFeed.remaining(queues, markers)
+            survivors, reason = None, ""
+            if elastic:
+                survivors, reason = _diagnose_survivors(mesh, failure)
+                obs.flight.record(
+                    "device_loss", mode=mode, base=base,
+                    survivors=len(survivors) if survivors else 0,
+                    reason=reason if survivors else "fatal",
+                    error=repr(failure)[:200])
+            if not survivors:
+                err = (failure, rem)
+                break
+            # The elastic downshift: what the old layout dispatched reaches
+            # the collector, and its rows are folded before its steps go.
+            t_r0 = time.monotonic()
+            try:
+                for d in range(mesh.size):
+                    read_back(d)
+                if accumulate:
+                    host, ev = fold([lp.acc for lp in step.loops])
+                    _wait(ev)
+                    collector.put(("stats_host", host.numpy().copy()))
+                    since_flush = 0
+            except Exception as fold_err:  # noqa: BLE001 — nothing to salvage
+                log.warning("downshift abandoned: the partial rows could not "
+                            "be folded: %r", fold_err)
+                err = (failure, None)
+                break
+            cursors()
+            pmesh.clear_step_cache(pmesh.mesh_device_ids(mesh))
+            _invalidate_mesh_cache()
+            prev_n = mesh.size
+            mesh = _cached_mesh(tuple(survivors))
+            step = make(plan, batch_size, seg, mesh)
+            step.begin()
+            fold = pmesh.make_sharded_stats_fold(mesh) if accumulate else None
+            # seg stays fixed (the budget only grows as slices go), so the
+            # survivors run the same shape.
+            flush_every = _flush_every(lanes * mesh.size)
+            segments = rem
+            reshards += 1
+            dt = time.monotonic() - t_r0
+            reshard_secs += dt
+            MESH_RESHARDS.labels(reason).inc()
+            MESH_RESHARD_SECONDS.observe(dt)
+            obs.flight.record("mesh_reshard", mode=mode, base=base,
+                              reason=reason, n_dev=mesh.size,
+                              lost=prev_n - mesh.size)
+            obs.trace_event("mesh.reshard", mode=mode, base=base,
+                            reason=reason, n_dev=mesh.size)
+            log.warning("mesh downshift (%s b%d): %d -> %d slices (%s, %r); "
+                        "re-sliced %d remaining segment(s)", mode, base,
+                        prev_n, mesh.size, reason, failure, len(rem))
+        try:
+            flush()
+        except Exception as e:  # noqa: BLE001 — raised below or with err
+            if err is None:
+                raise
+            log.warning("the failed field's last flush failed too: %r", e)
+            err = (err[0], None)
+        cursors()
+    finally:
+        restore()
+    return _MeshRun(n_batch, gaps, n_dev0, mesh.size, reshards, reshard_secs,
+                    ring_waits, err)
+
+
+def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
+                      core: FieldSize, mesh: pmesh.Mesh, hist: np.ndarray,
+                      nice_numbers: list, segments, *, batch_size: int,
+                      seg: int, progress, checkpoint_cb, checkpoint_batches,
+                      checkpoint_secs, feed_depth: int,
+                      elastic: bool) -> FieldResults:
+    """process_range_detailed's core on a mesh of slices (_mesh_loop): the
+    collector reads each slice's near-miss counts, re-scans a segment with
+    near misses through K2 on its slice's device, stream and rare-path
+    ring, folds the histogram handed over by flushes and downshifts and
+    writes the checkpoints. A field that failed without a downshift raises
+    DispatchError with the resume state of what was folded."""
+    total = core.size()
+    done0 = total - sum(e - s for s, e in segments)
+    ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
+              if checkpoint_cb is not None else None)
+    t0 = time.monotonic()
+    prof = stepprof.StepProfiler("detailed", base,
+                                 mesh.devices[0].type).start()
+    item_secs: list[float] = []
+    tally = {"nm_bytes": 0, "stats_bytes": 0, "transfers": 0}
+
+    def ckpt_state(rem):
+        return {
+            "cursor": rem[0][0] if rem else core.end(),
+            "hist": hist.copy(),
+            "nice_numbers": [(n.number, n.num_uniques) for n in nice_numbers],
+            "remaining": [[s, e] for s, e in rem],
+        }
+
+    def collect_item(kind, *payload):
+        t_item = time.monotonic()
+        if kind == "rb":  # a block of one slice's near-miss counts
+            m, d, ring, segs, nms, ev = payload
+            _wait(ev)
+            tally["nm_bytes"] += 4 * len(segs)
+            for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
+                if nm > 0:
+                    m.use(d)
+                    nice_numbers.extend(
+                        NiceNumberSimple(number=number, num_uniques=uniq)
+                        for number, uniq in rare_scan_survivors(
+                            plan, seg_start, seg_valid, batch_size,
+                            m.devices[d], plan.near_miss_cutoff, ring))
+        elif kind == "stats":  # the slices' rows, folded by a flush
+            h, ev = payload
+            _wait(ev)
+            hist[:] += h.numpy()
+            tally["stats_bytes"] += h.numel() * h.element_size()
+            tally["transfers"] += 1
+        elif kind == "stats_host":  # folded already, at a downshift
+            (h,) = payload
+            hist[:] += h
+            tally["transfers"] += 1
+        else:  # "ckpt": after its "rb" and "stats", so the state matches
+            (rem,) = payload
+            checkpoint_cb(ckpt_state(rem))
+        dt = time.monotonic() - t_item
+        item_secs.append(dt)
+        if prof.enabled:
+            if kind == "rb":
+                prof.add("readback", dt)
+            elif kind in ("stats", "stats_host"):
+                prof.add("fold", dt)
+
+    window = -(-DISPATCH_WINDOW // FEED_BLOCK) * mesh.size
+    try:
+        with obs.span("engine.detailed", base=base, size=total,
+                      backend=mesh.devices[0].type, n_dev=mesh.size), \
+                _Collector(collect_item, window, "detailed-collect",
+                           prof=prof) as collector:
+            run = _mesh_loop("detailed", plan, base, core, mesh, segments,
+                             batch_size=batch_size, seg=seg,
+                             collector=collector, accumulate=True,
+                             ticker=ticker, progress=progress, total=total,
+                             done=done0, prof=prof, feed_depth=feed_depth,
+                             elastic=elastic)
+    finally:
+        prof.stop()
+        ce.fold_dispatch_seconds()
+    ENGINE_DISPATCHES.labels("detailed").inc(run.dispatches)
+    MESH_FEED_IDLE.labels("detailed").observe_many(run.gaps)
+    ENGINE_BATCH_KERNEL_SECONDS.labels("detailed").observe_many(item_secs)
+    ENGINE_READBACK_BYTES.labels("nm").inc(tally["nm_bytes"])
+    ENGINE_READBACK_BYTES.labels("stats").inc(tally["stats_bytes"])
+    ENGINE_STATS_TRANSFERS.labels("detailed").inc(tally["transfers"])
+    _record_feed_stats("detailed", run.gaps, run.dispatches, feed_depth,
+                       run.ring_waits, run.n_dev_start, run.n_dev_end,
+                       run.reshards, run.reshard_secs)
+    if run.err is not None:
+        failure, rem = run.err
+        state = (ckpt_state(rem)
+                 if rem is not None and not collector.failed() else None)
+        raise DispatchError(state, failure) from failure
+    collector.raise_if_failed()
+    log.info("detailed b%d [%d, %d) on %d slices (batch %d x %d, feed depth "
+             "%d): %.3fs, %d items, %d reshards, %d near misses", base,
+             range_.start(), range_.end(), run.n_dev_start, batch_size, seg,
+             feed_depth, time.monotonic() - t0, run.dispatches,
+             run.reshards, len(nice_numbers))
+    ENGINE_NUMBERS.labels("detailed").inc(range_.size())
+    nice_numbers.sort(key=lambda n: n.number)
+    distribution = tuple(
+        UniquesDistributionSimple(num_uniques=i, count=int(hist[i]))
+        for i in range(1, base + 1)
+    )
+    return FieldResults(distribution=distribution,
+                        nice_numbers=tuple(nice_numbers))
 
 
 # ---------------------------------------------------------------------------
@@ -1219,8 +1805,23 @@ def _device_residues(base: int, k: int, device: str) -> torch.Tensor:
     return torch.from_numpy(table.residues_u32.astype(np.int64)).to(device)
 
 
+def _group_counts(counts, launched) -> np.ndarray:
+    """A descriptor group's counts on the host, once its launches are done:
+    one device tensor and its event, or (on a mesh) one a slice,
+    concatenated in slice order (a slice past the group's rows has None)."""
+    if not isinstance(counts, list):
+        counts, launched = [counts], [launched]
+    parts = []
+    for c, ev in zip(counts, launched):
+        if c is not None:
+            _wait(ev)
+            parts.append(c.cpu().numpy())
+    return np.concatenate(parts)
+
+
 def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
-                      progress, checkpoint, ticker=None) -> list[int]:
+                      progress, checkpoint, ticker=None,
+                      mesh: pmesh.Mesh | None = None) -> list[int]:
     """Nice numbers of the core through the three-thread pipeline.
 
     producer (a pool of FILTER_THREADS): the MSD filter over the field's
@@ -1232,14 +1833,26 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
         audit, and checkpoint(watermark, found) when the ticker (ticked
         once a group) fires, where `found` holds every nice number below
         the watermark (groups are collected in order and the filters' gaps
-        hold none). Descriptor tables go up through a pinned _HostRing."""
+        hold none). Descriptor tables go up through a pinned _HostRing.
+
+    On a mesh of slices a group holds STRIDED_DESC_MAX descriptors a slice
+    and goes through make_sharded_strided_step: one K3 launch a slice, on
+    its stream, the counts concatenated in descriptor order; the collector
+    and its audit are the same (the reference has no downshift here)."""
     plan, table, periods = s.plan, s.table, s.periods
     modulus = table.modulus
     span = periods * modulus
-    group_cap = ce.STRIDED_DESC_MAX
+    n_dev = 1 if mesh is None else mesh.size
+    group_cap = ce.STRIDED_DESC_MAX * n_dev
     filter_threads, audit_every = FILTER_THREADS, STRIDE_AUDIT_EVERY
-    residues = _device_residues(base, s.k, str(dev))
-    ring = _HostRing(2 * STRIDE_WINDOW, (group_cap, ce.DESC_WIDTH), dev)
+    if mesh is None:
+        residues = _device_residues(base, s.k, str(dev))
+        ring = _HostRing(2 * STRIDE_WINDOW, (group_cap, ce.DESC_WIDTH), dev)
+    else:
+        step = pmesh.make_sharded_strided_step(plan, base, s.k, modulus,
+                                               periods, ce.STRIDED_DESC_MAX,
+                                               mesh)
+        restore = mesh.saved_streams()
     nice: list[int] = []
 
     host_busy = [0.0]  # filter seconds, summed over the pool's threads
@@ -1317,10 +1930,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
 
     def collect(cols, counts_dev, launched):
         t0 = time.monotonic()
-        if launched is not None:
-            launched.synchronize()  # the group's kernel has finished
         k = len(cols[0])
-        flat = counts_dev.cpu().numpy()[:k]
+        flat = _group_counts(counts_dev, launched)[:k]
         for g in np.nonzero(flat)[0].tolist():
             n0, lo, hi = (desc_value(cols, j, g) for j in range(3))
             count = int(flat[g])
@@ -1385,14 +1996,17 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                     n_groups += 1
                     if first_group is None:
                         first_group = cols
-                    desc = ring.upload(
-                        pack_descriptors(cols, group_cap).astype(np.int64))
-                    counts = ce.strided_niceonly_batch(
-                        plan, modulus, residues, periods, desc, k_real)
-                    launched = None
-                    if dev.type == "cuda":
-                        launched = torch.cuda.Event()
-                        launched.record(torch.cuda.current_stream(dev))
+                    packed = pack_descriptors(cols, group_cap).astype(np.int64)
+                    if mesh is not None:
+                        counts, launched = step(packed, k_real)
+                    else:
+                        desc = ring.upload(packed)
+                        counts = ce.strided_niceonly_batch(
+                            plan, modulus, residues, periods, desc, k_real)
+                        launched = None
+                        if dev.type == "cuda":
+                            launched = torch.cuda.Event()
+                            launched.record(torch.cuda.current_stream(dev))
                     t2 = time.monotonic()
                     t_disp += t2 - t1
                     collector.put((cols, counts, launched))
@@ -1405,6 +2019,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
     finally:
         producer.join()
         ce.fold_dispatch_seconds()
+        if mesh is not None:
+            restore()
     ENGINE_DESCRIPTORS.inc(n_desc)
     ENGINE_AUDITS.inc(audits[0])
     ENGINE_BATCH_KERNEL_SECONDS.labels("strided").observe_many(group_secs)
@@ -1425,7 +2041,7 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
         collect_busy=dev_busy[0], k=s.k, periods=periods,
         descriptors=n_desc, groups=n_groups, gen=t_gen, disp=t_disp,
         put=t_put, nice=len(nice), filter_threads=filter_threads,
-        first_group=first_group,
+        first_group=first_group, n_dev=n_dev,
     )
     log.info(
         "niceonly b%d [%d, %d): wall %.3fs | msd %.3fs busy (floor %d, %d "
@@ -1449,9 +2065,14 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
                     use_mxu: int | None = None,
                     checkpoint_batches: int | None = None,
                     checkpoint_secs: float | None = None,
-                    feed_depth: int = FEED_DEPTH_DEFAULT) -> None:
+                    feed_depth: int = FEED_DEPTH_DEFAULT,
+                    mesh: pmesh.Mesh | None = None,
+                    elastic: bool = True) -> None:
     """Append the nice numbers of the core to nice_numbers: the twin of the
-    JAX engine's single-device dense loop, on the pipelined host loop.
+    JAX engine's dense loop, on the pipelined host loop (on a mesh of
+    slices, _dense_on_mesh: K4 a slice, whatever use_mxu resolves to, with
+    the elastic downshift; a failure that does not downshift raises
+    DispatchError with the state of what was collected).
 
     The MSD filter (the "dense" floor controller's floor) turns the core
     into surviving ranges up front; each is cut into runs of at most
@@ -1471,7 +2092,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     plan = get_plan(base)
     batch_size, seg, arm = resolve_tuning("niceonly", base, dev, batch_size,
                                           segment, use_mxu)
-    seg = clamp_segment(seg, batch_size)
+    seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
     lanes = batch_size * seg
     classes = ce.niceonly_classes(plan, True, str(dev))
     nice0 = len(nice_numbers)
@@ -1492,6 +2113,15 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
         ]
     msd_secs = time.monotonic() - t0
     total = sum(e - s for s, e in segments)
+    if mesh is not None:
+        _dense_on_mesh(core, base, plan, mesh, nice_numbers, segments, prof,
+                       batch_size=batch_size, seg=seg, progress=progress,
+                       checkpoint_cb=checkpoint_cb,
+                       checkpoint_batches=checkpoint_batches,
+                       checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
+                       elastic=elastic, msd_secs=msd_secs, floor=floor,
+                       ctrl=ctrl if ran_filter else None)
+        return
     runs: list[tuple[int, int]] = []
     tally = {"kept": 0, "pruned": 0}
     kernel = "niceonly_dense_mma" if arm else "niceonly_dense"
@@ -1607,6 +2237,121 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     )
 
 
+def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
+                   mesh: pmesh.Mesh, nice_numbers: list, segments,
+                   prof: stepprof.StepProfiler, *,
+                   batch_size: int, seg: int, progress, checkpoint_cb,
+                   checkpoint_batches, checkpoint_secs, feed_depth: int,
+                   elastic: bool, msd_secs: float, floor: int, ctrl) -> None:
+    """The dense loop's runs on a mesh of slices (_mesh_loop): the collector
+    reads each slice's [count, pruned] a block at a time and re-scans a run
+    that counts any through K2 on its slice's device, stream and rare-path
+    ring (a count the re-scan does not confirm is an error). prof: the
+    field's started profiler (stopped here); ctrl: the floor controller to
+    teach (None when the filter did not run)."""
+    nice0 = len(nice_numbers)
+    total = sum(e - s for s, e in segments)
+    runs: list[tuple[int, int]] = []
+    tally = {"kept": 0, "pruned": 0}
+    launches0 = ce.LAUNCHES["niceonly_dense"]
+    ticker = (_CkptTicker(checkpoint_batches, checkpoint_secs)
+              if checkpoint_cb is not None else None)
+    item_secs: list[float] = []
+
+    def ckpt_state(rem):
+        return {
+            "cursor": rem[0][0] if rem else core.end(),
+            "hist": None,
+            "nice_numbers": [(n.number, n.num_uniques) for n in nice_numbers],
+            "remaining": [[a, b] for a, b in rem],
+            "filtered": True,
+        }
+
+    def collect_item(kind, *payload):
+        t_item = time.monotonic()
+        if kind == "rb":  # a block of one slice's runs' [count, pruned]
+            m, d, ring, block, counts, ev = payload
+            _wait(ev)
+            for (pos, valid), (count, n_pruned) in zip(block, counts.tolist()):
+                runs.append((pos, valid))
+                tally["kept"] += valid - n_pruned
+                tally["pruned"] += n_pruned
+                if count == 0:
+                    continue
+                m.use(d)
+                found = [n for n, _ in rare_scan_survivors(
+                    plan, pos, valid, batch_size, m.devices[d], base - 1,
+                    ring)]
+                if len(found) != count:
+                    raise RuntimeError(
+                        f"K4 counted {count} nice numbers in [{pos}, "
+                        f"{pos + valid}), the rare scan found {len(found)}")
+                nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
+                                    for n in found)
+        else:  # "ckpt": every run before the marker is collected
+            (rem,) = payload
+            checkpoint_cb(ckpt_state(rem))
+        dt = time.monotonic() - t_item
+        item_secs.append(dt)
+        if prof.enabled and kind == "rb":
+            prof.add("readback", dt)
+
+    window = -(-DISPATCH_WINDOW // FEED_BLOCK) * mesh.size
+    t1 = time.monotonic()
+    try:
+        with obs.span("engine.niceonly-dense", base=base, size=core.size(),
+                      backend=mesh.devices[0].type, n_dev=mesh.size), \
+                _Collector(collect_item, window, "dense-collect",
+                           prof=prof) as collector:
+            run = _mesh_loop("niceonly", plan, base, core, mesh, segments,
+                             batch_size=batch_size, seg=seg,
+                             collector=collector, accumulate=False,
+                             ticker=ticker, progress=progress, total=total,
+                             done=0, prof=prof, feed_depth=feed_depth,
+                             elastic=elastic)
+    finally:
+        prof.stop()
+        ce.fold_dispatch_seconds()
+    loop_secs = time.monotonic() - t1
+    ENGINE_DISPATCHES.labels("niceonly").inc(run.dispatches)
+    MESH_FEED_IDLE.labels("niceonly").observe_many(run.gaps)
+    ENGINE_BATCH_KERNEL_SECONDS.labels("dense").observe_many(item_secs)
+    ENGINE_READBACK_BYTES.labels("count").inc(8 * len(runs))
+    ENGINE_FILTER_PRUNED.labels("niceonly", str(base)).inc(tally["pruned"])
+    _record_feed_stats("niceonly", run.gaps, run.dispatches, feed_depth,
+                       run.ring_waits, run.n_dev_start, run.n_dev_end,
+                       run.reshards, run.reshard_secs)
+    if run.err is not None:
+        failure, rem = run.err
+        state = (ckpt_state(rem)
+                 if rem is not None and not collector.failed() else None)
+        raise DispatchError(state, failure) from failure
+    collector.raise_if_failed()
+    if ctrl is not None:
+        ctrl.observe(msd_secs, loop_secs, core.size())
+    runs.sort()
+    median = sorted(runs, key=lambda r: r[1])[len(runs) // 2] if runs else None
+    LAST_NICEONLY_STATS.clear()
+    LAST_NICEONLY_STATS.update(
+        route="device", base=base, start=core.start(), end=core.end(),
+        msd_secs=msd_secs, floor=floor, ranges=len(segments),
+        loop_secs=loop_secs, runs=len(runs), lanes=sum(v for _, v in runs),
+        kept=tally["kept"], pruned=tally["pruned"],
+        classes=int(ce.niceonly_classes(plan, True, "cpu").shape[0]),
+        launches=ce.LAUNCHES["niceonly_dense"] - launches0,
+        batch_size=batch_size, segment=seg, use_mxu=0, feed_depth=feed_depth,
+        nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
+        median_run=median, n_dev=run.n_dev_start,
+    )
+    log.info(
+        "niceonly-dense b%d [%d, %d) on %d slices: msd %.3fs (floor %d, %d "
+        "ranges) | loop %.3fs (%d runs, %d kept, %d pruned, %d reshards) | "
+        "%d nice", base, core.start(), core.end(), run.n_dev_start, msd_secs,
+        floor, len(segments), loop_secs, len(runs), tally["kept"],
+        tally["pruned"], run.reshards, len(nice_numbers) - nice0,
+    )
+
+
 def process_range_niceonly(
     range_: FieldSize,
     base: int,
@@ -1624,6 +2369,9 @@ def process_range_niceonly(
     feed_depth: int = FEED_DEPTH_DEFAULT,
     threads: int | None = None,
     host_niceonly_max: int | None = None,
+    devices=None,
+    shard: bool = True,
+    elastic: bool = True,
 ) -> FieldResults:
     """The nice numbers of a field (distribution empty), exact.
 
@@ -1656,7 +2404,13 @@ def process_range_niceonly(
     start. Dense: progress follows the dispatched lanes and checkpoint_cb
     gets the JAX dense loop's state (see _niceonly_dense). resume takes a
     state of this engine or of the JAX engine and finishes the field
-    without recomputing slivers."""
+    without recomputing slivers.
+
+    devices, shard and elastic as process_range_detailed's (resolve_mesh):
+    on a mesh the strided pipeline launches K3 a slice on groups of
+    STRIDED_DESC_MAX descriptors a slice (no downshift there, as in the
+    reference), and the dense loop runs K4 a slice with the elastic
+    downshift (DispatchError where it does not downshift)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
     if backend == "native":
@@ -1673,7 +2427,7 @@ def process_range_niceonly(
         return _chunked_host_scan(range_, base, "niceonly", chunk, progress,
                                   checkpoint_cb, resume, checkpoint_batches,
                                   checkpoint_secs)
-    dev = resolve_device(device)
+    dev, mesh = resolve_mesh(resolve_device(device), devices, shard)
     pre, core, post = _clamp_to_base_range(range_, base)
     if core is None:
         if resume is None and checkpoint_cb is None:
@@ -1708,7 +2462,8 @@ def process_range_niceonly(
                         checkpoint_cb=checkpoint_cb, resume=resume,
                         batch_size=batch_size, segment=segment,
                         use_mxu=use_mxu, checkpoint_batches=checkpoint_batches,
-                        checkpoint_secs=checkpoint_secs, feed_depth=feed_depth)
+                        checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
+                        mesh=mesh, elastic=elastic)
         ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
@@ -1768,7 +2523,7 @@ def process_range_niceonly(
                       size=core.size(), backend=dev.type):
             found = _niceonly_strided(
                 core, base, s, dev, progress, ckpt,
-                _CkptTicker(checkpoint_batches, checkpoint_secs))
+                _CkptTicker(checkpoint_batches, checkpoint_secs), mesh)
     nice_numbers.extend(NiceNumberSimple(number=n, num_uniques=base)
                         for n in found)
     ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
@@ -2026,7 +2781,17 @@ def _device_type(device) -> str:
     return kind
 
 
-def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
+def _warm_kind(device, devices) -> str:
+    """"cuda" or "cpu" of a warm's field: its device list's kind when it has
+    one (parallel/mesh.device_kind, from the names alone), else its
+    device's."""
+    if devices is not None:
+        return pmesh.device_kind(devices)
+    return _device_type(device)
+
+
+def warm_detailed(base: int, *, device="cuda", backend: str = "device",
+                  devices=None) -> None:
     """Build and load the libraries a detailed field of this base launches:
     the main library (K1; K2 and K5 above b97) and, at the plan tier's bases
     (b10-b97), the base's own library (K2 of the rare path and K5's detailed
@@ -2034,7 +2799,9 @@ def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
     field's tuned shape; here either arm of any shape runs from these two
     libraries, so no tuning is resolved. On the CPU (the plain versions) and
     for the scalar oracle there is nothing to build; the native backend
-    loads the host library.
+    loads the host library. devices: the field's device list, if it has
+    one; every slice of a mesh runs from the same libraries, which one
+    process loads once for all its cards.
 
     No kernel launch and no torch call: the client's prefetch runs this on
     its own thread while another field runs, and nvcc runs as a subprocess.
@@ -2043,7 +2810,7 @@ def warm_detailed(base: int, *, device="cuda", backend: str = "device") -> None:
     if backend == "native":
         native.load()
         return
-    if backend == "scalar" or _device_type(device) == "cpu":
+    if backend == "scalar" or _warm_kind(device, devices) == "cpu":
         return
     plan = get_plan(base)
     if not ce.supports_base(plan):
@@ -2070,7 +2837,8 @@ def _warm_probe_routes(base: int, field_size: int, field_start, limit: int
 
 def warm_niceonly(base: int, field_size: int = 0, *, device="cuda",
                   backend: str = "device", field_start: int | None = None,
-                  host_niceonly_max: int | None = None) -> None:
+                  host_niceonly_max: int | None = None,
+                  devices=None) -> None:
     """Make what a niceonly field of this base and size needs before its
     first number: the host library of the MSD filter; at the strided bases
     (b10-b97) the field's strided setup (MSD floor, stride depth and table,
@@ -2080,11 +2848,11 @@ def warm_niceonly(base: int, field_size: int = 0, *, device="cuda",
     given, else at the top of the base's range, the gate's worst case)
     gets the host stride table at _host_stride_depth instead, and no
     library of the base; so does the native backend. The host work runs on
-    the CPU too. No kernel launch and no torch call (see warm_detailed); a
-    failed build raises."""
+    the CPU too. devices as warm_detailed's. No kernel launch and no torch
+    call (see warm_detailed); a failed build raises."""
     if backend == "scalar":
         return
-    kind = _device_type(device)
+    kind = _warm_kind(device, devices)
     on_card = kind == "cuda"
     native.load()
     if backend == "native" or _warm_probe_routes(

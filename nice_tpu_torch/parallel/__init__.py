@@ -1,3 +1,3 @@
-"""nice_tpu_torch.parallel — device-level accounting shared by the
-scheduler (the port's cut of nice_tpu/parallel: one device, so only the
-occupancy meter for now)."""
+"""nice_tpu_torch.parallel — the mesh of slices a field runs on in one
+process, and the scheduler's occupancy meter (the port's twin of
+nice_tpu/parallel)."""

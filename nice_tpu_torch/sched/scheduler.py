@@ -1,13 +1,14 @@
 """Priority/deficit round-robin over tenant pages (the port's copy of
-nice_tpu/sched/scheduler.py, on one device).
+nice_tpu/sched/scheduler.py).
 
 The scheduler sits above the engine and below the field sources: each
 *round* it picks one tenant (policy + SLO-burn boost + anti-starvation
 bound), runs that tenant's pages until its time quantum expires, and
 preempts at the next page boundary — which the PageTable guarantees is a
 loop segment boundary. Each page is one ordinary process_range_* call on
-the scheduler's device, so a page launches exactly the kernels a solo
-field launches there. The builds run before the dispatch loop (warm), so
+the scheduler's device (and device list: a mesh of slices, with its
+elastic downshift, as the reference's pages run on its mesh), so a page
+launches exactly the kernels a solo field launches there. The builds run before the dispatch loop (warm), so
 switching tenants never waits on nvcc; a build that fails raises.
 
 Per-tenant SLO budgets feed back into scheduling: every page's wall time
@@ -63,7 +64,10 @@ class MultiTenantScheduler:
     starvation_rounds <= 0 turn those off); slo_window_scale and
     slo_overrides are its NICE_TPU_SLO_* knobs (obs/slo.py). Every page and
     every warm runs on ``device`` ("cuda" unless the caller asks for the
-    CPU's plain versions). Injectable clocks keep the tests deterministic:
+    CPU's plain versions), over ``devices`` with ``shard`` and ``elastic``
+    as the engine's entry points take them (ops/engine.resolve_mesh: a
+    slice a downshift lost stays out of the later pages). Injectable clocks
+    keep the tests deterministic:
     ``clock`` (monotonic) drives quantum/occupancy accounting, ``wall``
     (epoch) stamps history points for the SLO windows."""
 
@@ -84,6 +88,9 @@ class MultiTenantScheduler:
         clock=time.monotonic,
         wall=time.time,
         device="cuda",
+        devices=None,
+        shard: bool = True,
+        elastic: bool = True,
     ):
         if policy not in POLICIES:
             raise ValueError(
@@ -93,6 +100,8 @@ class MultiTenantScheduler:
         self.registry = registry
         self.source = source
         self.device = device
+        self.mesh_args = {"devices": devices, "shard": shard,
+                          "elastic": elastic}
         self.table = PageTable(page_batches, device=device)
         self.policy = policy
         self.quantum_secs = quantum_secs
@@ -137,11 +146,13 @@ class MultiTenantScheduler:
         for spec in self.registry:
             if spec.mode == "detailed":
                 engine.warm_detailed(spec.base, device=self.device,
-                                     backend=spec.backend)
+                                     backend=spec.backend,
+                                     devices=self.mesh_args["devices"])
             else:
                 engine.warm_niceonly(spec.base, self.table.quantum_for(spec),
                                      device=self.device,
-                                     backend=spec.backend)
+                                     backend=spec.backend,
+                                     devices=self.mesh_args["devices"])
 
     # -- work feed ---------------------------------------------------------
 
@@ -266,11 +277,12 @@ class MultiTenantScheduler:
         if spec.mode == "detailed":
             return engine.process_range_detailed(
                 range_, page.base, device=self.device, backend=spec.backend,
-                batch_size=spec.batch_size)
+                batch_size=spec.batch_size, **self.mesh_args)
         takes_batch = engine.niceonly_takes_batch(page.base, spec.backend)
         return engine.process_range_niceonly(
             range_, page.base, device=self.device, backend=spec.backend,
-            batch_size=spec.batch_size if takes_batch else None)
+            batch_size=spec.batch_size if takes_batch else None,
+            **self.mesh_args)
 
     def _preempt_reason(self, spec: TenantSpec, turn_started: float) -> str:
         """Why the incumbent should yield at this page boundary, or ''."""

@@ -350,12 +350,14 @@ def test_prefetch_warms_each_base_size_once_on_its_thread(monkeypatch):
         assert [w[:3] for w in warmed] == want
         assert {w[3] for w in warmed} == {"nice-prefetch"}
         # A niceonly warm also gets the field's start and the host route's
-        # limit (the --host-niceonly-max flag, None: the engine's default).
+        # limit (the --host-niceonly-max flag, None: the engine's default);
+        # every warm gets the --devices list (None: not given).
         starts = {(40, 10): 10, (50, 20): 30, (40, 20): 50}
         for kind, base, size, _, kw in warmed:
             extra = ({"field_start": starts[(base, size)],
                       "host_niceonly_max": None} if kind == "niceonly" else {})
-            assert kw == {"device": "cpu", "backend": "device", **extra}
+            assert kw == {"device": "cpu", "backend": "device",
+                          "devices": None, **extra}
     # --no-prefetch: no hook; a failed claim: no warm.
     warmed.clear()
     off = client.build_parser().parse_args(["--no-prefetch"])

@@ -151,8 +151,9 @@ def test_port_imports_neither_jax_nor_nice_tpu():
     # runs in a fresh interpreter that imports every module of the port.
     # It imports every module, then runs niceonly fields (the host
     # library's build, the strided pipeline at b10, the dense loop at b98)
-    # and a detailed one, and the host engines: the native backend, the
-    # niceonly host route and the scalar oracle's chunked checkpoints.
+    # and a detailed one (also on a mesh of two slices), and the host
+    # engines: the native backend, the niceonly host route and the scalar
+    # oracle's chunked checkpoints.
     code = (
         "import importlib, pkgutil, sys\n"
         "import nice_tpu_torch\n"
@@ -167,6 +168,9 @@ def test_port_imports_neither_jax_nor_nice_tpu():
         "engine.process_range_niceonly(FieldSize(lo, lo + 5000), 98, device='cpu')\n"
         "assert engine.LAST_NICEONLY_STATS['runs'] > 0\n"
         "engine.process_range_detailed(FieldSize(47, 100), 10, device='cpu')\n"
+        "engine.process_range_detailed(FieldSize(47, 100), 10, device='cpu',\n"
+        "                              devices=['cpu'] * 2, batch_size=16)\n"
+        "assert engine.LAST_FEED_STATS['n_dev_start'] == 2\n"
         "engine.process_range_detailed(FieldSize(47, 100), 10, backend='native')\n"
         "engine.process_range_niceonly(FieldSize(47, 100), 10, device='cpu',\n"
         "                              host_niceonly_max=1 << 25)\n"
@@ -187,7 +191,8 @@ def test_port_imports_neither_jax_nor_nice_tpu():
                  "ops.msd_filter", "ops.residue_filter", "ops.stride_filter",
                  "ckpt.manager", "ckpt.snapshot", "faults.spool",
                  "daemon.main", "utils.fsio", "utils.resources",
-                 "scripts.bench", "scripts.tune_kernels"):
+                 "scripts.bench", "scripts.tune_kernels", "parallel.mesh",
+                 "scripts.multichip_scaling"):
         assert f"nice_tpu_torch.{name}" in mods.strip().split(",")
 
 

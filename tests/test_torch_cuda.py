@@ -800,3 +800,90 @@ def test_two_tenants_interleaved_on_card_equal_solo_runs(card):
     assert source.results["nice"]["nice/f0"] == want_nice
     assert near_miss in [n.number for n in want_det.nice_numbers]
     assert scheduler.table.check_invariants() == []
+
+
+# --- the mesh of logical slices (parallel/mesh.py) ---------------------------
+
+NEAR_MISS_B40 = 3621949312977  # num_uniques 37 at b40
+B98_SURVIVING = 413428759798923141071530212209627033363
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_detailed_on_logical_slices_equals_one_device_on_card(card, k):
+    # k slices of the one card, each on its own stream: K1 a slice, the
+    # fold across the streams, K2 on the slice that holds the near miss.
+    field = FieldSize(NEAR_MISS_B40 - (6 << 20), NEAR_MISS_B40 + (5 << 20))
+    want = engine.process_range_detailed(field, 40, batch_size=1 << 16,
+                                         segment=2)
+    ce.reset_launches()
+    got = engine.process_range_detailed(field, 40, devices=["cuda:0"] * k,
+                                        batch_size=1 << 16, segment=2)
+    assert got == want
+    assert NEAR_MISS_B40 in [n.number for n in got.nice_numbers]
+    stats = engine.LAST_FEED_STATS
+    assert stats["n_dev_start"] == stats["n_dev_end"] == k
+    assert ce.LAUNCHES["detailed_megaloop"] >= field.size() >> 17
+    assert ce.LAUNCHES["uniques"] > 0
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_strided_groups_on_logical_slices_equal_one_device_on_card(
+        card, monkeypatch, k):
+    # Groups of 8 descriptors a slice: every group spans the slices.
+    lo, hi = get_plan(40).range_start, get_plan(40).range_end
+    field = FieldSize((lo + hi) // 2, (lo + hi) // 2 + 4_000_000)
+    try:
+        adaptive_floor.reset_for_tests(pinned=4096)
+        want = engine.process_range_niceonly(field, 40, host_niceonly_max=0)
+        monkeypatch.setattr(ce, "STRIDED_DESC_MAX", 8)
+        ce.reset_launches()
+        got = engine.process_range_niceonly(field, 40, host_niceonly_max=0,
+                                            devices=["cuda:0"] * k)
+        stats = engine.LAST_NICEONLY_STATS
+        assert got == want and stats["n_dev"] == k
+        assert stats["descriptors"] > 8 * k
+        # Every group but the last spans every slice: one launch a slice.
+        assert ce.LAUNCHES["strided_niceonly"] >= (stats["groups"] - 1) * k + 1
+    finally:
+        adaptive_floor.reset_for_tests()
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_dense_runs_on_logical_slices_equal_one_device_on_card(card, k):
+    field = FieldSize(B98_SURVIVING, B98_SURVIVING + 400_000)
+    try:
+        adaptive_floor.reset_for_tests(pinned=4096)
+        want = engine.process_range_niceonly(field, 98, batch_size=1024,
+                                             segment=2)
+        runs = engine.LAST_NICEONLY_STATS["runs"]
+        ce.reset_launches()
+        got = engine.process_range_niceonly(field, 98, batch_size=1024,
+                                            segment=2, devices=["cuda:0"] * k)
+        mesh_runs = engine.LAST_NICEONLY_STATS["runs"]
+        assert got == want and runs > k
+        # The slices' queues may cut a filtered range once more apiece.
+        assert runs <= mesh_runs <= runs + k - 1
+        assert ce.LAUNCHES["niceonly_dense"] == mesh_runs
+    finally:
+        adaptive_floor.reset_for_tests()
+
+
+def test_downshift_on_logical_slices_on_card(card):
+    # A slice lost mid-field: the rows fold across the streams at the
+    # downshift, and the survivors finish the field.
+    from nice_tpu_torch.faults import injector as faults
+    from nice_tpu_torch.parallel import mesh as pmesh
+
+    field = FieldSize(NEAR_MISS_B40 - (6 << 20), NEAR_MISS_B40 + (5 << 20))
+    want = engine.process_range_detailed(field, 40, batch_size=1 << 16,
+                                         segment=2)
+    try:
+        faults.configure("mesh.dispatch:dead:1@5")
+        got = engine.process_range_detailed(field, 40, devices=["cuda:0"] * 4,
+                                            batch_size=1 << 16, segment=2)
+    finally:
+        faults.reset()
+        pmesh.heal_devices()
+    assert got == want
+    stats = engine.LAST_FEED_STATS
+    assert (stats["reshards"], stats["n_dev_end"]) == (1, 3)

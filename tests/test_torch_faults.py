@@ -128,7 +128,7 @@ def test_malformed_specs_raise_in_both_packages(bad):
         jfaults.parse_spec(bad)
 
 
-@pytest.mark.parametrize("spec", ["mesh.dispatch:raise",
+@pytest.mark.parametrize("spec", ["mesh.dispatch:teleport",
                                   "http.submit:teleport",
                                   "engine.dispatch:truncate",
                                   "ckpt.write:raise", "http.:raise"])
