@@ -51,6 +51,19 @@ Phases, each of which raises (exit code 1) on failure:
      count against its plain version and K4, as
      phase 4b runs K4, and at b104 (the small, dense and generic tiers);
      exact, every valid_total ragged, launch counts and tiers checked;
+  4d. kernelspec: the kernel-spec registry's claims
+     (nice_tpu_torch/analysis/kernelspec.py, through
+     nice_tpu_torch/scripts/spec_witness.py): every spec's witnesses (lanes
+     whose low limbs are all ones, windows straddling m * 2^(32j), the
+     range's ends; K3's descriptors across the same edges) through the
+     kernel and its plain version at b40, b80, b98, b100 and b510, every
+     difference 0; one K1 launch at b40 of 2^18 x clamp_segment's largest
+     segment (about 2^30 lanes), whose bins must sum to its lanes and equal
+     the same lanes in default segments; the error paths (K5 past 2^31
+     lanes, the main library's K5 on a plan-tier plan, a per-base library
+     asked for another plan, K5's shared memory, a base past 2048 bins)
+     must raise; launch_shape's tier of each kernel at the probe bases must
+     be the spec's. One {"kernelspec": {...}} line;
   5. golden and oracle fields: base-ten must give [(69, 10)] and the scalar
      oracle's histogram; default (1e6 @ b40) on the card must equal the same
      field through the plain path on the CPU; in niceonly mode base-ten must
@@ -1137,6 +1150,44 @@ def phase_mxu_vs_plain(report: dict) -> None:
                   f"the median threshold counted nothing: {c}")
     check(all(c["nice"]["count"] >= 1 for c in dense if c["base"] == 10),
           f"b10 from 47 lost 69 through K5: {dense[:2]}")
+
+
+def phase_kernelspec(report: dict) -> None:
+    """The kernel-spec registry's claims on the card
+    (nice_tpu_torch/scripts/spec_witness.py): each spec's witnesses at the
+    limb boundaries through the kernel and its plain version, one K1 launch
+    at clamp_segment's edge against the same lanes in default segments, the
+    error paths, and launch_shape's tiers against the spec's. Its launches
+    count toward no main path (the counts are set to 0 after)."""
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.scripts import spec_witness
+
+    t0 = time.monotonic()
+    try:
+        ks_report = spec_witness.run(torch.device(DEVICE), PLAN_BASES)
+    finally:
+        ce.reset_launches()
+    edge = ks_report["clamp_edge"]
+    line = {
+        "specs": ks_report["specs"],
+        "witnesses": {name: {k: [c["max_abs_diff"], c["cases"], c["tier"]]
+                             for k, c in by.items()}
+                      for name, by in ks_report["witnesses"].items()},
+        "witness_cases": ks_report["witness_cases"],
+        "max_abs_diff": ks_report["max_abs_diff"],
+        "clamp_edge_lanes": edge["lanes"], "clamp_edge_ms": edge["ms"],
+        "clamp_edge_budget": edge["budget"],
+        "clamp_edge_equal_to_segments": edge["equal_to_segments"],
+        "errors_raised": {k: v.split(":")[0] for k, v in
+                          ks_report["errors"].items()},
+        "tiers": ks_report["tiers"],
+        "secs": time.monotonic() - t0,
+    }
+    report["kernelspec"] = {**ks_report, "secs": line["secs"]}
+    emit({"kernelspec": line})
+    check(not ks_report["failures"], f"kernelspec: {ks_report['failures']}")
 
 
 def phase_golden(report: dict) -> None:
@@ -2702,6 +2753,10 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
                      if r["field"] == "b80-surviving")
     st80 = ve.start_limbs_tensor(b80_start, p80, dev)
     st510 = ve.start_limbs_tensor(p510.range_start, p510, dev)
+    acc80 = torch.zeros(p80.base + 2, dtype=torch.int32, device=dev)
+
+    def k1_b80():  # one 2^18 x 8 segment in the generic tier (hi-base's)
+        ce.detailed_accum_megaloop(p80, batch, seg, acc80, st80, lanes_k1)
 
     def k2_b80():
         ce.uniques_batch(p80, lanes_k2, st80)
@@ -2819,6 +2874,7 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
            "k3": device_ms(k3, 10, "strided_niceonly_kernel"),
            "k3_b80": device_ms(k3_b80, 10, "strided_niceonly_kernel"),
            "k2_b80": device_ms(k2_b80, 50, "uniques_kernel"),
+           "k1_b80": device_ms(k1_b80, 10, "detailed_megaloop_kernel"),
            "k2_b510": device_ms(k2_b510, 5, "uniques_kernel"),
            "k4": device_ms(k4, 50, "niceonly_dense_kernel"),
            "k4_full": device_ms(lambda: k4(lanes_k1), 20,
@@ -2915,6 +2971,11 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
                      clk_mhz)
     b2_80 = bound_ms(lanes_k2, c2_80, 8 * p80.limbs_n + 4 * lanes_k2, sms,
                      clk_mhz)
+    # K1 at b80 runs the generic tier; its bound is the constant-plan lane
+    # of op_count.cu built with b80's plan, as K2's and K3's there.
+    c1_80 = lane_cycles(counts80["k1_lane"])
+    b1_80 = bound_ms(lanes_k1, c1_80, 8 * p80.limbs_n
+                     + 2 * 4 * (p80.base + 2) + 4, sms, clk_mhz)
     # b510, in the generic tier: the multiplies a lane needs at b510's
     # shapes (scripts/generic_bound.py). The same count at b40 and b80 walks
     # exactly the constant-plan lanes' limb steps (IMAD.WIDE.U32.X) and
@@ -2977,6 +3038,12 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
                    "device_ms": dev["k3_b80"], "shape": shapes["k3_b80"],
                    "sass": counts80["k3_lane"], "lane_cycles": c3_80,
                    "bound_ms": b3_80[0], "bound_by": b3_80[1]},
+        "k1_b80": {"lanes": lanes_k1, "start": b80_start,
+                   "device_ms": dev["k1_b80"], "sass": counts80["k1_lane"],
+                   "lane_cycles": c1_80, "bound_ms": b1_80[0],
+                   "bound_by": b1_80[1],
+                   "shape": ce.launch_shape("detailed_megaloop", p80,
+                                            lanes_k1)},
         "k2_b80": {"lanes": lanes_k2, "start": b80_start, "ms": k2_b80_ms,
                    "device_ms": dev["k2_b80"], "plain_ms": [p2_b80_a, p2_b80_b],
                    "shape": shapes["k2_b80"], "sass": counts80["k2_lane"],
@@ -3689,6 +3756,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_strided_vs_plain(report)
     phase_dense_vs_plain(report)
     phase_mxu_vs_plain(report)
+    phase_kernelspec(report)
     phase_golden(report)
     phase_host_engines(report)
     phase_full_width(report)

@@ -18,6 +18,14 @@ from __future__ import annotations
 
 from . import metrics
 
+# Series the port reads but only the reference's server emits: its SLO specs
+# (obs/slo.py) are over the server's request and spot-check series.
+SERVER_SERIES = (
+    "nice_api_request_seconds",
+    "nice_api_requests_total",
+    "nice_server_spot_checks_total",
+)
+
 ENGINE_BATCH_KERNEL_SECONDS = metrics.histogram(
     "nice_engine_batch_kernel_seconds",
     "Device kernel wall time per collected batch, by pipeline path.",

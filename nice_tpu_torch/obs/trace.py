@@ -151,6 +151,7 @@ def configure(sink: Optional[str] = None,
         elif spec in ("1", "stderr"):
             _sink = sys.stderr
         else:
+            # nicelint: allow A1 (streaming append-only trace sink)
             _sink = open(spec, "a", encoding="utf-8")
             _sink_bytes = os.path.getsize(spec)
 
@@ -178,6 +179,7 @@ def _rotate_locked() -> None:
     except OSError:
         pass  # rotation is best-effort; keep appending to the same file
     try:
+        # nicelint: allow A1 (streaming append-only trace sink)
         _sink = open(path, "a", encoding="utf-8")
         _sink_bytes = 0
     except OSError as exc:

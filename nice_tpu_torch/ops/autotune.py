@@ -39,6 +39,7 @@ import torch
 from nice_tpu_torch.obs.series import AUTOTUNE_EVENTS
 from nice_tpu_torch.ops import cuda_build
 from nice_tpu_torch.ops.limbs import get_plan
+from nice_tpu_torch.utils import fsio
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -180,8 +181,9 @@ def tenant_report(workloads, device="cuda") -> list[dict]:
 
 def record(mode: str, base: int, device, new_params: dict,
            throughput: float | None = None, swept: list | None = None) -> str:
-    """Store a winner; the file is replaced whole (tmp + os.replace), so a
-    reader never sees half a table. Returns the table's path."""
+    """Store a winner; the file is replaced whole through fsio (tmp + fsync
+    + rename), so a reader never sees half a table. Returns the table's
+    path."""
     unknown = set(new_params) - set(PARAMS)
     if unknown:
         raise ValueError(f"unknown tuning params {sorted(unknown)}")
@@ -194,10 +196,7 @@ def record(mode: str, base: int, device, new_params: dict,
         "throughput": throughput,
         "swept": swept or [],
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        json.dump(table, f, indent=1, sort_keys=True)
-    os.replace(tmp, path)
+    fsio.atomic_write_json(path, table, indent=1, sort_keys=True)
     _count("store")
     reset_for_tests()
     return path

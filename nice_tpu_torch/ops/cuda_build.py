@@ -114,7 +114,7 @@ def nvcc_library(lib_path: str, sources, csrc: str | None = None,
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.monotonic() - t0
-    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:  # nicelint: allow A1 (build log)
         f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -262,6 +262,7 @@ def build_plan(header: str) -> dict:
         os.makedirs(key_dir, exist_ok=True)
         path = os.path.join(key_dir, PLAN_HEADER)
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        # nicelint: allow A1 (a build input under a temporary name, renamed)
         with open(tmp, "w") as f:
             f.write(header)
         os.replace(tmp, path)

@@ -215,6 +215,7 @@ def page_quantum(mode: str, base: int, *, device="cuda",
     never splits a segment."""
     batch, seg, _ = resolve_tuning(mode, base, device, batch_size,
                                    backend=backend)
+    # nicelint: allow C2 (ROADMAP queue 3: batch_size has a lower check only, as in the reference)
     return max(1, batch) * clamp_segment(seg, max(1, batch))
 
 
@@ -393,6 +394,7 @@ class _HostRing:
             torch.cuda.current_stream(dev)
         host = torch.empty((self._slots, *shape), dtype=torch.int64,
                            pin_memory=True)
+        # nicelint: allow D1 (a view of the pinned ring: no device read)
         self._host_np = host.numpy()
         self._host = list(host)
         self._dev = list(torch.empty((self._slots, *shape), dtype=torch.int64,
@@ -412,6 +414,7 @@ class _HostRing:
         ev = self._events[i]
         if self._used[i] and not ev.query():
             self.waits += 1
+            # nicelint: fence (the slot's copy lands before it is rewritten)
             ev.synchronize()
         n = len(values)
         self._host_np[i][:n] = values
@@ -528,6 +531,7 @@ def _wait(event) -> None:
     """Block until the copies before `event` have landed (a no-op on the
     CPU, where there is no event)."""
     if event is not None:
+        # nicelint: fence (the collectors' one wait on the card)
         event.synchronize()
 
 
@@ -975,6 +979,7 @@ def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
         elif count <= cap:
             ENGINE_READBACK_BYTES.labels("survivors").inc(
                 4 + idx.nbytes + uniq.nbytes)
+            # nicelint: fence (the survivors, landed at the event above)
             for i, u in zip(idx[:count].tolist(), uniq[:count].tolist()):
                 yield sub_start + i, u
         else:
@@ -984,6 +989,7 @@ def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
                 4 + u.numel() * u.element_size())
             u = u[:sub_valid]
             hits = torch.nonzero(u > thresh).flatten()
+            # nicelint: fence (the overflow's dense re-scan, read back)
             for i, v in zip(hits.tolist(), u[hits].tolist()):
                 yield sub_start + i, v
         done += sub_valid
@@ -1067,6 +1073,7 @@ def process_range_detailed(
                                           segment, use_mxu)
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
+    # nicelint: allow C2 (ROADMAP queue 3: batch_size has a lower check only, as in the reference)
     seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
 
     pre, core, post = _clamp_to_base_range(range_, base)
@@ -1141,6 +1148,7 @@ def process_range_detailed(
             segs, nms, ev = payload
             _wait(ev)
             tally["nm_bytes"] += 4 * len(segs)
+            # nicelint: fence (near-miss counts, landed at the event above)
             for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
                 if nm > 0:
                     nice_numbers.extend(
@@ -1151,6 +1159,7 @@ def process_range_detailed(
         elif kind == "stats":  # an accumulator handed over by a flush
             (h,), ev = payload
             _wait(ev)
+            # nicelint: fence (a flushed accumulator, landed at the event above)
             hist[:] += h.numpy().astype(np.int64)
             tally["stats_bytes"] += h.numel() * h.element_size()
             tally["transfers"] += 1
@@ -1418,6 +1427,7 @@ def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
                 if accumulate:
                     host, ev = fold([lp.acc for lp in step.loops])
                     _wait(ev)
+                    # nicelint: fence (the folded rows, landed at the event above)
                     collector.put(("stats_host", host.numpy().copy()))
                     since_flush = 0
             except Exception as fold_err:  # noqa: BLE001 — nothing to salvage
@@ -1500,6 +1510,7 @@ def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
             m, d, ring, segs, nms, ev = payload
             _wait(ev)
             tally["nm_bytes"] += 4 * len(segs)
+            # nicelint: fence (a slice's near-miss counts, landed at the event)
             for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
                 if nm > 0:
                     m.use(d)
@@ -1511,6 +1522,7 @@ def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
         elif kind == "stats":  # the slices' rows, folded by a flush
             h, ev = payload
             _wait(ev)
+            # nicelint: fence (the folded rows, landed at the event above)
             hist[:] += h.numpy()
             tally["stats_bytes"] += h.numel() * h.element_size()
             tally["transfers"] += 1
@@ -1815,6 +1827,7 @@ def _group_counts(counts, launched) -> np.ndarray:
     for c, ev in zip(counts, launched):
         if c is not None:
             _wait(ev)
+            # nicelint: fence (a group's counts, after its event)
             parts.append(c.cpu().numpy())
     return np.concatenate(parts)
 
@@ -2092,6 +2105,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     plan = get_plan(base)
     batch_size, seg, arm = resolve_tuning("niceonly", base, dev, batch_size,
                                           segment, use_mxu)
+    # nicelint: allow C2 (ROADMAP queue 3; past the domain K4's wrapper raises)
     seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
     lanes = batch_size * seg
     classes = ce.niceonly_classes(plan, True, str(dev))
@@ -2139,6 +2153,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
         if kind == "count":  # a block of runs' [count, pruned]
             block, counts, ev = payload
             _wait(ev)
+            # nicelint: fence (runs' [count, pruned], landed at the event above)
             for (pos, valid), (count, n_pruned) in zip(block, counts.tolist()):
                 tally["kept"] += valid - n_pruned
                 tally["pruned"] += n_pruned
@@ -2272,6 +2287,7 @@ def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
         if kind == "rb":  # a block of one slice's runs' [count, pruned]
             m, d, ring, block, counts, ev = payload
             _wait(ev)
+            # nicelint: fence (a slice's [count, pruned], landed at the event)
             for (pos, valid), (count, n_pruned) in zip(block, counts.tolist()):
                 runs.append((pos, valid))
                 tally["kept"] += valid - n_pruned

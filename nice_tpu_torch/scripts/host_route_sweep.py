@@ -177,6 +177,7 @@ def main(argv=None) -> int:
                    args.device)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        # nicelint: allow A1 (a report, not state)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     return 0

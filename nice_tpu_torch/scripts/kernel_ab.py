@@ -194,6 +194,7 @@ def split_tree(csrc: str, variant: str, out_dir: str) -> str | None:
     copy = os.path.join(out_dir, f"split-{variant}")
     shutil.copytree(csrc, copy)
     for name, text in edited.items():
+        # nicelint: allow A1 (a scratch copy of the sources)
         with open(os.path.join(copy, name), "w") as f:
             f.write(text)
     return copy
@@ -245,9 +246,11 @@ def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
     if entry:
         copy = os.path.join(out_dir, "csrc")
         shutil.copytree(csrc, copy)
+        # nicelint: allow A1 (a scratch copy of the sources)
         with open(os.path.join(copy, "plan_kernels.cu"), "a") as f:
             f.write(entry)
         csrc = copy
+    # nicelint: allow A1 (a build input in a scratch directory)
     with open(os.path.join(out_dir, cuda_build.PLAN_HEADER), "w") as f:
         f.write(ce.plan_header(get_plan(base)))
     lib_path = os.path.join(out_dir, "libnice_plan.so")
@@ -613,6 +616,7 @@ def main(argv=None) -> int:
                 print(json.dumps(line), flush=True)
                 lines.append(line)
     if args.out:
+        # nicelint: allow A1 (a report, not state)
         with open(args.out, "w") as f:
             json.dump({"card": card, "runs": lines},
                       f, indent=1)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from nice_tpu_torch.analysis import kernelspec
 from nice_tpu_torch.core.types import FieldSize
 from nice_tpu_torch.ops import adaptive_floor
 from nice_tpu_torch.ops import cuda_engine as ce
@@ -887,3 +888,49 @@ def test_downshift_on_logical_slices_on_card(card):
     assert got == want
     stats = engine.LAST_FEED_STATS
     assert (stats["reshards"], stats["n_dev_end"]) == (1, 3)
+
+
+# The kernel-spec registry's claims on the card
+# (nice_tpu_torch/scripts/spec_witness.py, chip_smoke.py's kernelspec phase).
+
+# The registry's entries that launch a kernel (the shape queries aside).
+LAUNCH_SPECS = sorted(name for name, spec in kernelspec.all_specs().items()
+                      if spec.kind == "launch")
+
+
+@pytest.mark.parametrize("name", LAUNCH_SPECS)
+def test_spec_witnesses_equal_plain_versions_on_card(card, name):
+    from nice_tpu_torch.scripts import spec_witness
+
+    got = spec_witness.witnesses(card, names=[name])[name]
+    assert got and all(c["max_abs_diff"] == 0 and c["cases"] > 0
+                       for c in got.values()), got
+
+
+def test_clamp_edge_launch_equals_default_segments(card):
+    from nice_tpu_torch.scripts import spec_witness
+
+    edge = spec_witness.clamp_edge(card)
+    assert edge["lanes"] <= kernelspec.ACC_LIMIT // 2 < edge["lanes"] + edge["batch"]
+    assert edge["bins_sum"] == edge["lanes"] and edge["equal_to_segments"], edge
+
+
+def test_spec_error_paths_raise_on_card(card):
+    from nice_tpu_torch.scripts import spec_witness
+
+    errors = spec_witness.error_paths(card)
+    assert all(errors.values()), errors
+    assert "below 2^31" in errors["k5_past_2^31_lanes"]
+    assert "per-base build" in errors["main_k5_on_plan_tier"]
+    assert "another plan" in errors["other_plan"]
+    assert "shared memory" in errors["k5_smem"]
+    assert "2048 bins" in errors["base_past_2048_bins"]
+
+
+def test_launch_shape_tiers_equal_the_spec_on_card(card):
+    from nice_tpu_torch.scripts import spec_witness
+
+    tiers = spec_witness.shape_tiers((40, 80, 97))
+    drift = {k: {b: t for b, t in v.items() if t[0] != t[1]}
+             for k, v in tiers.items()}
+    assert not any(drift.values()), drift
