@@ -225,7 +225,19 @@ Phases, each of which raises (exit code 1) on failure:
      drill at b98), each equal to the one-device field; a checkpointed
      field on 4 slices failing with elastic off, resumed on 2 slices and on
      1; a --devices cuda:0,cuda:0 client against a fresh server; and the
-     same on distinct cards where the machine has more than one.
+     same on distinct cards where the machine has more than one;
+ 14. threads (phase_threads): the off path in this process (no factory hook,
+     the port's locks plain threading.Locks); a lockdep run of the main
+     paths in a fresh process (python -m nice_tpu_torch.utils.lockdep
+     --device cuda: extra-large detailed beside a prefetch build of b95
+     (lockdep.PREFETCH_BASE), mid-range, extra-large niceonly,
+     b98-surviving, the mesh drill on 4 slices and a two-tenant scheduler
+     run, with the obs samplers and a checkpoint ticker on), each field
+     equal to its lockdep-off result, no order cycle and no disagreement
+     with X1's static graph, its
+     nodes, edges and long holds printed; and racelint, nicelint, cudalint
+     --strict and racecheck on this machine, each exiting 0. One
+     {"threads": {...}} line.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -1510,31 +1522,18 @@ def phase_full_width(report: dict) -> None:
 
 
 def _surviving_field(base: int):
-    """The first field of a seeded draw from the server's 1e9 grid over the
-    base's range that the MSD filter does not prune whole, as the niceonly
-    pipeline itself finds (a pruned field forms no descriptor group, or at
-    b98 and up no dense run). At b80 it prunes about 19 fields in 20
-    (hi-base, the range's first, among them), at b98 about 99 in 100, so
-    this is the field that takes the niceonly main path through K3 (b80) or
-    K4 (b98) there."""
+    """The niceonly main path's field at `base`: the port's
+    engine.surviving_field over the server's 1e9 grid, drawn with SEED (a
+    field the MSD filter does not prune whole, so that it reaches K3 at b80
+    or K4 at b98)."""
     from nice_tpu_torch.core.types import DataToClient
     from nice_tpu_torch.ops import engine
-    from nice_tpu_torch.ops.limbs import get_plan
 
-    plan = get_plan(base)
-    n_fields = (plan.range_end - plan.range_start) // SERVER_FIELD_SIZE
-    rng = random.Random(SEED)
-    for _ in range(200):
-        start = plan.range_start + rng.randrange(n_fields) * SERVER_FIELD_SIZE
-        data = DataToClient(claim_id=0, base=base, range_start=start,
-                            range_end=start + SERVER_FIELD_SIZE,
-                            range_size=SERVER_FIELD_SIZE)
-        engine.process_range_niceonly(data.to_field_size(), base,
-                                      device=DEVICE)
-        stats = engine.LAST_NICEONLY_STATS
-        if stats.get("groups") or stats.get("runs"):
-            return data
-    raise SmokeFailure(f"no b{base} field of 200 survives the MSD filter")
+    field = engine.surviving_field(base, SERVER_FIELD_SIZE, SEED,
+                                   device=DEVICE)
+    return DataToClient(claim_id=0, base=base, range_start=field.range_start,
+                        range_end=field.range_end,
+                        range_size=SERVER_FIELD_SIZE)
 
 
 def _check_niceonly(data, results) -> dict:
@@ -1580,6 +1579,7 @@ def phase_full_width_niceonly(report: dict) -> None:
         before = ce.LAUNCHES["strided_niceonly"]
         results, elapsed = client.process_field(data, args)
         launches = ce.LAUNCHES["strided_niceonly"] - before
+        FIELD_RESULTS[("niceonly", name)] = (data, results)
         stats = dict(engine.LAST_NICEONLY_STATS)
         FIRST_GROUPS[name] = stats.pop("first_group")
         check(launches == stats["groups"],
@@ -3326,7 +3326,6 @@ def phase_mesh(report: dict, tmp: str) -> None:
 
     import torch
 
-    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
     from nice_tpu_torch.core.types import DataToClient
     from nice_tpu_torch.faults import injector as faults
     from nice_tpu_torch.ops import cuda_engine as ce
@@ -3340,12 +3339,7 @@ def phase_mesh(report: dict, tmp: str) -> None:
 
     def scale(key, mode, name, devices, counts, drill, want_drill_end=None,
               profile=False):
-        if (mode, name) in FIELD_RESULTS:
-            data, want = FIELD_RESULTS[(mode, name)]
-        else:  # phase 7 keeps no result: the one-device field's, here
-            data = get_benchmark_field(BenchmarkMode.EXTRA_LARGE)
-            want = engine.process_range_niceonly(data.to_field_size(),
-                                                 data.base, device=DEVICE)
+        data, want = FIELD_RESULTS[(mode, name)]
         ce.reset_launches()
         rep = ms.scaling(data.to_field_size(), data.base, devices, counts,
                          mode=mode, reps=3, want=ms.result_pairs(want),
@@ -3481,6 +3475,183 @@ def phase_mesh(report: dict, tmp: str) -> None:
     out["secs"] = time.monotonic() - t0
     report["mesh"] = out
     emit({"phase": "mesh", "secs": out["secs"]})
+
+
+# The threads phase: the arguments of the lockdep run beyond the fields
+# (none on the card: full width), the linters run on this machine beside it
+# (racelint runs after it, on its graph), and the lockdep run's results,
+# keyed by the lockdep-off field each must equal.
+THREADS_ARGV: tuple = ()
+THREADS_LINTERS = (("nicelint", ("--strict",)), ("cudalint", ("--strict",)),
+                   ("racecheck", ()))
+THREADS_WANT = {"extra-large": ("detailed", "extra-large"),
+                "mid-range": ("detailed", "mid-range"),
+                "extra-large-niceonly": ("niceonly", "extra-large"),
+                "b98-surviving": ("niceonly", "b98-surviving"),
+                "mesh-drill": ("detailed", "extra-large"),
+                "sched-canon": ("detailed", "extra-large"),
+                "sched-nice": ("niceonly", "extra-large")}
+
+
+def phase_threads(report: dict, tmp: str) -> None:
+    """14. threads: the thread twin on the card.
+      * the off path in this process (lockdep off): no factory hook, the
+        port's locks plain threading.Locks (make_lock's and the module
+        locks' type), make_lock's lock as fast as a raw one;
+      * a lockdep run of the main paths in a fresh process (python -m
+        nice_tpu_torch.utils.lockdep --device cuda, every lock built
+        instrumented): extra-large detailed (K1) while nice-prefetch warms
+        b95, lockdep.PREFETCH_BASE (its nvcc build: a library an earlier run
+        left is removed first), mid-range (K2), extra-large niceonly (K3),
+        b98-surviving (K4), extra-large on 4 logical slices under
+        MESH_DRILL, and a
+        two-tenant scheduler run with sched-slo, with the obs samplers, the
+        metrics server, stepprof and a checkpoint ticker on. The run fails
+        itself where a step launched none of its kernels (K1-K4); every
+        field must equal its lockdep-off result from the phases before, and
+        no order-cycle may be recorded. Printed: the graph's nodes and
+        edges, the long holds by thread and lock (reported, not failed);
+      * racelint --strict on the run's graph (R2's static/runtime
+        cross-check against X1's graph), and the other linters
+        (THREADS_LINTERS: nicelint, cudalint --strict and racecheck) on
+        this machine, beside the lockdep run: each must exit 0.
+    One {"threads": {...}} line."""
+    import _thread
+    import collections
+
+    from nice_tpu_torch.analysis import schedex
+    from nice_tpu_torch.faults import injector as faults
+    from nice_tpu_torch.ops import cuda_build
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+    from nice_tpu_torch.parallel import mesh as pmesh
+    from nice_tpu_torch.utils import lockdep
+
+    t0 = time.monotonic()
+    out: dict = {"card": report["card"]}
+
+    # The off path.
+    plain = _thread.LockType  # the type of a plain threading.Lock()
+    zero = schedex.zero_cost_report()
+    module_locks = {"ops.engine._mesh_cache_lock": engine._mesh_cache_lock,
+                    "ops.cuda_build._lock": cuda_build._lock,
+                    "parallel.mesh._dead_lock": pmesh._dead_lock,
+                    "faults.injector._plan_lock": faults._plan_lock}
+    out["off"] = {"lockdep": lockdep.enabled(),
+                  "factory_hook": lockdep.factory_hook() is not None,
+                  "minted_type": zero["minted_type"],
+                  "module_locks_plain": all(type(v) is plain
+                                            for v in module_locks.values()),
+                  "raw_ns_per_op": zero["raw_ns_per_op"],
+                  "minted_ns_per_op": zero["minted_ns_per_op"],
+                  "ratio": zero["ratio"]}
+    check(not out["off"]["lockdep"] and not out["off"]["factory_hook"]
+          and zero["minted_is_plain"] and out["off"]["module_locks_plain"],
+          f"threads: the off path is not plain: {out['off']}")
+
+    # No phase before builds the prefetch base; a library an earlier run of
+    # this checkout left is removed, so that the warm builds it.
+    header = ce.plan_header(get_plan(lockdep.PREFETCH_BASE))
+    key_dir = os.path.join(cuda_build.BUILD_DIR, "plan-" + cuda_build.plan_build_key(
+        cuda_build.find_nvcc(), header))
+    check(header not in cuda_build.PLAN_BUILDS,
+          f"threads: b{lockdep.PREFETCH_BASE}'s library was loaded before")
+    out["prefetch_lib_left_by_earlier_run"] = os.path.isdir(key_dir)
+    shutil.rmtree(key_dir, ignore_errors=True)
+    lib = os.path.join(key_dir, cuda_build.LIB_NAME)
+
+    graph = os.path.join(tmp, "lockorder.json")
+    results = os.path.join(tmp, "lockdep.json")
+    mid, _ = FIELD_RESULTS[("detailed", "mid-range")]
+    b98, _ = FIELD_RESULTS[("niceonly", "b98-surviving")]
+    cmd = [sys.executable, "-m", "nice_tpu_torch.utils.lockdep",
+           "--device", DEVICE, "--dump-graph", graph, "--no-merge",
+           "--results", results, "--mid-range-start", str(mid.range_start),
+           "--dense-start", str(b98.range_start),
+           "--drill", MESH_DRILL, *THREADS_ARGV]
+    racecheck_json = os.path.join(tmp, "racecheck.json")
+
+    def linter(name, *extra):
+        argv = [sys.executable, "-m", f"nice_tpu_torch.scripts.{name}", *extra]
+        return time.monotonic(), subprocess.Popen(
+            argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    linters = {name: linter(name, *extra,
+                            *(("--json", racecheck_json)
+                              if name == "racecheck" else ()))
+               for name, extra in THREADS_LINTERS}
+    t1 = time.monotonic()
+    lint = {}
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        out["lockdep_secs"] = time.monotonic() - t1
+        check(proc.returncode == 0, f"threads: the lockdep run failed "
+              f"({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        linters["racelint"] = linter("racelint", "--strict", "--lockorder",
+                                     graph)
+    finally:
+        for name, (started, p) in linters.items():
+            try:
+                text, _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+            lint[name] = {"rc": p.returncode,
+                          "done_within_secs": time.monotonic() - started,
+                          "last": text.strip().splitlines()[-1:] if text else [],
+                          "text": text}
+    with open(results) as f:
+        run = json.load(f)
+
+    # Each field against its lockdep-off result.
+    equal = {}
+    for key, want_key in THREADS_WANT.items():
+        check(key in run["results"], f"threads: the lockdep run has no {key}")
+        equal[key] = run["results"][key] == list(_pairs(FIELD_RESULTS[want_key][1]))
+    check(all(equal.values()), f"threads: lockdep-on fields differ: {equal}")
+    check(os.path.isfile(lib) and run.get("prefetch_nvcc_secs", 0) > 0,
+          f"threads: the prefetch warm did not build "
+          f"b{lockdep.PREFETCH_BASE}'s library")
+
+    # The graph: no cycle of its own (racelint's R2 holds it against X1's).
+    edges = {k: set(v) for k, v in run["observed_edges"].items()}
+    cycles = [v for v in run["violations"] if v["kind"] == "order-cycle"]
+    check(not cycles, f"threads: order cycles recorded: {cycles}")
+    holds: dict = collections.defaultdict(lambda: {"count": 0, "max_secs": 0.0})
+    for v in run["violations"]:
+        if v["kind"] == "long-hold":
+            h = holds[f"{v['thread']}|{v['lock']}"]
+            h["count"] += 1
+            h["max_secs"] = max(h["max_secs"], v["held_secs"])
+
+    for name, r in lint.items():
+        check(r["rc"] == 0, f"threads: {name} failed ({r['rc']}):\n"
+              + r["text"][-3000:])
+    with open(racecheck_json) as f:
+        rc = json.load(f)
+    nodes = sorted(set(edges) | {b for bs in edges.values() for b in bs})
+    out.update({
+        "ran": run["ran"], "field_secs": run.get("secs"),
+        "fields_equal": equal, "launches": run["launches"],
+        "prefetch_base": lockdep.PREFETCH_BASE,
+        "prefetch_nvcc_secs": run.get("prefetch_nvcc_secs"),
+        "checkpoints": run.get("checkpoints"), "mesh": run.get("mesh"),
+        "sched_pages": run.get("sched_pages"),
+        "nodes": nodes, "edges": {k: sorted(v) for k, v in sorted(edges.items())},
+        "n_edges": sum(len(v) for v in edges.values()),
+        "order_cycles": len(cycles), "long_holds": dict(holds),
+        "linters": {k: {"rc": v["rc"], "done_within_secs": v["done_within_secs"],
+                        "last": v["last"]}
+                    for k, v in lint.items()},
+        "racecheck": {k: v["verdict"] for k, v in rc["scenarios"].items()},
+        "racecheck_zero_cost": rc["bench_schedex_off"]["minted_type"]})
+    out["secs"] = time.monotonic() - t0
+    report["threads"] = out
+    emit({"threads": out})
 
 
 # The sched phase's tenants (name, kind, field, priority); the hi-base sweep
@@ -3782,6 +3953,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_sched(report)
     phase_obs(report, tmp)
     phase_mesh(report, tmp)
+    phase_threads(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())

@@ -6,4 +6,5 @@ from nice_tpu_torch.analysis.rules import (  # noqa: F401
     d1_device_sync,
     k1_knobs,
     m1_metrics,
+    x1_lock_order,
 )

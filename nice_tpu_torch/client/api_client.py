@@ -61,6 +61,7 @@ from nice_tpu_torch.obs.series import (
     CLIENT_REQUEST_SECONDS,
     CLIENT_RETRIES,
 )
+from nice_tpu_torch.utils import lockdep
 
 log = logging.getLogger(__name__)
 
@@ -73,7 +74,7 @@ _backoff_rng = random.Random()
 # Replication fencing: the highest epoch this process has seen in any server
 # response, stamped on every request as X-Nice-Epoch (claim GETs mutate
 # server state too, so every request carries it).
-_epoch_lock = threading.Lock()
+_epoch_lock = lockdep.make_lock("client.api_client._epoch_lock")
 _last_epoch = 0
 
 
@@ -170,7 +171,7 @@ _STALE_ERRORS = (
 
 # Endpoints a thread found dead, for every thread's pool: (scheme,
 # host:port) -> the monotonic time of the failure.
-_dead_hosts_lock = threading.Lock()
+_dead_hosts_lock = lockdep.make_lock("client.api_client._dead_hosts_lock")
 _dead_hosts: dict = {}
 
 
@@ -333,7 +334,7 @@ def retry_request(url: str, body: Optional[dict] = None,
 # so that one failover reroutes the whole process; its generation is bumped
 # on every store, so a store computed before a concurrent rotation does not
 # undo it.
-_failover_lock = threading.Lock()
+_failover_lock = lockdep.make_lock("client.api_client._failover_lock")
 _failover_idx: dict = {}
 _failover_gen: dict = {}
 
@@ -395,6 +396,7 @@ def failover_request(api_base: str, path: str, body: Optional[dict] = None,
                 # Only if no other thread moved the cursor meanwhile: a
                 # concurrent rotation away from a dead server wins.
                 if _failover_gen.get(key, 0) == gen:
+                    # nicelint: allow R5 (gen-checked store; schedex failover_cursor_rotate_vs_store / failover_cursor_prefix replay its window)
                     _failover_idx[key], _failover_gen[key] = i, gen + 1
             return result
         if cycle >= max_retries:

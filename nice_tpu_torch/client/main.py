@@ -109,7 +109,7 @@ from nice_tpu_torch.obs.series import (
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.parallel import mesh as pmesh
 from nice_tpu_torch.sched import scheduler as sched_defaults
-from nice_tpu_torch.utils import fsio
+from nice_tpu_torch.utils import fsio, lockdep
 
 log = logging.getLogger("nice_tpu_torch.client")
 
@@ -357,7 +357,7 @@ def _progress_logger(every_secs: float):
         return None
     t0 = time.monotonic()
     state = {"last": t0}
-    lock = threading.Lock()
+    lock = lockdep.make_lock("client.main._progress_logger.lock")
 
     def cb(done: int, total: int) -> None:
         now = time.monotonic()

@@ -47,12 +47,12 @@ from __future__ import annotations
 
 import logging
 import random
-import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
 from nice_tpu_torch.obs import flight
 from nice_tpu_torch.obs.series import FAULTS_INJECTED
+from nice_tpu_torch.utils import lockdep
 
 log = logging.getLogger("nice_tpu_torch.faults")
 
@@ -197,7 +197,7 @@ class FaultPlan:
     threads."""
 
     def __init__(self, rules: list[_Rule]):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("faults.injector.FaultPlan._lock")
         self.by_site: dict[str, list[_Rule]] = {}
         for r in rules:
             self.by_site.setdefault(r.site, []).append(r)
@@ -221,7 +221,7 @@ class FaultPlan:
 
 _EMPTY = FaultPlan([])
 _plan: FaultPlan = _EMPTY
-_plan_lock = threading.Lock()
+_plan_lock = lockdep.make_lock("faults.injector._plan_lock")
 
 
 def configure(spec: Optional[str] = None, seed: Optional[int] = None) -> None:

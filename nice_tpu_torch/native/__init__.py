@@ -28,6 +28,8 @@ import time
 
 import numpy as np
 
+from nice_tpu_torch.utils import lockdep
+
 log = logging.getLogger(__name__)
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nice_native.cpp")
@@ -40,7 +42,7 @@ CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 _U64 = ctypes.c_uint64
 _MASK64 = (1 << 64) - 1
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("native._lock")
 _lib = None
 # Whether this thread's last iterate_range_strided call ran the
 # polynomial-residue kernel (used_poly() reads it; tests assert on it).

@@ -32,7 +32,7 @@ import threading
 import time
 from typing import Optional
 
-from nice_tpu_torch.utils import fsio
+from nice_tpu_torch.utils import fsio, lockdep
 
 from .series import FLIGHT_DUMPS, FLIGHT_EVENTS
 
@@ -52,7 +52,7 @@ class FlightRecorder:
         self.capacity = capacity
         self.out_dir = out_dir
         self._events: collections.deque = collections.deque(maxlen=capacity)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("obs.flight.FlightRecorder._lock")
         self._seq = 0
 
     def record(self, kind: str, **fields) -> None:
@@ -136,7 +136,7 @@ def dump(reason: str = "manual", path: Optional[str] = None) -> Optional[str]:
 
 
 _installed = False
-_install_lock = threading.Lock()
+_install_lock = lockdep.make_lock("obs.flight._install_lock")
 
 
 def install() -> None:

@@ -27,6 +27,8 @@ import time
 import urllib.parse
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from nice_tpu_torch.utils import lockdep
+
 from . import metrics as metrics_mod
 
 log = logging.getLogger("nice_tpu_torch.obs")
@@ -177,7 +179,7 @@ class HistoryStore:
         self._t1 = max(float(tier1_secs), 1e-6)
         self._t2 = max(float(tier2_secs), 1e-6)
         self._caps = (int(raw_cap), int(tier1_cap), int(tier2_cap))
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("obs.history.HistoryStore._lock")
         self._series: Dict[str, TieredSeries] = {}
         # Previous histogram bucket snapshots, for windowed quantiles.
         self._hist_prev: Dict[str, Tuple[Tuple[int, ...], float, int]] = {}
@@ -260,7 +262,7 @@ class HistoryStore:
 
 STORE = HistoryStore()
 
-_sampler_lock = threading.Lock()
+_sampler_lock = lockdep.make_lock("obs.history._sampler_lock")
 _sampler_started = False
 
 

@@ -16,8 +16,9 @@ of record).
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
+
+from nice_tpu_torch.utils import lockdep
 
 __all__ = [
     "CLIENT_EVENT_KINDS",
@@ -38,7 +39,7 @@ CLIENT_EVENT_KINDS = (
 )
 
 _CLIENT_BUFFER_CAP = 256
-_client_lock = threading.Lock()
+_client_lock = lockdep.make_lock("obs.journal._client_lock")
 _client_events: list[dict] = []
 
 

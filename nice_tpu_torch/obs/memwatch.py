@@ -35,7 +35,7 @@ import threading
 import time
 from typing import Dict, Optional
 
-from nice_tpu_torch.utils import resources
+from nice_tpu_torch.utils import lockdep, resources
 
 from .series import (
     DISK_FREE_BYTES,
@@ -65,11 +65,11 @@ __all__ = [
 
 DEFAULT_INTERVAL_SECS = 30.0
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("obs.memwatch._lock")
 _watched: Dict[str, str] = {}
 _last_summary: Dict[str, object] = {}
 
-_sampler_lock = threading.Lock()
+_sampler_lock = lockdep.make_lock("obs.memwatch._sampler_lock")
 _sampler_started = False
 
 

@@ -22,8 +22,9 @@ declared series in place (tests).
 from __future__ import annotations
 
 import bisect
-import threading
 from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+from nice_tpu_torch.utils import lockdep
 
 __all__ = [
     "Counter",
@@ -79,7 +80,7 @@ class _Metric:
         self.name = name
         self.help = help_
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("obs.metrics._Metric._lock")
 
     def _key(self, labelvalues: Sequence[str]) -> LabelKey:
         vals = tuple(str(v) for v in labelvalues)
@@ -338,7 +339,7 @@ class Registry:
     match)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("obs.metrics.Registry._lock")
         self._metrics: Dict[str, _Metric] = {}
 
     def _get_or_create(self, cls, name, help_, labelnames, **kwargs):

@@ -31,6 +31,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs
 
+from nice_tpu_torch.utils import lockdep
+
 from .series import PYPROF_OVERFLOW, PYPROF_SAMPLES, PYPROF_STACKS
 
 log = logging.getLogger("nice_tpu_torch.obs")
@@ -63,7 +65,7 @@ THREAD_ROOTS = (
     "nice-memwatch", "nice-pyprof", "nice-metrics",
 )
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("obs.pyprof._lock")
 _tables: Dict[str, Dict[str, int]] = {}  # root -> folded stack -> samples
 _root_samples: Dict[str, int] = {}
 _total_samples = 0
@@ -71,7 +73,7 @@ _distinct_stacks = 0
 _settings = {"hz": DEFAULT_HZ, "depth": DEFAULT_DEPTH,
              "max_stacks": DEFAULT_MAX_STACKS, "top_k": DEFAULT_TOPK}
 
-_started_lock = threading.Lock()
+_started_lock = lockdep.make_lock("obs.pyprof._started_lock")
 _started = False
 
 _OTHER = "(other)"

@@ -19,13 +19,15 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from nice_tpu_torch.utils import lockdep
+
 from . import flight, history, metrics, pyprof, series
 
 log = logging.getLogger("nice_tpu_torch.obs")
 
 __all__ = ["serve_metrics", "maybe_serve_metrics", "stop"]
 
-_started_lock = threading.Lock()
+_started_lock = lockdep.make_lock("obs.serve._started_lock")
 _started: Optional[ThreadingHTTPServer] = None
 
 

@@ -30,9 +30,10 @@ seconds); the server's engine stays the JAX package's.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Callable, Dict, List, Optional
+
+from nice_tpu_torch.utils import lockdep
 
 from . import flight
 from .history import HistoryStore
@@ -235,7 +236,7 @@ class SloEngine:
         self.store = store
         self.specs = specs if specs is not None else default_specs()
         self.window_scale = window_scale
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("obs.slo.SloEngine._lock")
         self._states: Dict[str, str] = {}
         self._last: List[dict] = []
         self.transitions = 0

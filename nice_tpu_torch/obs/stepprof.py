@@ -35,6 +35,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+from nice_tpu_torch.utils import lockdep
+
 __all__ = [
     "PHASES",
     "StepProfiler",
@@ -57,7 +59,7 @@ PHASES = (
     "host_other",     # wall - sum(above): host loop, slicing, bookkeeping
 )
 
-_state_lock = threading.Lock()
+_state_lock = lockdep.make_lock("obs.stepprof._state_lock")
 _enabled = False
 _fence_count = 0
 _finished = 0
@@ -138,7 +140,8 @@ class StepProfiler:
             enabled_override
         )
         self._buckets = {p: 0.0 for p in PHASES} if self.enabled else None
-        self._lock = threading.Lock() if self.enabled else None
+        self._lock = (lockdep.make_lock("obs.stepprof.StepProfiler._lock")
+                      if self.enabled else None)
         self._t_start = time.perf_counter() if self.enabled else 0.0
         self._finished = False
 

@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import os
 import socket
-import threading
 import time
 from typing import Optional
+
+from nice_tpu_torch.utils import lockdep
 
 from . import journal, memwatch, pyprof, series, stepprof
 
@@ -30,7 +31,7 @@ __all__ = ["snapshot", "client_id", "SNAPSHOT_VERSION", "reset"]
 
 SNAPSHOT_VERSION = 1
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("obs.telemetry._lock")
 _prev_numbers = 0.0
 _prev_time: Optional[float] = None
 

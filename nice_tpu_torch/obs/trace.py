@@ -44,6 +44,8 @@ import threading
 import time
 from typing import Optional
 
+from nice_tpu_torch.utils import lockdep
+
 from .series import TRACE_SPAN_SECONDS as SPAN_SECONDS
 
 __all__ = [
@@ -63,7 +65,7 @@ __all__ = [
 
 DEFAULT_MAX_SINK_BYTES = 64 * 1024 * 1024
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("obs.trace._lock")
 _sink_spec = ""
 _max_bytes = DEFAULT_MAX_SINK_BYTES
 _profile_dir = ""

@@ -15,7 +15,8 @@ A pinned floor disables adaptation.
 from __future__ import annotations
 
 import os
-import threading
+
+from nice_tpu_torch.utils import lockdep
 
 # Below ~250 the device receives virtually the dense range; the cap bounds
 # descriptor-span growth.
@@ -51,7 +52,8 @@ class AdaptiveFloor:
     """Per-process controller; thread-safe (client workers share one)."""
 
     def __init__(self, pinned: int | None = None, seed: int | None = None):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock(
+            "ops.adaptive_floor.AdaptiveFloor._lock")
         self.pinned = pinned is not None
         if pinned is not None:
             self.floor = float(max(1, pinned))
@@ -114,7 +116,7 @@ class AdaptiveFloor:
 
 
 _CONTROLLERS: dict[str, AdaptiveFloor] = {}
-_CONTROLLERS_LOCK = threading.Lock()
+_CONTROLLERS_LOCK = lockdep.make_lock("ops.adaptive_floor._CONTROLLERS_LOCK")
 
 
 def get_floor_controller(pipeline: str = "strided") -> AdaptiveFloor:

@@ -32,14 +32,13 @@ import json
 import os
 import subprocess
 import sys
-import threading
 
 import torch
 
 from nice_tpu_torch.obs.series import AUTOTUNE_EVENTS
 from nice_tpu_torch.ops import cuda_build
 from nice_tpu_torch.ops.limbs import get_plan
-from nice_tpu_torch.utils import fsio
+from nice_tpu_torch.utils import fsio, lockdep
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -59,7 +58,7 @@ EVENTS = {"hit": 0, "miss": 0, "invalidated": 0, "store": 0, "sweep": 0,
 # format.
 LAST_SWEEP: list = []
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("ops.autotune._lock")
 _cache: dict = {"path": None, "mtime": None, "table": None}
 
 
@@ -112,19 +111,21 @@ def _load() -> dict:
         mtime = os.stat(path).st_mtime_ns
     except OSError:
         return {}
+    # One span: the check, the read and the store, so that a read of an
+    # older file never lands over a newer one's (the file changes only when
+    # a sweep records a winner, so the read under the lock is rare).
     with _lock:
         if _cache["path"] == path and _cache["mtime"] == mtime:
             return _cache["table"]
-    try:
-        with open(path) as f:
-            table = json.load(f)
-        if not isinstance(table, dict):
+        try:
+            with open(path) as f:
+                table = json.load(f)
+            if not isinstance(table, dict):
+                table = {}
+        except (OSError, ValueError):
             table = {}
-    except (OSError, ValueError):
-        table = {}
-    with _lock:
         _cache.update(path=path, mtime=mtime, table=table)
-    return table
+        return table
 
 
 def params(mode: str, base: int, device) -> dict | None:

@@ -30,6 +30,7 @@ import threading
 import time
 
 from nice_tpu_torch.obs import stepprof
+from nice_tpu_torch.utils import lockdep
 
 log = logging.getLogger(__name__)
 
@@ -47,7 +48,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("ops.cuda_build._lock")
 _lib = None
 # Facts of the build that loaded the library: seconds spent in nvcc (0.0 on
 # a cache hit), the key directory, and ptxas's per-kernel resource report.
@@ -275,7 +276,9 @@ def load_plan(header: str):
     plan). Raises if the build fails: nothing else runs the plan tier's
     plans."""
     with _lock:
-        lock = _plan_locks.setdefault(header, threading.Lock())
+        # One label for every header's lock: load_plan never holds two.
+        lock = _plan_locks.setdefault(
+            header, lockdep.make_lock("ops.cuda_build._plan_locks"))
     with lock:
         info = build_plan(header)
         lib = ctypes.PyDLL(info["path"])  # calls keep the GIL (LOAD_NOTE)

@@ -73,6 +73,7 @@ import functools
 import logging
 import os
 import queue
+import random
 import threading
 import time
 from collections import deque
@@ -116,6 +117,7 @@ from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import scalar
 from nice_tpu_torch.ops.limbs import BasePlan, get_plan, int_to_limbs
 from nice_tpu_torch.parallel import mesh as pmesh
+from nice_tpu_torch.utils import lockdep
 
 log = logging.getLogger(__name__)
 
@@ -302,6 +304,7 @@ class _Collector:
         self._t.start()
 
     def _run(self):
+        lockdep.mark_loop_thread()  # a long hold here stalls the card
         try:
             _adopt(self._stream)
             if self._prof is not None:
@@ -628,6 +631,7 @@ class _SliceFeed:
         return [(s, e) for s, e in merged]
 
     def _fill(self):
+        lockdep.mark_loop_thread()
         try:
             for block in self._blocks:
                 while not self._stop.is_set():
@@ -851,7 +855,7 @@ def _diagnose_survivors(mesh: pmesh.Mesh, err: BaseException):
 # if no invalidation (a downshift) happened while the mesh was built.
 _MESH_CACHE: dict = {}
 _MESH_CACHE_GEN = 0
-_mesh_cache_lock = threading.Lock()
+_mesh_cache_lock = lockdep.make_lock("ops.engine._mesh_cache_lock")
 
 
 def _cached_mesh(slices: tuple) -> pmesh.Mesh:
@@ -2545,6 +2549,28 @@ def process_range_niceonly(
     ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
     nice_numbers.sort(key=lambda n: n.number)
     return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
+
+
+def surviving_field(base: int, size: int, seed: int, *, device="cuda",
+                    tries: int = 1000) -> FieldSize:
+    """The first field of `size` numbers, drawn with random.Random(seed)
+    from the grid of such fields over the base's range, that the MSD filter
+    does not prune whole, as the niceonly pipeline itself finds: it forms a
+    descriptor group (K3) or, at b98 and up, a dense run (K4). At 1e9
+    numbers a field it prunes about 19 fields in 20 at b80 and 99 in 100 at
+    b98, the range's first among them. Raises if none of `tries` draws
+    survives."""
+    plan = get_plan(base)
+    n_fields = (plan.range_end - plan.range_start) // size
+    rng = random.Random(seed)
+    for _ in range(tries):
+        start = plan.range_start + rng.randrange(n_fields) * size
+        field = FieldSize(range_start=start, range_end=start + size)
+        process_range_niceonly(field, base, device=device)
+        if LAST_NICEONLY_STATS.get("groups") or LAST_NICEONLY_STATS.get("runs"):
+            return field
+    raise RuntimeError(f"no b{base} field of {size} numbers in {tries} "
+                       f"draws survives the MSD filter")
 
 
 # ---------------------------------------------------------------------------

@@ -31,13 +31,13 @@ reference's sharded steps never take use_mxu either.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from nice_tpu_torch.obs.series import MESH_DEVICES
+from nice_tpu_torch.utils import lockdep
 
 
 class MeshDeviceLost(RuntimeError):
@@ -61,7 +61,7 @@ class Slice(NamedTuple):
 
 # --- slice liveness (real probes + simulated loss for drills) --------------
 
-_dead_lock = threading.Lock()
+_dead_lock = lockdep.make_lock("parallel.mesh._dead_lock")
 _simulated_dead: set[int] = set()
 
 
@@ -213,7 +213,7 @@ def mesh_device_ids(mesh: Mesh) -> tuple[int, ...]:
 # serves one field at a time (begin() resets it), as a process runs one
 # field at a time.
 
-_step_lock = threading.Lock()
+_step_lock = lockdep.make_lock("parallel.mesh._step_lock")
 _STEP_CACHE: dict = {}
 
 
@@ -539,7 +539,7 @@ class OccupancyMeter:
     both read it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("parallel.mesh.OccupancyMeter._lock")
         self._busy: dict[str, float] = {}
         self._started: float | None = None
         self._stopped: float | None = None

@@ -46,6 +46,7 @@ from nice_tpu_torch.obs.slo import STATE_LEVELS, SloEngine, tenant_specs
 from nice_tpu_torch.parallel.mesh import OccupancyMeter
 from nice_tpu_torch.sched.pagetable import PAGE_BATCHES_DEFAULT, PageTable
 from nice_tpu_torch.sched.tenants import TenantRegistry, TenantSpec
+from nice_tpu_torch.utils import lockdep
 
 POLICIES = ("deficit", "priority", "rr")
 
@@ -119,7 +120,8 @@ class MultiTenantScheduler:
         # Guards the mutable per-tenant maps below: the run loop mutates
         # them while the optional sched-slo periodic and stats() readers
         # look on.
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock(
+            "sched.scheduler.MultiTenantScheduler._lock")
         self._deficit = {s.name: 0.0 for s in registry}
         self._skipped = {s.name: 0 for s in registry}
         self._exhausted: set[str] = set()
