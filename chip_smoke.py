@@ -237,7 +237,23 @@ Phases, each of which raises (exit code 1) on failure:
      with X1's static graph, its
      nodes, edges and long holds printed; and racelint, nicelint, cudalint
      --strict and racecheck on this machine, each exiting 0. One
-     {"threads": {...}} line.
+     {"threads": {...}} line;
+ 15. chaos (phase_chaos): the port's chaos drill on the card (python -m
+     nice_tpu_torch.scripts.chaos_smoke --device cuda): a seeded b22
+     server, three block-lease client runs under dropped submit replies,
+     a server SIGKILL and restart mid run 2, a dispatch fault in run 3's
+     second member and reruns that resume its snapshots; every field
+     accepted exactly once and equal to the scalar oracle, the clients'
+     K1 segments on the card counted from their logs. One {"chaos": ...}
+     line;
+ 16. gate (phase_gate): the regression gate's client legs
+     (nice_tpu_torch/scripts/perf_gate.py) against the committed
+     TORCH_BENCH_r01.json: the bench diff printed (throughput is not
+     held here: the host's speed varies between calls), the stepprof and
+     feed-idle legs' checks held; then the record copied with every
+     compared case's value doubled, and the bench leg against the copy
+     with --strict must flag every compared case and exit 1. One
+     {"gate": ...} line.
 Then one {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Without CUDA (or outside the repository) it
 exits non-zero before printing any result.
@@ -3654,6 +3670,116 @@ def phase_threads(report: dict, tmp: str) -> None:
     emit({"threads": out})
 
 
+CHAOS_TIMEOUT = 900
+
+
+def phase_chaos(report: dict) -> None:
+    """15. chaos: the drill in a subprocess on the card (module doc); any
+    failure it reports fails the smoke, and its clients must have run K1
+    on the card."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nice_tpu_torch.scripts.chaos_smoke",
+         "--device", DEVICE], cwd=REPO, capture_output=True, text=True,
+        timeout=CHAOS_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), "chaos: no output:\n" + proc.stderr[-3000:])
+    out = json.loads(lines[-1])
+    out["secs"] = time.monotonic() - t0
+    check(proc.returncode == 0 and out["ok"],
+          f"chaos: the drill failed ({proc.returncode}): {out['failures']}")
+    check(out["fields"] == 6 and out["submissions"] == 6,
+          f"chaos: {out['submissions']} submissions over {out['fields']} "
+          "fields")
+    check(out["server_killed"] and out["dropped_responses"] >= 1
+          and out["duplicate_replays"] >= 1 and out["dispatch_faults"] >= 1,
+          f"chaos: a fault did not fire: {out}")
+    check(out["resumed_claims"].get(str(out["faulted_claim"]))
+          == out["faulted_cursor"], f"chaos: the faulted claim was not "
+          f"resumed from its snapshot: {out}")
+    check(out["k1_segments"].get(DEVICE, 0) > 0,
+          f"chaos: no K1 segment ran on {DEVICE}: {out['k1_segments']}")
+    report["chaos"] = out
+    emit({"chaos": out})
+
+
+GATE_RECORD = "TORCH_BENCH_r01.json"
+
+
+def phase_gate(report: dict, tmp: str) -> None:
+    """16. gate: perf_gate's legs against the committed record (module
+    doc), then its bench leg against a copy with every compared case's
+    value doubled, which must flag each of them and exit 1 under
+    --strict. A record of another card name is stamped with this card's for
+    the copy (the flags check the diff, not the card). The first run is a
+    fresh process, as a user runs the gate: this one has run the obs
+    samplers since phase 12, whose wake-ups land in the feed thread's
+    hand-offs (a smoke that ran it in process: feed idle 0.89 at the
+    default depth against 0.78 at depth 0)."""
+    from nice_tpu_torch.scripts import perf_gate
+
+    t0 = time.monotonic()
+    out1 = os.path.join(tmp, "gate.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "nice_tpu_torch.scripts.perf_gate",
+         "--device", DEVICE, "--out", out1], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    rc1 = proc.returncode
+    check(os.path.isfile(out1), f"gate: no report ({rc1}):\n"
+          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    with open(out1) as f:
+        gate = json.load(f)
+    errors = {leg: v["error"] for leg, v in gate["legs"].items()
+              if "error" in v}
+    check(rc1 == 0 and not errors and "error" not in gate["regression"]["bench"],
+          f"gate: a leg failed: {errors or gate['regression']['bench']}")
+    for leg in ("stepprof", "feed-idle"):
+        check(not gate["legs"][leg]["problems"],
+              f"gate: the {leg} leg: {gate['legs'][leg]['problems']}")
+    bench = gate["regression"]["bench"]
+    sp = gate["stepprof"]
+
+    with open(os.path.join(REPO, GATE_RECORD)) as f:
+        record = json.load(f)
+    compared = sorted(bench.get("cases") or
+                      [c for c, v in record["parsed"]["suite"].items()
+                       if not v.get("skipped") and "error" not in v])
+    for case in compared:
+        record["parsed"]["suite"][case]["value"] *= 2
+    restamped = bench["baseline"] != GATE_RECORD
+    if restamped:
+        record["card"] = gate["card"]
+    doubled = os.path.join(tmp, "doubled")
+    os.makedirs(doubled)
+    with open(os.path.join(doubled, GATE_RECORD), "w") as f:
+        json.dump(record, f)
+    out2 = os.path.join(tmp, "gate_doubled.json")
+    rc2 = perf_gate.main(["--device", DEVICE, "--records-dir", doubled,
+                          "--legs", "bench", "--strict", "--out", out2])
+    with open(out2) as f:
+        cases2 = json.load(f)["regression"]["bench"].get("cases", {})
+    flagged = sorted(c for c, v in cases2.items() if v["regressed"])
+    check(rc2 == 1 and compared and flagged == compared,
+          f"gate: the doubled record flagged {flagged} of {compared} "
+          f"(exit {rc2})")
+    out = {
+        "card": gate["card"], "baseline": bench["baseline"],
+        "note": bench.get("note"), "cases": bench.get("cases"),
+        "critpath": bench.get("critpath"), "peak_mem": bench.get("peak_mem"),
+        "problems": gate["problems"],
+        "stepprof": {"fences_off": sp["profiler_off"]["fences"],
+                     "fences_on": sp["profiler_on"]["fences"],
+                     "reconciliation": sp["reconciliation"],
+                     "overhead_frac_on_vs_off": sp["overhead_frac_on_vs_off"]},
+        "feed_idle": sp["feed_idle"],
+        "doubled": {"rc": rc2, "compared": compared, "flagged": flagged,
+                    "restamped": restamped},
+        "leg_secs": {leg: v["secs"] for leg, v in gate["legs"].items()},
+        "secs": time.monotonic() - t0}
+    report["gate"] = out
+    emit({"gate": out})
+
+
 # The sched phase's tenants (name, kind, field, priority); the hi-base sweep
 # tenant's base and numbers (the first of its range: two pages at the
 # default shape).
@@ -3954,6 +4080,8 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_obs(report, tmp)
     phase_mesh(report, tmp)
     phase_threads(report, tmp)
+    phase_chaos(report)
+    phase_gate(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
         est = sum(n * kernel_ms[k] for k, n in run["launches"].items())

@@ -458,6 +458,9 @@ def submit_field_to_server(api_base: str, submit_data: DataToServer,
     obs.journal.record_client_event(
         "submit_rtt", claim_id=submit_data.claim_id,
         secs=round(time.monotonic() - t0, 6))
+    if isinstance(resp, dict) and resp.get("duplicate"):
+        log.info("submit for claim %d was a duplicate: a retried request had "
+                 "already been accepted", submit_data.claim_id)
     return resp if isinstance(resp, dict) else {"status": "OK"}
 
 

@@ -24,10 +24,12 @@ nice_tpu/obs, with the reference's public names, series and wire formats).
 - ``slo``: declarative SLOs with multi-window burn-rate states over a
   HistoryStore; the multi-tenant scheduler's per-tenant page-latency specs
   (sched/) are its user here.
+- ``critpath``: the critical-path segments and ``phase_shares``, the fold
+  of a stepprof table the bench reports and the regression gate diffs.
 
 Every knob is an argument (the client's flags): no environment variable is
-read. The server-side modules of the reference (anomaly, critpath, stream)
-stay the JAX package's, as the server does.
+read. The server-side modules of the reference (anomaly, the rest of
+critpath, stream) stay the JAX package's, as the server does.
 """
 
 from . import (  # noqa: F401 — importing pre-seeds

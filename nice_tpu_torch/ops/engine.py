@@ -221,6 +221,20 @@ def page_quantum(mode: str, base: int, *, device="cuda",
     return max(1, batch) * clamp_segment(seg, max(1, batch))
 
 
+def detailed_dispatches(range_: FieldSize, base: int, *, device="cuda",
+                        batch_size: int | None = None) -> int:
+    """Dispatches of an uninterrupted detailed field on one slice, each one
+    call of the engine.dispatch fault site: the part inside the base's valid
+    range cut into segments of page_quantum numbers (the shape resolved as
+    process_range_detailed resolves it); 0 when no part is in range (the
+    oracle runs it)."""
+    _, core, _ = _clamp_to_base_range(range_, base)
+    if core is None:
+        return 0
+    return -(-core.size() // page_quantum("detailed", base, device=device,
+                                          batch_size=batch_size))
+
+
 def _clamp_to_base_range(range_: FieldSize, base: int):
     """(pre, core, post): core is the part inside the base's valid range."""
     br = base_range.get_base_range(base)

@@ -22,7 +22,11 @@ case's memory axis (`peak_mem`: the process's peak RSS at the case's end,
 the RSS the case added and the card's peak allocated bytes, from
 obs/memwatch.py). With --stepprof every pass runs under the device-step
 profiler and the line carries the case's `phase_breakdown` (phase seconds
-by mode|base|backend over all its passes, obs/stepprof.py). Detailed
+by mode|base|backend over all its passes, obs/stepprof.py) and its
+`critpath` (obs/critpath.py phase_shares: each critical-path segment's share
+of the wall and the dominant one); the final headline carries the whole
+run's `phase_breakdown` and `critpath` in place of its case's, which is
+what scripts/perf_gate.py diffs against a committed record. Detailed
 extra-large also times feed depth 0 against the default (`feed_ab`);
 detailed hi-base times K1 against K5 on one slice (`mxu_ab`). Every line names the card as nvidia-smi gives it (name, power
 limit) and the torch, CUDA and driver versions; a run with --device cpu
@@ -64,7 +68,7 @@ import torch
 
 from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
 from nice_tpu_torch.core.types import FieldSize
-from nice_tpu_torch.obs import memwatch, stepprof
+from nice_tpu_torch.obs import critpath, memwatch, stepprof
 from nice_tpu_torch.ops import cuda_engine as ce
 from nice_tpu_torch.ops import engine
 from nice_tpu_torch.ops.limbs import get_plan
@@ -433,6 +437,9 @@ def run_case(mode: str, kind: str, args, dev: torch.device) -> dict:
     prof = _stepprof_delta(prof0, stepprof.cumulative())
     if prof:
         line["phase_breakdown"] = prof
+        cp = critpath.phase_shares(prof)
+        if cp is not None:
+            line["critpath"] = cp
     return line
 
 
@@ -568,6 +575,7 @@ def main(argv=None) -> int:
     results: dict = {}
     headline = line = None
     wedged = False
+    suite_prof0 = stepprof.cumulative()
     for idx, (mode, kind) in enumerate(suite):
         t_case = time.monotonic()
         case_budget = None
@@ -606,6 +614,14 @@ def main(argv=None) -> int:
     }
     headline["budget_secs"] = args.budget
     headline["budget_used_secs"] = args.budget - remaining()
+    # The whole run's phase table, in place of the headline case's own:
+    # what the regression gate diffs (scripts/perf_gate.py).
+    suite_prof = _stepprof_delta(suite_prof0, stepprof.cumulative())
+    if suite_prof:
+        headline["phase_breakdown"] = suite_prof
+        cp = critpath.phase_shares(suite_prof)
+        if cp is not None:
+            headline["critpath"] = cp
     print(json.dumps(headline), flush=True)
     return 1 if any("error" in r for r in results.values()) else 0
 

@@ -3,7 +3,8 @@ is a correctness witness: the headline line first and last with the suite
 embedded, the clamped extra-large field's distribution equal to the JAX
 engine's (jnp backend) on the same slice, the budget's skip lines, the
 scheduler case's line (the interleaved fields equal to the sequential ones,
-pages by tenant), and no run without a card unless asked.
+pages by tenant), the critpath block of a --stepprof line, and no run
+without a card unless asked.
 """
 
 import json
@@ -95,3 +96,25 @@ def test_bad_suite_is_an_error_line(capsys):
 def test_no_card_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main(["--only", "extra-large"])
+
+
+def test_stepprof_lines_carry_critpath(capsys):
+    from nice_tpu.obs import critpath as jcritpath
+    from nice_tpu_torch.obs import critpath, stepprof
+
+    try:
+        rc, lines = _lines(capsys, "--only", "default", "--size", "4096",
+                           "--reps", "1", "--stepprof", "--device", "cpu")
+    finally:
+        stepprof.reset()  # the profiler off again for the worker's next test
+    assert rc == 0
+    case, last = lines
+    for line in (case, last):
+        assert set(line["phase_breakdown"]) == {"detailed|b40|cpu"}
+        assert line["critpath"] == critpath.phase_shares(
+            line["phase_breakdown"])
+        assert line["critpath"] == jcritpath.phase_shares(
+            line["phase_breakdown"])
+        assert line["critpath"]["dominant"] == "device_compute"
+    # The headline's table is the whole run's: here the one case's.
+    assert last["phase_breakdown"] == case["phase_breakdown"]

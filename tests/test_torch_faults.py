@@ -1,11 +1,13 @@
 """The port's fault injection (nice_tpu_torch/faults/injector.py) against the
 JAX package's on the CPU: the same spec and seed fire the same sequence;
 the http.<endpoint> sites retry and count as the JAX transport does, against
-a stub server that checks each request's traceparent; engine.dispatch raises
+a stub server that checks each request's traceparent; a duplicate reply is
+logged in the reference's words; engine.dispatch raises
 out of a field; ckpt.write:truncate leaves a snapshot read_snapshot
 rejects. Every test restores both packages' process state."""
 
 import json
+import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -141,16 +143,17 @@ def test_configure_refuses_a_fault_the_port_cannot_fire(spec):
 
 
 class _Stub(BaseHTTPRequestHandler):
-    """POST /submit: records the request's traceparent, answers OK."""
+    """POST /submit: records the request's traceparent, answers `reply`."""
 
     seen: list = []
+    reply: dict = {"status": "OK"}
 
     def do_POST(self):  # noqa: N802
         n = int(self.headers.get("Content-Length", 0))
         body = json.loads(self.rfile.read(n))
         type(self).seen.append((self.path, self.headers.get("traceparent"),
                                 body["claim_id"]))
-        payload = json.dumps({"status": "OK"}).encode()
+        payload = json.dumps(type(self).reply).encode()
         self.send_response(200)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(payload)))
@@ -164,6 +167,7 @@ class _Stub(BaseHTTPRequestHandler):
 @pytest.fixture()
 def stub():
     _Stub.seen = []
+    _Stub.reply = {"status": "OK"}
     srv = ThreadingHTTPServer(("127.0.0.1", 0), _Stub)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     yield f"http://127.0.0.1:{srv.server_address[1]}"
@@ -204,6 +208,22 @@ def test_http_faults_retry_and_count_as_the_jax_transport(stub, monkeypatch,
     assert series.FAULTS_INJECTED.labels("http.submit", action).value() == 1
     assert obs.flight.snapshot()[0]["kind"] == "fault"
     assert any(e["kind"] == "retry" for e in obs.flight.snapshot())
+
+
+def test_a_duplicate_reply_is_logged_by_both_transports(stub, caplog):
+    # {"duplicate": true}: a retried submit had already been accepted. The
+    # exactly-once evidence the chaos drill counts in the client's log.
+    _Stub.reply = {"status": "OK", "duplicate": True}
+    with caplog.at_level(logging.INFO):
+        assert api_client.submit_field_to_server(
+            stub, _submission(DataToServer, 71))["duplicate"] is True
+        assert japi.submit_field_to_server(
+            stub, _submission(JDataToServer, 71))["duplicate"] is True
+    logged = {r.name: r.getMessage() for r in caplog.records
+              if "was a duplicate" in r.getMessage()}
+    want = ("submit for claim 71 was a duplicate: a retried request had "
+            "already been accepted")
+    assert logged == {api_client.log.name: want, japi.log.name: want}
 
 
 def test_retries_that_run_out_keep_the_injected_status(stub, monkeypatch):
