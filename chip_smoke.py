@@ -112,7 +112,19 @@ Phases, each of which raises (exit code 1) on failure:
      default shape, and extra-large, mid-range and the b98 field through
      process_field with the launch counts set to 0 just before and read
      just after (K5's main path): K5 in K1's and K4's place, K2 re-scanning
-     mid-range's near misses, results equal to the use_mxu=0 runs;
+     mid-range's near misses, results equal to the use_mxu=0 runs. The
+     extra-large sweep also sweeps the block size (128 and 256 threads),
+     and a third table pins block_threads=128 at the default shape:
+     extra-large, mid-range and the b98 field in a fresh process, results
+     equal to phases 6 and 7b, 128 threads in the feed stats, launch_shape
+     reporting 128 for K1, K4 and K5;
+  7e. blocks: the tuning harness's blocks and stride-blocks kinds
+     (nice_tpu_torch/scripts/tune_kernels.py): K1 at b40 (small tier) and
+     b80 (generic tier), K5 at b40, K3 on a b40 group of 1024 descriptors
+     and K4 over the b98 field's median run, at block sizes 32, 64, 128
+     and 256 (K5 from 64), each output equal to its 256-thread output and
+     to the plain version's; one {"blocks": ...} line of device ms by
+     kernel and size;
   7d. pipeline: extra-large (b40 detailed) and b98-surviving (dense
      niceonly) at the default shape through the engine with feed_depth=0
      (the synchronous A/B) and the default feed depth, timed in turns (0,
@@ -1705,6 +1717,9 @@ for mode, base, start, size in json.loads(sys.argv[2]):
     results, secs = client.process_field(data, args)
     out.append({"mode": mode, "base": base, "secs": secs,
                 "resolved": engine.resolve_tuning(mode, base, sys.argv[3]),
+                "block_threads": engine.LAST_FEED_STATS.get("block_threads"),
+                "median_run": engine.LAST_NICEONLY_STATS.get("median_run")
+                if mode == "niceonly" else None,
                 "launches": {k: v for k, v in ce.LAUNCHES.items() if v},
                 "distribution": [[d.num_uniques, d.count]
                                  for d in results.distribution],
@@ -1724,18 +1739,37 @@ WIDE_BASE = 510
 WIDE_SLICE = 1 << 21
 
 
+# The block size of the tuned path's second winners table (phase_tuned 4):
+# half the default, so every K1, K4 and K5 launch of its fields changes
+# shape.
+TUNED_BLOCK_THREADS = 128
+
+
 def _spread(records) -> list:
     """Each swept config's shape with its mean, min and max pass seconds."""
     return [{k: r.get(k) for k in ("batch_size", "megaloop", "use_mxu",
+                                   "block_threads", "launch_threads",
                                    "elapsed_secs", "min_secs", "max_secs",
                                    "reps")} for r in records]
+
+
+def _fresh_tuned(path: str, fields: list) -> dict:
+    """_FRESH_TUNED's report for the fields [mode, base, start, size] under
+    the winners table at path."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FRESH_TUNED, path, json.dumps(fields),
+         DEVICE], cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, "the fresh tuned process failed:\n"
+          + proc.stderr[-3000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def phase_tuned(report: dict, tmp: str) -> None:
     """The tuned path at full width:
       1. sweeps on the card (autotune.sweep, the harness in a subprocess)
          into a temporary winners table: extra-large, detailed, a 1e8
-         slice, batches 2^18/2^19 x segments 8/16 x K1/K5; then the
+         slice, batches 2^18/2^19 x segments 8/16 x K1/K5 x blocks of
+         128/256 threads; then the
          b98-surviving field, niceonly, whole, batch 2^18 x segment 8 x
          K4/K5 (small grids keep the smoke near two minutes); then one
          wide base, a b510 segment, detailed, batch
@@ -1749,7 +1783,14 @@ def phase_tuned(report: dict, tmp: str) -> None:
          b98-surviving through process_field here, the launch counts set to
          0 just before and read just after: K5 launched in K1's and K4's
          place (and K2 re-scanning mid-range's near misses), results equal
-         to the use_mxu=0 runs. These are K5's main-path launches."""
+         to the use_mxu=0 runs. These are K5's main-path launches;
+      4. winners with block_threads=128 at the default shape (detailed b40,
+         niceonly b98) in a third table, and extra-large, mid-range and
+         b98-surviving through process_field in a fresh process: results
+         equal to the default runs, 128 threads in the engine's feed stats,
+         and launch_shape at 128 reporting 128 for K1 and K5 over a
+         segment and for K4 over a full run (and, over the b98 field's
+         median run, the size K4's small-run rule gives)."""
     from nice_tpu_torch.client import main as client
     from nice_tpu_torch.core.types import FieldSize
     from nice_tpu_torch.ops import autotune, engine
@@ -1765,7 +1806,8 @@ def phase_tuned(report: dict, tmp: str) -> None:
         t0 = time.monotonic()
         won_d = autotune.sweep("detailed", DEVICE, bench_mode="extra-large",
                                batch_shifts=[18, 19], segments=[8, 16],
-                               mxu="auto", slice_size=100_000_000, timeout=400)
+                               mxu="auto", threads=[TUNED_BLOCK_THREADS, 256],
+                               slice_size=100_000_000, timeout=400)
         t1 = time.monotonic()
         spread = {"detailed": _spread(autotune.LAST_SWEEP)}
         won_n = autotune.sweep("niceonly", DEVICE,
@@ -1790,13 +1832,7 @@ def phase_tuned(report: dict, tmp: str) -> None:
         fields = [["detailed", xl.base, xl.range_start, xl.range_size],
                   ["niceonly", b98.base, b98.range_start, b98.range_size],
                   ["detailed", WIDE_BASE, wide_start, WIDE_SLICE]]
-        proc = subprocess.run(
-            [sys.executable, "-c", _FRESH_TUNED, autotune.WINNERS_PATH,
-             json.dumps(fields), DEVICE], cwd=REPO, capture_output=True, text=True,
-            timeout=300)
-        check(proc.returncode == 0, "the fresh tuned process failed:\n"
-              + proc.stderr[-3000:])
-        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh = _fresh_tuned(autotune.WINNERS_PATH, fields)
         wants = [_pairs(FIELD_RESULTS[("detailed", "extra-large")][1]),
                  _pairs(FIELD_RESULTS[("niceonly", "b98-surviving")][1]),
                  wide_k1]
@@ -1806,7 +1842,8 @@ def phase_tuned(report: dict, tmp: str) -> None:
             check([run["distribution"], run["nice"]] == list(want),
                   f"{name}: the tuned run differs from the default-shape run")
             check(run["resolved"] == [won["batch_size"], won["megaloop"],
-                                      won["use_mxu"]],
+                                      won["use_mxu"],
+                                      won.get("block_threads", 256)],
                   f"{name}: resolved {run['resolved']}, the winner is {won}")
         check(fresh["events"]["hit"] > 0 and fresh["events"]["invalidated"] == 0,
               f"the fresh process did not hit the table: {fresh['events']}")
@@ -1841,6 +1878,18 @@ def phase_tuned(report: dict, tmp: str) -> None:
                 runs[-1]["stats"] = {k: engine.LAST_NICEONLY_STATS[k] for k in
                                      ("runs", "use_mxu", "msd_secs", "loop_secs")}
         k5_launches = dict(ce.LAUNCHES)
+
+        # A block size of 128 at the default shape, in a fresh process.
+        autotune.WINNERS_PATH = os.path.join(tmp, "threads.json")
+        shape = dict(shape, use_mxu=0, block_threads=TUNED_BLOCK_THREADS)
+        autotune.record("detailed", SERVER_BASE, DEVICE, shape)
+        autotune.record("niceonly", DENSE_BASE, DEVICE, shape)
+        names = (("detailed", "extra-large"), ("detailed", "mid-range"),
+                 ("niceonly", "b98-surviving"))
+        threaded = _fresh_tuned(autotune.WINNERS_PATH, [
+            [mode, data.base, data.range_start, data.range_size]
+            for mode, data in ((m, FIELD_RESULTS[(m, n)][0])
+                               for m, n in names)])
     finally:
         autotune.WINNERS_PATH = saved
         autotune.reset_for_tests()
@@ -1871,6 +1920,158 @@ def phase_tuned(report: dict, tmp: str) -> None:
           and b98_run["launches"]["niceonly_dense_mma"]
           == b98_run["stats"]["runs"] > 0,
           f"b98-surviving: K5 did not take K4's place: {b98_run['launches']}")
+    report["tuned"]["block_threads"] = _check_threaded(threaded, names)
+
+
+def _check_threaded(threaded: dict, names) -> dict:
+    """phase_tuned 4: the fields of the block_threads=128 table equal the
+    default runs, ran at 128 threads, and launch_shape reports 128 for K1,
+    K4 and K5 (K4 over the b98 field's median run: what the small-run rule
+    gives)."""
+    import torch
+
+    from nice_tpu_torch.ops import cuda_engine as ce
+    from nice_tpu_torch.ops import engine
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    bt = TUNED_BLOCK_THREADS
+    lanes = engine.DEFAULT_BATCH_SIZE * engine.MEGALOOP_SEGMENT_DEFAULT
+    p40, p98 = get_plan(SERVER_BASE), get_plan(DENSE_BASE)
+    n_cls = ce.niceonly_classes(p98, True, "cpu").shape[0]
+    runs = []
+    for (mode, name), run in zip(names, threaded["fields"]):
+        want = _pairs(FIELD_RESULTS[(mode, name)][1])
+        check([run["distribution"], run["nice"]] == list(want),
+              f"{name}: the block_threads={bt} run differs from the default")
+        check(run["resolved"][3] == bt and run["block_threads"] == bt,
+              f"{name}: ran at {run['block_threads']} threads, not {bt}")
+        runs.append({k: run[k] for k in ("mode", "base", "secs", "resolved",
+                                          "block_threads", "launches")})
+    median = threaded["fields"][2]["median_run"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    med_lanes = n_cls * -(-median[1] // (DENSE_BASE - 1))
+    shapes = {
+        "k1_segment": ce.launch_shape("detailed_megaloop", p40, lanes,
+                                      block_threads=bt),
+        "k5_segment": ce.launch_shape("detailed_megaloop_mma", p40, lanes,
+                                      block_threads=bt),
+        "k4_full_run": ce.launch_shape("niceonly_dense", p98, n_cls, lanes,
+                                       block_threads=bt),
+        "k5_dense_full_run": ce.launch_shape("niceonly_dense_mma", p98, n_cls,
+                                             lanes, block_threads=bt),
+        "k4_median_run": ce.launch_shape("niceonly_dense", p98, n_cls,
+                                         median[1], block_threads=bt),
+    }
+    small = 64 if med_lanes < sms * bt else bt
+    for key, shape in shapes.items():
+        want = small if key == "k4_median_run" else bt
+        check(shape["threads"] == want,
+              f"launch_shape {key} at {bt}: {shape['threads']} threads, "
+              f"not {want}")
+    out = {"block_threads": bt, "runs": runs, "shapes": shapes,
+           "k4_median_run_lanes": med_lanes, "events": threaded["events"]}
+    emit({"phase": "tuned_block_threads", **out})
+    return out
+
+
+# The blocks phase's process: runs the tuning harness
+# (nice_tpu_torch.scripts.tune_kernels) with --json on each argument list
+# of the JSON object argv[1] and prints {name: [exit code, records]}. A
+# process of its own: its many torch.profiler windows (device_ms) left the
+# smoke's later profiling short of records when they ran in the smoke's.
+_BLOCKS_RUN = """
+import contextlib, io, json, sys
+from nice_tpu_torch.scripts import tune_kernels
+out = {}
+for name, argv in json.loads(sys.argv[1]).items():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tune_kernels.main(argv + ["--json"])
+    out[name] = [rc, [json.loads(line) for line in buf.getvalue().splitlines()
+                      if line.startswith("{")]]
+print(json.dumps(out))
+"""
+
+
+# The block sizes the blocks phase times (of the admissible set: every
+# power of two; K5 starts at two warps).
+BLOCK_SIZES = (32, 64, 128, 256)
+
+
+def phase_blocks(report: dict) -> None:
+    """The tuning harness's blocks and stride-blocks kinds on the card
+    (nice_tpu_torch.scripts.tune_kernels, in one fresh process):
+    K1 over one 2^18 x 8 segment at b40 (extra-large's start, the small
+    tier) and at b80 (hi-base's start, the generic tier), K5 at the same
+    b40 segment, K3 on a 1024-descriptor group of the mid-range b40 field's
+    stride shape, and K4 over the b98-surviving field's median run, the
+    last two at check_min_uniques (where their counts are not all 0); each
+    at every admissible size of BLOCK_SIZES, its device time, and its
+    output equal to the 256-thread output and to the plain version's on
+    the CPU (--plain). One {"blocks": ...} line of device ms by kernel and
+    size. Its launches are another process's: none counts toward a main
+    path."""
+    from nice_tpu_torch.core.benchmark import BenchmarkMode, get_benchmark_field
+
+    xl = get_benchmark_field(BenchmarkMode("extra-large"))
+    hi = get_benchmark_field(BenchmarkMode("hi-base"))
+    mid, _ = FIELD_RESULTS[("detailed", "mid-range")]
+    b98, _ = FIELD_RESULTS[("niceonly", "b98-surviving")]
+    median = report["full_width_dense"]["fields"][1]["stats"]["median_run"]
+    sizes = ",".join(str(t) for t in BLOCK_SIZES)
+
+    def field(data, start=None):
+        start = data.range_start if start is None else start
+        return f"{data.base}:{start}:{data.range_size}"
+
+    cases = {
+        "K1_K5_b40": ["blocks", "--field", field(xl), "--mxu", "auto"],
+        "K1_b80": ["blocks", "--field", field(hi), "--mxu", "off"],
+        "K3_b40": ["stride-blocks", "--field", field(mid),
+                   "--min-uniques", str(check_min_uniques(mid.base))],
+        "K4_b98_median_run": ["blocks", "--field", field(b98, median[0]),
+                              "--block-lanes", str(median[1]), "--mxu", "off",
+                              "--min-uniques", str(check_min_uniques(b98.base))],
+    }
+    t0 = time.monotonic()
+    argv = {name: a + ["--device", DEVICE, "--plain", "--threads", sizes]
+            for name, a in cases.items()}
+    proc = subprocess.run([sys.executable, "-c", _BLOCKS_RUN,
+                           json.dumps(argv)], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, "the blocks process failed:\n"
+          + proc.stderr[-3000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    rcs = {name: rc for name, (rc, _) in out.items()}
+    records = [r for _, recs in out.values() for r in recs]
+    ms: dict = {}
+    for r in records:
+        key = {"detailed_megaloop": "K1", "detailed_megaloop_mma": "K5",
+               "strided_niceonly": "K3",
+               "niceonly_dense": "K4"}[r["kernel"]] + f"_b{r['base']}"
+        ms.setdefault(key, {})[r["requested"]] = r["ms"]
+    line = {"card": report["card"], "ms": ms,
+            "threads": {f"{r['kernel']}_b{r['base']}@{r['requested']}":
+                        r["block_threads"] for r in records},
+            "lanes": {f"{r['kernel']}_b{r['base']}": r["lanes"]
+                      for r in records},
+            "k3_group": next(({k: r[k] for k in ("k", "periods", "modulus",
+                                                  "residues")}
+                              for r in records if "periods" in r), None),
+            "all_equal_to_256": all(r["equal_to_default"] for r in records),
+            "all_equal_to_plain": all(r["equal_to_plain"] for r in records),
+            "rcs": rcs, "secs": time.monotonic() - t0}
+    report["blocks"] = {**line, "records": records}
+    emit({"blocks": line})
+    check(all(rc == 0 for rc in rcs.values()), f"blocks: exit codes {rcs}")
+    check(line["all_equal_to_256"] and line["all_equal_to_plain"],
+          "blocks: a block size's output differs from the 256-thread or the "
+          "plain version's")
+    for key, want in (("K1_b40", BLOCK_SIZES), ("K1_b80", BLOCK_SIZES),
+                      ("K5_b40", BLOCK_SIZES[1:]), ("K3_b40", BLOCK_SIZES),
+                      ("K4_b98", BLOCK_SIZES)):
+        check(sorted(ms.get(key, {})) == list(want),
+              f"blocks: {key} timed at {sorted(ms.get(key, {}))}")
 
 
 def _free_port() -> int:
@@ -2831,19 +3032,20 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
     def setup_b40():
         check(plib.nice_plan_detailed_megaloop_mma(
             ce.plan_words(plan), st.data_ptr(), lanes_k1, 0, acc.data_ptr(),
-            nm0.data_ptr(), 2, stream) == 0, "K5's setup at b40")
+            nm0.data_ptr(), 2, ce.DEFAULT_BLOCK_THREADS, stream) == 0,
+            "K5's setup at b40")
 
     def setup_b98():
         check(lib.nice_niceonly_dense(
             ce.plan_words(dplan), st4.data_ptr(), classes.data_ptr(),
             classes.shape[0], d_valid, dplan.base, 2, out0.data_ptr(),
-            stream) == 0, "K5's setup at b98")
+            ce.DEFAULT_BLOCK_THREADS, stream) == 0, "K5's setup at b98")
 
     def setup_b510():
         check(lib.nice_detailed_megaloop(
             ce.plan_words(wide), st_wide.data_ptr(), lanes_k1, 0,
-            acc_wide.data_ptr(), nm0.data_ptr(), 2, stream) == 0,
-            "K5's setup at b510")
+            acc_wide.data_ptr(), nm0.data_ptr(), 2, ce.DEFAULT_BLOCK_THREADS,
+            stream) == 0, "K5's setup at b510")
 
     # Plain, kernel, kernel, plain: both versions see the same card state.
     p1_a = time_cuda(p1, reps=2, warmup=1)
@@ -4061,6 +4263,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_full_width_dense(report)
     phase_pipeline(report)
     phase_tuned(report, tmp)
+    phase_blocks(report)
     server_dir = os.path.join(tmp, "server")
     os.makedirs(server_dir)
     server, api, _ = _start_server(server_dir, _free_port())

@@ -20,6 +20,13 @@ j6_kernelspec.py, whose number it keeps).
 (d) **ABI drift.** Each ctypes ``argtypes`` list of ``cuda_build.bind`` has
     its C prototype's parameter count and kinds (pointer, ``int``,
     ``unsigned``, ``long long``), and so has each spec's parameter list.
+(e) **Block-size drift.** The admissible block sizes are one rule in four
+    places: nice_grid.cuh's ``block_threads_ok`` (with K5's least size),
+    ``cuda_engine.block_threads_ok``, the registry's ``block_threads_ok``
+    and each spec's ``block_threads`` domain. They must admit the same sizes
+    over a sweep past both ends, every C entry must refuse the others with
+    ``kBadThreads``, and (with the shape bases) each plain version must run
+    at its least size and raise on a size outside the set.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ CSRC = "nice_tpu_torch/csrc"
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
 # The plain runs of (b): lanes a batch, batches, and K3's rows.
 BATCH, N_ITERS = 8, 2
+CE_BLOCK_NAMES = ("block_threads_ok", "block_threads_min", "WARP",
+                  "BLOCK_THREADS_MAX", "MMA_BLOCK_THREADS_MIN")
+# The sizes the block-size rules are compared at: past both ends.
+BLOCK_SWEEP = range(-32, 2 * ks.THREADS + 33)
 MXU_NAMES = ("supports_plan", "smem_bytes", "accum_bound", "reference_takes",
              "tiles", "SMEM_LIMIT", "SOURCE_PAD", "TILE_LIMBS", "D_ROWS",
              "_DIGIT_MAX")
@@ -129,9 +140,11 @@ def check_coverage(project: Project) -> List[Violation]:
     return out
 
 
-def _run_plain(spec: ks.KernelSpec, plan, mma: int):
+def _run_plain(spec: ks.KernelSpec, plan, mma: int,
+               block_threads: int = ks.THREADS):
     """(outputs, inputs) by name of the spec's plain version on the CPU,
-    through its wrapper (a CPU tensor takes the plain version)."""
+    through its wrapper (a CPU tensor takes the plain version), at
+    block_threads."""
     import numpy as np
     import torch
 
@@ -145,14 +158,16 @@ def _run_plain(spec: ks.KernelSpec, plan, mma: int):
                      "nice_plan_detailed_megaloop_mma"):
         acc = torch.zeros(plan.base + 2, dtype=torch.int32)
         h, nm = ce.detailed_accum_megaloop(plan, BATCH, N_ITERS, acc, st,
-                                           valid, use_mxu=mma)
+                                           valid, use_mxu=mma,
+                                           block_threads=block_threads)
         return [("hist_acc", h), ("nm", nm)], {"hist_acc": acc}
     if spec.name in ("nice_uniques", "nice_plan_uniques"):
         return [("uniques", ce.uniques_batch(plan, BATCH, st))], {}
     if spec.name == "nice_niceonly_dense":
         classes = ce.niceonly_classes(plan, True, "cpu")
         out = ce.niceonly_dense_megaloop(plan, BATCH, N_ITERS, classes, st,
-                                         valid, use_mxu=mma)
+                                         valid, use_mxu=mma,
+                                         block_threads=block_threads)
         return [("count_pruned", out)], {}
     if spec.name == "nice_plan_strided_niceonly":
         desc = np.zeros((BATCH, ks.DESC_WIDTH), dtype=np.int64)
@@ -162,7 +177,7 @@ def _run_plain(spec: ks.KernelSpec, plan, mma: int):
                 desc[row, 4 * k:4 * k + 4] = int_to_limbs(x, 4)
         counts = ce.strided_niceonly_batch(
             plan, 6, torch.tensor([1, 5], dtype=torch.int64), 4,
-            torch.from_numpy(desc), BATCH - 1)
+            torch.from_numpy(desc), BATCH - 1, block_threads=block_threads)
         return [("counts", counts)], {}
     raise KeyError(f"no plain run for {spec.name}")
 
@@ -207,6 +222,98 @@ def check_shapes(bases) -> List[Violation]:
                         out.append(_v(KS_PATH, 1, f"in-place-drift:{tag}",
                                       f"{tag}: an in-place argument came "
                                       "back as a new tensor"))
+    return out
+
+
+def check_plain_block_rule(bases) -> List[Violation]:
+    """Each launch spec's plain version, at the first shape base it takes:
+    it runs at its least block size and raises ValueError on a size the
+    rule refuses (K2's entries take no block size)."""
+    from nice_tpu_torch.ops.limbs import get_plan
+
+    out = []
+    for spec in ks.all_specs().values():
+        params = {p.name: p for p in spec.params}
+        if spec.kind != "launch" or "block_threads" not in params:
+            continue
+        for mma in spec.modes:
+            base = next((b for b in bases
+                         if spec.tier(ks.plan_shape(b), mma) is not None), None)
+            if base is None:
+                continue
+            lo = ks.block_threads_min(mma)
+            tag = f"{spec.name}:b{base}:mma{mma}"
+            for threads in (lo, lo - ks.WARP, lo + ks.WARP // 2,
+                            ks.THREADS + ks.WARP):
+                try:
+                    _run_plain(spec, get_plan(base), mma, threads)
+                    ran = True
+                except ValueError:
+                    ran = False
+                if ran != ks.block_threads_ok(threads, mma):
+                    out.append(_v(KS_PATH, 1,
+                                  f"plain-block-drift:{tag}:{threads}",
+                                  f"{tag}: the plain version "
+                                  f"{'ran' if ran else 'refused'} "
+                                  f"block_threads {threads}"))
+    return out
+
+
+def check_block_rule(project: Project) -> List[Violation]:
+    """(e) without the plain versions: the CUDA rule, the Python rule, the
+    registry's and each spec's domain admit the same sizes, and every C
+    entry that takes a block size refuses the others before launching."""
+    try:
+        grid = project.read(ks.GRID) or ""
+        funcs = sources.constexpr_functions(grid)
+        consts = sources.constexprs(grid)
+        ce = sources.py_mirror(project, CE_PATH, CE_BLOCK_NAMES)
+        rule = sources.c_to_py("block_threads_ok(threads, lo)")
+    except sources.SourceError as exc:
+        return [_v(ks.GRID, 1, "block-rule-unreadable", str(exc))]
+    out: Dict[str, Violation] = {}
+    for mma, lo_name in ((0, "kWarp"), (1, "kMmaMinThreads")):
+        for threads in BLOCK_SWEEP:
+            try:
+                c_ok = bool(sources.c_eval(
+                    rule, {**consts, "threads": threads,
+                           "lo": consts.get(lo_name)}, funcs))
+            except (sources.SourceError, TypeError) as exc:
+                return [_v(ks.GRID, 1, "block-rule-unreadable", str(exc))]
+            got = {"cuda": c_ok, "py": bool(ce["block_threads_ok"](threads,
+                                                                    mma))}
+            want = ks.block_threads_ok(threads, mma)
+            for where, ok in got.items():
+                detail = f"block-rule-drift:{where}:mma{mma}"
+                if ok != want and detail not in out:
+                    path = ks.GRID if where == "cuda" else CE_PATH
+                    out[detail] = _v(
+                        path, line_of(project.read(path) or "",
+                                      "block_threads_ok"), detail,
+                        f"{path} {'admits' if ok else 'refuses'} "
+                        f"block_threads {threads} (mma {mma}); the spec "
+                        f"{'admits' if want else 'refuses'} it")
+    out = list(out.values())
+    sources_text = {rel: project.read(rel) or ""
+                    for rel in (ks.MAIN_CU, ks.PLAN_CU)}
+    for spec in ks.all_specs().values():
+        params = {p.name: p for p in spec.params}
+        if "block_threads" not in params:
+            continue
+        p = params["block_threads"]
+        lo = min(ks.block_threads_min(m) for m in spec.modes)
+        if (p.lo, p.hi) != (lo, ks.THREADS):
+            out.append(_v(KS_PATH, 1, f"block-domain-drift:{spec.name}",
+                          f"{spec.name}'s block_threads domain is "
+                          f"[{p.lo}, {p.hi}], the rule's [{lo}, {ks.THREADS}]"))
+        body = sources.c_function_body(sources_text[spec.source], spec.name)
+        if body is None or "block_threads_ok(block_threads" not in body \
+                or "kBadThreads" not in body:
+            out.append(_v(spec.source, line_of(sources_text[spec.source],
+                                               f" {spec.name}("),
+                          f"block-check-missing:{spec.name}",
+                          f"{spec.name} does not refuse a block size outside "
+                          "the rule (block_threads_ok, kBadThreads)"))
     return out
 
 
@@ -365,8 +472,9 @@ def check(project: Project, ctx) -> List[Violation]:
     out: Dict[str, Violation] = {}
     found = check_coverage(project)
     if ctx.bases:
-        found += check_shapes(ctx.bases)
-    found += check_constants(project) + check_abi(project)
+        found += check_shapes(ctx.bases) + check_plain_block_rule(ctx.bases)
+    found += (check_constants(project) + check_abi(project)
+              + check_block_rule(project))
     for v in found:
         out.setdefault(v.key, v)
     ctx.report["c6"] = {"specs": sorted(ks.all_specs()),

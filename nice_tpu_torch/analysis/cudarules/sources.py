@@ -32,15 +32,20 @@ _BINOPS = {
 }
 _UNOPS = {ast.USub: lambda a: -a, ast.UAdd: lambda a: a,
           ast.Invert: lambda a: ~a}
+_CMPOPS = {ast.Eq: lambda a, b: a == b, ast.NotEq: lambda a, b: a != b,
+           ast.Lt: lambda a, b: a < b, ast.LtE: lambda a, b: a <= b,
+           ast.Gt: lambda a, b: a > b, ast.GtE: lambda a, b: a >= b}
 _CASTS = re.compile(r"\(\s*(?:const\s+)?(?:unsigned\s+)?(?:int|int32_t|"
                     r"uint32_t|int64_t|uint64_t|size_t|long long)\s*\)")
 
 
 def c_to_py(expr: str) -> ast.expr:
     """A C integer expression as a Python AST: casts dropped, `/` as floor
-    division (every operand here is non-negative), `p.x` as `x`."""
+    division (every operand here is non-negative), `p.x` as `x`, `&&` and
+    `||` as `and` and `or` (a comparison is 0 or 1, as in C)."""
     text = _CASTS.sub("", " ".join(expr.split()))
     text = re.sub(r"\bp\.", "", text).replace("/", "//")
+    text = text.replace("&&", " and ").replace("||", " or ")
     try:
         return ast.parse(text.strip(), mode="eval").body
     except SyntaxError as exc:
@@ -64,6 +69,20 @@ def c_eval(node: ast.expr, env: Dict[str, int],
                                       c_eval(node.right, env, funcs))
     if isinstance(node, ast.UnaryOp) and type(node.op) in _UNOPS:
         return _UNOPS[type(node.op)](c_eval(node.operand, env, funcs))
+    if isinstance(node, ast.Compare) and all(type(op) in _CMPOPS
+                                             for op in node.ops):
+        left = c_eval(node.left, env, funcs)
+        for op, right_node in zip(node.ops, node.comparators):
+            right = c_eval(right_node, env, funcs)
+            if not _CMPOPS[type(op)](left, right):
+                return 0
+            left = right
+        return 1
+    if isinstance(node, ast.BoolOp):
+        vals = [c_eval(v, env, funcs) for v in node.values]
+        if isinstance(node.op, ast.And):
+            return int(all(vals))
+        return int(any(vals))
     if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
             and node.func.id in funcs:
         params, body = funcs[node.func.id]
@@ -179,6 +198,20 @@ def extern_c_functions(text: str) -> Dict[str, List[str]]:
             plist = [p for p in params.split(",") if p.strip()]
             out[name] = [_param_type(p) for p in plist]
     return out
+
+
+def c_function_body(text: str, name: str) -> Optional[str]:
+    """The body of the C function `name` defined in text (comments
+    stripped), or None."""
+    text = strip_comments(text)
+    m = re.search(r"\b%s\s*\([^)]*\)\s*\{" % re.escape(name), text)
+    if m is None:
+        return None
+    depth, i = 1, m.end()
+    while depth and i < len(text):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        i += 1
+    return text[m.end():i - 1]
 
 
 # -- the Python side ----------------------------------------------------------

@@ -17,7 +17,15 @@ loads, declaring:
   the CUDA source to, and each scalar's static domain, which C2 holds to
   its C type;
 * the value bounds of what it accumulates, which C2 checks by integer
-  arithmetic over the domain (there is no jaxpr to interpret).
+  arithmetic over the domain (there is no jaxpr to interpret);
+* its block size (``block_threads``, the counterpart of the reference's
+  ``block_rows``): a whole number of warps from ``WARP`` (K5:
+  ``MMA_THREADS_MIN``) to ``THREADS``, the rule ``block_threads_ok`` that
+  the CUDA source, ``ops/cuda_engine.py`` and the plain versions also
+  state, and C6 holds together. C2's int32 obligations do not depend on
+  it: the budgets are per dispatch (a launch's lanes, whatever its blocks),
+  and a block's shared bins and warp sums count at most its own lanes, fewer
+  than the launch's.
 
 The contract constants are written here a third time, beside their Python
 mirrors (``ops/cuda_engine.py``, ``ops/mxu.py``, ``ops/engine.py``) and
@@ -69,8 +77,12 @@ DESC_WIDTH = 12
 # Plans of at most this many limbs of n run K2, K3 and K5's detailed mode on
 # the per-base plan tier (nice_kernels.cuh kPlanTierLimbs).
 PLAN_TIER_LIMBS = 4
-# Threads a block of every grid-stride kernel (nice_grid.cuh kThreads).
+# Threads a block of a grid-stride launch (nice_grid.cuh kThreads, kWarp,
+# kMmaMinThreads): whole warps up to THREADS, the bound every kernel is
+# compiled under and the default; K5's blocks take two warps at least.
 THREADS = 256
+WARP = 32
+MMA_THREADS_MIN = 64
 # K5 (ops/mxu.py and nice_kernels.cuh's K5 section).
 TILE_LIMBS = 2
 SMEM_LIMIT = 48 * 1024
@@ -82,7 +94,7 @@ TIERS = {"small": (2, 4, 6, 2), "dense": (5, 9, 13, 4),
          "generic": (144, 288, 424, 64)}
 # The C interfaces' own return codes (nice_kernels.cuh).
 RETURN_CODES = {"kNoTier": -1, "kNoSmem": -2, "kPlanTierOnly": -3,
-                "kOtherPlan": -4}
+                "kOtherPlan": -4, "kBadThreads": -5}
 # A CUDA grid's y extent (K3's rows ride on it).
 GRID_Y_MAX = 65535
 
@@ -138,7 +150,11 @@ MIRRORS = (
     Mirror("D_ROWS", D_ROWS, py=(_MXU, "D_ROWS")),
     Mirror("DIGIT_MAX", DIGIT_MAX, py=(_MXU, "_DIGIT_MAX")),
     Mirror("ACC_LIMIT", ACC_LIMIT, py=(_ENGINE, "ACC_LIMIT")),
-    Mirror("THREADS", THREADS, cuda=(GRID, "kThreads")),
+    Mirror("THREADS", THREADS, py=(_CE, "BLOCK_THREADS_MAX"),
+           cuda=(GRID, "kThreads")),
+    Mirror("WARP", WARP, py=(_CE, "WARP"), cuda=(GRID, "kWarp")),
+    Mirror("MMA_THREADS_MIN", MMA_THREADS_MIN,
+           py=(_CE, "MMA_BLOCK_THREADS_MIN"), cuda=(GRID, "kMmaMinThreads")),
 ) + tuple(Mirror(name, code, cuda=(CUH, name))
           for name, code in RETURN_CODES.items())
 
@@ -241,6 +257,17 @@ def k5_takes(shape: PlanShape, front: Optional[int] = None,
     return k5_smem_bytes(shape, front) <= SMEM_LIMIT
 
 
+def block_threads_min(mma: int) -> int:
+    """The least block size of K1/K3/K4 (mma 0) or K5 (mma 1)."""
+    return MMA_THREADS_MIN if mma else WARP
+
+
+def block_threads_ok(threads: int, mma: int = 0) -> bool:
+    """Whether a kernel takes blocks of `threads` threads."""
+    return (block_threads_min(mma) <= threads <= THREADS
+            and threads % WARP == 0)
+
+
 def pick_tier(shape: PlanShape) -> Optional[str]:
     """nice_kernels.cuh pick_tier: the runtime-plan tier of K1 and K2."""
     if fits(shape, "small"):
@@ -276,6 +303,12 @@ class Param:
 
 def _ptr(name: str) -> Param:
     return Param(name, "ptr")
+
+
+def _threads(mma: int = 0) -> Param:
+    """The block size of a launch that takes K5 when mma, else K1/K3/K4
+    (block_threads_ok: a multiple of WARP besides the domain)."""
+    return Param("block_threads", "int", block_threads_min(mma), THREADS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,7 +408,7 @@ register(KernelSpec(
     params=(_ptr("plan_words"), _ptr("start"),
             Param("valid_total", "long long", 0, ACC_LIMIT // 2),
             Param("pad", "long long", 0, ACC_LIMIT // 2, cast="int32_t"),
-            _ptr("hist"), _ptr("nm"), Param("mma", "int", 0, 2),
+            _ptr("hist"), _ptr("nm"), Param("mma", "int", 0, 2), _threads(),
             _ptr("stream")),
     tier=_k1_tier, modes=(0, 1), outputs=_hist,
     in_place=("hist_acc", "nm_out"),
@@ -448,7 +481,8 @@ register(KernelSpec(
             Param("valid_total", "long long", 0,
                   lambda s: I32_MAX - s.base, cast="uint32_t"),
             Param("min_uniques", "int", 0, lambda s: s.base),
-            Param("mma", "int", 0, 2), _ptr("out"), _ptr("stream")),
+            Param("mma", "int", 0, 2), _ptr("out"), _threads(),
+            _ptr("stream")),
     tier=_dense_tier, modes=(0, 1), outputs=_dense_out, in_place=("out",),
     bounds=(("count_pruned", "count and pruned each <= valid_total < "
              "2^31 - base (C2 k4_counts)"),),
@@ -462,7 +496,7 @@ register(KernelSpec(
     params=(Param("kernel", "int", 0, 3), _ptr("plan_words"),
             Param("a", "long long", 0, ACC_LIMIT // 2),
             Param("b", "long long", 0, ACC_LIMIT // 2),
-            Param("mma", "int", 0, 1), _ptr("out")),
+            Param("mma", "int", 0, 1), _threads(), _ptr("out")),
 ))
 
 
@@ -508,7 +542,7 @@ register(KernelSpec(
             Param("valid_total", "long long", 0, ACC_LIMIT // 2),
             Param("pad", "long long", 0, ACC_LIMIT // 2, cast="int32_t"),
             _ptr("hist"), _ptr("nm"), Param("mma", "int", 1, 2),
-            _ptr("stream")),
+            _threads(mma=1), _ptr("stream")),
     tier=_k5_plan_tier, modes=(1,), outputs=_hist,
     in_place=("hist_acc", "nm_out"),
     bounds=(("hist_acc", "as K1's (C2 k1_flush_budget); column sums <= "
@@ -541,7 +575,7 @@ register(KernelSpec(
             Param("modulus", "long long", 1, U32_MAX, cast="uint32_t"),
             Param("periods", "long long", 1, STRIDED_PERIODS_MAX),
             Param("min_uniques", "int", 0, lambda s: s.base),
-            _ptr("counts"), _ptr("stream")),
+            _ptr("counts"), _threads(), _ptr("stream")),
     tier=_plan_tier, outputs=_strided_out, in_place=("counts",),
     bounds=(("counts", "a row's count <= periods * R <= "
              "STRIDED_OFFS_LANES_MAX (C2 k3_counts)"),),
@@ -554,7 +588,8 @@ register(KernelSpec(
     cuda_kernels=(), wrappers=("launch_shape",),
     params=(Param("kernel", "int", 0, 2), _ptr("plan_words"),
             Param("a", "long long", 0, ACC_LIMIT // 2),
-            Param("b", "long long", 0, ACC_LIMIT // 2), _ptr("out")),
+            Param("b", "long long", 0, ACC_LIMIT // 2), _threads(),
+            _ptr("out")),
 ))
 
 

@@ -22,7 +22,23 @@
 
 namespace nice {
 
+// Threads a block of a grid-stride launch: a whole number of warps, from the
+// kernel's least (kWarp; K5's kMmaMinThreads, as k5_setup gives warp 0 the
+// products while the other warps fill T) up to kThreads, the bound every
+// kernel is compiled under (__launch_bounds__). The launches take it at run
+// time (block_threads); kThreads is the default. The Python rule
+// (ops/cuda_engine.py block_threads_ok) and the specs
+// (analysis/kernelspec.py) mirror it, and cudalint's C6 holds the three
+// together.
 constexpr int kThreads = 256;
+constexpr int kWarp = 32;
+constexpr int kMmaMinThreads = 64;
+
+// 1 when `threads` is a block size that a kernel whose blocks need at least
+// `lo` threads takes. The C entries return kBadThreads for any other.
+constexpr int block_threads_ok(int threads, int lo) {
+  return threads >= lo && threads <= kThreads && threads % kWarp == 0;
+}
 
 // K1: each block builds a histogram of base+2 bins in shared memory over its
 // lanes of a grid-stride loop and flushes it with one global atomic per bin;
@@ -196,18 +212,24 @@ static Shape wave_shape(const void* kernel, int64_t lanes, int threads,
   return sh;
 }
 
+// K1's launch at `threads` a block. Its shared histogram's loops stride by
+// blockDim.x, the near-miss count is reduced per (whole) warp, and block 0
+// alone adds the padding, so every admissible block size gives the same
+// bins.
 template <class L>
-static Shape k1_shape(const Plan& p, int64_t valid_total, size_t* smem) {
+static Shape k1_shape(const Plan& p, int64_t valid_total, int threads,
+                      size_t* smem) {
   *smem = (size_t)(p.base + 3) * sizeof(int32_t);
   return wave_shape((const void*)detailed_megaloop_kernel<L>, valid_total,
-                    kThreads, *smem);
+                    threads, *smem);
 }
 
 template <class L>
 static void launch_k1(const Plan& p, const int64_t* start, int64_t valid_total,
-                      int64_t pad, int32_t* hist, int32_t* nm, cudaStream_t s) {
+                      int64_t pad, int32_t* hist, int32_t* nm, int threads,
+                      cudaStream_t s) {
   size_t smem;
-  const Shape sh = k1_shape<L>(p, valid_total, &smem);
+  const Shape sh = k1_shape<L>(p, valid_total, threads, &smem);
   detailed_megaloop_kernel<L><<<sh.grid, sh.threads, smem, s>>>(
       start, valid_total, pad, p, hist, nm);
 }
@@ -224,13 +246,13 @@ static const void* k5_kernel() {
 }
 
 template <class L>
-static int k5_shape(const Plan& p, int64_t valid_total, Shape* sh,
+static int k5_shape(const Plan& p, int64_t valid_total, int threads, Shape* sh,
                     size_t* smem) {
   const int bytes = k5_smem_bytes(p.limbs_sq, p.limbs_cu,
                                   4 * ((int)p.base + 3));
   if (bytes > kMmaSmemMax) return kNoSmem;
   *smem = (size_t)bytes;
-  *sh = wave_shape(k5_kernel<L>(), valid_total, kThreads, *smem);
+  *sh = wave_shape(k5_kernel<L>(), valid_total, threads, *smem);
   return 0;
 }
 
@@ -244,10 +266,10 @@ static int k5_shape(const Plan& p, int64_t valid_total, Shape* sh,
 template <class L>
 static int launch_k5(const Plan& p, const int64_t* start, int64_t valid_total,
                      int64_t pad, int32_t* hist, int32_t* nm, int mma,
-                     cudaStream_t s) {
+                     int threads, cudaStream_t s) {
   Shape sh;
   size_t smem;
-  const int rc = k5_shape<L>(p, valid_total, &sh, &smem);
+  const int rc = k5_shape<L>(p, valid_total, threads, &sh, &smem);
   if (rc) return rc;
   const bool setup_only = mma == 2;
   const int64_t lanes = setup_only ? 0 : valid_total;

@@ -80,8 +80,11 @@
 // candidate the congruence excludes. Every grid-stride launch is one full
 // wave: its grid is the blocks each SM holds at once (the occupancy API,
 // per kernel) times the SMs, or fewer for a small launch, and K4 takes
-// smaller blocks when a run is too small to give each SM a block of
-// kThreads.
+// smaller blocks when a run is too small to give each SM a block of the
+// launch's size. That size (block_threads) is a run-time argument of K1, K3,
+// K4 and K5, a whole number of warps up to kThreads (nice_grid.cuh
+// block_threads_ok), which the engine tunes as the TPU's block_rows; K2 keeps
+// kThreads, as the TPU's uniques kernel took no block_rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,8 +93,8 @@
 
 namespace nice {
 
-// K4's block when a run has fewer lanes than SMs x kThreads: small enough
-// that such a run's lanes spread over every SM.
+// K4's block when a run has fewer lanes than SMs x the launch's block size:
+// small enough that such a run's lanes spread over every SM.
 constexpr int kDenseSmallThreads = 64;
 
 // minBlocksPerMultiprocessor = 1 lets ptxas give a lane the registers its
@@ -191,13 +194,15 @@ niceonly_dense_mma_kernel(const int64_t* __restrict__ start,
 }
 
 // num_cls classes times ceil(valid_total / (base - 1)) periods of lanes, in
-// a grid-stride loop. K4 and K5 take blocks of kDenseSmallThreads when the
-// run has fewer lanes than the SMs hold blocks of kThreads, so that its few
-// blocks do not leave most SMs idle. K5's blocks carry its shared memory;
-// it returns kNoSmem when that passes kMmaSmemMax.
+// a grid-stride loop, at `threads` a block. K4 and K5 take blocks of
+// kDenseSmallThreads (where that is smaller) when the run has fewer lanes
+// than the SMs hold blocks of `threads`, so that its few blocks do not leave
+// most SMs idle. K5's blocks carry its shared memory; it returns kNoSmem
+// when that passes kMmaSmemMax.
 template <class L>
 static int dense_shape(const Plan& p, uint32_t num_cls, uint32_t valid_total,
-                       int mma, Shape* sh, size_t* smem, uint32_t* lanes) {
+                       int mma, int threads, Shape* sh, size_t* smem,
+                       uint32_t* lanes) {
   const uint32_t m = p.base - 1;
   *lanes = num_cls * ((valid_total + m - 1) / m);
   const void* k = (const void*)niceonly_dense_kernel<L>;
@@ -208,8 +213,9 @@ static int dense_shape(const Plan& p, uint32_t num_cls, uint32_t valid_total,
     k = (const void*)niceonly_dense_mma_kernel<L>;
     *smem = (size_t)bytes;
   }
-  *sh = wave_shape(k, *lanes, kThreads, *smem);
-  if ((int64_t)*lanes < (int64_t)sh->sms * kThreads) {
+  *sh = wave_shape(k, *lanes, threads, *smem);
+  if (kDenseSmallThreads < threads &&
+      (int64_t)*lanes < (int64_t)sh->sms * threads) {
     *sh = wave_shape(k, *lanes, kDenseSmallThreads, *smem);
   }
   return 0;
@@ -223,12 +229,12 @@ template <class L>
 static int launch_dense(const Plan& p, const int64_t* start,
                         const int64_t* classes, uint32_t num_cls,
                         uint32_t valid_total, int min_u, int32_t* out, int mma,
-                        cudaStream_t s) {
+                        int threads, cudaStream_t s) {
   Shape sh;
   size_t smem;
   uint32_t lanes;
-  const int rc = dense_shape<L>(p, num_cls, valid_total, mma, &sh, &smem,
-                                &lanes);
+  const int rc = dense_shape<L>(p, num_cls, valid_total, mma, threads, &sh,
+                                &smem, &lanes);
   if (rc) return rc;
   if (!mma) {
     niceonly_dense_kernel<L><<<sh.grid, sh.threads, 0, s>>>(
@@ -254,7 +260,9 @@ inline int dense_tier(const Plan& p) {
 
 // Return codes: 0 on success, a cudaError_t from cudaGetLastError() after
 // the launch, or one of nice_kernels.cuh's codes (kNoTier, kNoSmem,
-// kPlanTierOnly) before launching.
+// kPlanTierOnly, kBadThreads) before launching. block_threads: the threads
+// of a block, a whole number of warps up to kThreads (from kMmaMinThreads
+// for K5).
 extern "C" {
 
 // K1 (mma = 0) or K5 in the detailed mode (mma = 1; lanes < 2^31; mma = 2
@@ -262,8 +270,12 @@ extern "C" {
 // at most kPlanTierLimbs limbs.
 int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
                            long long valid_total, long long pad, void* hist,
-                           void* nm, int mma, void* stream) {
+                           void* nm, int mma, int block_threads,
+                           void* stream) {
   using namespace nice;
+  if (!block_threads_ok(block_threads, mma ? kMmaMinThreads : kWarp)) {
+    return kBadThreads;
+  }
   const Plan p = plan_from_words(plan_words);
   const int64_t* st = (const int64_t*)start;
   int32_t* h = (int32_t*)hist;
@@ -273,13 +285,14 @@ int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
   if (tier < 0) return kNoTier;
   if (mma) {
     if (plan_tier_takes(p)) return kPlanTierOnly;
-    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma, s);
+    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma,
+                                          block_threads, s);
     return rc ? rc : (int)cudaGetLastError();
   }
   if (tier == 0) {
-    launch_k1<SmallTier>(p, st, valid_total, pad, h, n, s);
+    launch_k1<SmallTier>(p, st, valid_total, pad, h, n, block_threads, s);
   } else {
-    launch_k1<GenericTier>(p, st, valid_total, pad, h, n, s);
+    launch_k1<GenericTier>(p, st, valid_total, pad, h, n, block_threads, s);
   }
   return (int)cudaGetLastError();
 }
@@ -305,8 +318,11 @@ int nice_uniques(const uint64_t* plan_words, const void* start,
 int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
                         const void* classes, long long num_cls,
                         long long valid_total, int min_uniques, int mma,
-                        void* out, void* stream) {
+                        void* out, int block_threads, void* stream) {
   using namespace nice;
+  if (!block_threads_ok(block_threads, mma ? kMmaMinThreads : kWarp)) {
+    return kBadThreads;
+  }
   const Plan p = plan_from_words(plan_words);
   const int64_t* st = (const int64_t*)start;
   const int64_t* cl = (const int64_t*)classes;
@@ -317,17 +333,17 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
     case 0:
       rc = launch_dense<SmallTier>(p, st, cl, (uint32_t)num_cls,
                                    (uint32_t)valid_total, min_uniques, o, mma,
-                                   s);
+                                   block_threads, s);
       break;
     case 1:
       rc = launch_dense<GenericTier>(p, st, cl, (uint32_t)num_cls,
                                      (uint32_t)valid_total, min_uniques, o,
-                                     mma, s);
+                                     mma, block_threads, s);
       break;
     case 2:
       rc = launch_dense<DenseTier>(p, st, cl, (uint32_t)num_cls,
                                    (uint32_t)valid_total, min_uniques, o, mma,
-                                   s);
+                                   block_threads, s);
       break;
     default: return kNoTier;
   }
@@ -340,11 +356,15 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
 // num_cls classes and b = valid_total lanes (kernel 2, K3, is
 // plan_kernels.cu's alone, as K2 and K5's detailed mode are at its plans).
 // out[0..4] = the grid's blocks, threads a block, resident blocks an SM at
-// that block size, the SMs, and the tier (0 small, 1 generic, 2 dense).
-// Returns 0, or what the launch would return for the plan before launching.
+// that block size, the SMs, and the tier (0 small, 1 generic, 2 dense), at
+// block_threads (K2 takes kThreads whatever it is). Returns 0, or what the
+// launch would return for the plan before launching.
 int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
-                      long long b, int mma, int* out) {
+                      long long b, int mma, int block_threads, int* out) {
   using namespace nice;
+  if (!block_threads_ok(block_threads, mma ? kMmaMinThreads : kWarp)) {
+    return kBadThreads;
+  }
   const Plan p = plan_from_words(plan_words);
   if (kernel == 2 || (kernel < 2 && (kernel == 1 || mma) &&
                       plan_tier_takes(p))) {
@@ -357,26 +377,26 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
   uint32_t lanes;
   int rc = 0;
   switch (kernel * 3 + tier) {
-    case 0: sh = k1_shape<SmallTier>(p, a, &smem); break;
+    case 0: sh = k1_shape<SmallTier>(p, a, block_threads, &smem); break;
     case 1:
       if (mma) {
-        rc = k5_shape<GenericTier>(p, a, &sh, &smem);
+        rc = k5_shape<GenericTier>(p, a, block_threads, &sh, &smem);
       } else {
-        sh = k1_shape<GenericTier>(p, a, &smem);
+        sh = k1_shape<GenericTier>(p, a, block_threads, &smem);
       }
       break;
     case 4: sh = uniques_shape<GenericTier>(a); break;
     case 9:
-      rc = dense_shape<SmallTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
-                                  &smem, &lanes);
+      rc = dense_shape<SmallTier>(p, (uint32_t)a, (uint32_t)b, mma,
+                                 block_threads, &sh, &smem, &lanes);
       break;
     case 10:
-      rc = dense_shape<GenericTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
-                                    &smem, &lanes);
+      rc = dense_shape<GenericTier>(p, (uint32_t)a, (uint32_t)b, mma,
+                                 block_threads, &sh, &smem, &lanes);
       break;
     case 11:
-      rc = dense_shape<DenseTier>(p, (uint32_t)a, (uint32_t)b, mma, &sh,
-                                  &smem, &lanes);
+      rc = dense_shape<DenseTier>(p, (uint32_t)a, (uint32_t)b, mma,
+                                 block_threads, &sh, &smem, &lanes);
       break;
     default: return kNoTier;
   }

@@ -839,11 +839,13 @@ inline bool plan_tier_takes(const Plan& p) {
 // Return codes of the C interfaces beside a cudaError_t: no tier holds the
 // plan; K5's shared memory exceeds kMmaSmemMax; the plan belongs to the plan
 // tier (the main library does not run it); a per-base library was asked for
-// another plan than the one it was built for.
+// another plan than the one it was built for; a block size outside the
+// kernel's admissible set (nice_grid.cuh block_threads_ok).
 constexpr int kNoTier = -1;
 constexpr int kNoSmem = -2;
 constexpr int kPlanTierOnly = -3;
 constexpr int kOtherPlan = -4;
+constexpr int kBadThreads = -5;
 
 inline const char* error_string(int code) {
   switch (code) {
@@ -851,6 +853,7 @@ inline const char* error_string(int code) {
     case kNoSmem: return "plan exceeds K5's shared memory";
     case kPlanTierOnly: return "plan is run by its per-base build (plan tier)";
     case kOtherPlan: return "per-base library built for another plan";
+    case kBadThreads: return "block size outside the kernel's admissible set";
     default: return nullptr;
   }
 }

@@ -26,7 +26,9 @@
 // and each block reduces its count per warp, then across warps, and adds it
 // to counts[row] with one atomic. R and M change with the stride depth,
 // which the adaptive floor moves between fields, so they stay launch
-// arguments and one build serves a base.
+// arguments and one build serves a base. The block size is the launch's
+// (block_threads, a whole number of warps up to kThreads): each block sums
+// the warps it has.
 //
 // What bounds them on an H100: integer operations (see nice_kernels.cu).
 // The plan tier's lane has no guard, no loop counter and no plan load, and
@@ -48,7 +50,7 @@ strided_niceonly_kernel(const int64_t* __restrict__ desc,
                         U32Divisor by_res, uint32_t modulus, int64_t lanes,
                         int min_u, Plan rp, int32_t* __restrict__ counts) {
   const Plan& p = L::plan(rp);
-  __shared__ int32_t warp_sums[kThreads / 32];
+  __shared__ int32_t warp_sums[kThreads / kWarp];
   const int64_t* row = desc + (int64_t)blockIdx.y * kDescWidth;
   int c = 0;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -62,20 +64,20 @@ strided_niceonly_kernel(const int64_t* __restrict__ desc,
   __syncthreads();
   if (threadIdx.x == 0) {
     int s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
+    for (int w = 0; w < (int)(blockDim.x / kWarp); ++w) s += warp_sums[w];
     if (s) atomicAdd(&counts[blockIdx.y], s);
   }
 }
 
-// One block per kThreads lanes of a descriptor (lanes <= 2^20, so at most
-// 4096), times the n_real real descriptors (<= 1024) on the grid's y axis;
-// Shape::grid counts the blocks of both axes.
-static Shape strided_shape(int64_t lanes, int n_real) {
+// One block per `threads` lanes of a descriptor (lanes <= 2^20, so at most
+// 32768 at 32 threads), times the n_real real descriptors (<= 1024) on the
+// grid's y axis; Shape::grid counts the blocks of both axes.
+static Shape strided_shape(int64_t lanes, int n_real, int threads) {
   Shape sh;
-  sh.threads = kThreads;
-  resident((const void*)strided_niceonly_kernel<PlanTier>, kThreads, 0,
+  sh.threads = threads;
+  resident((const void*)strided_niceonly_kernel<PlanTier>, threads, 0,
            &sh.blocks_per_sm, &sh.sms);
-  sh.grid = (int)((lanes + kThreads - 1) / kThreads) * n_real;
+  sh.grid = (int)((lanes + threads - 1) / threads) * n_real;
   return sh;
 }
 
@@ -97,7 +99,8 @@ constexpr int kPlanTierIndex = 3;
 }  // namespace nice
 
 // Return codes: 0 on success, a cudaError_t from cudaGetLastError() after
-// the launch, or kOtherPlan before launching.
+// the launch, or kOtherPlan or kBadThreads before launching. block_threads
+// as in nice_kernels.cu (K2 keeps kThreads).
 extern "C" {
 
 // K2: out[g] = num_uniques(start + g) for g < lanes.
@@ -116,13 +119,14 @@ int nice_plan_uniques(const uint64_t* plan_words, const void* start,
 int nice_plan_detailed_megaloop_mma(const uint64_t* plan_words,
                                     const void* start, long long valid_total,
                                     long long pad, void* hist, void* nm,
-                                    int mma, void* stream) {
+                                    int mma, int block_threads, void* stream) {
   using namespace nice;
   if (!this_plan(plan_words)) return kOtherPlan;
   if (mma != 1 && mma != 2) return kNoTier;
+  if (!block_threads_ok(block_threads, kMmaMinThreads)) return kBadThreads;
   const int rc = launch_k5<PlanTier>(
       plan_from_words(plan_words), (const int64_t*)start, valid_total, pad,
-      (int32_t*)hist, (int32_t*)nm, mma, (cudaStream_t)stream);
+      (int32_t*)hist, (int32_t*)nm, mma, block_threads, (cudaStream_t)stream);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -135,14 +139,16 @@ int nice_plan_strided_niceonly(const uint64_t* plan_words, const void* desc,
                                long long num_res, unsigned res_magic,
                                int res_shift1, int res_shift2,
                                long long modulus, long long periods,
-                               int min_uniques, void* counts, void* stream) {
+                               int min_uniques, void* counts,
+                               int block_threads, void* stream) {
   using namespace nice;
   if (!this_plan(plan_words)) return kOtherPlan;
+  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;
   const int64_t lanes = (int64_t)periods * num_res;
   const U32Divisor by_res = {res_magic, res_shift1, res_shift2};
-  const dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads),
+  const dim3 grid((unsigned)((lanes + block_threads - 1) / block_threads),
                   (unsigned)n_real);
-  strided_niceonly_kernel<PlanTier><<<grid, kThreads, 0,
+  strided_niceonly_kernel<PlanTier><<<grid, block_threads, 0,
                                       (cudaStream_t)stream>>>(
       (const int64_t*)desc, (const int64_t*)residues, (uint32_t)num_res,
       by_res, (uint32_t)modulus, lanes, min_uniques,
@@ -152,23 +158,27 @@ int nice_plan_strided_niceonly(const uint64_t* plan_words, const void* desc,
 
 // The shape a launch would take, as nice_launch_shape (whose kernel
 // numbers it keeps): kernel 0 K5's detailed mode over a lanes, 1 K2 over a
-// lanes, 2 K3 over a lanes a row and b rows; out[4] is the plan tier's
-// index, 3.
+// lanes, 2 K3 over a lanes a row and b rows, at block_threads; out[4] is
+// the plan tier's index, 3.
 int nice_plan_launch_shape(int kernel, const uint64_t* plan_words,
-                           long long a, long long b, int* out) {
+                           long long a, long long b, int block_threads,
+                           int* out) {
   using namespace nice;
   if (!this_plan(plan_words)) return kOtherPlan;
+  if (!block_threads_ok(block_threads, kernel == 0 ? kMmaMinThreads : kWarp)) {
+    return kBadThreads;
+  }
   Shape sh;
   size_t smem;
   switch (kernel) {
     case 0: {
-      const int rc = k5_shape<PlanTier>(plan_from_words(plan_words), a, &sh,
-                                        &smem);
+      const int rc = k5_shape<PlanTier>(plan_from_words(plan_words), a,
+                                        block_threads, &sh, &smem);
       if (rc) return rc;
       break;
     }
     case 1: sh = uniques_shape<PlanTier>(a); break;
-    case 2: sh = strided_shape(a, (int)b); break;
+    case 2: sh = strided_shape(a, (int)b, block_threads); break;
     default: return kNoTier;
   }
   out[0] = sh.grid;

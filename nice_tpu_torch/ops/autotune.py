@@ -7,7 +7,8 @@ on the real dispatch path with the kernels built and warmed first, and
 stores the best one per key in a JSON table at WINNERS_PATH. The engine reads
 it through engine.resolve_tuning, whose precedence is:
 
-    1. an explicit argument (batch_size / segment / use_mxu) - `override`
+    1. an explicit argument (batch_size / segment / use_mxu /
+       block_threads)                                         - `override`
     2. the tuned winner from this table                      - `hit`
     3. the built-in default                                   - `miss`
 
@@ -47,8 +48,10 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 # git-ignored build directory.
 WINNERS_PATH = os.path.join(PKG_DIR, "_build", "autotune.json")
 
-# The knobs a winner holds (JAX's names: "megaloop" is the segment length).
-PARAMS = ("batch_size", "megaloop", "use_mxu")
+# The knobs a winner holds (JAX's names: "megaloop" is the segment length;
+# "block_threads", the threads of a block of K1/K4/K5, is the port's
+# counterpart of JAX's "block_rows").
+PARAMS = ("batch_size", "megaloop", "use_mxu", "block_threads")
 
 EVENTS = {"hit": 0, "miss": 0, "invalidated": 0, "store": 0, "sweep": 0,
           "override": 0}
@@ -159,14 +162,15 @@ def tenant_report(workloads, device="cuda") -> list[dict]:
     base, backend) workload saying whether a signature-valid winner exists
     on `device` and the shape the tenant will run with (resolve_tuning's
     precedence applied per tenant, not per process): batch_size, megaloop
-    (the segment), use_mxu and the page quantum. The reference's
-    block_rows and carry_interval have no counterpart (resolve_tuning)."""
+    (the segment), use_mxu, block_threads (where the reference reports
+    block_rows) and the page quantum. The reference's carry_interval has no
+    counterpart (resolve_tuning)."""
     from nice_tpu_torch.ops import engine
 
     out = []
     for name, mode, base, backend in workloads:
-        batch, seg, arm = engine.resolve_tuning(mode, base, device,
-                                                backend=backend)
+        batch, seg, arm, threads = engine.resolve_tuning(mode, base, device,
+                                                         backend=backend)
         out.append({
             "tenant": name,
             "key": key(mode, base, device),
@@ -174,6 +178,7 @@ def tenant_report(workloads, device="cuda") -> list[dict]:
             "batch_size": batch,
             "megaloop": seg,
             "use_mxu": arm,
+            "block_threads": threads,
             "page_quantum": engine.page_quantum(mode, base, device=device,
                                                 backend=backend),
         })
@@ -207,9 +212,12 @@ def sweep(mode: str, device, *, bench_mode: str | None = None,
           field: tuple[int, int, int] | None = None,
           batch_shifts: list[int], segments: list[int] | None = None,
           mxu: str = "auto", floors: list[int] | None = None,
+          threads: list[int] | None = None,
           slice_size: int = 1_000_000, timeout: float = 900.0) -> dict:
     """Time the cartesian config grid through the tuning harness in a
     subprocess and record the best-throughput config as this key's winner.
+    threads: the block sizes to sweep (--sweep-threads; None: the engine's
+    resolved one).
 
     The field is a benchmark mode (bench_mode) or (base, start, size).
     Unlike the JAX sweep, which records the best of whatever configs
@@ -230,6 +238,8 @@ def sweep(mode: str, device, *, bench_mode: str | None = None,
         cmd += ["--segments", ",".join(str(s) for s in segments)]
     if floors:
         cmd += ["--floors", ",".join(str(f) for f in floors)]
+    if threads:
+        cmd += ["--sweep-threads", ",".join(str(t) for t in threads)]
     _count("sweep")
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, cwd=REPO_DIR)

@@ -142,7 +142,8 @@ def bind(lib) -> None:
     words = ctypes.POINTER(ctypes.c_uint64)
     signatures = {
         "nice_detailed_megaloop": [words, c_void_p, c_longlong, c_longlong,
-                                   c_void_p, c_void_p, c_int, c_void_p],
+                                   c_void_p, c_void_p, c_int, c_int,
+                                   c_void_p],
         "nice_uniques": [words, c_void_p, c_longlong, c_void_p, c_void_p],
         # The main library's K3 before the plan tier took it (a parent
         # tree's, which scripts/kernel_ab.py loads).
@@ -155,16 +156,17 @@ def bind(lib) -> None:
         "nice_plan_strided_niceonly": [words, c_void_p, c_longlong, c_void_p,
                                        c_longlong, ctypes.c_uint, c_int,
                                        c_int, c_longlong, c_longlong, c_int,
-                                       c_void_p, c_void_p],
+                                       c_void_p, c_int, c_void_p],
         "nice_plan_launch_shape": [c_int, words, c_longlong, c_longlong,
-                                   ctypes.POINTER(c_int)],
+                                   c_int, ctypes.POINTER(c_int)],
         "nice_plan_detailed_megaloop_mma": [words, c_void_p, c_longlong,
                                             c_longlong, c_void_p, c_void_p,
-                                            c_int, c_void_p],
+                                            c_int, c_int, c_void_p],
         "nice_niceonly_dense": [words, c_void_p, c_void_p, c_longlong,
-                                c_longlong, c_int, c_int, c_void_p, c_void_p],
+                                c_longlong, c_int, c_int, c_void_p, c_int,
+                                c_void_p],
         "nice_launch_shape": [c_int, words, c_longlong, c_longlong, c_int,
-                              ctypes.POINTER(c_int)],
+                              c_int, ctypes.POINTER(c_int)],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

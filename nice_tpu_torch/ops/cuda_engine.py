@@ -25,6 +25,13 @@ a kernel per plan. Which plans take it is decided by `plan_tier_takes`
 alone; a failed build or launch there raises, as any other. K1 stays in the
 main library at every base.
 
+K1, K3, K4 and K5 take their block size at run time (block_threads, the
+counterpart of the TPU kernels' block_rows): a whole number of warps up to
+BLOCK_THREADS_MAX, from MMA_BLOCK_THREADS_MIN for K5 (block_threads_ok, the
+rule of nice_grid.cuh). A value outside the set raises in the wrapper, in
+the plain version and in the C entry; nothing clamps it. K2 keeps its block,
+as the TPU's uniques kernel took no block_rows.
+
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
 two. LAUNCHES counts launches, one per kernel launch and nowhere else.
@@ -63,6 +70,18 @@ DESC_WIDTH = 12
 # The plans K2, K3 and K5's detailed mode run on the plan tier: at most this
 # many limbs of n (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
 PLAN_TIER_LIMBS = 4
+
+# The block sizes of a grid-stride launch (nice_grid.cuh kWarp, kThreads,
+# kMmaMinThreads): whole warps up to the bound every kernel is compiled
+# under; K5 needs two warps at least (its setup's products on warp 0, T's
+# fill on the others). DEFAULT_BLOCK_THREADS is what a launch takes
+# untuned; STRIDED_BLOCK_THREADS is K3's, a module constant that only the
+# tuning harness varies (as the TPU's _STRIDED_BLOCK_ROWS_MAX).
+WARP = 32
+BLOCK_THREADS_MAX = 256
+MMA_BLOCK_THREADS_MIN = 64
+DEFAULT_BLOCK_THREADS = BLOCK_THREADS_MAX
+STRIDED_BLOCK_THREADS = DEFAULT_BLOCK_THREADS
 
 LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
             "niceonly_dense": 0, "detailed_megaloop_mma": 0,
@@ -111,6 +130,35 @@ def u32_divisor(d: int) -> tuple[int, int, int]:
         raise ValueError(f"divisor {d} outside [1, 2^32)")
     lg = (d - 1).bit_length()
     return ((1 << 32) * ((1 << lg) - d) // d + 1, min(lg, 1), max(lg - 1, 0))
+
+
+def block_threads_min(use_mxu: int) -> int:
+    """The least block size of K1/K3/K4 (use_mxu 0) or K5 (use_mxu 1)."""
+    return MMA_BLOCK_THREADS_MIN if use_mxu else WARP
+
+
+def block_threads_ok(block_threads: int, use_mxu: int = 0) -> bool:
+    """Whether the kernel takes blocks of this many threads (nice_grid.cuh
+    block_threads_ok)."""
+    return (block_threads_min(use_mxu) <= block_threads <= BLOCK_THREADS_MAX
+            and block_threads % WARP == 0)
+
+
+def admissible_block_threads(use_mxu: int = 0) -> tuple[int, ...]:
+    """Every block size the kernel takes, ascending."""
+    return tuple(range(block_threads_min(use_mxu), BLOCK_THREADS_MAX + 1,
+                       WARP))
+
+
+def check_block_threads(block_threads, use_mxu: int = 0) -> int:
+    """block_threads, or ValueError when the kernel does not take it."""
+    if (isinstance(block_threads, bool) or not isinstance(block_threads, int)
+            or not block_threads_ok(block_threads, use_mxu)):
+        kernel = "K5 takes" if use_mxu else "K1, K3 and K4 take"
+        raise ValueError(
+            f"block_threads {block_threads!r}: {kernel} a multiple of "
+            f"{WARP} from {block_threads_min(use_mxu)} to {BLOCK_THREADS_MAX}")
+    return block_threads
 
 
 def plan_tier_takes(plan: BasePlan) -> bool:
@@ -169,20 +217,26 @@ _TIERS = ("small", "generic", "dense", "plan")
 _PLAN_TIER_KERNELS = ("uniques", "strided_niceonly", "detailed_megaloop_mma")
 
 
-def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0) -> dict:
+def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0,
+                 block_threads: int = DEFAULT_BLOCK_THREADS) -> dict:
     """The launch shape the kernel takes on the current card (from the code
     its launch runs): grid blocks, threads a block, the blocks an SM holds
     at once at that size, the SMs, and the tier. a and b as the launch
     sees them: K1/K5 detailed and K2 a = lanes; K3 a = lanes a row, b =
-    rows; K4/K5 dense a = classes, b = valid_total."""
+    rows; K4/K5 dense a = classes, b = valid_total. block_threads as the
+    launch takes it (K2 keeps its own; K4 and K5's dense mode take fewer on
+    a small run)."""
     which, mma = _SHAPE_KERNELS[kernel]
+    check_block_threads(block_threads, mma)
     out = (ctypes.c_int * 5)()
     if kernel in _PLAN_TIER_KERNELS and plan_tier_takes(plan):
         lib = plan_library(plan)
-        rc = lib.nice_plan_launch_shape(which, plan_words(plan), a, b, out)
+        rc = lib.nice_plan_launch_shape(which, plan_words(plan), a, b,
+                                        block_threads, out)
     else:
         lib = cuda_build.load()
-        rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma, out)
+        rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma,
+                                   block_threads, out)
     _raise_on(lib, rc, f"{kernel} shape")
     return {"grid": out[0], "threads": out[1], "blocks_per_sm": out[2],
             "sms": out[3], "tier": _TIERS[out[4]]}
@@ -234,23 +288,26 @@ def _raise_on(lib, rc: int, kernel: str) -> None:
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
                             valid_total: int, use_mxu: int = 0,
-                            nm_out: torch.Tensor | None = None):
+                            nm_out: torch.Tensor | None = None,
+                            block_threads: int = DEFAULT_BLOCK_THREADS):
     """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1; on the plan
     tier where plan_tier_takes): n_iters * batch_size lanes from
     start_limbs, the first valid_total of them real,
     folded into hist_acc (int32[base+2], updated in place — the port's form
-    of JAX's donated accumulator). Returns (hist_acc, near-miss count as a
-    0-dim int32 tensor on the device). nm_out, on the card: a zeroed 0-dim
-    int32 device tensor to count into (a pipelined caller's ring slot), in
-    place of a fresh one."""
+    of JAX's donated accumulator), in blocks of block_threads threads.
+    Returns (hist_acc, near-miss count as a 0-dim int32 tensor on the
+    device). nm_out, on the card: a zeroed 0-dim int32 device tensor to
+    count into (a pipelined caller's ring slot), in place of a fresh one."""
     device = hist_acc.device
     _check(hist_acc, "hist_acc", torch.int32, (plan.base + 2,), device)
     _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
     total = batch_size * n_iters
     _check_mxu(plan, use_mxu, total)
+    check_block_threads(block_threads, use_mxu)
     if device.type == "cpu":
         return ve.detailed_accum_megaloop(plan, batch_size, n_iters, hist_acc,
-                                          start_limbs, valid_total, use_mxu)
+                                          start_limbs, valid_total, use_mxu,
+                                          block_threads)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     if not 0 <= valid_total <= total:
@@ -271,7 +328,8 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     with _on_device(device):
         rc = launch(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
-            hist_acc.data_ptr(), nm.data_ptr(), use_mxu, _stream(device),
+            hist_acc.data_ptr(), nm.data_ptr(), use_mxu, block_threads,
+            _stream(device),
         )
     name = "detailed_megaloop_mma" if use_mxu else "detailed_megaloop"
     _raise_on(lib, rc, name)
@@ -320,7 +378,9 @@ def survivors_batch(plan: BasePlan, batch_size: int, thresh: int, cap: int,
 def strided_niceonly_batch(plan: BasePlan, modulus: int,
                            residues: torch.Tensor, periods: int,
                            desc: torch.Tensor, n_real: int,
-                           min_uniques: int | None = None) -> torch.Tensor:
+                           min_uniques: int | None = None,
+                           block_threads: int = STRIDED_BLOCK_THREADS
+                           ) -> torch.Tensor:
     """K3: per-descriptor nice counts, int32[rows] on desc's device.
 
     desc: int64 [rows, 12] (rows <= STRIDED_DESC_MAX), u32 values: n0, lo and
@@ -329,7 +389,9 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
     lo <= n < hi and min_uniques <= num_uniques(n) <= base; rows at or past
     n_real are padding, are not launched, and count 0. min_uniques defaults
     to base, the nice test the search runs; a check passes a lower one so
-    that the counts are not all zero where nice numbers are absent."""
+    that the counts are not all zero where nice numbers are absent.
+    block_threads: the threads of a block (STRIDED_BLOCK_THREADS on the
+    main path; the tuning harness varies it)."""
     device = desc.device
     rows = desc.shape[0]
     _check(desc, "desc", torch.int64, (rows, DESC_WIDTH), device)
@@ -349,9 +411,11 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
         min_uniques = plan.base
     if not 0 <= min_uniques <= plan.base:
         raise ValueError(f"min_uniques {min_uniques} outside [0, {plan.base}]")
+    check_block_threads(block_threads)
     if device.type == "cpu":
         return ve.niceonly_strided_counts(plan, modulus, residues, periods,
-                                          desc, n_real, min_uniques)
+                                          desc, n_real, min_uniques,
+                                          block_threads)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     words = plan_words(plan)
@@ -364,7 +428,7 @@ def strided_niceonly_batch(plan: BasePlan, modulus: int,
         rc = lib.nice_plan_strided_niceonly(
             words, desc.data_ptr(), n_real, residues.data_ptr(), num_res,
             *u32_divisor(num_res), modulus, periods, min_uniques,
-            counts.data_ptr(), _stream(device),
+            counts.data_ptr(), block_threads, _stream(device),
         )
     _raise_on(lib, rc, "strided_niceonly")
     LAUNCHES["strided_niceonly"] += 1
@@ -390,7 +454,9 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             valid_total: int,
                             min_uniques: int | None = None,
                             use_mxu: int = 0,
-                            out: torch.Tensor | None = None) -> torch.Tensor:
+                            out: torch.Tensor | None = None,
+                            block_threads: int = DEFAULT_BLOCK_THREADS
+                            ) -> torch.Tensor:
     """K4 (use_mxu=0) or K5 in the dense mode (use_mxu=1): the candidates
     start + [0, valid_total) of an n_iters * batch_size megaloop whose n
     mod (b-1) is one of `classes` (int64, from niceonly_classes) are kept;
@@ -401,7 +467,9 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     the base's range does). An empty table launches nothing and gives
     [0, valid_total], what the TPU kernel gives after pruning every lane.
     out, on the card: a zeroed int32[2] device tensor to count into (a
-    pipelined caller's ring slot), in place of a fresh one."""
+    pipelined caller's ring slot), in place of a fresh one. block_threads:
+    the threads of a block (a run with fewer lanes than the SMs hold blocks
+    of it runs in blocks of 64, where that is fewer; launch_shape says)."""
     device = start_limbs.device
     _check(start_limbs, "start_limbs", torch.int64, (plan.limbs_n,), device)
     num_cls = classes.shape[0]
@@ -417,10 +485,11 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     if not 0 <= min_uniques <= plan.base:
         raise ValueError(f"min_uniques {min_uniques} outside [0, {plan.base}]")
     _check_mxu(plan, use_mxu, total)
+    check_block_threads(block_threads, use_mxu)
     if device.type == "cpu":
         return ve.niceonly_dense_megaloop(plan, batch_size, n_iters, classes,
                                           start_limbs, valid_total, min_uniques,
-                                          use_mxu)
+                                          use_mxu, block_threads)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     words = plan_words(plan)
@@ -435,7 +504,8 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     with _on_device(device):
         rc = lib.nice_niceonly_dense(
             words, start_limbs.data_ptr(), classes.data_ptr(), num_cls,
-            valid_total, min_uniques, use_mxu, out.data_ptr(), _stream(device),
+            valid_total, min_uniques, use_mxu, out.data_ptr(), block_threads,
+            _stream(device),
         )
     name = "niceonly_dense_mma" if use_mxu else "niceonly_dense"
     _raise_on(lib, rc, name)

@@ -153,20 +153,25 @@ def resolve_device(device) -> torch.device:
 
 def resolve_tuning(mode: str, base: int, device, batch_size: int | None = None,
                    segment: int | None = None, use_mxu: int | None = None,
-                   backend: str = "device") -> tuple[int, int, int]:
-    """(batch_size, segment, use_mxu) of one field: each an explicit
-    argument, else the tuned winner of (mode, base, device type)
+                   backend: str = "device", block_threads: int | None = None
+                   ) -> tuple[int, int, int, int]:
+    """(batch_size, segment, use_mxu, block_threads) of one field: each an
+    explicit argument, else the tuned winner of (mode, base, device type)
     (ops/autotune.py), else the default (DEFAULT_BATCH_SIZE,
-    MEGALOOP_SEGMENT_DEFAULT, 0). The explicit argument takes the place of
-    the JAX engine's NICE_TPU_* pin. use_mxu selects K5 in place of K1/K4;
-    it is forced to 0 where mxu.supports_plan rejects the base's plan, so a
-    stale winner or argument never selects a kernel that cannot take it.
-    backend "scalar" has none of these knobs and gets plain defaults.
+    MEGALOOP_SEGMENT_DEFAULT, 0, cuda_engine.DEFAULT_BLOCK_THREADS). The
+    explicit argument takes the place of the JAX engine's NICE_TPU_* pin.
+    use_mxu selects K5 in place of K1/K4; it is forced to 0 where
+    mxu.supports_plan rejects the base's plan, so a stale winner or argument
+    never selects a kernel that cannot take it. block_threads, the threads
+    of a block of K1/K4/K5 (JAX's block_rows), is not forced: a value the
+    resolved kernel does not take (cuda_engine.check_block_threads) raises,
+    whether an argument or a stale winner. backend "scalar" has none of
+    these knobs and gets plain defaults.
 
-    JAX's other knobs, block_rows and carry_interval, have no counterpart:
-    the kernels carry in 64-bit registers at a fixed block size."""
+    JAX's carry_interval has no counterpart: the kernels carry in 64-bit
+    registers."""
     if backend == "scalar":
-        return batch_size or DEFAULT_BATCH_SIZE, 1, 0
+        return batch_size or DEFAULT_BATCH_SIZE, 1, 0, ce.DEFAULT_BLOCK_THREADS
     dev = torch.device(device)
     batch = autotune.choose(mode, base, dev, "batch_size", DEFAULT_BATCH_SIZE,
                             batch_size)
@@ -175,7 +180,10 @@ def resolve_tuning(mode: str, base: int, device, batch_size: int | None = None,
     arm = autotune.choose(mode, base, dev, "use_mxu", 0, use_mxu)
     if arm and not mxu.supports_plan(get_plan(base)):
         arm = 0
-    return batch, max(1, seg), 1 if arm else 0
+    arm = 1 if arm else 0
+    threads = autotune.choose(mode, base, dev, "block_threads",
+                              ce.DEFAULT_BLOCK_THREADS, block_threads)
+    return batch, max(1, seg), arm, ce.check_block_threads(threads, arm)
 
 
 # The int32 histogram bins' budget: a flush hands the accumulator to the
@@ -215,8 +223,8 @@ def page_quantum(mode: str, base: int, *, device="cuda",
     at a multiple of it from its field's start starts and ends on a segment
     boundary of the field's uninterrupted detailed loop, so a page handoff
     never splits a segment."""
-    batch, seg, _ = resolve_tuning(mode, base, device, batch_size,
-                                   backend=backend)
+    batch, seg, _, _ = resolve_tuning(mode, base, device, batch_size,
+                                      backend=backend)
     # nicelint: allow C2 (ROADMAP queue 3: batch_size has a lower check only, as in the reference)
     return max(1, batch) * clamp_segment(seg, max(1, batch))
 
@@ -784,7 +792,8 @@ class _MeshFeed(_SliceFeed):
 def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
                        ring_waits: int, n_dev_start: int = 1,
                        n_dev_end: int = 1, reshards: int = 0,
-                       reshard_secs: float = 0.0) -> None:
+                       reshard_secs: float = 0.0, *,
+                       block_threads: int) -> None:
     g = np.asarray(gaps, dtype=np.float64)
     LAST_FEED_STATS.clear()
     LAST_FEED_STATS.update({
@@ -801,6 +810,7 @@ def _record_feed_stats(mode: str, gaps, dispatches: int, depth: int,
         "reshards": int(reshards),
         "reshard_secs": float(reshard_secs),
         "ring_waits": int(ring_waits),
+        "block_threads": int(block_threads),
     })
 
 
@@ -1022,6 +1032,7 @@ def process_range_detailed(
     batch_size: int | None = None,
     segment: int | None = None,
     use_mxu: int | None = None,
+    block_threads: int | None = None,
     progress=None,
     checkpoint_cb=None,
     resume=None,
@@ -1041,8 +1052,10 @@ def process_range_detailed(
     chunks of batch_size numbers when it checkpoints or resumes
     (_chunked_host_scan); backend "native" runs the host library on a pool
     of `threads` (None: one a core), and neither checkpoints nor resumes.
-    batch_size, segment and use_mxu (1: K5 in place of K1) resolve through
-    resolve_tuning: the argument, else the tuned winner, else the default.
+    batch_size, segment, use_mxu (1: K5 in place of K1) and block_threads
+    (the threads of a block of K1/K5) resolve through resolve_tuning: the
+    argument, else the tuned winner, else the default; LAST_FEED_STATS
+    records the block size that ran.
     feed_depth: segments the feed thread prepares ahead (0: inline).
     progress(done, total) is called after each dispatched segment.
 
@@ -1087,8 +1100,9 @@ def process_range_detailed(
                                   checkpoint_cb, resume, checkpoint_batches,
                                   checkpoint_secs)
     dev, mesh = resolve_mesh(resolve_device(device), devices, shard)
-    batch_size, seg, arm = resolve_tuning("detailed", base, dev, batch_size,
-                                          segment, use_mxu)
+    batch_size, seg, arm, bt = resolve_tuning(
+        "detailed", base, dev, batch_size, segment, use_mxu,
+        block_threads=block_threads)
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     # nicelint: allow C2 (ROADMAP queue 3: batch_size has a lower check only, as in the reference)
@@ -1137,7 +1151,8 @@ def process_range_detailed(
     if mesh is not None:
         return _detailed_on_mesh(
             range_, base, plan, core, mesh, hist, nice_numbers, segments,
-            batch_size=batch_size, seg=seg, progress=progress,
+            batch_size=batch_size, seg=seg, block_threads=bt,
+            progress=progress,
             checkpoint_cb=checkpoint_cb, checkpoint_batches=checkpoint_batches,
             checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
             elastic=elastic)
@@ -1225,7 +1240,8 @@ def process_range_detailed(
             def dispatch(item):
                 st["acc"], nm = ce.detailed_accum_megaloop(
                     plan, batch_size, seg, st["acc"], item.start,
-                    item.seg[1], arm, nm_out=readbacks.slot())
+                    item.seg[1], arm, nm_out=readbacks.slot(),
+                    block_threads=bt)
                 readbacks.add(nm, item.seg)
                 st["since_flush"] += 1
                 if len(readbacks) == FEED_BLOCK:
@@ -1257,7 +1273,8 @@ def process_range_detailed(
     ENGINE_READBACK_BYTES.labels("nm").inc(tally["nm_bytes"])
     ENGINE_READBACK_BYTES.labels("stats").inc(tally["stats_bytes"])
     ENGINE_STATS_TRANSFERS.labels("detailed").inc(tally["transfers"])
-    _record_feed_stats("detailed", gaps, n_batch, feed_depth, feed.ring.waits)
+    _record_feed_stats("detailed", gaps, n_batch, feed_depth, feed.ring.waits,
+                       block_threads=bt)
     collector.raise_if_failed()
     log.debug(
         "detailed b%d [%d, %d) on %s (batch %d x %d, use_mxu %d, feed depth "
@@ -1293,8 +1310,9 @@ class _MeshRun(NamedTuple):
 
 def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
                mesh: pmesh.Mesh, segments, *, batch_size: int, seg: int,
-               collector: _Collector, accumulate: bool, ticker, progress,
-               total: int, done: int, prof: stepprof.StepProfiler,
+               block_threads: int, collector: _Collector, accumulate: bool,
+               ticker, progress, total: int, done: int,
+               prof: stepprof.StepProfiler,
                feed_depth: int, elastic: bool) -> _MeshRun:
     """The dispatcher of a field on a mesh (detailed: accumulate, K1 a slice
     into its histogram row; dense: K4 a slice). partition_segments cuts the
@@ -1352,7 +1370,7 @@ def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
             MESH_SLICE_CURSOR.labels(str(d)).set(cur)
 
     try:
-        step = make(plan, batch_size, seg, mesh)
+        step = make(plan, batch_size, seg, mesh, block_threads)
         step.begin()
         fold = pmesh.make_sharded_stats_fold(mesh) if accumulate else None
         flush_every = _flush_every(lanes * mesh.size)
@@ -1458,7 +1476,7 @@ def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
             _invalidate_mesh_cache()
             prev_n = mesh.size
             mesh = _cached_mesh(tuple(survivors))
-            step = make(plan, batch_size, seg, mesh)
+            step = make(plan, batch_size, seg, mesh, block_threads)
             step.begin()
             fold = pmesh.make_sharded_stats_fold(mesh) if accumulate else None
             # seg stays fixed (the budget only grows as slices go), so the
@@ -1495,8 +1513,8 @@ def _mesh_loop(mode: str, plan: BasePlan, base: int, core: FieldSize,
 def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
                       core: FieldSize, mesh: pmesh.Mesh, hist: np.ndarray,
                       nice_numbers: list, segments, *, batch_size: int,
-                      seg: int, progress, checkpoint_cb, checkpoint_batches,
-                      checkpoint_secs, feed_depth: int,
+                      seg: int, block_threads: int, progress, checkpoint_cb,
+                      checkpoint_batches, checkpoint_secs, feed_depth: int,
                       elastic: bool) -> FieldResults:
     """process_range_detailed's core on a mesh of slices (_mesh_loop): the
     collector reads each slice's near-miss counts, re-scans a segment with
@@ -1567,6 +1585,7 @@ def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
                            prof=prof) as collector:
             run = _mesh_loop("detailed", plan, base, core, mesh, segments,
                              batch_size=batch_size, seg=seg,
+                             block_threads=block_threads,
                              collector=collector, accumulate=True,
                              ticker=ticker, progress=progress, total=total,
                              done=done0, prof=prof, feed_depth=feed_depth,
@@ -1582,7 +1601,8 @@ def _detailed_on_mesh(range_: FieldSize, base: int, plan: BasePlan,
     ENGINE_STATS_TRANSFERS.labels("detailed").inc(tally["transfers"])
     _record_feed_stats("detailed", run.gaps, run.dispatches, feed_depth,
                        run.ring_waits, run.n_dev_start, run.n_dev_end,
-                       run.reshards, run.reshard_secs)
+                       run.reshards, run.reshard_secs,
+                       block_threads=block_threads)
     if run.err is not None:
         failure, rem = run.err
         state = (ckpt_state(rem)
@@ -2032,6 +2052,8 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
                         counts, launched = step(packed, k_real)
                     else:
                         desc = ring.upload(packed)
+                        # At K3's module block size, the wrapper's default
+                        # (ce.STRIDED_BLOCK_THREADS): no winner sets it.
                         counts = ce.strided_niceonly_batch(
                             plan, modulus, residues, periods, desc, k_real)
                         launched = None
@@ -2073,6 +2095,7 @@ def _niceonly_strided(core: FieldSize, base: int, s: StridedSetup, dev,
         descriptors=n_desc, groups=n_groups, gen=t_gen, disp=t_disp,
         put=t_put, nice=len(nice), filter_threads=filter_threads,
         first_group=first_group, n_dev=n_dev,
+        block_threads=ce.STRIDED_BLOCK_THREADS,
     )
     log.info(
         "niceonly b%d [%d, %d): wall %.3fs | msd %.3fs busy (floor %d, %d "
@@ -2094,6 +2117,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
                     batch_size: int | None = None,
                     segment: int | None = None,
                     use_mxu: int | None = None,
+                    block_threads: int | None = None,
                     checkpoint_batches: int | None = None,
                     checkpoint_secs: float | None = None,
                     feed_depth: int = FEED_DEPTH_DEFAULT,
@@ -2108,9 +2132,10 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     The MSD filter (the "dense" floor controller's floor) turns the core
     into surviving ranges up front; each is cut into runs of at most
     batch_size * segment lanes, and K4 (K5 where use_mxu resolves to 1; the
-    shape comes from resolve_tuning) counts each run's nice lanes among the
-    residue classes the congruence keeps (the TPU's fused mode: the count
-    equals the unfused one's, since no other class holds a nice number). The
+    shape, block_threads included, comes from resolve_tuning) counts each
+    run's nice lanes among the residue classes the congruence keeps (the
+    TPU's fused mode: the count equals the unfused one's, since no other
+    class holds a nice number). The
     collector reads each run's [count, pruned] from pinned memory and sends
     a run that counts any through rare_scan_survivors (K2 above base - 1),
     which must find as many. progress(done, total) follows the dispatched
@@ -2121,8 +2146,9 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     "filtered" has its remaining segments scanned as they are (the filters'
     gaps are proven empty), any other is filtered again."""
     plan = get_plan(base)
-    batch_size, seg, arm = resolve_tuning("niceonly", base, dev, batch_size,
-                                          segment, use_mxu)
+    batch_size, seg, arm, bt = resolve_tuning(
+        "niceonly", base, dev, batch_size, segment, use_mxu,
+        block_threads=block_threads)
     # nicelint: allow C2 (ROADMAP queue 3; past the domain K4's wrapper raises)
     seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
     lanes = batch_size * seg
@@ -2147,7 +2173,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     total = sum(e - s for s, e in segments)
     if mesh is not None:
         _dense_on_mesh(core, base, plan, mesh, nice_numbers, segments, prof,
-                       batch_size=batch_size, seg=seg, progress=progress,
+                       batch_size=batch_size, seg=seg, block_threads=bt,
+                       progress=progress,
                        checkpoint_cb=checkpoint_cb,
                        checkpoint_batches=checkpoint_batches,
                        checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
@@ -2215,7 +2242,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
             def dispatch(item):
                 out = ce.niceonly_dense_megaloop(
                     plan, batch_size, seg, classes, item.start, item.seg[1],
-                    use_mxu=arm, out=readbacks.slot())
+                    use_mxu=arm, out=readbacks.slot(), block_threads=bt)
                 readbacks.add(out, item.seg)
                 runs.append(item.seg)
                 if len(readbacks) == FEED_BLOCK:
@@ -2243,7 +2270,8 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
     ENGINE_BATCH_KERNEL_SECONDS.labels("dense").observe_many(item_secs)
     ENGINE_READBACK_BYTES.labels("count").inc(8 * len(runs))
     ENGINE_FILTER_PRUNED.labels("niceonly", str(base)).inc(tally["pruned"])
-    _record_feed_stats("niceonly", gaps, n_batch, feed_depth, feed.ring.waits)
+    _record_feed_stats("niceonly", gaps, n_batch, feed_depth, feed.ring.waits,
+                       block_threads=bt)
     collector.raise_if_failed()
     if ran_filter:
         ctrl.observe(msd_secs, loop_secs, core.size())
@@ -2257,7 +2285,7 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
         runs=len(runs), lanes=done, kept=tally["kept"],
         pruned=tally["pruned"], classes=int(classes.shape[0]),
         launches=ce.LAUNCHES[kernel] - launches0, batch_size=batch_size,
-        segment=seg, use_mxu=arm, feed_depth=feed_depth,
+        segment=seg, use_mxu=arm, block_threads=bt, feed_depth=feed_depth,
         nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
         median_run=median,
     )
@@ -2273,9 +2301,10 @@ def _niceonly_dense(core: FieldSize, base: int, dev, nice_numbers: list, *,
 def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
                    mesh: pmesh.Mesh, nice_numbers: list, segments,
                    prof: stepprof.StepProfiler, *,
-                   batch_size: int, seg: int, progress, checkpoint_cb,
-                   checkpoint_batches, checkpoint_secs, feed_depth: int,
-                   elastic: bool, msd_secs: float, floor: int, ctrl) -> None:
+                   batch_size: int, seg: int, block_threads: int, progress,
+                   checkpoint_cb, checkpoint_batches, checkpoint_secs,
+                   feed_depth: int, elastic: bool, msd_secs: float,
+                   floor: int, ctrl) -> None:
     """The dense loop's runs on a mesh of slices (_mesh_loop): the collector
     reads each slice's [count, pruned] a block at a time and re-scans a run
     that counts any through K2 on its slice's device, stream and rare-path
@@ -2339,6 +2368,7 @@ def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
                            prof=prof) as collector:
             run = _mesh_loop("niceonly", plan, base, core, mesh, segments,
                              batch_size=batch_size, seg=seg,
+                             block_threads=block_threads,
                              collector=collector, accumulate=False,
                              ticker=ticker, progress=progress, total=total,
                              done=0, prof=prof, feed_depth=feed_depth,
@@ -2354,7 +2384,8 @@ def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
     ENGINE_FILTER_PRUNED.labels("niceonly", str(base)).inc(tally["pruned"])
     _record_feed_stats("niceonly", run.gaps, run.dispatches, feed_depth,
                        run.ring_waits, run.n_dev_start, run.n_dev_end,
-                       run.reshards, run.reshard_secs)
+                       run.reshards, run.reshard_secs,
+                       block_threads=block_threads)
     if run.err is not None:
         failure, rem = run.err
         state = (ckpt_state(rem)
@@ -2373,7 +2404,8 @@ def _dense_on_mesh(core: FieldSize, base: int, plan: BasePlan,
         kept=tally["kept"], pruned=tally["pruned"],
         classes=int(ce.niceonly_classes(plan, True, "cpu").shape[0]),
         launches=ce.LAUNCHES["niceonly_dense"] - launches0,
-        batch_size=batch_size, segment=seg, use_mxu=0, feed_depth=feed_depth,
+        batch_size=batch_size, segment=seg, use_mxu=0,
+        block_threads=block_threads, feed_depth=feed_depth,
         nice=len(nice_numbers) - nice0, first_run=runs[0] if runs else None,
         median_run=median, n_dev=run.n_dev_start,
     )
@@ -2395,6 +2427,7 @@ def process_range_niceonly(
     batch_size: int | None = None,
     segment: int | None = None,
     use_mxu: int | None = None,
+    block_threads: int | None = None,
     progress=None,
     checkpoint_cb=None,
     resume=None,
@@ -2422,10 +2455,11 @@ def process_range_niceonly(
     engine on `threads` (the host route; None: HOST_NICEONLY_MAX on a CUDA
     device, 0 on the CPU); LAST_NICEONLY_STATS["route"] says which ran.
     Bases above (b98 and up) take the dense loop (K4, _niceonly_dense).
-    batch_size, segment and use_mxu (1: K5 in place of K4) shape the dense
-    loop's runs through resolve_tuning; the strided pipeline's shapes come
-    from the MSD floor (K3 has no tensor-core arm), and it takes none of
-    them; feed_depth is the dense loop's (runs its feed thread prepares
+    batch_size, segment, use_mxu (1: K5 in place of K4) and block_threads
+    shape the dense loop's runs through resolve_tuning; the strided
+    pipeline's shapes come from the MSD floor (K3 has no tensor-core arm,
+    and its block size is cuda_engine.STRIDED_BLOCK_THREADS), and it takes
+    none of them; feed_depth is the dense loop's (runs its feed thread prepares
     ahead, 0: inline).
     checkpoint_cb fires on a ticker, every checkpoint_batches descriptor
     groups or runs or checkpoint_secs seconds (CKPT_EVERY_BATCHES /
@@ -2495,16 +2529,17 @@ def process_range_niceonly(
         _niceonly_dense(core, base, dev, nice_numbers, progress=progress,
                         checkpoint_cb=checkpoint_cb, resume=resume,
                         batch_size=batch_size, segment=segment,
-                        use_mxu=use_mxu, checkpoint_batches=checkpoint_batches,
+                        use_mxu=use_mxu, block_threads=block_threads,
+                        checkpoint_batches=checkpoint_batches,
                         checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
                         mesh=mesh, elastic=elastic)
         ENGINE_NUMBERS.labels("niceonly").inc(range_.size())
         nice_numbers.sort(key=lambda n: n.number)
         return FieldResults(distribution=(), nice_numbers=tuple(nice_numbers))
 
-    if (batch_size, segment, use_mxu) != (None, None, None):
+    if (batch_size, segment, use_mxu, block_threads) != (None,) * 4:
         raise ValueError(f"base {base} takes the strided pipeline, which has "
-                         "no batch_size, segment or use_mxu")
+                         "no batch_size, segment, use_mxu or block_threads")
     if resume is not None:
         # The pipeline scans one contiguous core: resume from the lowest
         # uncovered number, dropping restored numbers the rescan will find

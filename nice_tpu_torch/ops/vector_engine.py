@@ -263,17 +263,31 @@ def lane_limbs(plan: BasePlan, start_limbs: torch.Tensor, lanes: int) -> list:
     return add_u32([start_limbs[i] for i in range(plan.limbs_n)], g)
 
 
+def check_block_threads(block_threads: int | None, use_mxu: int = 0) -> None:
+    """The kernels' block-size rule (cuda_engine.check_block_threads) for a
+    plain version: it raises where the kernel's C entry refuses the size.
+    None is the default size. The plain versions' results do not depend on
+    the size: a kernel's bins and counts are integer sums over its blocks."""
+    from nice_tpu_torch.ops import cuda_engine  # it imports this module
+
+    if block_threads is not None:
+        cuda_engine.check_block_threads(block_threads, use_mxu)
+
+
 def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             hist_acc: torch.Tensor, start_limbs: torch.Tensor,
-                            valid_total: int, use_mxu: int = 0):
+                            valid_total: int, use_mxu: int = 0,
+                            block_threads: int | None = None):
     """Plain twin of the detailed megaloop kernel (K1), and with use_mxu=1
-    of its tensor-core arm (K5, whose products come from mxu.py).
+    of its tensor-core arm (K5, whose products come from mxu.py), at any
+    block size the kernel takes (check_block_threads).
 
     Lanes start + [0, valid_total) are real candidates; their num_uniques
     histogram (bins 0..base+1) is added IN PLACE to hist_acc (int32
     [base+2]), and the n_iters * batch_size - valid_total padding lanes land
     in bin 0 without being computed — what the JAX megaloop's masked lanes
     add. Returns (hist_acc, near-miss count as a 0-dim int32 tensor)."""
+    check_block_threads(block_threads, use_mxu)
     total = batch_size * n_iters
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
@@ -353,8 +367,10 @@ def strided_offsets(modulus: int, residues: torch.Tensor, periods: int):
 def niceonly_strided_counts(plan: BasePlan, modulus: int,
                             residues: torch.Tensor, periods: int,
                             desc: torch.Tensor, n_real: int,
-                            min_uniques: int | None = None):
-    """Plain twin of the strided niceonly kernel (K3).
+                            min_uniques: int | None = None,
+                            block_threads: int | None = None):
+    """Plain twin of the strided niceonly kernel (K3), at any block size it
+    takes (check_block_threads).
 
     desc: int64 [rows, 12], u32 values: n0, lo and hi as four limbs each,
     LSW first. residues: the stride table's residues modulo `modulus`, int64.
@@ -366,6 +382,7 @@ def niceonly_strided_counts(plan: BasePlan, modulus: int,
     padding and stay 0. Descriptors go in chunks of about
     STRIDED_CHUNK_LANES candidates, and only the candidates inside [lo, hi)
     reach the digit work."""
+    check_block_threads(block_threads)
     rows = desc.shape[0]
     if min_uniques is None:
         min_uniques = plan.base
@@ -423,9 +440,11 @@ DENSE_CHUNK_LANES = 1 << 18
 def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             classes: torch.Tensor, start_limbs: torch.Tensor,
                             valid_total: int, min_uniques: int | None = None,
-                            use_mxu: int = 0):
+                            use_mxu: int = 0,
+                            block_threads: int | None = None):
     """Plain twin of the dense niceonly kernel (K4), in both TPU modes, and
-    with use_mxu=1 of its tensor-core arm (K5, products from mxu.py).
+    with use_mxu=1 of its tensor-core arm (K5, products from mxu.py), at any
+    block size the kernel takes (check_block_threads).
 
     Lanes start + [0, valid_total) of an n_iters * batch_size megaloop are
     the candidates. Every lane's n mod (b-1) is held against `classes` (the
@@ -435,6 +454,7 @@ def niceonly_dense_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     (min_uniques defaults to base, the nice test). Returns int32 [count,
     pruned], pruned being the lanes that are not kept. Lanes go in chunks
     of DENSE_CHUNK_LANES, and only kept lanes reach the digit work."""
+    check_block_threads(block_threads, use_mxu)
     total = batch_size * n_iters
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from nice_tpu_torch.obs.series import MESH_DEVICES
+from nice_tpu_torch.ops.cuda_engine import DEFAULT_BLOCK_THREADS
 from nice_tpu_torch.utils import lockdep
 
 
@@ -340,9 +341,11 @@ class _LoopStep:
 class ShardedAccumStep(_LoopStep):
     """K1 a slice (make_sharded_megaloop_accum_step)."""
 
-    def __init__(self, plan, batch_size: int, seg: int, mesh: Mesh):
+    def __init__(self, plan, batch_size: int, seg: int, mesh: Mesh,
+                 block_threads: int):
         self.plan, self.batch_size, self.seg, self.mesh = (plan, batch_size,
                                                            seg, mesh)
+        self.block_threads = block_threads
         restore = mesh.saved_streams()
         try:
             self.loops = [_SliceLoop(plan, mesh, d, (), plan.base + 2,
@@ -359,20 +362,24 @@ class ShardedAccumStep(_LoopStep):
         lp = self.loops[d]
         lp.acc, nm = ce.detailed_accum_megaloop(
             self.plan, self.batch_size, self.seg, lp.acc, start, valid, 0,
-            nm_out=lp.readbacks.slot())
+            nm_out=lp.readbacks.slot(), block_threads=self.block_threads)
         return nm
 
 
-def make_sharded_megaloop_accum_step(plan, batch_size: int, seg: int,
-                                     mesh: Mesh) -> ShardedAccumStep:
+def make_sharded_megaloop_accum_step(
+        plan, batch_size: int, seg: int, mesh: Mesh,
+        block_threads: int = DEFAULT_BLOCK_THREADS) -> ShardedAccumStep:
     """The detailed step: each slice runs K1 over its own (start, valid)
-    segment of batch_size * seg lanes, on its stream, into its own int32
+    segment of batch_size * seg lanes in blocks of block_threads threads
+    (the field's resolved size), on its stream, into its own int32
     histogram row, which stays on its device until make_sharded_stats_fold
     folds the rows (one fold a flush, as the reference's one psum a
     field). Each slice's near-miss counts are read back a block at a time
     from its own readbacks."""
-    return _step_cached("stats-accum-mega", mesh, (plan, batch_size, seg),
-                        lambda: ShardedAccumStep(plan, batch_size, seg, mesh))
+    return _step_cached("stats-accum-mega", mesh,
+                        (plan, batch_size, seg, block_threads),
+                        lambda: ShardedAccumStep(plan, batch_size, seg, mesh,
+                                                 block_threads))
 
 
 def make_sharded_stats_fold(mesh: Mesh):
@@ -428,11 +435,13 @@ def _build_fold(mesh: Mesh):
 class ShardedCountStep(_LoopStep):
     """K4 a slice (make_sharded_megaloop_count_step)."""
 
-    def __init__(self, plan, batch_size: int, seg: int, mesh: Mesh):
+    def __init__(self, plan, batch_size: int, seg: int, mesh: Mesh,
+                 block_threads: int):
         from nice_tpu_torch.ops import cuda_engine as ce
 
         self.plan, self.batch_size, self.seg, self.mesh = (plan, batch_size,
                                                            seg, mesh)
+        self.block_threads = block_threads
         restore = mesh.saved_streams()
         try:
             self.loops = [_SliceLoop(plan, mesh, d, (2,), 0, _window(mesh))
@@ -449,19 +458,24 @@ class ShardedCountStep(_LoopStep):
 
         return ce.niceonly_dense_megaloop(
             self.plan, self.batch_size, self.seg, self.classes[d], start,
-            valid, use_mxu=0, out=self.loops[d].readbacks.slot())
+            valid, use_mxu=0, out=self.loops[d].readbacks.slot(),
+            block_threads=self.block_threads)
 
 
-def make_sharded_megaloop_count_step(plan, batch_size: int, seg: int,
-                                     mesh: Mesh) -> ShardedCountStep:
+def make_sharded_megaloop_count_step(
+        plan, batch_size: int, seg: int, mesh: Mesh,
+        block_threads: int = DEFAULT_BLOCK_THREADS) -> ShardedCountStep:
     """The dense niceonly step: each slice runs K4 (the fused mode: the
     residue classes the congruence keeps) over its own (start, valid) run
-    of batch_size * seg lanes, on its stream. Where the reference psums the
+    of batch_size * seg lanes in blocks of block_threads threads, on its
+    stream. Where the reference psums the
     slices' counts and re-scans every slice's run on a nonzero total, each
     slice's [count, pruned] is read back with its run, so the collector
     re-scans only the runs that count and holds each to its own count."""
-    return _step_cached("stats-mega", mesh, (plan, batch_size, seg),
-                        lambda: ShardedCountStep(plan, batch_size, seg, mesh))
+    return _step_cached("stats-mega", mesh,
+                        (plan, batch_size, seg, block_threads),
+                        lambda: ShardedCountStep(plan, batch_size, seg, mesh,
+                                                 block_threads))
 
 
 class ShardedStridedStep:
@@ -522,7 +536,8 @@ def make_sharded_strided_step(plan, base: int, k: int, modulus: int,
                               periods: int, desc_max: int,
                               mesh: Mesh) -> ShardedStridedStep:
     """The strided niceonly step: a group of up to desc_max * n descriptors
-    split into one K3 launch a slice, each on its stream; the per-
+    split into one K3 launch a slice, each on its stream, at K3's module
+    block size (cuda_engine.STRIDED_BLOCK_THREADS); the per-
     descriptor counts are concatenated in descriptor order, not reduced
     (the host needs every descriptor's count to pick its re-scans)."""
     return _step_cached(

@@ -154,10 +154,13 @@ K5_SPLIT = {
     "small_tier": {"register": [(
         "nice_kernels.cu",
         "    if (plan_tier_takes(p)) return kPlanTierOnly;\n"
-        "    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma, s);",
+        "    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma,\n"
+        "                                          block_threads, s);",
         "    const int rc = tier == 0\n"
-        "        ? launch_k5<SmallTier>(p, st, valid_total, pad, h, n, mma, s)\n"
-        "        : launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma, s);")]},
+        "        ? launch_k5<SmallTier>(p, st, valid_total, pad, h, n, mma,\n"
+        "                               block_threads, s)\n"
+        "        : launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma,\n"
+        "                                 block_threads, s);")]},
     "fill_skipped": {"register": [(
         "nice_kernels.cuh",
         "    k5_fill(sh, nt_sq, nt, false);",
@@ -217,7 +220,8 @@ def build_facts(lib_path: str, nvcc_log: str) -> dict:
 
 # K1 on the plan tier, a recorded variant: appended to a copy of a tree's
 # plan_kernels.cu, it launches K1 with the base's plan as constants, as
-# nice_detailed_megaloop does with mma = 0.
+# nice_detailed_megaloop does with mma = 0 (at kThreads a block; THREADS_ARG
+# is the argument a tree whose launches take a block size needs).
 K1_PLAN_ENTRY = r"""
 extern "C" int nice_plan_detailed_megaloop(const uint64_t* plan_words,
                                            const void* start,
@@ -228,10 +232,42 @@ extern "C" int nice_plan_detailed_megaloop(const uint64_t* plan_words,
   if (!this_plan(plan_words)) return kOtherPlan;
   launch_k1<PlanTier>(plan_from_words(plan_words), (const int64_t*)start,
                       valid_total, pad, (int32_t*)hist, (int32_t*)nm,
-                      (cudaStream_t)stream);
+                      THREADS_ARG (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 """
+
+
+def takes_block_threads(csrc: str) -> bool:
+    """Whether a tree's launches take a block size (block_threads, an
+    argument before the stream); a parent tree's may not."""
+    with open(os.path.join(csrc, "nice_kernels.cu")) as f:
+        return "int block_threads" in f.read()
+
+
+# The entries whose ctypes binding a tree without block_threads lacks, and
+# the argument's position from the end (before the stream, or before
+# launch_shape's out).
+_BLOCK_ARG = ("nice_detailed_megaloop", "nice_niceonly_dense",
+              "nice_plan_strided_niceonly", "nice_plan_detailed_megaloop_mma",
+              "nice_launch_shape", "nice_plan_launch_shape")
+
+
+def bind_tree(lib, csrc: str) -> tuple:
+    """cuda_build.bind for a tree's library, the block_threads argument
+    dropped where the tree's entries lack it. Returns the arguments a call
+    passes for it: (DEFAULT_BLOCK_THREADS,) or ()."""
+    from nice_tpu_torch.ops import cuda_build
+    from nice_tpu_torch.ops import cuda_engine as ce
+
+    cuda_build.bind(lib)
+    if takes_block_threads(csrc):
+        return (ce.DEFAULT_BLOCK_THREADS,)
+    for name in _BLOCK_ARG:
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
+    return ()
 
 
 def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
@@ -248,7 +284,8 @@ def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
         shutil.copytree(csrc, copy)
         # nicelint: allow A1 (a scratch copy of the sources)
         with open(os.path.join(copy, "plan_kernels.cu"), "a") as f:
-            f.write(entry)
+            f.write(entry.replace("THREADS_ARG", "kThreads,"
+                                  if takes_block_threads(csrc) else ""))
         csrc = copy
     # nicelint: allow A1 (a build input in a scratch directory)
     with open(os.path.join(out_dir, cuda_build.PLAN_HEADER), "w") as f:
@@ -257,7 +294,7 @@ def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
     info = cuda_build.nvcc_library(lib_path, cuda_build.PLAN_SOURCES, csrc,
                                    (out_dir,))
     lib = ctypes.CDLL(lib_path)
-    cuda_build.bind(lib)
+    bind_tree(lib, csrc)
     return lib, dict(build_facts(lib_path, info["ptxas"]),
                      nvcc_secs=info["seconds"])
 
@@ -297,7 +334,10 @@ def build(name: str, csrc: str, out_dir: str, k5_only: bool = False) -> dict:
                          for b in (40, 80) if f"plan_b{b}" in plans},
            "facts": {"main": build_facts(lib_path, info["ptxas"]),
                      **{k: facts for k, (_, facts) in plans.items()}}}
-    cuda_build.bind(out["lib"])
+    out["bt"] = bind_tree(out["lib"], csrc)
+    out["main_nvcc_secs"] = info["seconds"]
+    out["plan_nvcc_secs"] = {k: facts["nvcc_secs"]
+                             for k, (_, facts) in plans.items()}
     if "plan_b40_k1" in plans:
         k1 = plans["plan_b40_k1"][0].nice_plan_detailed_megaloop
         k1.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p,
@@ -450,12 +490,13 @@ def main(argv=None) -> int:
         nm510 = torch.zeros((), dtype=torch.int32, device=dev)
         _launched(builds[0]["lib"].nice_detailed_megaloop(
             plan_words(builds[0]["names"], p510), st510.data_ptr(), lanes, 0,
-            h510.data_ptr(), nm510.data_ptr(), 0, stream), "K1")
+            h510.data_ptr(), nm510.data_ptr(), 0, *builds[0]["bt"], stream),
+            "K1")
         want510 = (h510.clone(), int(nm510))
         lines = []
         for rnd in range(args.rounds):
             for b in (builds if rnd % 2 == 0 else builds[::-1]):
-                lib, names = b["lib"], b["names"]
+                lib, names, bt = b["lib"], b["names"], b["bt"]
                 w40, w98 = plan_words(names, p40), plan_words(names, p98)
                 h = hist.clone()
                 nm = torch.zeros((), dtype=torch.int32, device=dev)
@@ -466,9 +507,9 @@ def main(argv=None) -> int:
                 w510 = plan_words(names, p510)
                 h5 = torch.zeros(p510.base + 2, dtype=torch.int32, device=dev)
 
-                def k1(fn=lib.nice_detailed_megaloop, mma=(0,)):
+                def k1(fn=lib.nice_detailed_megaloop, mma=(0,), bt=bt):
                     _launched(fn(w40, st40.data_ptr(), lanes, 0, h.data_ptr(),
-                                 nm.data_ptr(), *mma, stream), "K1")
+                                 nm.data_ptr(), *mma, *bt, stream), "K1")
 
                 def k2(base):
                     plan = get_plan(base)
@@ -489,7 +530,7 @@ def main(argv=None) -> int:
                         rc = plib.nice_plan_strided_niceonly(
                             words, d.data_ptr(), n_real, res.data_ptr(), r,
                             *ce.u32_divisor(r), m, s.periods, min_u,
-                            counts.data_ptr(), stream)
+                            counts.data_ptr(), *bt, stream)
                     else:
                         rc = lib.nice_strided_niceonly(
                             words, d.data_ptr(), n_real, res.data_ptr(), r, m,
@@ -500,7 +541,8 @@ def main(argv=None) -> int:
                     out4.zero_()
                     _launched(lib.nice_niceonly_dense(
                         w98, st98.data_ptr(), cls.data_ptr(), cls.shape[0],
-                        valid, p98.base, mma, out4.data_ptr(), stream), "K4")
+                        valid, p98.base, mma, out4.data_ptr(), *bt, stream),
+                        "K4")
 
                 plib40 = b["plan_libs"].get(40)
 
@@ -509,7 +551,7 @@ def main(argv=None) -> int:
                 # which also runs each block's setup alone (mma = 2).
                 plan_k5 = lib.nice_detailed_megaloop(
                     w40, st40.data_ptr(), 0, 0, h.data_ptr(), nm.data_ptr(),
-                    1, stream) == K_PLAN_TIER_ONLY
+                    1, *bt, stream) == K_PLAN_TIER_ONLY
 
                 def k5(mma=1):
                     if plan_k5:
@@ -520,7 +562,7 @@ def main(argv=None) -> int:
                 def b510(mma):
                     _launched(lib.nice_detailed_megaloop(
                         w510, st510.data_ptr(), lanes, 0, h5.data_ptr(),
-                        nm.data_ptr(), mma, stream), "K1/K5 b510")
+                        nm.data_ptr(), mma, *bt, stream), "K1/K5 b510")
 
                 # K5 first: a --k5-split tree times it alone.
                 h.zero_()
@@ -597,7 +639,7 @@ def main(argv=None) -> int:
                 if "k1_plan" in b:
                     # K1 on the plan tier at b40: a recorded variant.
                     def k1_plan():
-                        k1(b["k1_plan"], ())
+                        k1(b["k1_plan"], (), ())
 
                     h.zero_()
                     nm.zero_()
@@ -608,7 +650,10 @@ def main(argv=None) -> int:
                         k1_plan, 20, "detailed_megaloop_kernel")
                 line["exact"] = exact and k5_exact
                 if rnd == 0:
-                    line.update(nvcc_secs=b["nvcc_secs"], facts=b["facts"],
+                    line.update(nvcc_secs=b["nvcc_secs"],
+                                main_nvcc_secs=b["main_nvcc_secs"],
+                                plan_nvcc_secs=b["plan_nvcc_secs"],
+                                facts=b["facts"],
                                 k3_groups={base: {"rows": n_real, "k": s.k,
                                                   "periods": s.periods}
                                            for base, (s, n_real, _, _)

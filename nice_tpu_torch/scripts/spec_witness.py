@@ -12,7 +12,8 @@ prints one {"kernelspec": {...}} line and exits 0 when every check holds:
    m * 2^(32j); the range's first and last windows; K3's descriptors
    across the same edges, at the nice test and about the median of
    num_uniques) go through the kernel and through its plain version on the
-   same device: every difference must be 0;
+   same device: every difference must be 0, at the default block size and
+   again at the kernel's least one (K1, K3 and K4 one warp, K5 two);
 2. the clamp's edge: one K1 launch at b40 with batch * n_iters at
    clamp_segment's largest value for the default batch (about 2^30 lanes),
    whose bins must sum to its lanes and equal the same lanes run in
@@ -20,7 +21,8 @@ prints one {"kernelspec": {...}} line and exits 0 when every check holds:
 3. the error paths must raise: K5 past 2^31 lanes, the main library's K5
    on a plan-tier plan (kPlanTierOnly), a per-base library asked for
    another plan (kOtherPlan), K5's shared memory past kMmaSmemMax
-   (kNoSmem), a base with base + 2 > 2048;
+   (kNoSmem), a base with base + 2 > 2048, and a block size outside the
+   rule at each C entry that takes one (kBadThreads) and at its wrapper;
 4. tiers: launch_shape's tier for each kernel at the probe bases must be
    the one the spec predicts (a kernel the per-base library runs, at the
    bases given a library).
@@ -33,6 +35,7 @@ count launches set the counts to 0 after.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -75,7 +78,8 @@ def _shape(plan) -> tuple[int, int]:
     return (BATCH, WINDOWS) if plan.limbs_n <= 8 else (BATCH // 2, WINDOWS // 2)
 
 
-def _detailed(plan, shape, dev, mma: int, rng) -> tuple[int, int]:
+def _detailed(plan, shape, dev, mma: int, rng,
+              threads: int) -> tuple[int, int]:
     batch, windows = _shape(plan)
     lanes = batch * N_ITERS
     diff = cases = 0
@@ -86,7 +90,8 @@ def _detailed(plan, shape, dev, mma: int, rng) -> tuple[int, int]:
             rng.integers(0, 1000, plan.base + 2, dtype=np.int32)).to(dev)
         h_k, nm_k = ce.detailed_accum_megaloop(plan, batch, N_ITERS,
                                                acc0.clone(), st, valid,
-                                               use_mxu=mma)
+                                               use_mxu=mma,
+                                               block_threads=threads)
         h_p, nm_p = ve.detailed_accum_megaloop(plan, batch, N_ITERS,
                                                acc0.clone(), st, valid,
                                                use_mxu=mma)
@@ -107,7 +112,8 @@ def _uniques(plan, shape, dev) -> tuple[int, int]:
     return diff, cases
 
 
-def _dense(plan, shape, dev, mma: int, rng) -> tuple[int, int]:
+def _dense(plan, shape, dev, mma: int, rng,
+           threads: int) -> tuple[int, int]:
     classes = ce.niceonly_classes(plan, True, str(dev))
     diff = cases = 0
     for start in ks.witness_starts(shape, DENSE_BATCH * N_ITERS, WINDOWS):
@@ -116,7 +122,8 @@ def _dense(plan, shape, dev, mma: int, rng) -> tuple[int, int]:
         for min_u in (plan.base, check_min_uniques(plan.base)):
             got = ce.niceonly_dense_megaloop(plan, DENSE_BATCH, N_ITERS,
                                              classes, st, valid, min_u,
-                                             use_mxu=mma)
+                                             use_mxu=mma,
+                                             block_threads=threads)
             want = ve.niceonly_dense_megaloop(plan, DENSE_BATCH, N_ITERS,
                                               classes, st, valid, min_u,
                                               use_mxu=mma)
@@ -139,7 +146,7 @@ def strided_rows(shape, modulus: int, periods: int) -> list:
     return rows
 
 
-def _strided(plan, shape, dev) -> tuple[int, int, int]:
+def _strided(plan, shape, dev, threads: int) -> tuple[int, int, int]:
     table = stride_filter.get_stride_table(plan.base, 1)
     res = torch.from_numpy(table.residues_u32.astype(np.int64)).to(dev)
     rows = strided_rows(shape, table.modulus, K3_PERIODS)
@@ -151,7 +158,8 @@ def _strided(plan, shape, dev) -> tuple[int, int, int]:
     diff = counted = 0
     for min_u in (plan.base, check_min_uniques(plan.base)):
         got = ce.strided_niceonly_batch(plan, table.modulus, res, K3_PERIODS,
-                                        desc, len(rows), min_u)
+                                        desc, len(rows), min_u,
+                                        block_threads=threads)
         want = ve.niceonly_strided_counts(plan, table.modulus, res,
                                           K3_PERIODS, desc, len(rows), min_u)
         diff = max(diff, _diff(got, want))
@@ -161,8 +169,9 @@ def _strided(plan, shape, dev) -> tuple[int, int, int]:
 
 def witnesses(dev, names=None) -> dict:
     """The witnesses of every launch spec (or of those named) through the
-    kernel and its plain version: {spec: {"b<base>[/mma]": {max_abs_diff,
-    cases, tier}}}."""
+    kernel and its plain version, at the default block size and at the
+    kernel's least: {spec: {"b<base>[/mma][@threads]": {max_abs_diff,
+    cases, tier}}} (no @threads: the default; K2 takes none)."""
     rng = np.random.default_rng(SEED)
     out: dict = {}
     for spec in ks.all_specs().values():
@@ -174,22 +183,31 @@ def witnesses(dev, names=None) -> dict:
             if tier is None:
                 raise AssertionError(f"{spec.name}: witness base {base} "
                                      f"(mma {mma}) is not one it takes")
-            if spec.name in ("nice_detailed_megaloop",
-                             "nice_plan_detailed_megaloop_mma"):
-                diff, cases = _detailed(plan, shape, dev, mma, rng)
-                extra = {}
-            elif spec.name in ("nice_uniques", "nice_plan_uniques"):
-                diff, cases = _uniques(plan, shape, dev)
-                extra = {}
-            elif spec.name == "nice_niceonly_dense":
-                diff, cases = _dense(plan, shape, dev, mma, rng)
-                extra = {}
-            else:
-                diff, cases, counted = _strided(plan, shape, dev)
-                extra = {"counted": counted}
-            key = f"b{base}" + ("/mma" if mma else "")
-            out.setdefault(spec.name, {})[key] = {
-                "max_abs_diff": diff, "cases": cases, "tier": tier, **extra}
+            sizes = (ce.DEFAULT_BLOCK_THREADS, ce.block_threads_min(mma))
+            if spec.name in ("nice_uniques", "nice_plan_uniques"):
+                sizes = sizes[:1]
+            for threads in sizes:
+                if spec.name in ("nice_detailed_megaloop",
+                                 "nice_plan_detailed_megaloop_mma"):
+                    diff, cases = _detailed(plan, shape, dev, mma, rng,
+                                            threads)
+                    extra = {}
+                elif spec.name in ("nice_uniques", "nice_plan_uniques"):
+                    diff, cases = _uniques(plan, shape, dev)
+                    extra = {}
+                elif spec.name == "nice_niceonly_dense":
+                    diff, cases = _dense(plan, shape, dev, mma, rng, threads)
+                    extra = {}
+                else:
+                    diff, cases, counted = _strided(plan, shape, dev,
+                                                    threads)
+                    extra = {"counted": counted}
+                key = f"b{base}" + ("/mma" if mma else "")
+                if threads != ce.DEFAULT_BLOCK_THREADS:
+                    key += f"@{threads}"
+                out.setdefault(spec.name, {})[key] = {
+                    "max_abs_diff": diff, "cases": cases, "tier": tier,
+                    **extra}
     return out
 
 
@@ -253,7 +271,7 @@ def error_paths(dev) -> dict:
         lib = cuda_build.load()
         rc = lib.nice_detailed_megaloop(ce.plan_words(p40), st.data_ptr(), 64,
                                         0, acc.data_ptr(), nm.data_ptr(), 1,
-                                        stream)
+                                        ce.DEFAULT_BLOCK_THREADS, stream)
         if rc != ks.RETURN_CODES["kPlanTierOnly"]:
             raise AssertionError(f"rc {rc}, not kPlanTierOnly")
         ce._raise_on(lib, rc, "detailed_megaloop_mma")
@@ -281,6 +299,77 @@ def error_paths(dev) -> dict:
         ("main_k5_on_plan_tier", main_k5_on_plan_tier),
         ("other_plan", other_plan), ("k5_smem", k5_smem),
         ("base_past_2048_bins", hist_bins))}
+    out.update(bad_block_threads(dev))
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def bad_block_threads(dev) -> dict:
+    """A block size outside the rule at every C entry that takes one (it
+    must return kBadThreads before launching; its wrapper's check is
+    bypassed here) and at each wrapper: {name: what it raised}."""
+    p40, p98 = get_plan(40), get_plan(98)
+    st40 = ve.start_limbs_tensor(p40.range_start, p40, dev)
+    st98 = ve.start_limbs_tensor(p98.range_start, p98, dev)
+    acc = torch.zeros(p40.base + 2, dtype=torch.int32, device=dev)
+    nm = torch.zeros((), dtype=torch.int32, device=dev)
+    out2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    counts = torch.zeros(1, dtype=torch.int32, device=dev)
+    desc = torch.zeros((1, ks.DESC_WIDTH), dtype=torch.int64, device=dev)
+    res = torch.ones(1, dtype=torch.int64, device=dev)
+    classes = ce.niceonly_classes(p98, True, str(dev))
+    stream = ce._stream(st40.device)  # an indexed device: dev may be "cuda"
+    main, plan40 = cuda_build.load(), ce.plan_library(p40)
+    shape = (ctypes.c_int * 5)()
+    w40, w98 = ce.plan_words(p40), ce.plan_words(p98)
+    entries = {
+        "nice_detailed_megaloop": (main, lambda t, mma: (
+            w98, st98.data_ptr(), 64, 0,
+            torch.zeros(p98.base + 2, dtype=torch.int32,
+                        device=dev).data_ptr(), nm.data_ptr(), mma, t,
+            stream)),
+        "nice_plan_detailed_megaloop_mma": (plan40, lambda t, mma: (
+            w40, st40.data_ptr(), 64, 0, acc.data_ptr(), nm.data_ptr(), 1, t,
+            stream)),
+        "nice_niceonly_dense": (main, lambda t, mma: (
+            w98, st98.data_ptr(), classes.data_ptr(), classes.shape[0], 64,
+            p98.base, mma, out2.data_ptr(), t, stream)),
+        "nice_plan_strided_niceonly": (plan40, lambda t, mma: (
+            w40, desc.data_ptr(), 1, res.data_ptr(), 1,
+            *ce.u32_divisor(1), 1, 1, p40.base, counts.data_ptr(), t,
+            stream)),
+        "nice_launch_shape": (main, lambda t, mma: (
+            0, w40, 1 << 21, 0, mma, t, shape)),
+        "nice_plan_launch_shape": (plan40, lambda t, mma: (
+            2 - 2 * mma, w40, 1 << 10, 4, t, shape)),
+    }
+    out = {}
+    for name, (lib, args) in entries.items():
+        for mma in ks.SPECS[name].modes:
+            for t in (0, ks.block_threads_min(mma) - ks.WARP // 2,
+                      ks.THREADS + ks.WARP):
+                def call(name=name, lib=lib, args=args, t=t, mma=mma):
+                    rc = getattr(lib, name)(*args(t, mma))
+                    if rc != ks.RETURN_CODES["kBadThreads"]:
+                        raise AssertionError(f"rc {rc}, not kBadThreads")
+                    ce._raise_on(lib, rc, name)
+
+                out[f"{name}/mma{mma}@{t}"] = _raises(call)
+    wrappers = {
+        "detailed_accum_megaloop": lambda t: ce.detailed_accum_megaloop(
+            p40, 64, 1, acc, st40, 64, block_threads=t),
+        "detailed_accum_megaloop/mma": lambda t: ce.detailed_accum_megaloop(
+            p40, 64, 1, acc, st40, 64, use_mxu=1, block_threads=t),
+        "niceonly_dense_megaloop": lambda t: ce.niceonly_dense_megaloop(
+            p98, 64, 1, classes, st98, 64, block_threads=t),
+        "strided_niceonly_batch": lambda t: ce.strided_niceonly_batch(
+            p40, 1, res, 1, desc, 1, block_threads=t),
+        "launch_shape": lambda t: ce.launch_shape(
+            "detailed_megaloop", p40, 1 << 21, block_threads=t),
+    }
+    for name, fn in wrappers.items():
+        bad = 32 if name.endswith("/mma") else 48
+        out[f"{name}@{bad}"] = _raises(lambda fn=fn, bad=bad: fn(bad))
     torch.cuda.synchronize(dev)
     return out
 

@@ -15,6 +15,7 @@ import pytest
 from nice_tpu.ops import autotune as jautotune
 from nice_tpu.ops import engine as jengine
 from nice_tpu_torch.ops import autotune, engine, mxu
+from nice_tpu_torch.ops.cuda_engine import DEFAULT_BLOCK_THREADS
 from nice_tpu_torch.ops.limbs import get_plan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,7 +60,8 @@ def test_choose_defaults_when_untuned():
     assert autotune.choose("detailed", 40, "cpu", "batch_size", 123) == 123
     assert autotune.EVENTS["miss"] == 1 and autotune.EVENTS["hit"] == 0
     assert engine.resolve_tuning("detailed", 40, "cpu") == (
-        engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT, 0)
+        engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT, 0,
+        DEFAULT_BLOCK_THREADS)
 
 
 def test_record_then_choose_roundtrip():
@@ -139,14 +141,16 @@ def test_corrupt_table_reads_as_empty():
 def test_resolve_tuning_precedence():
     autotune.record("detailed", 40, "cpu",
                     {"batch_size": 4096, "megaloop": 4, "use_mxu": 1})
-    assert engine.resolve_tuning("detailed", 40, "cpu") == (4096, 4, 1)
-    assert engine.resolve_tuning("detailed", 40, "cpu", 512) == (512, 4, 1)
-    assert engine.resolve_tuning("detailed", 40, "cpu", use_mxu=0) == (4096, 4, 0)
+    bt = DEFAULT_BLOCK_THREADS
+    assert engine.resolve_tuning("detailed", 40, "cpu") == (4096, 4, 1, bt)
+    assert engine.resolve_tuning("detailed", 40, "cpu", 512) == (512, 4, 1, bt)
+    assert engine.resolve_tuning("detailed", 40, "cpu", use_mxu=0) == (
+        4096, 4, 0, bt)
     # The untuned mode and the scalar backend take the defaults.
     assert engine.resolve_tuning("niceonly", 40, "cpu") == (
-        engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT, 0)
+        engine.DEFAULT_BATCH_SIZE, engine.MEGALOOP_SEGMENT_DEFAULT, 0, bt)
     assert engine.resolve_tuning("detailed", 40, "cpu", backend="scalar") == (
-        engine.DEFAULT_BATCH_SIZE, 1, 0)
+        engine.DEFAULT_BATCH_SIZE, 1, 0, bt)
     assert engine.resolve_tuning("detailed", 40, "cpu", 64, backend="scalar")[0] == 64
 
 
@@ -184,7 +188,10 @@ def test_use_mxu_forced_off_past_the_bound(monkeypatch):
 
 def test_resolver_parity_with_jax(tmp_path, monkeypatch):
     """The same winners and pins in both packages resolve to the same
-    (batch, segment, use_mxu): JAX's resolve_tuning fields 0, 4 and 3."""
+    (batch, segment, use_mxu): JAX's resolve_tuning fields 0, 4 and 3. (The
+    port's fourth, block_threads, is the counterpart of JAX's field 1,
+    block_rows; their units differ, threads against rows of 128 lanes, and
+    tests/test_torch_block_threads.py holds its precedence.)"""
     monkeypatch.setenv("NICE_TPU_AUTOTUNE_FILE", str(tmp_path / "jax.json"))
     for var in JAX_PINS:
         monkeypatch.delenv(var, raising=False)
@@ -195,7 +202,7 @@ def test_resolver_parity_with_jax(tmp_path, monkeypatch):
         return r[0], r[4], r[3]
 
     def port(batch=None, **kw):
-        return engine.resolve_tuning("detailed", 40, "cpu", batch, **kw)
+        return engine.resolve_tuning("detailed", 40, "cpu", batch, **kw)[:3]
 
     try:
         assert port() == jax_fields()
@@ -217,22 +224,22 @@ def test_resolver_parity_with_jax(tmp_path, monkeypatch):
         monkeypatch.setattr(engine, "get_plan", lambda b: get_plan(1100))
         assert port(segment=2, use_mxu=1) == jax_fields() == (4096, 2, 0)
         r = jengine.resolve_tuning("detailed", 40, "scalar")
-        assert engine.resolve_tuning("detailed", 40, "cpu", backend="scalar") \
-            == (r[0], r[4], r[3])
+        assert engine.resolve_tuning("detailed", 40, "cpu",
+                                     backend="scalar")[:3] == (r[0], r[4], r[3])
     finally:
         jautotune.reset_for_tests()
 
 
 def test_sweep_records_a_winner_a_fresh_process_reads():
     """autotune.sweep over 2 configs of a 1e4 slice runs the harness in a
-    subprocess and records the faster; a fresh Python process pointed at the
-    table resolves the winner as a hit."""
+    subprocess and records the faster, block size included; a fresh Python
+    process pointed at the table resolves the winner as a hit."""
     won = autotune.sweep("detailed", "cpu", bench_mode="default",
                          batch_shifts=[10, 11], segments=[2], mxu="off",
                          slice_size=10_000, timeout=300)
     assert autotune.EVENTS["sweep"] == 1 and autotune.EVENTS["store"] == 1
     assert won["batch_size"] in (1024, 2048) and won["megaloop"] == 2
-    assert won["use_mxu"] == 0
+    assert won["use_mxu"] == 0 and won["block_threads"] == DEFAULT_BLOCK_THREADS
     entry = _table()["detailed|b40|cpu"]
     assert entry["params"] == won and len(entry["swept"]) == 2
     code = ("import json; from nice_tpu_torch.ops import autotune, engine; "
@@ -242,8 +249,8 @@ def test_sweep_records_a_winner_a_fresh_process_reads():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
     resolved, events = json.loads(out)
-    assert resolved == [won["batch_size"], 2, 0]
-    assert events["hit"] == 3 and events["miss"] == 0
+    assert resolved == [won["batch_size"], 2, 0, DEFAULT_BLOCK_THREADS]
+    assert events["hit"] == 4 and events["miss"] == 0
 
 
 def test_sweep_raises_when_a_config_fails():

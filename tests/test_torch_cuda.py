@@ -934,3 +934,134 @@ def test_launch_shape_tiers_equal_the_spec_on_card(card):
     drift = {k: {b: t for b, t in v.items() if t[0] != t[1]}
              for k, v in tiers.items()}
     assert not any(drift.values()), drift
+
+
+# -- the block size (block_threads) --------------------------------------------
+
+def _k3_inputs(card, base):
+    """A ragged b40/b80 descriptor table at its depth-1 stride table."""
+    plan = get_plan(base)
+    table = stride_filter.get_stride_table(base, 1)
+    res = torch.from_numpy(table.residues_u32.astype(np.int64)).to(card)
+    periods, m = 16, table.modulus
+    lo = plan.range_start + 12345
+    desc = np.zeros((8, kernelspec.DESC_WIDTH), dtype=np.int64)
+    for row in range(6):
+        n0 = lo // m * m + row * periods * m
+        for k, x in enumerate((n0, lo + row, lo + 5 * periods * m)):
+            desc[row, 4 * k:4 * k + 4] = int_to_limbs(x, 4)
+    return plan, m, res, periods, torch.from_numpy(desc).to(card)
+
+
+BLOCK_CASES = [("k1", 40), ("k1", 80), ("k1", 510), ("k5", 40), ("k5", 510),
+               ("k3", 40), ("k3", 80), ("k4", 98), ("k5_dense", 98)]
+
+
+@pytest.mark.parametrize("kernel,base", BLOCK_CASES)
+def test_every_block_size_equals_the_plain_version_on_card(card, kernel, base):
+    """Each kernel at every admissible block size (K5 from 64) against its
+    plain version, exact, at a check threshold where K3 and K4 count."""
+    plan = get_plan(base)
+    mxu = int(kernel.startswith("k5"))
+    min_u = (5 * base + 7) // 8
+    rng = np.random.default_rng(base)
+    if kernel in ("k1", "k5"):
+        batch, n_iters = 512, 3
+        valid = batch * n_iters - int(rng.integers(1, batch))
+        st = ve.start_limbs_tensor(plan.range_start + 777, plan, card)
+        want = ve.detailed_accum_megaloop(
+            plan, batch, n_iters, torch.zeros(base + 2, dtype=torch.int32,
+                                              device=card), st, valid, mxu)
+    elif kernel == "k3":
+        plan, m, res, periods, desc = _k3_inputs(card, base)
+        want = ve.niceonly_strided_counts(plan, m, res, periods, desc, 6,
+                                          min_u)
+        assert int(want.sum()) > 0
+    else:
+        classes = ce.niceonly_classes(plan, True, str(card))
+        st = ve.start_limbs_tensor(plan.range_start + 999, plan, card)
+        want = ve.niceonly_dense_megaloop(plan, 1 << 12, 4, classes, st,
+                                          (1 << 14) - 33, min_u, mxu)
+    for threads in ce.admissible_block_threads(mxu):
+        if kernel in ("k1", "k5"):
+            got = ce.detailed_accum_megaloop(
+                plan, batch, n_iters, torch.zeros(base + 2, dtype=torch.int32,
+                                                  device=card), st, valid,
+                mxu, block_threads=threads)
+            assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+        elif kernel == "k3":
+            got = ce.strided_niceonly_batch(plan, m, res, periods, desc, 6,
+                                            min_u, block_threads=threads)
+            assert torch.equal(got, want), threads
+        else:
+            got = ce.niceonly_dense_megaloop(plan, 1 << 12, 4, classes, st,
+                                             (1 << 14) - 33, min_u, mxu,
+                                             block_threads=threads)
+            assert torch.equal(got, want), threads
+
+
+def test_launch_shape_takes_the_block_size_on_card(card):
+    """launch_shape reports the block size asked for (K2 keeps 256; K4 and
+    K5's dense mode take 64 on a run smaller than the SMs' blocks of it),
+    and at 256 the parent's shape: one resident wave of 256-thread blocks."""
+    p40, p98 = get_plan(40), get_plan(98)
+    seg = 1 << 21
+    for threads in ce.admissible_block_threads():
+        k1 = ce.launch_shape("detailed_megaloop", p40, seg,
+                             block_threads=threads)
+        assert k1["threads"] == threads
+        assert k1["grid"] == k1["blocks_per_sm"] * k1["sms"]
+        k3 = ce.launch_shape("strided_niceonly", p40, 17408, 1024,
+                             block_threads=threads)
+        assert k3["threads"] == threads
+        assert k3["grid"] == -(-17408 // threads) * 1024
+        assert ce.launch_shape("uniques", p40, 1 << 18,
+                               block_threads=threads)["threads"] == 256
+        full = ce.launch_shape("niceonly_dense", p98, 2, seg,
+                               block_threads=threads)
+        assert full["threads"] == threads
+        small = ce.launch_shape("niceonly_dense", p98, 2, 10_000,
+                                block_threads=threads)
+        lanes = 2 * -(-10_000 // 97)
+        assert small["threads"] == (
+            64 if threads > 64 and lanes < small["sms"] * threads else threads)
+    for threads in ce.admissible_block_threads(1):
+        assert ce.launch_shape("detailed_megaloop_mma", p40, seg,
+                               block_threads=threads)["threads"] == threads
+        assert ce.launch_shape("niceonly_dense_mma", p98, 2, seg,
+                               block_threads=threads)["threads"] == threads
+    default = ce.launch_shape("detailed_megaloop", p40, seg)
+    assert default == ce.launch_shape("detailed_megaloop", p40, seg,
+                                      block_threads=256)
+    assert default["threads"] == 256
+
+
+def test_bad_block_sizes_raise_at_the_c_entries_on_card(card):
+    from nice_tpu_torch.scripts import spec_witness
+
+    errors = spec_witness.bad_block_threads(card)
+    assert errors and all(errors.values()), errors
+    assert all("admissible set" in v for k, v in errors.items()
+               if k.startswith("nice_")), errors
+
+
+def test_engine_at_a_tuned_block_size_equals_the_default_on_card(card):
+    plan = get_plan(40)
+    rng = FieldSize(plan.range_start, plan.range_start + 5_000_000)
+    want = engine.process_range_detailed(rng, 40, device=card)
+    for threads in (32, 128):
+        got = engine.process_range_detailed(rng, 40, device=card,
+                                            block_threads=threads)
+        assert got == want
+        assert engine.LAST_FEED_STATS["block_threads"] == threads
+    adaptive_floor.reset_for_tests(pinned=4096)
+    try:
+        start = 413428759798923141071530212209627033363
+        dense = FieldSize(start, start + 2_000_000)
+        want = engine.process_range_niceonly(dense, 98, device=card)
+        got = engine.process_range_niceonly(dense, 98, device=card,
+                                            block_threads=64)
+        assert got == want
+        assert engine.LAST_NICEONLY_STATS["block_threads"] == 64
+    finally:
+        adaptive_floor.reset_for_tests()

@@ -85,6 +85,20 @@ def test_copied_tree_is_clean(tmp_path):
     ("nice_tpu_torch/ops/cuda_engine.py", "launch = lib.nice_plan_uniques",
      "launch = lib.nice_plan_uniques_v2",
      "unspecced-entry:nice_plan_uniques_v2"),
+    # The block size: a Python admissible set that disagrees with the CUDA
+    # source's (half warps, or K5 from one warp), the CUDA rule moved
+    # alone, and a C entry that stops refusing a size outside it.
+    ("nice_tpu_torch/ops/cuda_engine.py",
+     "            and block_threads % WARP == 0)",
+     "            and block_threads % (WARP // 2) == 0)",
+     "block-rule-drift:py:mma0"),
+    ("nice_tpu_torch/ops/cuda_engine.py", "MMA_BLOCK_THREADS_MIN = 64",
+     "MMA_BLOCK_THREADS_MIN = 32", "block-rule-drift:py:mma1"),
+    ("nice_tpu_torch/csrc/nice_grid.cuh", "constexpr int kMmaMinThreads = 64;",
+     "constexpr int kMmaMinThreads = 32;", "block-rule-drift:cuda:mma1"),
+    ("nice_tpu_torch/csrc/plan_kernels.cu",
+     "  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;\n",
+     "", "block-check-missing:nice_plan_strided_niceonly"),
 ])
 def test_c6_flags_seeded_drift(tmp_path, rel, old, new, finding):
     root = _copy(tmp_path)

@@ -33,6 +33,7 @@ from nice_tpu_torch.client import main as client
 from nice_tpu_torch.core.types import FieldResults, FieldSize
 from nice_tpu_torch.obs.history import HistoryStore
 from nice_tpu_torch.ops import autotune, engine
+from nice_tpu_torch.ops import cuda_engine as ce
 
 BASE = 17
 BATCH = 256
@@ -469,10 +470,12 @@ def test_tenant_report_rows():
     assert rows == [
         {"tenant": "canon", "key": f"detailed|b{BASE}|cpu", "tuned": True,
          "batch_size": BATCH, "megaloop": SEGMENT, "use_mxu": 0,
+         "block_threads": ce.DEFAULT_BLOCK_THREADS,
          "page_quantum": BATCH * SEGMENT},
         {"tenant": "wide", "key": "niceonly|b50|cpu", "tuned": False,
          "batch_size": engine.DEFAULT_BATCH_SIZE,
          "megaloop": engine.MEGALOOP_SEGMENT_DEFAULT, "use_mxu": 0,
+         "block_threads": ce.DEFAULT_BLOCK_THREADS,
          "page_quantum": engine.DEFAULT_BATCH_SIZE
          * engine.MEGALOOP_SEGMENT_DEFAULT},
     ]
