@@ -461,6 +461,12 @@ SHARED_STATE: Tuple[SharedState, ...] = (
                 "lock:obs.pyprof._lock"),
     SharedState("nice_tpu_torch/obs/pyprof.py", "<module>", "_started",
                 "lock:obs.pyprof._started_lock"),
+    # obs/trace.py — the span sink, written (and rotated) by every thread
+    # that ends a span, the prefetch's library builds included.
+    SharedState("nice_tpu_torch/obs/trace.py", "<module>", "_sink",
+                "lock:obs.trace._lock"),
+    SharedState("nice_tpu_torch/obs/trace.py", "<module>", "_sink_bytes",
+                "lock:obs.trace._lock"),
 )
 
 

@@ -386,54 +386,74 @@ def process_field(data: DataToClient, args, *, checkpointer=None,
     args.checkpoint_secs); resume: a validated state from its load() or
     find_resumable, to continue from instead of restarting the scan. A
     detailed field's libraries are built (engine.warm_detailed) before the
-    timed window, as the JAX client warms its executables."""
+    timed window, as the JAX client warms its executables.
+
+    The whole call is one client.process_field span (under --profile-dir,
+    inside the capture), tiled by three steps: client.prepare (the engine's
+    arguments, the device, the libraries), client.engine (the engine's
+    call, its engine.detailed span inside) and client.report (the series,
+    the journal's phases event, the log line); a recorded field
+    (obs.trace.field) keeps their seconds."""
     mode = mode if mode is not None else _mode(args)
-    kwargs = {"device": args.device, "backend": args.backend,
-              "progress": _progress_logger(args.progress_secs),
-              "threads": args.threads or None, **_mesh_kwargs(args)}
-    if checkpointer is not None or resume is not None:
-        kwargs.update(checkpoint_cb=(checkpointer.save if checkpointer
-                                     else None),
-                      resume=resume, checkpoint_batches=args.checkpoint_batches,
-                      checkpoint_secs=args.checkpoint_secs)
-    if mode == SearchMode.DETAILED:
-        if args.backend == "device":
-            engine.resolve_device(args.device)  # no card: raise, not build
-            engine.warm_detailed(data.base, device=args.device,
-                                 devices=args.devices)
-        process = engine.process_range_detailed
-        kwargs["batch_size"] = args.batch_size
-    else:
-        process = engine.process_range_niceonly
-        kwargs["host_niceonly_max"] = args.host_niceonly_max
-        if engine.niceonly_takes_batch(data.base, args.backend):
-            kwargs["batch_size"] = args.batch_size
     mode_label = "detailed" if mode == SearchMode.DETAILED else "niceonly"
-    profiled0 = stepprof.finished()
-    t0 = time.monotonic()
-    with obs.span("client.process_field", base=data.base,
-                  size=data.range_size, mode=mode_label,
-                  backend=args.backend), obs.profiler("process_field"):
-        results = process(data.to_field_size(), data.base, **kwargs)
-    elapsed = time.monotonic() - t0
-    CLIENT_FIELD_SECONDS.labels(mode_label).observe(elapsed)
-    CLIENT_FIELDS.labels(mode_label).inc()
-    CLIENT_NUMBERS.inc(data.range_size)
-    if stepprof.finished() > profiled0:
-        # The field's phase breakdown, keyed to its claim, for the server's
-        # critical-path waterfall: only when a profiled loop ran this field
-        # (the strided and host niceonly routes have none).
-        lb = dict(stepprof.LAST_BREAKDOWN)
-        if lb.get("base") == data.base:
-            phases = {p: round(float(lb.get(p, 0.0) or 0.0), 6)
-                      for p in stepprof.PHASES}
-            journal.record_client_event(
-                "phases", claim_id=data.claim_id,
-                wall=round(float(lb.get("wall", elapsed) or elapsed), 6),
-                **phases)
-    rate = data.range_size / elapsed if elapsed > 0 else float("inf")
-    log.info("processed %s numbers in %.2fs (%s numbers/sec)",
-             f"{data.range_size:,}", elapsed, f"{rate:,.0f}")
+    with obs.profiler("process_field"), \
+            trace.field(data.base, data.range_start, data.range_end) as rec, \
+            obs.span("client.process_field", base=data.base,
+                     size=data.range_size, mode=mode_label,
+                     backend=args.backend):
+        steps = rec.steps()
+        steps.to("client.prepare")
+        try:
+            kwargs = {"device": args.device, "backend": args.backend,
+                      "progress": _progress_logger(args.progress_secs),
+                      "threads": args.threads or None, **_mesh_kwargs(args)}
+            if checkpointer is not None or resume is not None:
+                kwargs.update(checkpoint_cb=(checkpointer.save if checkpointer
+                                             else None),
+                              resume=resume,
+                              checkpoint_batches=args.checkpoint_batches,
+                              checkpoint_secs=args.checkpoint_secs)
+            if mode == SearchMode.DETAILED:
+                if args.backend == "device":
+                    # No card: raise, not build.
+                    engine.resolve_device(args.device)
+                    engine.warm_detailed(data.base, device=args.device,
+                                         devices=args.devices)
+                process = engine.process_range_detailed
+                kwargs["batch_size"] = args.batch_size
+            else:
+                process = engine.process_range_niceonly
+                kwargs["host_niceonly_max"] = args.host_niceonly_max
+                if engine.niceonly_takes_batch(data.base, args.backend):
+                    kwargs["batch_size"] = args.batch_size
+            profiled0 = stepprof.finished()
+            steps.to("client.engine")
+            t0 = time.monotonic()
+            results = process(data.to_field_size(), data.base, **kwargs)
+            elapsed = time.monotonic() - t0
+            steps.to("client.report")
+            CLIENT_FIELD_SECONDS.labels(mode_label).observe(elapsed)
+            CLIENT_FIELDS.labels(mode_label).inc()
+            CLIENT_NUMBERS.inc(data.range_size)
+            if stepprof.finished() > profiled0:
+                # The field's phase breakdown, keyed to its claim, for the
+                # server's critical-path waterfall: only when a profiled
+                # loop ran this field (the strided and host niceonly routes
+                # have none).
+                lb = dict(stepprof.LAST_BREAKDOWN)
+                if lb.get("base") == data.base:
+                    phases = {p: round(float(lb.get(p, 0.0) or 0.0), 6)
+                              for p in stepprof.PHASES}
+                    journal.record_client_event(
+                        "phases", claim_id=data.claim_id,
+                        wall=round(float(lb.get("wall", elapsed) or elapsed),
+                                   6),
+                        **phases)
+            rate = data.range_size / elapsed if elapsed > 0 else float("inf")
+            log.info("processed %s numbers in %.2fs (%s numbers/sec)",
+                     f"{data.range_size:,}", elapsed, f"{rate:,.0f}")
+        finally:
+            steps.to(None)
     return results, elapsed
 
 

@@ -6,7 +6,12 @@ nice_tpu/obs, with the reference's public names, series and wire formats).
 - ``series``: the well-known series names, declared once.
 - ``trace``: ``span(name)`` / ``trace_event`` JSON trace events, the
   claim-derived ``trace_context`` carried as a W3C ``traceparent`` header,
-  and ``profiler``, a torch.profiler capture.
+  ``profiler``, a torch.profiler capture, and ``field``, the field record:
+  a field whose entry finds a sink configured or torch's profiler recording
+  (no flag of its own) keeps its spans, phase steps and the engine's
+  per-item sums by name, in a bounded ring (``field_records``) and, with a
+  sink, as one ``field`` event; under the profiler each is also a profiler
+  range on the capture's clock.
 - ``flight``: bounded in-process ring of recent structured events, dumped
   atomically on crash / SIGUSR2 / spool quarantine.
 - ``journal``: the client-side lifecycle events that ride on telemetry.

@@ -29,7 +29,7 @@ import subprocess
 import threading
 import time
 
-from nice_tpu_torch.obs import stepprof
+from nice_tpu_torch.obs import stepprof, trace
 from nice_tpu_torch.utils import lockdep
 
 log = logging.getLogger(__name__)
@@ -58,6 +58,10 @@ BUILD_INFO: dict = {}
 # process loaded, as BUILD_INFO's, by header.
 _plan_locks: dict = {}
 PLAN_BUILDS: dict = {}
+# Every build or load of a library in this process (load()'s first, each
+# load_plan, so each plan_library miss), not a cached return: their count
+# and wall seconds, nvcc's included. Each runs in a build.load span.
+LOADS = {"count": 0, "seconds": 0.0}
 
 
 def find_nvcc() -> str:
@@ -229,12 +233,18 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib_path = os.path.join(BUILD_DIR, build_key(find_nvcc()), LIB_NAME)
-        info = _built(lib_path, SOURCES)
-        lib = ctypes.PyDLL(lib_path)  # calls keep the GIL (LOAD_NOTE)
-        bind(lib)
+        t0 = time.perf_counter()
+        with trace.span("build.load", lib="main") as end:
+            lib_path = os.path.join(BUILD_DIR, build_key(find_nvcc()),
+                                    LIB_NAME)
+            info = _built(lib_path, SOURCES)
+            lib = ctypes.PyDLL(lib_path)  # calls keep the GIL (LOAD_NOTE)
+            bind(lib)
+            end["built"] = info["seconds"] > 0
         BUILD_INFO.update(info)
         _lib = lib
+        LOADS["count"] += 1
+        LOADS["seconds"] += time.perf_counter() - t0
         return lib
 
 
@@ -282,8 +292,15 @@ def load_plan(header: str):
         lock = _plan_locks.setdefault(
             header, lockdep.make_lock("ops.cuda_build._plan_locks"))
     with lock:
-        info = build_plan(header)
-        lib = ctypes.PyDLL(info["path"])  # calls keep the GIL (LOAD_NOTE)
-        bind(lib)
+        t0 = time.perf_counter()
+        with trace.span("build.load", lib="plan") as end:
+            info = build_plan(header)
+            lib = ctypes.PyDLL(info["path"])  # calls keep the GIL (LOAD_NOTE)
+            bind(lib)
+            end["built"] = info["seconds"] > 0
         PLAN_BUILDS[header] = info
-        return lib
+        seconds = time.perf_counter() - t0
+    with _lock:
+        LOADS["count"] += 1
+        LOADS["seconds"] += seconds
+    return lib

@@ -65,6 +65,14 @@ drained, so no registry lock is taken a segment. The detailed and dense
 loops carry the device-step profiler (obs/stepprof.py): h2d_feed around
 the feed's get, device_compute and a fence after each dispatch, readback
 and fold on the collector; off, it costs one attribute check an item.
+On one device a detailed field's engine.detailed span runs from the
+route's choice to the return, tiled by the steps engine.setup (tuning,
+slivers, rings, threads), engine.loop, engine.drain (the last hand-offs
+to the collector's join) and engine.finish; when the field is recorded
+(obs.trace.field: a sink, or torch's profiler at its entry) the
+collector's items and rare.scan are profiler ranges, and the same clock
+reads the loop takes for its gaps sum its gets, launches and waits into
+the record. Off, that costs the loop one boolean check an item.
 """
 
 from __future__ import annotations
@@ -92,7 +100,7 @@ from nice_tpu_torch.core.types import (
     UniquesDistributionSimple,
 )
 from nice_tpu_torch.faults import injector as faults
-from nice_tpu_torch.obs import stepprof
+from nice_tpu_torch.obs import stepprof, trace
 from nice_tpu_torch.obs.series import (
     CKPT_BATCHES_SKIPPED,
     CKPT_RESTORES,
@@ -312,15 +320,20 @@ class _Collector:
     raise_if_failed() re-raises the worker's exception on the caller. As a
     context manager, __exit__ always shuts the worker down. With `stream`
     the worker enqueues on that stream (_adopt); with `prof` (a
-    StepProfiler) a build on the worker counts as the field's compile."""
+    StepProfiler) a build on the worker counts as the field's compile; with
+    `timed`, put() counts the hand-offs that found the queue full
+    (`blocked`) and the seconds they waited (`blocked_s`)."""
 
     def __init__(self, fn, maxsize: int, name: str, on_fail=None,
-                 stream=None, prof=None):
+                 stream=None, prof=None, timed: bool = False):
         self._fn = fn
         self._err: list = [None]
         self._on_fail = on_fail
         self._stream = stream
         self._prof = prof
+        self._timed = timed
+        self.blocked = 0
+        self.blocked_s = 0.0
         self._q: queue.Queue = queue.Queue(maxsize=maxsize)
         self._t = threading.Thread(target=self._run, name=name, daemon=True)
         self._t.start()
@@ -353,7 +366,16 @@ class _Collector:
         return self._err[0] is not None
 
     def put(self, item) -> None:
-        self._q.put(item)
+        if not self._timed:
+            self._q.put(item)
+            return
+        try:
+            self._q.put_nowait(item)
+        except queue.Full:
+            t = time.perf_counter()
+            self._q.put(item)
+            self.blocked += 1
+            self.blocked_s += time.perf_counter() - t
 
     def shutdown(self) -> None:
         self._q.put(None)
@@ -404,15 +426,18 @@ class _HostRing:
     overwritten by the copy enqueued R uploads later, on the same stream,
     so the caller must have enqueued every kernel that reads a slot by then
     (the feed uploads a block only once the block before is enqueued). On
-    the CPU each upload is a fresh tensor and nothing waits."""
+    the CPU each upload is a fresh tensor and nothing waits. With `timed`,
+    `wait_s` sums the seconds the waits took."""
 
     def __init__(self, slots: int, shape: tuple, dev: torch.device,
-                 stream=None):
+                 stream=None, timed: bool = False):
         self._cuda = dev.type == "cuda"
         self._slots = max(1, slots)
         self._shape = tuple(shape)
         self._next = 0
         self.waits = 0
+        self._timed = timed
+        self.wait_s = 0.0
         if not self._cuda:
             return
         self._stream = stream if stream is not None else \
@@ -439,8 +464,11 @@ class _HostRing:
         ev = self._events[i]
         if self._used[i] and not ev.query():
             self.waits += 1
+            t = time.perf_counter() if self._timed else 0.0
             # nicelint: fence (the slot's copy lands before it is rewritten)
             ev.synchronize()
+            if self._timed:
+                self.wait_s += time.perf_counter() - t
         n = len(values)
         self._host_np[i][:n] = values
         self._dev[i][:n].copy_(self._host[i][:n], non_blocking=True)
@@ -552,12 +580,16 @@ def _adopt(stream) -> None:
         torch.cuda.set_stream(stream)
 
 
-def _wait(event) -> None:
+def _wait(event, rec=trace.OFF, name: str = "") -> None:
     """Block until the copies before `event` have landed (a no-op on the
-    CPU, where there is no event)."""
+    CPU, where there is no event); in a recorded field (rec) the wait's
+    seconds go into its record under `name`."""
     if event is not None:
+        t = time.perf_counter() if rec.on else 0.0
         # nicelint: fence (the collectors' one wait on the card)
         event.synchronize()
+        if rec.on:
+            rec.add(name, time.perf_counter() - t)
 
 
 class _FeedItem(NamedTuple):
@@ -580,23 +612,29 @@ class _SliceFeed:
     computes each block inline (the synchronous A/B). Only the dispatcher
     uploads, after it has enqueued every kernel of the block before, so a
     ring of any size keeps each device block until its kernels are
-    enqueued.
+    enqueued. With `timed`, the ring times its waits and the producer sums
+    the seconds it computes blocks (`produce_s`) and waits on a full queue
+    (`full_s`) over its `produced` blocks.
 
     markers are the resume vocabulary: item.markers = ((seg_idx, cursor),)
     AFTER the item, so remaining(queues, markers-of-the-last-dispatched-
     item) is exactly the uncovered range."""
 
     def __init__(self, plan: BasePlan, queues, lanes: int, dev: torch.device,
-                 depth: int, ring_slots: int | None = None, stream=None):
+                 depth: int, ring_slots: int | None = None, stream=None,
+                 timed: bool = False):
         self.ring = _HostRing(FEED_RING_SLOTS if ring_slots is None
                               else ring_slots, (FEED_BLOCK, plan.limbs_n),
-                              dev, stream)
+                              dev, stream, timed)
         self._blocks = self._generate(plan, queues, lanes)
-        self._start(depth)
+        self._start(depth, timed)
 
-    def _start(self, depth: int) -> None:
+    def _start(self, depth: int, timed: bool = False) -> None:
         self._items: deque = deque()
         self._depth = depth
+        self._timed = timed
+        self.produced = 0
+        self.produce_s = self.full_s = 0.0
         if depth > 0:
             self._q: queue.Queue = queue.Queue(
                 maxsize=-(-depth // FEED_BLOCK))
@@ -654,14 +692,23 @@ class _SliceFeed:
 
     def _fill(self):
         lockdep.mark_loop_thread()
+        timed = self._timed
         try:
+            t = time.perf_counter() if timed else 0.0
             for block in self._blocks:
+                if timed:
+                    t_made = time.perf_counter()
+                    self.produce_s += t_made - t
                 while not self._stop.is_set():
                     try:
                         self._q.put(block, timeout=0.1)
                         break
                     except queue.Full:
                         continue
+                if timed:
+                    t = time.perf_counter()
+                    self.full_s += t - t_made
+                    self.produced += 1
                 if self._stop.is_set():
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised by get()
@@ -936,38 +983,49 @@ def resolve_mesh(dev: torch.device, devices=None, shard: bool = True):
 
 def _dispatch_loop(feed: _SliceFeed, collector: _Collector, dispatch,
                    after, progress, total: int, done: int,
-                   prof: stepprof.StepProfiler):
+                   prof: stepprof.StepProfiler, rec=trace.OFF):
     """The dispatcher shared by the detailed and dense loops: take each item
     from the feed, dispatch(item) (enqueue its kernel, hand its readback to
     the collector, return the device tensor the kernel writes), then
     after(markers) (ticker, flushes), then progress(done, total). Stops
     when the feed is exhausted or the collector failed. With the profiler
     on, the feed's get is h2d_feed, and the dispatch with a fence on its
-    tensor device_compute. Returns (dispatches, the host's gaps between
+    tensor device_compute. In a recorded field (rec.on: the feed and the
+    collector built `timed`) the same clock reads sum the seconds in the
+    feed's get and in dispatch, and the loop's end adds them to the record
+    beside the ring's waits, the hand-offs that blocked on a full collector
+    and the producer's blocks. Returns (dispatches, the host's gaps between
     dispatches)."""
     gaps: list[float] = []
     n_batch = 0
     t_prev = None
-    prof_on = prof.enabled  # hoisted: the disabled per-item cost is a load
+    prof_on = prof.enabled
+    rec_on = rec.on
+    timed = prof_on or rec_on  # hoisted: the disabled per-item cost is a load
+    get_s = dispatch_s = 0.0
     faults_on = faults.armed("engine.dispatch")
     try:
         while not collector.failed():
-            t_feed = time.monotonic() if prof_on else 0.0
+            t_feed = time.perf_counter() if timed else 0.0
             item = feed.get()
             if item is None:
                 break
-            now = time.monotonic()
-            if prof_on:
-                prof.add("h2d_feed", now - t_feed)
+            now = time.perf_counter()
+            if timed:
+                get_s += now - t_feed
+                if prof_on:
+                    prof.add("h2d_feed", now - t_feed)
             if t_prev is not None and len(gaps) < 65536:
                 gaps.append(now - t_prev)
             if faults_on:
                 _fire_dispatch_fault(n_batch, item.seg[0])
             out = dispatch(item)
             if prof_on:
-                prof.add("device_compute", time.monotonic() - now)
+                prof.add("device_compute", time.perf_counter() - now)
                 prof.fence(out)
-            t_prev = time.monotonic()
+            t_prev = time.perf_counter()
+            if rec_on:
+                dispatch_s += t_prev - now
             n_batch += 1
             done += item.lanes
             after(item.markers)
@@ -975,18 +1033,27 @@ def _dispatch_loop(feed: _SliceFeed, collector: _Collector, dispatch,
                 progress(done, total)
     finally:
         feed.stop()
+    if rec_on:
+        rec.add("feed.get", get_s, n_batch)
+        rec.add("feed.dispatch", dispatch_s, n_batch)
+        rec.add("feed.ring_wait", feed.ring.wait_s, feed.ring.waits)
+        rec.add("feed.handoff", collector.blocked_s, collector.blocked)
+        rec.add("feed.produce", feed.produce_s, feed.produced)
+        rec.add("feed.full", feed.full_s, feed.produced)
     return n_batch, gaps
 
 
 def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
                         batch_size: int, device, thresh: int,
-                        ring: _HostRing | None = None):
+                        ring: _HostRing | None = None, rec=trace.OFF):
     """Yield (number, num_uniques) for every candidate in [batch_start,
     +valid) with num_uniques > thresh, in ascending order: K2 plus on-device
     compaction per sub-batch, so only (count, idx[cap], uniq[cap]) cross to
     the host (one non-blocking copy and event a sub-batch); a sub-batch
     whose count overflows cap reads the dense array. Start limbs go up
-    through `ring` (a two-slot _HostRing when None)."""
+    through `ring` (a two-slot _HostRing when None). In a recorded field
+    (rec) each sub-batch adds its launch calls' seconds to rare.k2 and its
+    wait on the copies to rare.wait."""
     dev = torch.device(device)
     sub_size = min(RARE_SCAN_BATCH, batch_size)
     cap = min(SURVIVOR_CAP, sub_size)
@@ -998,9 +1065,12 @@ def rare_scan_survivors(plan: BasePlan, batch_start: int, valid: int,
         sub_start = batch_start + done
         start = ring.upload(
             int_to_limbs(sub_start, plan.limbs_n).astype(np.int64))
+        t = time.perf_counter() if rec.on else 0.0
         (count, idx, uniq), ev = _to_host(ce.survivors_batch(
             plan, sub_size, thresh, cap, start, sub_valid), dev)
-        _wait(ev)
+        if rec.on:
+            rec.add("rare.k2", time.perf_counter() - t)
+        _wait(ev, rec, "rare.wait")
         count = int(count)
         if count == 0:
             ENGINE_READBACK_BYTES.labels("survivors").inc(4)
@@ -1100,21 +1170,79 @@ def process_range_detailed(
                                   checkpoint_cb, resume, checkpoint_batches,
                                   checkpoint_secs)
     dev, mesh = resolve_mesh(resolve_device(device), devices, shard)
+    n_dev = 1 if mesh is None else mesh.size
+    shape = {"batch_size": batch_size, "segment": segment, "use_mxu": use_mxu,
+             "block_threads": block_threads}
+    pre, core, post = _clamp_to_base_range(range_, base)
+    if core is None:
+        batch_size = _detailed_shape(base, dev, n_dev, **shape)[0]
+        if resume is None and checkpoint_cb is None:
+            return scalar.process_range_detailed(range_, base)
+        return _chunked_host_scan(range_, base, "detailed", batch_size,
+                                  progress, checkpoint_cb, resume,
+                                  checkpoint_batches, checkpoint_secs)
+    if mesh is not None:
+        prep = _detailed_start(range_, base, dev, n_dev, pre, core, post,
+                               resume, shape)
+        return _detailed_on_mesh(
+            range_, base, prep.plan, core, mesh, prep.hist, prep.nice_numbers,
+            prep.segments, batch_size=prep.batch_size, seg=prep.seg,
+            block_threads=prep.block_threads, progress=progress,
+            checkpoint_cb=checkpoint_cb, checkpoint_batches=checkpoint_batches,
+            checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
+            elastic=elastic)
+    # One device: the span and its four steps tile the field from here to
+    # the return (trace.field: recorded when a sink or the profiler is on).
+    with trace.field(base, range_.start(), range_.end()) as rec, \
+            obs.span("engine.detailed", base=base, size=core.size(),
+                     backend=dev.type):
+        steps = rec.steps()
+        steps.to("engine.setup")
+        try:
+            prep = _detailed_start(range_, base, dev, n_dev, pre, core,
+                                   post, resume, shape)
+            return _detailed_one_device(
+                range_, base, dev, core, prep, progress=progress,
+                checkpoint_cb=checkpoint_cb,
+                checkpoint_batches=checkpoint_batches,
+                checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
+                rec=rec, steps=steps)
+        finally:
+            steps.to(None)
+
+
+def _detailed_shape(base: int, dev: torch.device, n_dev: int, *, batch_size,
+                    segment, use_mxu, block_threads):
+    """(batch_size, segment, use_mxu, block_threads) of a detailed field on
+    n_dev slices: resolve_tuning's, the segment clamped."""
     batch_size, seg, arm, bt = resolve_tuning(
         "detailed", base, dev, batch_size, segment, use_mxu,
         block_threads=block_threads)
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     # nicelint: allow C2 (ROADMAP queue 3: batch_size has a lower check only, as in the reference)
-    seg = clamp_segment(seg, batch_size, 1 if mesh is None else mesh.size)
+    seg = clamp_segment(seg, batch_size, n_dev)
+    return batch_size, seg, arm, bt
 
-    pre, core, post = _clamp_to_base_range(range_, base)
-    if core is None:
-        if resume is None and checkpoint_cb is None:
-            return scalar.process_range_detailed(range_, base)
-        return _chunked_host_scan(range_, base, "detailed", batch_size,
-                                  progress, checkpoint_cb, resume,
-                                  checkpoint_batches, checkpoint_secs)
+
+class _DetailedStart(NamedTuple):
+    plan: BasePlan
+    batch_size: int
+    seg: int
+    arm: int
+    block_threads: int
+    hist: np.ndarray  # int64[base + 2]
+    nice_numbers: list
+    segments: list  # the core's [start, end) segments left to dispatch
+
+
+def _detailed_start(range_: FieldSize, base: int, dev: torch.device,
+                    n_dev: int, pre, core: FieldSize, post, resume,
+                    shape: dict) -> _DetailedStart:
+    """A detailed field's shape and the state its core starts from: the
+    slivers (pre, post) on the scalar oracle, or the resume state's
+    histogram, near misses and segments."""
+    batch_size, seg, arm, bt = _detailed_shape(base, dev, n_dev, **shape)
     plan = get_plan(base)
     if not ce.supports_base(plan):
         raise ValueError(f"base {base} exceeds the kernels' histogram")
@@ -1142,25 +1270,33 @@ def process_range_detailed(
             for n, u in resume["nice_numbers"]
         ]
         segments = _resume_segments(resume, core.start(), core.end())
-
-    lanes = batch_size * seg
-    if resume is not None:
         CKPT_RESTORES.inc()
         CKPT_BATCHES_SKIPPED.inc(
-            (core.size() - sum(e - s for s, e in segments)) // lanes)
-    if mesh is not None:
-        return _detailed_on_mesh(
-            range_, base, plan, core, mesh, hist, nice_numbers, segments,
-            batch_size=batch_size, seg=seg, block_threads=bt,
-            progress=progress,
-            checkpoint_cb=checkpoint_cb, checkpoint_batches=checkpoint_batches,
-            checkpoint_secs=checkpoint_secs, feed_depth=feed_depth,
-            elastic=elastic)
+            (core.size() - sum(e - s for s, e in segments))
+            // (batch_size * seg))
+    return _DetailedStart(plan, batch_size, seg, arm, bt, hist, nice_numbers,
+                          segments)
+
+
+def _detailed_one_device(range_: FieldSize, base: int, dev: torch.device,
+                         core: FieldSize, prep: _DetailedStart, *, progress,
+                         checkpoint_cb, checkpoint_batches, checkpoint_secs,
+                         feed_depth: int, rec, steps) -> FieldResults:
+    """The core of a detailed field on one device, through the pipelined
+    loop, from prep (process_range_detailed's arguments). rec is the
+    field's record and steps its engine steps, in engine.setup: the loop,
+    the drain (the last hand-offs, to the collector's join) and the finish
+    each start a step; the collector's items are ranges, and rec.on times
+    its waits, its hand-offs and the rare path's scans."""
+    plan, batch_size, seg, arm, bt = (prep.plan, prep.batch_size, prep.seg,
+                                      prep.arm, prep.block_threads)
+    hist, nice_numbers = prep.hist, prep.nice_numbers
+    lanes = batch_size * seg
     # Every segment adds at most `lanes` to one bin (padding included), so
     # flushing every flush_every segments keeps int32 bins far from 2^31.
     flush_every = _flush_every(lanes)
     total = core.size()
-    done0 = total - sum(e - s for s, e in segments)
+    done0 = total - sum(e - s for s, e in prep.segments)
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     rare_ring = _HostRing(2, (plan.limbs_n,), dev, stream)
     window = -(-DISPATCH_WINDOW // FEED_BLOCK)  # blocks of segments
@@ -1176,54 +1312,58 @@ def process_range_detailed(
     tally = {"nm_bytes": 0, "stats_bytes": 0, "transfers": 0}
 
     def collect_item(kind, *payload):
-        t_item = time.monotonic()
-        if kind == "nm":  # a block of segments' near-miss counts
-            segs, nms, ev = payload
-            _wait(ev)
-            tally["nm_bytes"] += 4 * len(segs)
-            # nicelint: fence (near-miss counts, landed at the event above)
-            for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
-                if nm > 0:
-                    nice_numbers.extend(
-                        NiceNumberSimple(number=number, num_uniques=uniq)
-                        for number, uniq in rare_scan_survivors(
-                            plan, seg_start, seg_valid, batch_size, dev,
-                            plan.near_miss_cutoff, rare_ring))
-        elif kind == "stats":  # an accumulator handed over by a flush
-            (h,), ev = payload
-            _wait(ev)
-            # nicelint: fence (a flushed accumulator, landed at the event above)
-            hist[:] += h.numpy().astype(np.int64)
-            tally["stats_bytes"] += h.numel() * h.element_size()
-            tally["transfers"] += 1
-        else:  # "ckpt": after its "nm" and "stats", so the state matches
-            # its cursor
-            (rem,) = payload
-            checkpoint_cb({
-                "cursor": rem[0][0] if rem else core.end(),
-                "hist": hist.copy(),
-                "nice_numbers": [
-                    (n.number, n.num_uniques) for n in nice_numbers
-                ],
-                "remaining": [[s, e] for s, e in rem],
-            })
-        dt = time.monotonic() - t_item
+        name = "engine.collect." + kind  # a range and a record name
+        with rec.range(name):
+            t_item = time.perf_counter()
+            if kind == "nm":  # a block of segments' near-miss counts
+                segs, nms, ev = payload
+                _wait(ev, rec, "engine.collect.wait")
+                tally["nm_bytes"] += 4 * len(segs)
+                # nicelint: fence (near-miss counts, landed at the event above)
+                for (seg_start, seg_valid), nm in zip(segs, nms.tolist()):
+                    if nm > 0:
+                        with rec.timed("rare.scan"):
+                            nice_numbers.extend(
+                                NiceNumberSimple(number=number,
+                                                 num_uniques=uniq)
+                                for number, uniq in rare_scan_survivors(
+                                    plan, seg_start, seg_valid, batch_size,
+                                    dev, plan.near_miss_cutoff, rare_ring,
+                                    rec))
+            elif kind == "stats":  # an accumulator handed over by a flush
+                (h,), ev = payload
+                _wait(ev, rec, "engine.collect.wait")
+                # nicelint: fence (a flushed accumulator, landed at the event above)
+                hist[:] += h.numpy().astype(np.int64)
+                tally["stats_bytes"] += h.numel() * h.element_size()
+                tally["transfers"] += 1
+            else:  # "ckpt": after its "nm" and "stats", so the state
+                # matches its cursor
+                (rem,) = payload
+                checkpoint_cb({
+                    "cursor": rem[0][0] if rem else core.end(),
+                    "hist": hist.copy(),
+                    "nice_numbers": [
+                        (n.number, n.num_uniques) for n in nice_numbers
+                    ],
+                    "remaining": [[s, e] for s, e in rem],
+                })
+            dt = time.perf_counter() - t_item
         item_secs.append(dt)
+        rec.add(name, dt)
         if prof.enabled:
             if kind == "nm":
                 prof.add("readback", dt)
             elif kind == "stats":
                 prof.add("fold", dt)
 
-    queues = [segments]
+    queues = [prep.segments]
     st = {"acc": torch.zeros(plan.base + 2, dtype=torch.int32, device=dev),
           "since_flush": 0}
 
     try:
-        with obs.span("engine.detailed", base=base, size=total,
-                      backend=dev.type), \
-                _Collector(collect_item, window, "detailed-collect",
-                           stream=stream, prof=prof) as collector:
+        with _Collector(collect_item, window, "detailed-collect",
+                        stream=stream, prof=prof, timed=rec.on) as collector:
 
             def read_back():
                 if len(readbacks):
@@ -1234,7 +1374,7 @@ def process_range_detailed(
                 collector.put(("stats",
                                *_to_host((st["acc"],), dev, stream)))
                 st["acc"] = torch.zeros(plan.base + 2, dtype=torch.int32,
-                                        device=dev)
+                                         device=dev)
                 st["since_flush"] = 0
 
             def dispatch(item):
@@ -1257,13 +1397,16 @@ def process_range_detailed(
                     flush()
 
             feed = _SliceFeed(plan, queues, lanes, dev, feed_depth,
-                              stream=stream)
+                              stream=stream, timed=rec.on)
+            steps.to("engine.loop")
             n_batch, gaps = _dispatch_loop(feed, collector, dispatch, after,
-                                           progress, total, done0, prof)
+                                           progress, total, done0, prof, rec)
+            steps.to("engine.drain")
             if not collector.failed():
                 read_back()
                 if st["since_flush"]:
                     flush()
+        steps.to("engine.finish")
     finally:
         prof.stop()
         ce.fold_dispatch_seconds()

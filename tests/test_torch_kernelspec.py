@@ -127,14 +127,14 @@ def test_c2_discharges_every_obligation_but_the_queue_3_domain():
     kept, allowed, _ = core.filter_allowed(core.Project(REPO), found)
     assert kept == [] and len(allowed) == 3
     assert {v.detail for v in allowed} == {
-        "entry_domain:page_quantum", "entry_domain:process_range_detailed",
+        "entry_domain:page_quantum", "entry_domain:_detailed_shape",
         "entry_domain:_niceonly_dense"}
 
 
 def test_an_upper_batch_check_clears_the_finding_and_kills_its_allow(tmp_path):
-    # Bounding batch_size from above in process_range_detailed discharges
-    # its entry_domain finding; the inline allow left behind is then dead,
-    # which S1 fails under the full run.
+    # Bounding batch_size from above in _detailed_shape (the detailed
+    # entry's tuning) discharges its entry_domain finding; the inline allow
+    # left behind is then dead, which S1 fails under the full run.
     root = _copy(tmp_path)
     path = tmp_path / "nice_tpu_torch/ops/engine.py"
     old = ('        raise ValueError(f"batch_size must be positive, got '
@@ -144,8 +144,7 @@ def test_an_upper_batch_check_clears_the_finding_and_kills_its_allow(tmp_path):
     path.write_text(text.replace(old, old + "    if batch_size > 1 << 26:\n"
                                  "        raise ValueError(batch_size)\n"))
     found = c2_headroom.check(core.Project(root), cudarules.Context(()))
-    assert "entry_domain:process_range_detailed" not in {v.detail
-                                                         for v in found}
+    assert "entry_domain:_detailed_shape" not in {v.detail for v in found}
     assert cudalint.main(["--root", root, "--bases", "none"]) == 1
 
 
