@@ -26,8 +26,9 @@ Phases, each of which raises (exit code 1) on failure:
   3. kernel vs plain: K1 (detailed megaloop) and K2 (per-lane uniques, plus
      survivor compaction) against their plain PyTorch versions on the card,
      exact integer equality, at b10, b17, b40, b50, b80, b97 and b510, from
-     range_start and from a start straddling a 2^32 limb carry; K2 runs on
-     the plan tier at every base to b97 and in the generic tier at b510;
+     range_start and from a start straddling a 2^32 limb carry; K1 and K2
+     run on the plan tier at every base to b97 and in the generic tier at
+     b510;
   4. strided vs plain: K3 (stride-descriptor niceonly counts, on the plan
      tier) against its plain version, exact, at b10, b17, b40, b50, b80 and
      b97 with each base's main-path stride shape: ragged runs, padded rows
@@ -119,8 +120,8 @@ Phases, each of which raises (exit code 1) on failure:
      equal to phases 6 and 7b, 128 threads in the feed stats, launch_shape
      reporting 128 for K1, K4 and K5;
   7e. blocks: the tuning harness's blocks and stride-blocks kinds
-     (nice_tpu_torch/scripts/tune_kernels.py): K1 at b40 (small tier) and
-     b80 (generic tier), K5 at b40, K3 on a b40 group of 1024 descriptors
+     (nice_tpu_torch/scripts/tune_kernels.py): K1 at b40 and b80 (the
+     plan tier), K5 at b40, K3 on a b40 group of 1024 descriptors
      and K4 over the b98 field's median run, at block sizes 32, 64, 128
      and 256 (K5 from 64), each output equal to its 256-thread output and
      to the plain version's; one {"blocks": ...} line of device ms by
@@ -184,11 +185,12 @@ Phases, each of which raises (exit code 1) on failure:
      by each kernel's own device time (torch.profiler), which the kernels
      line gives; each launch's shape (grid, threads, resident blocks an SM:
      K1's segment must be one full wave, b98's K4 and K5 must run in the
-     dense tier and K5's median run cover as many SMs as K4's, K2, K3 and
-     K5's b40 segment to b97 on the plan tier); K3 over the b80 field's
+     dense tier and K5's median run cover as many SMs as K4's, K1, K2, K3
+     and K5's b40 segment to b97 on the plan tier); K3 over the b80 field's
      first group and K2 over a 2^18
      sub-batch at b80 (plan tier) and b510 (generic tier), by device time;
-     K1's runtime-plan SASS beside the constant-plan count; and
+     K1's runtime-plan SASS (the generic tier's) beside the constant-plan
+     count; and
      a bound from the instructions one lane issues in the compiled code
      (csrc/op_count.cu built with the b40 plan and stride table, and again
      with b80's, and the b98 plan and class table, as constants, counted
@@ -612,11 +614,11 @@ def plan_build_facts(base: int, info: dict) -> dict:
 
 
 def _check_plan_build(pb: dict) -> None:
-    """A per-base build holds K2, K3 and K5's detailed mode, none with a
+    """A per-base build holds K1, K2, K3 and K5's detailed mode, none with a
     stack, spills or local loads and stores."""
     check(sorted(k["kernel"] for k in pb["kernels"])
-          == ["detailed_megaloop_mma_kernel", "strided_niceonly_kernel",
-              "uniques_kernel"]
+          == ["detailed_megaloop_kernel", "detailed_megaloop_mma_kernel",
+              "strided_niceonly_kernel", "uniques_kernel"]
           and all(k["stack"] == k["spill_stores"] == k["LDL"] == k["STL"]
                   == 0 for k in pb["kernels"]),
           f"b{pb['base']}'s per-base build: {pb}")
@@ -679,8 +681,8 @@ def phase_build(report: dict, tmp: str) -> dict:
                        "runtime_sass": list(sass.values())}
     emit({"phase": "build", **report["build"]})
     # K4's and K5's dense register tier exists to keep b98's limbs out of
-    # local memory, and the plan tier every base's to b97 (K2, K3 and K5's
-    # detailed mode).
+    # local memory, and the plan tier every base's to b97 (K1, K2, K3 and
+    # K5's detailed mode).
     by_name = {v["kernel"] + "/" + v["tier"]: v for v in sass.values()}
     dense = [dict(r, LDL=by_name[r["kernel"] + "/dense"]["LDL"],
                   STL=by_name[r["kernel"] + "/dense"]["STL"])
@@ -691,9 +693,11 @@ def phase_build(report: dict, tmp: str) -> dict:
                   for r in dense), f"K4's and K5's dense tier: {dense}")
     for pb in builds:
         _check_plan_build(pb)
+    # K1's runtime-plan lane: the main library's generic tier, which runs K1
+    # above the plan tier (b98 and up).
     counts["k1_runtime"] = next(
         v for v in sass.values()
-        if v["kernel"] == "detailed_megaloop_kernel" and v["tier"] == "small")
+        if v["kernel"] == "detailed_megaloop_kernel" and v["tier"] == "generic")
     return {"counts": counts, "counts80": counts80, "probe_lib": probe_lib}
 
 
@@ -775,11 +779,13 @@ def phase_kernel_vs_plain(report: dict) -> None:
     rng = np.random.default_rng(SEED)
     diff = {"detailed_megaloop": 0, "uniques": 0}
     checked = {"detailed_megaloop": 0, "uniques": 0}
-    k2_tiers = {}
+    k1_tiers, k2_tiers = {}, {}
     t0 = time.monotonic()
     for base in BASES:
         plan = get_plan(base)
         batch = 128 if base == 510 else 256
+        k1_tiers[base] = ce.launch_shape("detailed_megaloop", plan,
+                                         batch)["tier"]
         k2_tiers[base] = ce.launch_shape("uniques", plan, batch)["tier"]
         for start in (plan.range_start, _straddle_start(plan, batch)):
             st = ve.start_limbs_tensor(start, plan, dev)
@@ -812,12 +818,14 @@ def phase_kernel_vs_plain(report: dict) -> None:
     torch.cuda.synchronize()
     report["kernel_vs_plain"] = {
         "bases": list(BASES), "max_abs_diff": diff, "cases": checked,
-        "k2_tiers": k2_tiers, "secs": time.monotonic() - t0,
+        "k1_tiers": k1_tiers, "k2_tiers": k2_tiers,
+        "secs": time.monotonic() - t0,
     }
     emit({"phase": "kernel_vs_plain", **report["kernel_vs_plain"]})
     check(all(v == 0 for v in diff.values()), f"kernel != plain: {diff}")
     check(all(t == ("plan" if b in PLAN_BASES else "generic")
-              for b, t in k2_tiers.items()), f"K2's tiers: {k2_tiers}")
+              for tiers in (k1_tiers, k2_tiers) for b, t in tiers.items()),
+          f"K1's and K2's tiers: {k1_tiers}, {k2_tiers}")
 
 
 def _desc_tensor(rows, n_pad: int, rng, dev):
@@ -1544,6 +1552,9 @@ def phase_full_width(report: dict) -> None:
         emit({"phase": "full_width", **run})
     check(all(r["launches"]["detailed_megaloop"] > 0 for r in runs),
           "K1 was not launched on a field")
+    check(all(r["launches"]["detailed_megaloop_plan"]
+              == r["launches"]["detailed_megaloop"] for r in runs),
+          "K1 ran off the plan tier on a b40 field")
     check(all(r["near_misses"] == 0 or r["launches"]["uniques"] > 0
               for r in runs), "near misses without a K2 launch")
     check(total["uniques"] > 0, "the main path never reached K2")
@@ -1726,6 +1737,14 @@ for mode, base, start, size in json.loads(sys.argv[2]):
                 "nice": [[n.number, n.num_uniques] for n in results.nice_numbers]})
 print(json.dumps({"fields": out, "events": autotune.EVENTS}))
 """
+
+
+def _kernel_ms_est(launches: dict, kernel_ms: dict) -> float:
+    """The launches' device milliseconds at each kernel's timed ms; the
+    "detailed_megaloop_plan" count is K1's launches again, so it adds
+    nothing."""
+    return sum(n * kernel_ms[k] for k, n in launches.items()
+               if k != "detailed_megaloop_plan")
 
 
 def _pairs(results) -> tuple[list, list]:
@@ -2001,8 +2020,8 @@ BLOCK_SIZES = (32, 64, 128, 256)
 def phase_blocks(report: dict) -> None:
     """The tuning harness's blocks and stride-blocks kinds on the card
     (nice_tpu_torch.scripts.tune_kernels, in one fresh process):
-    K1 over one 2^18 x 8 segment at b40 (extra-large's start, the small
-    tier) and at b80 (hi-base's start, the generic tier), K5 at the same
+    K1 over one 2^18 x 8 segment at b40 (extra-large's start) and at b80
+    (hi-base's start), both on the plan tier, K5 at the same
     b40 segment, K3 on a 1024-descriptor group of the mid-range b40 field's
     stride shape, and K4 over the b98-surviving field's median run, the
     last two at check_min_uniques (where their counts are not all 0); each
@@ -2972,7 +2991,7 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
     st510 = ve.start_limbs_tensor(p510.range_start, p510, dev)
     acc80 = torch.zeros(p80.base + 2, dtype=torch.int32, device=dev)
 
-    def k1_b80():  # one 2^18 x 8 segment in the generic tier (hi-base's)
+    def k1_b80():  # one 2^18 x 8 segment on the plan tier (hi-base's)
         ce.detailed_accum_megaloop(p80, batch, seg, acc80, st80, lanes_k1)
 
     def k2_b80():
@@ -3121,6 +3140,7 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
                                   s8.periods * s8.table.num_residues,
                                   len(cols8[0])),
         "k2_b80": ce.launch_shape("uniques", p80, lanes_k2),
+        "k1_b80": ce.launch_shape("detailed_megaloop", p80, lanes_k1),
         "k2_b510": ce.launch_shape("uniques", p510, lanes_k2),
         "k4": ce.launch_shape("niceonly_dense", dplan, n_cls, d_valid),
         "k4_full": ce.launch_shape("niceonly_dense", dplan, n_cls, lanes_k1),
@@ -3135,9 +3155,10 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
           f"K1's segment is not one resident wave: {shapes['k1']}")
     check(shapes["k4"]["tier"] == "dense" and shapes["k4_full"]["tier"] == "dense",
           f"b98's K4 runs outside the dense tier: {shapes['k4']}")
-    check(all(shapes[k]["tier"] == "plan" for k in ("k2", "k3", "k3_b80", "k2_b80"))
+    check(all(shapes[k]["tier"] == "plan"
+              for k in ("k1", "k1_b80", "k2", "k3", "k3_b80", "k2_b80"))
           and shapes["k2_b510"]["tier"] == "generic",
-          f"K2/K3 tiers: {shapes}")
+          f"K1/K2/K3 tiers: {shapes}")
     # K5 runs K1's and K4's tiers (the plan tier at b40), and its b98 median
     # run spreads over at least as many SMs as K4's.
     check(shapes["k5"]["tier"] == "plan" and shapes["k5d"]["tier"] == "dense"
@@ -3189,8 +3210,8 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
                      clk_mhz)
     b2_80 = bound_ms(lanes_k2, c2_80, 8 * p80.limbs_n + 4 * lanes_k2, sms,
                      clk_mhz)
-    # K1 at b80 runs the generic tier; its bound is the constant-plan lane
-    # of op_count.cu built with b80's plan, as K2's and K3's there.
+    # K1 at b80 runs the plan tier; its bound is the constant-plan lane of
+    # op_count.cu built with b80's plan, as K2's and K3's there.
     c1_80 = lane_cycles(counts80["k1_lane"])
     b1_80 = bound_ms(lanes_k1, c1_80, 8 * p80.limbs_n
                      + 2 * 4 * (p80.base + 2) + 4, sms, clk_mhz)
@@ -3259,9 +3280,7 @@ def phase_timing(report: dict, built: dict, sms: int, clk_mhz: float) -> list:
         "k1_b80": {"lanes": lanes_k1, "start": b80_start,
                    "device_ms": dev["k1_b80"], "sass": counts80["k1_lane"],
                    "lane_cycles": c1_80, "bound_ms": b1_80[0],
-                   "bound_by": b1_80[1],
-                   "shape": ce.launch_shape("detailed_megaloop", p80,
-                                            lanes_k1)},
+                   "bound_by": b1_80[1], "shape": shapes["k1_b80"]},
         "k2_b80": {"lanes": lanes_k2, "start": b80_start, "ms": k2_b80_ms,
                    "device_ms": dev["k2_b80"], "plain_ms": [p2_b80_a, p2_b80_b],
                    "shape": shapes["k2_b80"], "sass": counts80["k2_lane"],
@@ -4287,7 +4306,7 @@ def _run(args, t_start: float, tmp: str) -> int:
     phase_gate(report, tmp)
     kernel_ms = {name: ms for name, _, ms, _, _, _ in timed}
     for run in report["full_width"]["fields"]:
-        est = sum(n * kernel_ms[k] for k, n in run["launches"].items())
+        est = _kernel_ms_est(run["launches"], kernel_ms)
         run["kernel_ms_est"] = est
         run["kernel_share_est"] = est / (run["elapsed_secs"] * 1e3)
         emit({"phase": "where_time_goes", "field": run["field"],
@@ -4331,7 +4350,7 @@ def _run(args, t_start: float, tmp: str) -> int:
         for name, t in run["tenants"].items():
             if name == "sweep":  # b520: no kernel timed at that base
                 continue
-            est = sum(n * kernel_ms[k] for k, n in t["launches"].items())
+            est = _kernel_ms_est(t["launches"], kernel_ms)
             emit({"phase": "where_time_goes", "sched": run["policy"],
                   "tenant": name, "pages": t["pages"],
                   "busy_ms": t["busy_secs"] * 1e3,
@@ -4345,7 +4364,7 @@ def _run(args, t_start: float, tmp: str) -> int:
         default = next(
             r for key in ("full_width", "full_width_dense")
             for r in report[key]["fields"] if r["field"] == run["field"])
-        est = sum(n * kernel_ms[k] for k, n in run["launches"].items())
+        est = _kernel_ms_est(run["launches"], kernel_ms)
         emit({"phase": "where_time_goes", "field": run["field"],
               "mode": run["mode"], "use_mxu": 1,
               "elapsed_ms": run["elapsed_secs"] * 1e3,
@@ -4379,6 +4398,9 @@ def _run(args, t_start: float, tmp: str) -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })
+        if name == "detailed_megaloop":
+            kernels[-1]["plan_tier_launches"] = (
+                report["main_path_launches"]["detailed_megaloop_plan"])
     report["kernels"] = kernels
     report["total_secs"] = time.monotonic() - t_start
     if args.out:

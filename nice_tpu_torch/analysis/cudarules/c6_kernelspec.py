@@ -154,7 +154,7 @@ def _run_plain(spec: ks.KernelSpec, plan, mma: int,
 
     st = ve.start_limbs_tensor(plan.range_start, plan, "cpu")
     valid = BATCH * N_ITERS - 3
-    if spec.name in ("nice_detailed_megaloop",
+    if spec.name in ("nice_detailed_megaloop", "nice_plan_detailed_megaloop",
                      "nice_plan_detailed_megaloop_mma"):
         acc = torch.zeros(plan.base + 2, dtype=torch.int32)
         h, nm = ce.detailed_accum_megaloop(plan, BATCH, N_ITERS, acc, st,

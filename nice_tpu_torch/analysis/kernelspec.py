@@ -74,8 +74,8 @@ STRIDED_DESC_MAX = 1024
 STRIDED_PERIODS_MAX = 1024
 STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
-# Plans of at most this many limbs of n run K2, K3 and K5's detailed mode on
-# the per-base plan tier (nice_kernels.cuh kPlanTierLimbs).
+# Plans of at most this many limbs of n run K1, K2, K3 and K5's detailed mode
+# on the per-base plan tier (nice_kernels.cuh kPlanTierLimbs).
 PLAN_TIER_LIMBS = 4
 # Threads a block of a grid-stride launch (nice_grid.cuh kThreads, kWarp,
 # kMmaMinThreads): whole warps up to THREADS, the bound every kernel is
@@ -269,7 +269,8 @@ def block_threads_ok(threads: int, mma: int = 0) -> bool:
 
 
 def pick_tier(shape: PlanShape) -> Optional[str]:
-    """nice_kernels.cuh pick_tier: the runtime-plan tier of K1 and K2."""
+    """nice_kernels.cuh pick_tier: the first runtime-plan tier that holds
+    the plan (K1 and K2 above the plan tier run the generic one)."""
     if fits(shape, "small"):
         return "small"
     if fits(shape, "generic"):
@@ -380,13 +381,12 @@ LEGACY_ENTRIES = {"nice_strided_niceonly":
 
 def _k1_tier(shape: PlanShape, mma: int,
              wrapper: bool = True) -> Optional[str]:
-    if not supports_base(shape) or pick_tier(shape) is None:
+    if (not supports_base(shape) or plan_tier_takes(shape)
+            or pick_tier(shape) != "generic"):
         return None
-    if mma:
-        if plan_tier_takes(shape) or not k5_takes(shape, wrapper=wrapper):
-            return None
-        return "generic"
-    return pick_tier(shape)
+    if mma and not k5_takes(shape, wrapper=wrapper):
+        return None
+    return "generic"
 
 
 def _hist(shape, batch, n_iters):
@@ -395,8 +395,7 @@ def _hist(shape, batch, n_iters):
 register(KernelSpec(
     name="nice_detailed_megaloop",
     source=MAIN_CU, library="main", kind="launch", kernels=("K1", "K5"),
-    cuda_kernels=("detailed_megaloop_kernel<SmallTier>",
-                  "detailed_megaloop_kernel<GenericTier>",
+    cuda_kernels=("detailed_megaloop_kernel<GenericTier>",
                   "detailed_megaloop_mma_kernel_wide<GenericTier>"),
     wrappers=("detailed_accum_megaloop",),
     launches=("detailed_megaloop", "detailed_megaloop_mma"),
@@ -415,7 +414,7 @@ register(KernelSpec(
     bounds=(("hist_acc", "every bin <= ACC_LIMIT // 2: clamp_segment and "
              "_flush_every (C2 k1_flush_budget)"),
             ("nm", "at most the launch's lanes <= ACC_LIMIT // 2")),
-    witness_bases=((40, 0), (80, 0), (510, 0), (510, 1)),
+    witness_bases=((98, 0), (510, 0), (510, 1)),
 ))
 
 
@@ -521,6 +520,32 @@ register(KernelSpec(
 ))
 
 
+def _k1_plan_tier(shape: PlanShape, mma: int,
+                  wrapper: bool = True) -> Optional[str]:
+    return None if mma else _plan_tier(shape, mma)
+
+
+register(KernelSpec(
+    name="nice_plan_detailed_megaloop",
+    source=PLAN_CU, library="plan", kind="launch", kernels=("K1",),
+    cuda_kernels=("detailed_megaloop_kernel<PlanTier>",),
+    wrappers=("detailed_accum_megaloop",),
+    launches=("detailed_megaloop", "detailed_megaloop_plan"),
+    plain=("nice_tpu_torch/ops/vector_engine.py:detailed_accum_megaloop",),
+    jax=(f"{PALLAS}:164 _stats_callable (mode detailed)",
+         f"{PALLAS}:549 _detailed_megaloop_callable"),
+    params=(_ptr("plan_words"), _ptr("start"),
+            Param("valid_total", "long long", 0, ACC_LIMIT // 2),
+            Param("pad", "long long", 0, ACC_LIMIT // 2, cast="int32_t"),
+            _ptr("hist"), _ptr("nm"), _threads(), _ptr("stream")),
+    tier=_k1_plan_tier, outputs=_hist, in_place=("hist_acc", "nm_out"),
+    bounds=(("hist_acc", "every bin <= ACC_LIMIT // 2: clamp_segment and "
+             "_flush_every (C2 k1_flush_budget)"),
+            ("nm", "at most the launch's lanes <= ACC_LIMIT // 2")),
+    witness_bases=((40, 0), (80, 0), (97, 0)),
+))
+
+
 def _k5_plan_tier(shape: PlanShape, mma: int,
                   wrapper: bool = True) -> Optional[str]:
     if not mma or not k5_takes(shape, wrapper=wrapper):
@@ -588,8 +613,8 @@ register(KernelSpec(
     cuda_kernels=(), wrappers=("launch_shape",),
     params=(Param("kernel", "int", 0, 2), _ptr("plan_words"),
             Param("a", "long long", 0, ACC_LIMIT // 2),
-            Param("b", "long long", 0, ACC_LIMIT // 2), _threads(),
-            _ptr("out")),
+            Param("b", "long long", 0, ACC_LIMIT // 2),
+            Param("mma", "int", 0, 1), _threads(), _ptr("out")),
 ))
 
 
@@ -598,7 +623,8 @@ register(KernelSpec(
 # cuda_engine.launch_shape's kernel names: (the entries that may answer,
 # the mma flag).
 SHAPE_KERNELS = {
-    "detailed_megaloop": (("nice_detailed_megaloop",), 0),
+    "detailed_megaloop": (("nice_plan_detailed_megaloop",
+                           "nice_detailed_megaloop"), 0),
     "uniques": (("nice_plan_uniques", "nice_uniques"), 0),
     "strided_niceonly": (("nice_plan_strided_niceonly",), 0),
     "niceonly_dense": (("nice_niceonly_dense",), 0),

@@ -1,9 +1,8 @@
 // The grid-stride kernels that both libraries instantiate, and how a launch
 // is shaped: K1 (detailed_megaloop_kernel), K2 (uniques_kernel) and K5's
 // detailed mode (detailed_megaloop_mma_kernel). The main library
-// (nice_kernels.cu) builds them on its runtime-plan tiers, the per-base
-// library (plan_kernels.cu) K2 and K5's detailed mode on the plan tier (and
-// K1 there as a variant to time). nice_kernels.cu's note says what each
+// (nice_kernels.cu) builds them on its generic tier, the per-base library
+// (plan_kernels.cu) on the plan tier. nice_kernels.cu's note says what each
 // replaces.
 //
 // A kernel takes its plan from L::plan(p): the runtime plan for the

@@ -1,10 +1,10 @@
 // The CUDA kernels of the port, with a plain C interface for ctypes
 // (nice_tpu_torch/ops/cuda_build.py builds this file with nvcc for sm_90a;
-// ops/cuda_engine.py wraps it): K1 and, above b97, K2 on the detailed path,
+// ops/cuda_engine.py wraps it): K1 and K2 above b97 on the detailed path,
 // K4 on the dense niceonly path (b98 and up), and K5, the tensor-core arm of
 // K1 and K4, where the tuned shape asks for it (use_mxu; its detailed mode
 // above b97). K3 (the strided niceonly path, bases of at most 4 u32 limbs)
-// and, at those bases, K2 and K5's detailed mode run on the plan tier:
+// and, at those bases, K1, K2 and K5's detailed mode run on the plan tier:
 // plan_kernels.cu, built once per base. K1's, K2's and K5's detailed
 // kernels are in nice_grid.cuh, shared with that build.
 //
@@ -266,8 +266,8 @@ inline int dense_tier(const Plan& p) {
 extern "C" {
 
 // K1 (mma = 0) or K5 in the detailed mode (mma = 1; lanes < 2^31; mma = 2
-// its setup alone) above the plan tier; plan_kernels.cu runs K5's plans of
-// at most kPlanTierLimbs limbs.
+// its setup alone) above the plan tier, in the generic tier;
+// plan_kernels.cu runs the plans of at most kPlanTierLimbs limbs.
 int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
                            long long valid_total, long long pad, void* hist,
                            void* nm, int mma, int block_threads,
@@ -281,19 +281,14 @@ int nice_detailed_megaloop(const uint64_t* plan_words, const void* start,
   int32_t* h = (int32_t*)hist;
   int32_t* n = (int32_t*)nm;
   cudaStream_t s = (cudaStream_t)stream;
-  const int tier = pick_tier(p);
-  if (tier < 0) return kNoTier;
+  if (plan_tier_takes(p)) return kPlanTierOnly;
+  if (pick_tier(p) != 1) return kNoTier;
   if (mma) {
-    if (plan_tier_takes(p)) return kPlanTierOnly;
     const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma,
                                           block_threads, s);
     return rc ? rc : (int)cudaGetLastError();
   }
-  if (tier == 0) {
-    launch_k1<SmallTier>(p, st, valid_total, pad, h, n, block_threads, s);
-  } else {
-    launch_k1<GenericTier>(p, st, valid_total, pad, h, n, block_threads, s);
-  }
+  launch_k1<GenericTier>(p, st, valid_total, pad, h, n, block_threads, s);
   return (int)cudaGetLastError();
 }
 
@@ -354,7 +349,8 @@ int nice_niceonly_dense(const uint64_t* plan_words, const void* start,
 // kernel 0: K1 (K5's detailed mode with mma = 1) over a = valid_total
 // lanes; 1: K2 over a lanes; 3: K4 (K5's dense mode with mma = 1) over a =
 // num_cls classes and b = valid_total lanes (kernel 2, K3, is
-// plan_kernels.cu's alone, as K2 and K5's detailed mode are at its plans).
+// plan_kernels.cu's alone, as K1, K2 and K5's detailed mode are at its
+// plans).
 // out[0..4] = the grid's blocks, threads a block, resident blocks an SM at
 // that block size, the SMs, and the tier (0 small, 1 generic, 2 dense), at
 // block_threads (K2 takes kThreads whatever it is). Returns 0, or what the
@@ -366,8 +362,7 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
     return kBadThreads;
   }
   const Plan p = plan_from_words(plan_words);
-  if (kernel == 2 || (kernel < 2 && (kernel == 1 || mma) &&
-                      plan_tier_takes(p))) {
+  if (kernel == 2 || (kernel < 2 && plan_tier_takes(p))) {
     return kPlanTierOnly;
   }
   const int tier = kernel == 3 ? dense_tier(p) : pick_tier(p);
@@ -377,7 +372,6 @@ int nice_launch_shape(int kernel, const uint64_t* plan_words, long long a,
   uint32_t lanes;
   int rc = 0;
   switch (kernel * 3 + tier) {
-    case 0: sh = k1_shape<SmallTier>(p, a, block_threads, &smem); break;
     case 1:
       if (mma) {
         rc = k5_shape<GenericTier>(p, a, block_threads, &sh, &smem);

@@ -785,15 +785,15 @@ struct Lane {
 };
 
 // The tiers, smallest first; the launcher takes the first that fits.
-// SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), which
-// holds the main path's b40 and every benchmark base except hi-base (b80,
-// whose niceonly fields K3 runs in the generic tier).
+// SmallTier: b10..b55 (n <= 2, n^2 <= 4, n^3 <= 6 limbs; <= 64 digits), K4's
+// and K5's dense mode there (K1 runs those bases on the plan tier).
 // DenseTier: K4's and K5's dense mode (dense_tier), sized to the dense
 // path's b98 plan (5/9/13 limbs, 4 mask words), with its limbs in
 // registers; it holds every base from b97 to b104 (from b105 n^3 takes 14
 // limbs).
 // GenericTier: any base whose histogram the TPU kernels accept (base + 2 <= 2048;
-// at b2046, n/n^2/n^3 take 141/282/422 limbs); every other base above b55.
+// at b2046, n/n^2/n^3 take 141/282/422 limbs); every other base above b55,
+// and K1, K2 and K5's detailed mode above the plan tier (b98 and up).
 typedef Lane<2, 4, 6, 2, true> SmallTier;
 typedef Lane<5, 9, 13, 4, true> DenseTier;
 typedef Lane<144, 288, 424, 64, false> GenericTier;
@@ -826,9 +826,10 @@ inline int pick_tier(const Plan& p) {
   return -1;
 }
 
-// The plans that K2 and K3 run on the plan tier, built per base: every plan
-// of at most kPlanTierLimbs limbs of n (b10-b97), which is all of K3's
-// domain (a descriptor carries four limbs). K2 above it keeps pick_tier's.
+// The plans that K1, K2, K3 and K5's detailed mode run on the plan tier,
+// built per base: every plan of at most kPlanTierLimbs limbs of n
+// (b10-b97), which is all of K3's domain (a descriptor carries four limbs).
+// K1, K2 and K5's detailed mode above it take the generic tier.
 // ops/cuda_engine.py PLAN_TIER_LIMBS mirrors the constant.
 constexpr int kPlanTierLimbs = 4;
 

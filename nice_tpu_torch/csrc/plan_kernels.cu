@@ -1,5 +1,5 @@
-// The per-base library: K3, K2 and K5's detailed mode on the plan tier, the
-// lane built for one base with its plan as constants (nice_kernels.cuh
+// The per-base library: K1, K2, K3 and K5's detailed mode on the plan tier,
+// the lane built for one base with its plan as constants (nice_kernels.cuh
 // PlanTier). The TPU did the same: pallas_engine.py's _strided_callable
 // (:390), _uniques_callable (:446) and _stats_callable (:163, its MXU arm
 // included) are lru_cached per plan, so each base was traced and compiled
@@ -8,9 +8,9 @@
 // load_plan builds this file with nvcc for sm_90a at the first use of a
 // base, with the generated nice_plan.h (ops/cuda_engine.py plan_header) on
 // the include path, for every plan of at most kPlanTierLimbs limbs of n
-// (b10-b97): all of K3's domain, and K2 and K5's detailed mode there (K5's
-// kernel is nice_grid.cuh's, with T's words in registers). A library
-// answers only the plan it was built for (kOtherPlan otherwise).
+// (b10-b97): all of K3's domain, and K1, K2 and K5's detailed mode there
+// (their kernels are nice_grid.cuh's; K5's keeps T's words in registers).
+// A library answers only the plan it was built for (kOtherPlan otherwise).
 //
 // K3 strided_niceonly_kernel replaces the TPU's stride-descriptor niceonly
 // kernel: pallas_engine.py _strided_callable (pallas_call at :410, body
@@ -103,6 +103,21 @@ constexpr int kPlanTierIndex = 3;
 // as in nice_kernels.cu (K2 keeps kThreads).
 extern "C" {
 
+// K1: n = start + g for g < valid_total into hist and *nm, the pad lanes
+// into bin 0, as nice_detailed_megaloop does above the plan tier.
+int nice_plan_detailed_megaloop(const uint64_t* plan_words, const void* start,
+                                long long valid_total, long long pad,
+                                void* hist, void* nm, int block_threads,
+                                void* stream) {
+  using namespace nice;
+  if (!this_plan(plan_words)) return kOtherPlan;
+  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;
+  launch_k1<PlanTier>(plan_from_words(plan_words), (const int64_t*)start,
+                      valid_total, pad, (int32_t*)hist, (int32_t*)nm,
+                      block_threads, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
 // K2: out[g] = num_uniques(start + g) for g < lanes.
 int nice_plan_uniques(const uint64_t* plan_words, const void* start,
                       long long lanes, void* out, void* stream) {
@@ -157,28 +172,29 @@ int nice_plan_strided_niceonly(const uint64_t* plan_words, const void* desc,
 }
 
 // The shape a launch would take, as nice_launch_shape (whose kernel
-// numbers it keeps): kernel 0 K5's detailed mode over a lanes, 1 K2 over a
-// lanes, 2 K3 over a lanes a row and b rows, at block_threads; out[4] is
-// the plan tier's index, 3.
+// numbers and arguments it keeps): kernel 0 K1 (mma = 0) or K5's detailed
+// mode (mma = 1) over a lanes, 1 K2 over a lanes, 2 K3 over a lanes a row
+// and b rows, at block_threads; out[4] is the plan tier's index, 3.
 int nice_plan_launch_shape(int kernel, const uint64_t* plan_words,
-                           long long a, long long b, int block_threads,
-                           int* out) {
+                           long long a, long long b, int mma,
+                           int block_threads, int* out) {
   using namespace nice;
   if (!this_plan(plan_words)) return kOtherPlan;
-  if (!block_threads_ok(block_threads, kernel == 0 ? kMmaMinThreads : kWarp)) {
+  if (!block_threads_ok(block_threads, mma ? kMmaMinThreads : kWarp)) {
     return kBadThreads;
   }
+  const Plan p = plan_from_words(plan_words);
   Shape sh;
   size_t smem;
-  switch (kernel) {
-    case 0: {
-      const int rc = k5_shape<PlanTier>(plan_from_words(plan_words), a,
-                                        block_threads, &sh, &smem);
+  switch (kernel * 2 + (mma != 0)) {
+    case 0: sh = k1_shape<PlanTier>(p, a, block_threads, &smem); break;
+    case 1: {
+      const int rc = k5_shape<PlanTier>(p, a, block_threads, &sh, &smem);
       if (rc) return rc;
       break;
     }
-    case 1: sh = uniques_shape<PlanTier>(a); break;
-    case 2: sh = strided_shape(a, (int)b, block_threads); break;
+    case 2: sh = uniques_shape<PlanTier>(a); break;
+    case 4: sh = strided_shape(a, (int)b, block_threads); break;
     default: return kNoTier;
   }
   out[0] = sh.grid;

@@ -464,7 +464,8 @@ FLIGHT_KNOWN_KINDS = ("dispatch_error", "retry", "fault", "checkpoint",
                       "bottleneck_shift", "sched_preemption", "tenant_starved",
                       "quarantine_pruned")
 
-# The cuda_engine.LAUNCHES keys: the kernel label of
+# The cuda_engine.LAUNCHES keys of the launches themselves (not
+# detailed_megaloop_plan, which counts K1's again): the kernel label of
 # nice_pallas_dispatch_seconds.
 KERNELS = ("detailed_megaloop", "uniques", "strided_niceonly", "niceonly_dense",
            "detailed_megaloop_mma", "niceonly_dense_mma")

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels at first use: the main library
-(csrc/nice_kernels.cu: K1, K2 above b97, K4, K5) and one per-base library
-for each base of at most four limbs (csrc/plan_kernels.cu: K2, K3 and K5's
-detailed mode on the plan tier, with the base's plan as constants).
+(csrc/nice_kernels.cu: K1 and K2 above b97, K4, K5) and one per-base
+library for each base of at most four limbs (csrc/plan_kernels.cu: K1, K2,
+K3 and K5's detailed mode on the plan tier, with the base's plan as
+constants).
 
 nvcc compiles the sources into a shared library with a plain C interface,
 which ctypes loads; no PyTorch header is involved, so the build takes
@@ -162,7 +163,10 @@ def bind(lib) -> None:
                                        c_int, c_longlong, c_longlong, c_int,
                                        c_void_p, c_int, c_void_p],
         "nice_plan_launch_shape": [c_int, words, c_longlong, c_longlong,
-                                   c_int, ctypes.POINTER(c_int)],
+                                   c_int, c_int, ctypes.POINTER(c_int)],
+        "nice_plan_detailed_megaloop": [words, c_void_p, c_longlong,
+                                        c_longlong, c_void_p, c_void_p, c_int,
+                                        c_void_p],
         "nice_plan_detailed_megaloop_mma": [words, c_void_p, c_longlong,
                                             c_longlong, c_void_p, c_void_p,
                                             c_int, c_int, c_void_p],

@@ -18,12 +18,12 @@ wrappers called with use_mxu=1: their products then run on the tensor cores
 by integer operations (little input, little output); see the source note in
 nice_kernels.cu for what the design does about it.
 
-K3, and K2 and K5's detailed mode at the bases of at most four limbs
+K3, and K1, K2 and K5's detailed mode at the bases of at most four limbs
 (b10-b97), run on the plan tier: a library built for each base with its
 plan as constants (csrc/plan_kernels.cu, `plan_library`), as the TPU traced
 a kernel per plan. Which plans take it is decided by `plan_tier_takes`
-alone; a failed build or launch there raises, as any other. K1 stays in the
-main library at every base.
+alone; a failed build or launch there raises, as any other. Above it they
+run in the main library's generic tier.
 
 K1, K3, K4 and K5 take their block size at run time (block_threads, the
 counterpart of the TPU kernels' block_rows): a whole number of warps up to
@@ -34,7 +34,9 @@ as the TPU's uniques kernel took no block_rows.
 
 Wrapper rule: a CPU tensor goes to the plain version in vector_engine.py; a
 CUDA tensor launches the kernel or raises. There is no fallback between the
-two. LAUNCHES counts launches, one per kernel launch and nowhere else.
+two. LAUNCHES counts launches, one per kernel launch and nowhere else;
+"detailed_megaloop_plan" counts again those of K1's that ran on the plan
+tier, so it says that the tier engages.
 DISPATCH_SECONDS keeps each launch call's wall time (a list append, no
 lock), and fold_dispatch_seconds() moves them into the
 nice_pallas_dispatch_seconds series, once a field (the engine calls it).
@@ -67,8 +69,8 @@ STRIDED_PERIODS_MAX = 1024
 STRIDED_OFFS_LANES_MAX = 1 << 20
 DESC_WIDTH = 12
 
-# The plans K2, K3 and K5's detailed mode run on the plan tier: at most this
-# many limbs of n (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
+# The plans K1, K2, K3 and K5's detailed mode run on the plan tier: at most
+# this many limbs of n (nice_kernels.cuh kPlanTierLimbs), all of K3's domain.
 PLAN_TIER_LIMBS = 4
 
 # The block sizes of a grid-stride launch (nice_grid.cuh kWarp, kThreads,
@@ -85,7 +87,7 @@ STRIDED_BLOCK_THREADS = DEFAULT_BLOCK_THREADS
 
 LAUNCHES = {"detailed_megaloop": 0, "uniques": 0, "strided_niceonly": 0,
             "niceonly_dense": 0, "detailed_megaloop_mma": 0,
-            "niceonly_dense_mma": 0}
+            "niceonly_dense_mma": 0, "detailed_megaloop_plan": 0}
 
 # Wall seconds of each launch call since the last fold, by LAUNCHES key.
 DISPATCH_SECONDS: dict = {k: [] for k in LAUNCHES}
@@ -162,8 +164,8 @@ def check_block_threads(block_threads, use_mxu: int = 0) -> int:
 
 
 def plan_tier_takes(plan: BasePlan) -> bool:
-    """Whether K2, K3 and K5's detailed mode run the plan on the plan tier
-    (its own build)."""
+    """Whether K1, K2, K3 and K5's detailed mode run the plan on the plan
+    tier (its own build)."""
     return plan.limbs_n <= PLAN_TIER_LIMBS
 
 
@@ -202,8 +204,8 @@ def plan_header(plan: BasePlan, **defines) -> str:
 
 @functools.lru_cache(maxsize=None)
 def plan_library(plan: BasePlan):
-    """The plan's per-base library (K2, K3 and K5's detailed mode on the
-    plan tier), built at the first use of the base and kept for the
+    """The plan's per-base library (K1, K2, K3 and K5's detailed mode on
+    the plan tier), built at the first use of the base and kept for the
     process."""
     return cuda_build.load_plan(plan_header(plan))
 
@@ -214,7 +216,8 @@ _SHAPE_KERNELS = {"detailed_megaloop": (0, 0), "uniques": (1, 0),
                   "detailed_megaloop_mma": (0, 1), "niceonly_dense_mma": (3, 1)}
 _TIERS = ("small", "generic", "dense", "plan")
 # The kernels the per-base library runs at the plan tier's plans.
-_PLAN_TIER_KERNELS = ("uniques", "strided_niceonly", "detailed_megaloop_mma")
+_PLAN_TIER_KERNELS = ("detailed_megaloop", "uniques", "strided_niceonly",
+                      "detailed_megaloop_mma")
 
 
 def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0,
@@ -231,12 +234,11 @@ def launch_shape(kernel: str, plan: BasePlan, a: int, b: int = 0,
     out = (ctypes.c_int * 5)()
     if kernel in _PLAN_TIER_KERNELS and plan_tier_takes(plan):
         lib = plan_library(plan)
-        rc = lib.nice_plan_launch_shape(which, plan_words(plan), a, b,
-                                        block_threads, out)
+        query = lib.nice_plan_launch_shape
     else:
         lib = cuda_build.load()
-        rc = lib.nice_launch_shape(which, plan_words(plan), a, b, mma,
-                                   block_threads, out)
+        query = lib.nice_launch_shape
+    rc = query(which, plan_words(plan), a, b, mma, block_threads, out)
     _raise_on(lib, rc, f"{kernel} shape")
     return {"grid": out[0], "threads": out[1], "blocks_per_sm": out[2],
             "sms": out[3], "tier": _TIERS[out[4]]}
@@ -290,8 +292,8 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
                             valid_total: int, use_mxu: int = 0,
                             nm_out: torch.Tensor | None = None,
                             block_threads: int = DEFAULT_BLOCK_THREADS):
-    """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1; on the plan
-    tier where plan_tier_takes): n_iters * batch_size lanes from
+    """K1 (use_mxu=0) or K5 in the detailed mode (use_mxu=1), on the plan
+    tier where plan_tier_takes: n_iters * batch_size lanes from
     start_limbs, the first valid_total of them real,
     folded into hist_acc (int32[base+2], updated in place — the port's form
     of JAX's donated accumulator), in blocks of block_threads threads.
@@ -313,12 +315,19 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     if not 0 <= valid_total <= total:
         raise ValueError(f"valid_total {valid_total} outside [0, {total}]")
     words = plan_words(plan)
-    if use_mxu and plan_tier_takes(plan):
-        lib = plan_library(plan)
-        launch = lib.nice_plan_detailed_megaloop_mma
-    else:
+    # The main library's entry and K5's per-base one take use_mxu; K1's
+    # per-base one does not.
+    mma = (use_mxu,)
+    plan_tier = plan_tier_takes(plan)
+    if not plan_tier:
         lib = cuda_build.load()
         launch = lib.nice_detailed_megaloop
+    else:
+        lib = plan_library(plan)
+        if use_mxu:
+            launch = lib.nice_plan_detailed_megaloop_mma
+        else:
+            launch, mma = lib.nice_plan_detailed_megaloop, ()
     if nm_out is None:
         nm = torch.zeros((), dtype=torch.int32, device=device)
     else:
@@ -328,12 +337,14 @@ def detailed_accum_megaloop(plan: BasePlan, batch_size: int, n_iters: int,
     with _on_device(device):
         rc = launch(
             words, start_limbs.data_ptr(), valid_total, total - valid_total,
-            hist_acc.data_ptr(), nm.data_ptr(), use_mxu, block_threads,
+            hist_acc.data_ptr(), nm.data_ptr(), *mma, block_threads,
             _stream(device),
         )
     name = "detailed_megaloop_mma" if use_mxu else "detailed_megaloop"
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    if plan_tier and not use_mxu:
+        LAUNCHES["detailed_megaloop_plan"] += 1
     DISPATCH_SECONDS[name].append(time.perf_counter() - t0)
     return hist_acc, nm
 

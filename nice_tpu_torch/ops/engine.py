@@ -3026,12 +3026,12 @@ def _warm_kind(device, devices) -> str:
 
 def warm_detailed(base: int, *, device="cuda", backend: str = "device",
                   devices=None) -> None:
-    """Build and load the libraries a detailed field of this base launches:
-    the main library (K1; K2 and K5 above b97) and, at the plan tier's bases
-    (b10-b97), the base's own library (K2 of the rare path and K5's detailed
-    arm). The JAX engine's warm_detailed compiles the executables of the
-    field's tuned shape; here either arm of any shape runs from these two
-    libraries, so no tuning is resolved. On the CPU (the plain versions) and
+    """Build and load the library a detailed field of this base launches:
+    at the plan tier's bases (b10-b97) the base's own library (K1, K2 of
+    the rare path and K5's detailed arm), above them the main library. The
+    JAX engine's warm_detailed compiles the executables of the field's
+    tuned shape; here either arm of any shape runs from that one library,
+    so no tuning is resolved. On the CPU (the plain versions) and
     for the scalar oracle there is nothing to build; the native backend
     loads the host library. devices: the field's device list, if it has
     one; every slice of a mesh runs from the same libraries, which one
@@ -3049,9 +3049,10 @@ def warm_detailed(base: int, *, device="cuda", backend: str = "device",
     plan = get_plan(base)
     if not ce.supports_base(plan):
         raise ValueError(f"base {base} exceeds the kernels' histogram")
-    cuda_build.load()
     if ce.plan_tier_takes(plan):
         ce.plan_library(plan)
+    else:
+        cuda_build.load()
 
 
 def _warm_probe_routes(base: int, field_size: int, field_start, limit: int

@@ -8,14 +8,13 @@ Each CSRC is a directory holding a tree's kernel sources (a tree's
 nice_tpu_torch/csrc, or a copy of it with one edit). nvcc builds each
 tree's main library (nice_kernels.cu) with cuda_build's flags and, where
 the tree has the plan tier (plan_kernels.cu), its per-base libraries at b40
-and b80, and a variant at b40: a copy of the tree whose plan_kernels.cu
-gains K1 on the plan tier (K1_PLAN_ENTRY; the port's K1 stays
-nice_kernels.cu's). For each build it reports nvcc's seconds, ptxas's
-registers, stack and spills of K1-K5 and the local loads and stores (LDL,
-STL) in their SASS. Then, in rounds that alternate the order of the builds,
-each library is called directly with the plan words packed in the order of
-its own PlanWord enum, on the main path's shapes: K1 over one 2^18 x 8
-segment from b40's range start (and the variant's K1 there); K2 over one
+and b80. For each build it reports nvcc's seconds, ptxas's registers, stack
+and spills of K1-K5 and the local loads and stores (LDL, STL) in their
+SASS. Then, in rounds that alternate the order of the builds, each library
+is called directly with the plan words packed in the order of its own
+PlanWord enum, on the main path's shapes: K1 over one 2^18 x 8 segment from
+b40's range start and from the b80 field's start, where the tree runs it
+(its per-base library where that has K1, else its main library); K2 over one
 2^18 sub-batch at b40, b80 and b510; K3 over the first descriptor group of
 the smoke's mid-range b40 field and of its surviving b80 field (the MSD
 filter over the field's chunks at the seed floor, as
@@ -153,9 +152,13 @@ K5_SPLIT = {
             "    products_mma(n, wrapped, i, iq, p, b, sh, sq, cu);", _MUL)]},
     "small_tier": {"register": [(
         "nice_kernels.cu",
-        "    if (plan_tier_takes(p)) return kPlanTierOnly;\n"
+        "  if (plan_tier_takes(p)) return kPlanTierOnly;\n"
+        "  if (pick_tier(p) != 1) return kNoTier;\n"
+        "  if (mma) {\n"
         "    const int rc = launch_k5<GenericTier>(p, st, valid_total, pad, h, n, mma,\n"
         "                                          block_threads, s);",
+        "  const int tier = pick_tier(p);\n"
+        "  if (mma) {\n"
         "    const int rc = tier == 0\n"
         "        ? launch_k5<SmallTier>(p, st, valid_total, pad, h, n, mma,\n"
         "                               block_threads, s)\n"
@@ -218,26 +221,6 @@ def build_facts(lib_path: str, nvcc_log: str) -> dict:
     return {"ptxas": ptxas, "sass": sass}
 
 
-# K1 on the plan tier, a recorded variant: appended to a copy of a tree's
-# plan_kernels.cu, it launches K1 with the base's plan as constants, as
-# nice_detailed_megaloop does with mma = 0 (at kThreads a block; THREADS_ARG
-# is the argument a tree whose launches take a block size needs).
-K1_PLAN_ENTRY = r"""
-extern "C" int nice_plan_detailed_megaloop(const uint64_t* plan_words,
-                                           const void* start,
-                                           long long valid_total,
-                                           long long pad, void* hist,
-                                           void* nm, void* stream) {
-  using namespace nice;
-  if (!this_plan(plan_words)) return kOtherPlan;
-  launch_k1<PlanTier>(plan_from_words(plan_words), (const int64_t*)start,
-                      valid_total, pad, (int32_t*)hist, (int32_t*)nm,
-                      THREADS_ARG (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-"""
-
-
 def takes_block_threads(csrc: str) -> bool:
     """Whether a tree's launches take a block size (block_threads, an
     argument before the stream); a parent tree's may not."""
@@ -270,23 +253,14 @@ def bind_tree(lib, csrc: str) -> tuple:
     return ()
 
 
-def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
+def plan_build(csrc: str, base: int, out_dir: str):
     """nvcc of a tree's plan_kernels.cu with one base's generated header,
-    in out_dir (with `entry` appended, in a copy of the tree there).
-    Returns the loaded library and its build facts."""
+    in out_dir. Returns the loaded library and its build facts."""
     from nice_tpu_torch.ops import cuda_build
     from nice_tpu_torch.ops import cuda_engine as ce
     from nice_tpu_torch.ops.limbs import get_plan
 
     os.makedirs(out_dir, exist_ok=True)
-    if entry:
-        copy = os.path.join(out_dir, "csrc")
-        shutil.copytree(csrc, copy)
-        # nicelint: allow A1 (a scratch copy of the sources)
-        with open(os.path.join(copy, "plan_kernels.cu"), "a") as f:
-            f.write(entry.replace("THREADS_ARG", "kThreads,"
-                                  if takes_block_threads(csrc) else ""))
-        csrc = copy
     # nicelint: allow A1 (a build input in a scratch directory)
     with open(os.path.join(out_dir, cuda_build.PLAN_HEADER), "w") as f:
         f.write(ce.plan_header(get_plan(base)))
@@ -301,9 +275,9 @@ def plan_build(csrc: str, base: int, out_dir: str, entry: str = ""):
 
 def build(name: str, csrc: str, out_dir: str, k5_only: bool = False) -> dict:
     """nvcc of one tree's main library and, where the tree has the plan
-    tier, of its per-base libraries at b40 and b80 and of the K1 variant at
-    b40, all at once. A k5_only tree (a --k5-split copy) builds its main
-    library and its b40 library alone."""
+    tier, of its per-base libraries at b40 and b80, all at once. A k5_only
+    tree (a --k5-split copy) builds its main library and its b40 library
+    alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nice_tpu_torch.ops import cuda_build
@@ -319,13 +293,12 @@ def build(name: str, csrc: str, out_dir: str, k5_only: bool = False) -> dict:
             if names != plan_word_names(cuda_build.CSRC_DIR):
                 raise RuntimeError(
                     f"{name}: a plan tier with another PlanWord enum")
-            for key, base, entry in (("plan_b40", 40, ""), ("plan_b80", 80, ""),
-                                     ("plan_b40_k1", 40, K1_PLAN_ENTRY)):
-                if k5_only and key != "plan_b40":
+            for base in (40, 80):
+                if k5_only and base != 40:
                     continue
+                key = f"plan_b{base}"
                 plans[key] = pool.submit(plan_build, csrc, base,
-                                         os.path.join(out_dir, name, key),
-                                         entry)
+                                         os.path.join(out_dir, name, key))
         info = main_lib.result()
         plans = {k: f.result() for k, f in plans.items()}
     out = {"name": name, "csrc": csrc, "nvcc_secs": time.monotonic() - t0,
@@ -338,13 +311,6 @@ def build(name: str, csrc: str, out_dir: str, k5_only: bool = False) -> dict:
     out["main_nvcc_secs"] = info["seconds"]
     out["plan_nvcc_secs"] = {k: facts["nvcc_secs"]
                              for k, (_, facts) in plans.items()}
-    if "plan_b40_k1" in plans:
-        k1 = plans["plan_b40_k1"][0].nice_plan_detailed_megaloop
-        k1.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        k1.restype = ctypes.c_int
-        out["k1_plan"] = k1
     return out
 
 
@@ -476,6 +442,10 @@ def main(argv=None) -> int:
         hist = torch.zeros(42, dtype=torch.int32, device=dev)
         want_hist, want_nm = ve.detailed_accum_megaloop(
             p40, BATCH, SEGMENT, hist.clone(), st40, lanes)
+        st80 = k2_starts[80]
+        hist80 = torch.zeros(p80.base + 2, dtype=torch.int32, device=dev)
+        want80 = ve.detailed_accum_megaloop(p80, BATCH, SEGMENT,
+                                            hist80.clone(), st80, lanes)
         want_u = {b: ve.uniques_batch(get_plan(b), BATCH, st)
                   for b, st in k2_starts.items()}
         want3 = {(b, mu): ve.niceonly_strided_counts(
@@ -506,10 +476,29 @@ def main(argv=None) -> int:
                 out4 = torch.zeros(2, dtype=torch.int32, device=dev)
                 w510 = plan_words(names, p510)
                 h5 = torch.zeros(p510.base + 2, dtype=torch.int32, device=dev)
+                h80 = hist80.clone()
 
-                def k1(fn=lib.nice_detailed_megaloop, mma=(0,), bt=bt):
+                def k1_entry(base):
+                    """(entry, its mma argument) of K1 where the tree runs
+                    it at base: its per-base library where that has K1,
+                    else its main library."""
+                    plib = b["plan_libs"].get(base)
+                    if plib is not None and hasattr(
+                            plib, "nice_plan_detailed_megaloop"):
+                        return plib.nice_plan_detailed_megaloop, ()
+                    return lib.nice_detailed_megaloop, (0,)
+
+                k1_40, k1_80 = k1_entry(40), k1_entry(80)
+
+                def k1(fn=k1_40[0], mma=k1_40[1], bt=bt):
                     _launched(fn(w40, st40.data_ptr(), lanes, 0, h.data_ptr(),
                                  nm.data_ptr(), *mma, *bt, stream), "K1")
+
+                def k1_b80():
+                    _launched(k1_80[0](
+                        plan_words(names, p80), st80.data_ptr(), lanes, 0,
+                        h80.data_ptr(), nm.data_ptr(), *k1_80[1], *bt,
+                        stream), "K1 b80")
 
                 def k2(base):
                     plan = get_plan(base)
@@ -610,6 +599,10 @@ def main(argv=None) -> int:
                 k1()
                 exact = bool(torch.equal(h, want_hist)
                              and int(nm) == int(want_nm))
+                nm.zero_()
+                k1_b80()
+                exact = exact and bool(torch.equal(h80, want80[0])
+                                       and int(nm) == int(want80[1]))
                 for base in k2_starts:
                     k2(base)
                     exact = exact and bool(torch.equal(u, want_u[base]))
@@ -621,6 +614,10 @@ def main(argv=None) -> int:
                     exact = exact and bool(torch.equal(out4, want))
                 line.update({
                     "k1_ms": device_ms(k1, 20, "detailed_megaloop_kernel"),
+                    "k1_b80_ms": device_ms(k1_b80, 10,
+                                           "detailed_megaloop_kernel"),
+                    "k1_tiers": {"b40": "plan" if k1_40[1] == () else "main",
+                                 "b80": "plan" if k1_80[1] == () else "main"},
                     "k1_b510_ms": device_ms(lambda: b510(0), 3,
                                             "detailed_megaloop_kernel"),
                     "k2_b40_ms": device_ms(lambda: k2(40), 50, "uniques_kernel"),
@@ -636,18 +633,6 @@ def main(argv=None) -> int:
                     "k4_full_run_ms": device_ms(lambda: k4(lanes), 20,
                                                 "niceonly_dense_kernel"),
                 })
-                if "k1_plan" in b:
-                    # K1 on the plan tier at b40: a recorded variant.
-                    def k1_plan():
-                        k1(b["k1_plan"], (), ())
-
-                    h.zero_()
-                    nm.zero_()
-                    k1_plan()
-                    exact = exact and bool(torch.equal(h, want_hist)
-                                           and int(nm) == int(want_nm))
-                    line["k1_plan_tier_ms"] = device_ms(
-                        k1_plan, 20, "detailed_megaloop_kernel")
                 line["exact"] = exact and k5_exact
                 if rnd == 0:
                     line.update(nvcc_secs=b["nvcc_secs"],

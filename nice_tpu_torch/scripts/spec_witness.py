@@ -18,9 +18,9 @@ prints one {"kernelspec": {...}} line and exits 0 when every check holds:
    clamp_segment's largest value for the default batch (about 2^30 lanes),
    whose bins must sum to its lanes and equal the same lanes run in
    default segments;
-3. the error paths must raise: K5 past 2^31 lanes, the main library's K5
-   on a plan-tier plan (kPlanTierOnly), a per-base library asked for
-   another plan (kOtherPlan), K5's shared memory past kMmaSmemMax
+3. the error paths must raise: K5 past 2^31 lanes, the main library's K1
+   and K5 on a plan-tier plan (kPlanTierOnly), a per-base library's K1 and
+   K2 asked for another plan (kOtherPlan), K5's shared memory past kMmaSmemMax
    (kNoSmem), a base with base + 2 > 2048, and a block size outside the
    rule at each C entry that takes one (kBadThreads) and at its wrapper;
 4. tiers: launch_shape's tier for each kernel at the probe bases must be
@@ -188,6 +188,7 @@ def witnesses(dev, names=None) -> dict:
                 sizes = sizes[:1]
             for threads in sizes:
                 if spec.name in ("nice_detailed_megaloop",
+                                 "nice_plan_detailed_megaloop",
                                  "nice_plan_detailed_megaloop_mma"):
                     diff, cases = _detailed(plan, shape, dev, mma, rng,
                                             threads)
@@ -267,14 +268,14 @@ def error_paths(dev) -> dict:
         ce.detailed_accum_megaloop(p40, engine.DEFAULT_BATCH_SIZE, n_iters,
                                    acc, st, 0, use_mxu=1)
 
-    def main_k5_on_plan_tier():
+    def main_on_plan_tier(mma):
         lib = cuda_build.load()
         rc = lib.nice_detailed_megaloop(ce.plan_words(p40), st.data_ptr(), 64,
-                                        0, acc.data_ptr(), nm.data_ptr(), 1,
+                                        0, acc.data_ptr(), nm.data_ptr(), mma,
                                         ce.DEFAULT_BLOCK_THREADS, stream)
         if rc != ks.RETURN_CODES["kPlanTierOnly"]:
             raise AssertionError(f"rc {rc}, not kPlanTierOnly")
-        ce._raise_on(lib, rc, "detailed_megaloop_mma")
+        ce._raise_on(lib, rc, "detailed_megaloop")
 
     def other_plan():
         lib = ce.plan_library(p40)
@@ -284,6 +285,15 @@ def error_paths(dev) -> dict:
         if rc != ks.RETURN_CODES["kOtherPlan"]:
             raise AssertionError(f"rc {rc}, not kOtherPlan")
         ce._raise_on(lib, rc, "uniques")
+
+    def other_plan_k1():
+        lib = ce.plan_library(p40)
+        rc = lib.nice_plan_detailed_megaloop(
+            ce.plan_words(p80), st.data_ptr(), 64, 0, acc.data_ptr(),
+            nm.data_ptr(), ce.DEFAULT_BLOCK_THREADS, stream)
+        if rc != ks.RETURN_CODES["kOtherPlan"]:
+            raise AssertionError(f"rc {rc}, not kOtherPlan")
+        ce._raise_on(lib, rc, "detailed_megaloop")
 
     def k5_smem():
         ce.launch_shape("detailed_megaloop_mma", get_plan(2045), 1 << 21)
@@ -296,8 +306,10 @@ def error_paths(dev) -> dict:
 
     out = {name: _raises(fn) for name, fn in (
         ("k5_past_2^31_lanes", k5_past_2_31),
-        ("main_k5_on_plan_tier", main_k5_on_plan_tier),
-        ("other_plan", other_plan), ("k5_smem", k5_smem),
+        ("main_k1_on_plan_tier", lambda: main_on_plan_tier(0)),
+        ("main_k5_on_plan_tier", lambda: main_on_plan_tier(1)),
+        ("other_plan", other_plan), ("other_plan_k1", other_plan_k1),
+        ("k5_smem", k5_smem),
         ("base_past_2048_bins", hist_bins))}
     out.update(bad_block_threads(dev))
     torch.cuda.synchronize(dev)
@@ -328,6 +340,9 @@ def bad_block_threads(dev) -> dict:
             torch.zeros(p98.base + 2, dtype=torch.int32,
                         device=dev).data_ptr(), nm.data_ptr(), mma, t,
             stream)),
+        "nice_plan_detailed_megaloop": (plan40, lambda t, mma: (
+            w40, st40.data_ptr(), 64, 0, acc.data_ptr(), nm.data_ptr(), t,
+            stream)),
         "nice_plan_detailed_megaloop_mma": (plan40, lambda t, mma: (
             w40, st40.data_ptr(), 64, 0, acc.data_ptr(), nm.data_ptr(), 1, t,
             stream)),
@@ -341,7 +356,7 @@ def bad_block_threads(dev) -> dict:
         "nice_launch_shape": (main, lambda t, mma: (
             0, w40, 1 << 21, 0, mma, t, shape)),
         "nice_plan_launch_shape": (plan40, lambda t, mma: (
-            2 - 2 * mma, w40, 1 << 10, 4, t, shape)),
+            2, w40, 1 << 10, 4, mma, t, shape)),
     }
     out = {}
     for name, (lib, args) in entries.items():

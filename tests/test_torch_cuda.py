@@ -288,8 +288,9 @@ def test_plan_tier_build_is_reused_on_card(card, monkeypatch):
 
 def test_plan_tier_failures_raise_on_card(card, monkeypatch):
     """A per-base build that fails raises, and so does a library asked for
-    another base's plan, for K2, K3 and K5's detailed mode; neither
-    launches anything else (K5 does not give way to the main library)."""
+    another base's plan, for K1, K2, K3 and K5's detailed mode; neither
+    launches anything else (K1 and K5 do not give way to the main
+    library)."""
     from nice_tpu_torch.ops import cuda_build
 
     plan = get_plan(97)
@@ -310,6 +311,8 @@ def test_plan_tier_failures_raise_on_card(card, monkeypatch):
             ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
         with pytest.raises(RuntimeError, match="nvcc failed"):
             ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64, use_mxu=1)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64)
     wrong = ce.plan_library(get_plan(80))
     monkeypatch.setattr(ce, "plan_library", lambda p: wrong)
     with pytest.raises(RuntimeError, match="another plan"):
@@ -318,6 +321,8 @@ def test_plan_tier_failures_raise_on_card(card, monkeypatch):
         ce.strided_niceonly_batch(plan, table.modulus, res, 1, desc, 1)
     with pytest.raises(RuntimeError, match="another plan"):
         ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64, use_mxu=1)
+    with pytest.raises(RuntimeError, match="another plan"):
+        ce.detailed_accum_megaloop(plan, 64, 1, acc, st, 64)
     torch.cuda.synchronize()
     assert ce.LAUNCHES == before
 
@@ -328,7 +333,7 @@ def test_k1_launch_is_one_resident_wave_on_card(card):
     small one."""
     plan = get_plan(40)
     big = ce.launch_shape("detailed_megaloop", plan, 1 << 21)
-    assert big["tier"] == "small" and big["threads"] == 256
+    assert big["tier"] == "plan" and big["threads"] == 256
     assert big["grid"] == big["blocks_per_sm"] * big["sms"]
     small = ce.launch_shape("detailed_megaloop", plan, 1000)
     assert small["grid"] == 4
@@ -503,6 +508,87 @@ def test_k5_detailed_tiers_on_card(card, base, tier):
         for n_iters, valid in ((1, batch - 19), (3, 3 * batch - 45)):
             _k5_detailed_case(card, plan, start, batch, n_iters, valid, rng)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("base", [10, 17, 40, 55, 80, 97])
+def test_k1_plan_tier_equals_plain_version_and_k5_on_card(card, base):
+    """K1 on the plan tier (its per-base library, b10-b97) against its plain
+    version and against K5, every bin and the near-miss count: from
+    range_start and across the largest limb carry inside the range, with a
+    ragged valid_total (so a nonzero pad into bin 0), at block sizes 32, 64,
+    128 and 256; each launch counted under detailed_megaloop and
+    detailed_megaloop_plan."""
+    plan = get_plan(base)
+    rng = np.random.default_rng(base + 2)
+    batch, n_iters = 256, 3
+    assert ce.launch_shape("detailed_megaloop", plan, 1 << 21)["tier"] == "plan"
+    starts = [plan.range_start]
+    if plan.limbs_n > 1:
+        starts.append(_carry_start(plan, n_iters * batch))
+    for start in starts:
+        st = ve.start_limbs_tensor(start, plan, card)
+        valid = n_iters * batch - int(rng.integers(1, batch))
+        acc = torch.from_numpy(
+            rng.integers(0, 1000, base + 2, dtype=np.int32)).to(card)
+        hp, nmp = ve.detailed_accum_megaloop(plan, batch, n_iters, acc.clone(),
+                                             st, valid)
+        h5, nm5 = ce.detailed_accum_megaloop(plan, batch, n_iters, acc.clone(),
+                                             st, valid, 1)
+        assert torch.equal(h5, hp) and int(nm5) == int(nmp), start
+        for threads in (32, 64, 128, 256):
+            before = dict(ce.LAUNCHES)
+            h1, nm1 = ce.detailed_accum_megaloop(plan, batch, n_iters,
+                                                 acc.clone(), st, valid,
+                                                 block_threads=threads)
+            assert torch.equal(h1, hp) and int(nm1) == int(nmp), (start,
+                                                                  threads)
+            for k in ("detailed_megaloop", "detailed_megaloop_plan"):
+                assert ce.LAUNCHES[k] == before[k] + 1, k
+    torch.cuda.synchronize()
+
+
+def test_main_library_leaves_plan_tier_k1_to_the_per_base_one_on_card(card):
+    """The main library answers kPlanTierOnly for K1 and K5 at every plan
+    the plan tier takes, before launching anything."""
+    from nice_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    for base in (10, 40, 55, 80, 97):
+        plan = get_plan(base)
+        st = ve.start_limbs_tensor(plan.range_start, plan, card)
+        acc = torch.zeros(base + 2, dtype=torch.int32, device=card)
+        nm = torch.zeros((), dtype=torch.int32, device=card)
+        for mma in (0, 1):
+            rc = lib.nice_detailed_megaloop(
+                ce.plan_words(plan), st.data_ptr(), 64, 0, acc.data_ptr(),
+                nm.data_ptr(), mma, ce.DEFAULT_BLOCK_THREADS,
+                ce._stream(st.device))
+            assert rc == kernelspec.RETURN_CODES["kPlanTierOnly"], (base, mma)
+        torch.cuda.synchronize()
+        assert int(acc.abs().sum()) == 0 and int(nm) == 0
+
+
+def test_k1_plan_tier_launches_over_fields_on_card(card):
+    """LAUNCHES["detailed_megaloop_plan"] counts every K1 launch of a 1e9
+    field at b40 and b80 (477 at the default shape) and none at b98 and
+    b510, whose K1 runs in the main library."""
+    for base, size, want in ((40, 10**9, 477), (80, 10**9, 477),
+                             (98, 1 << 24, None), (510, 1 << 22, None)):
+        plan = get_plan(base)
+        start = (plan.range_start + plan.range_end) // 2
+        ce.reset_launches()
+        engine.process_range_detailed(
+            FieldSize(start, start + size), base, device=card,
+            batch_size=engine.DEFAULT_BATCH_SIZE,
+            segment=engine.MEGALOOP_SEGMENT_DEFAULT, use_mxu=0)
+        torch.cuda.synchronize()
+        k1, on_plan = (ce.LAUNCHES[k] for k in ("detailed_megaloop",
+                                                  "detailed_megaloop_plan"))
+        if want:
+            assert k1 == on_plan == want, (base, k1, on_plan)
+        else:
+            assert k1 > 0 and on_plan == 0, (base, k1, on_plan)
+    ce.reset_launches()
 
 
 @pytest.mark.parametrize("base,tier", [(40, "small"), (98, "dense"),
@@ -922,7 +1008,9 @@ def test_spec_error_paths_raise_on_card(card):
     assert all(errors.values()), errors
     assert "below 2^31" in errors["k5_past_2^31_lanes"]
     assert "per-base build" in errors["main_k5_on_plan_tier"]
+    assert "per-base build" in errors["main_k1_on_plan_tier"]
     assert "another plan" in errors["other_plan"]
+    assert "another plan" in errors["other_plan_k1"]
     assert "shared memory" in errors["k5_smem"]
     assert "2048 bins" in errors["base_past_2048_bins"]
 

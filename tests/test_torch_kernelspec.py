@@ -97,8 +97,25 @@ def test_copied_tree_is_clean(tmp_path):
     ("nice_tpu_torch/csrc/nice_grid.cuh", "constexpr int kMmaMinThreads = 64;",
      "constexpr int kMmaMinThreads = 32;", "block-rule-drift:cuda:mma1"),
     ("nice_tpu_torch/csrc/plan_kernels.cu",
-     "  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;\n",
-     "", "block-check-missing:nice_plan_strided_niceonly"),
+     "  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;\n"
+     "  const int64_t lanes", "  const int64_t lanes",
+     "block-check-missing:nice_plan_strided_niceonly"),
+    # K1's per-base entry: its block-size check, its ctypes binding, and a
+    # wrapper that loads another name.
+    ("nice_tpu_torch/csrc/plan_kernels.cu",
+     "  if (!block_threads_ok(block_threads, kWarp)) return kBadThreads;\n"
+     "  launch_k1<PlanTier>", "  launch_k1<PlanTier>",
+     "block-check-missing:nice_plan_detailed_megaloop"),
+    ("nice_tpu_torch/ops/cuda_build.py",
+     """                                        c_longlong, c_void_p, c_void_p, c_int,
+                                        c_void_p],""",
+     """                                        c_longlong, c_void_p, c_void_p,
+                                        c_void_p],""",
+     "abi-drift:nice_plan_detailed_megaloop"),
+    ("nice_tpu_torch/ops/cuda_engine.py",
+     "launch, mma = lib.nice_plan_detailed_megaloop, ()",
+     "launch, mma = lib.nice_plan_detailed_megaloop_v2, ()",
+     "unspecced-entry:nice_plan_detailed_megaloop_v2"),
 ])
 def test_c6_flags_seeded_drift(tmp_path, rel, old, new, finding):
     root = _copy(tmp_path)
@@ -169,6 +186,28 @@ def test_registry_covers_every_loaded_entry_and_kernel():
     assert loads - set(ks.HELPERS) == set(ks.all_specs())
     assert {k for s in ks.all_specs().values() for k in s.kernels} == {
         "K1", "K2", "K3", "K4", "K5"}
+
+
+@pytest.mark.parametrize("base", sorted(set(ks.PROBE_BASES + ks.SWEEP_BASES)))
+def test_k1_runs_on_the_plan_tier_exactly_where_the_tier_takes(base):
+    """K1 at b10-b97 on the per-base entry and the plan tier, above it on the
+    main library's generic tier, and past the histogram's bins nowhere; no
+    plan is taken by both entries, and the per-base one runs no K5."""
+    shape = ks.plan_shape(base)
+    plan_k1, main_k1 = (next(s for s in ks.all_specs().values()
+                             if "K1" in s.kernels and s.library == lib)
+                        for lib in ("plan", "main"))
+    if not ks.supports_base(shape):
+        want = None
+    elif shape.limbs_n <= ks.PLAN_TIER_LIMBS:
+        want = "plan"
+    else:
+        want = "generic"
+    assert ks.predicted_tier("detailed_megaloop", shape) == want
+    assert plan_k1.tier(shape, 0) == ("plan" if want == "plan" else None)
+    assert main_k1.tier(shape, 0) == ("generic" if want == "generic" else None)
+    assert plan_k1.tier(shape, 1) is None
+    assert ce.plan_tier_takes(get_plan(base)) == (want == "plan")
 
 
 def test_contract_constants_equal_jax_kernelspec():

@@ -1,5 +1,6 @@
-"""The plan tier of the port (K2 and K3 built once per base with the plan as
-constants: nice_tpu_torch/csrc/plan_kernels.cu, nice_kernels.cuh PlanTier),
+"""The plan tier of the port (K1, K2, K3 and K5's detailed mode built once per
+base with the plan as constants: nice_tpu_torch/csrc/plan_kernels.cu,
+nice_kernels.cuh PlanTier),
 checked without a card: K3's division by the residue count (a multiply-high
 by a host-computed magic, modelled here in the header's u32 arithmetic),
 which plans take the tier, the per-base build's key and generated header,
@@ -8,6 +9,7 @@ Pallas kernel (interpret mode, at small sizes) and against Python integers
 at b97, the tier's widest base.
 """
 
+import contextlib
 import os
 import re
 import shutil
@@ -190,25 +192,60 @@ def test_build_plan_writes_the_header_only_for_a_build(tmp_path, monkeypatch):
 
 
 class _FakeLib:
-    """Stands for a loaded library: records the C functions called."""
+    """Stands for a loaded library: records the C functions called and
+    their argument counts; a shape query fills its out array."""
 
     def __init__(self, name, calls):
         self.name, self.calls = name, calls
 
     def __getattr__(self, fn):
         def call(*args):
-            self.calls.append((self.name, fn))
-            out = args[-1]
-            for i, v in enumerate((1, 256, 8, 132, 3 if self.name == "plan" else 1)):
-                out[i] = v
+            self.calls.append((self.name, fn, len(args)))
+            if fn.endswith("_launch_shape"):
+                out = args[-1]
+                for i, v in enumerate(
+                        (1, 256, 8, 132, 3 if self.name == "plan" else 1)):
+                    out[i] = v
             return 0
         return call
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that a wrapper goes past
+    its plain version to its library's launch (faked here)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _on_card(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_OnCard)
+
+
+# The C entries of K1 and K5's detailed mode (names built so that no string
+# here reads as a series name to the reference's nicelint M1).
+K1_MAIN, K1_PLAN, K5_PLAN = ("nice" + "_" + n for n in (
+    "detailed_megaloop", "plan_detailed_megaloop",
+    "plan_detailed_megaloop_mma"))
+
+
+def _k1_launch(plan, use_mxu=0):
+    """One detailed_accum_megaloop call on _OnCard tensors: 64 x 2 lanes,
+    100 of them real."""
+    ce.detailed_accum_megaloop(
+        plan, 64, 2, _on_card(torch.zeros(plan.base + 2, dtype=torch.int32)),
+        _on_card(torch.zeros(plan.limbs_n, dtype=torch.int64)), 100,
+        use_mxu=use_mxu, nm_out=_on_card(torch.zeros((), dtype=torch.int32)))
+
+
 def test_wrappers_route_by_plan_size(monkeypatch):
-    """launch_shape asks the per-base library for K2 and K3 at b10-b97 and
-    the main library for K2 above, and a per-base build is asked of
-    load_plan with the base's own header."""
+    """launch_shape asks the per-base library for K1, K2 and K3 at b10-b97
+    and the main library for K1 and K2 above, and a per-base build is asked
+    of load_plan with the base's own header. detailed_accum_megaloop
+    launches K1 from the per-base library at b10-b97 (and K5 with use_mxu=1
+    from its per-base entry), from the main library above, and counts
+    LAUNCHES["detailed_megaloop_plan"] for the per-base K1 alone."""
     calls, headers = [], []
 
     def load_plan(header):
@@ -226,19 +263,49 @@ def test_wrappers_route_by_plan_size(monkeypatch):
             assert ce.launch_shape("uniques", plan, 1 << 18)["tier"] == "plan"
             assert ce.launch_shape("strided_niceonly", plan, 4352,
                                    1024)["tier"] == "plan"
-            # One load a base: the second call found the first's library.
+            assert ce.launch_shape("detailed_megaloop", plan,
+                                   1 << 21)["tier"] == "plan"
+            # One load a base: the later calls found the first's library.
             assert headers[-1] == ce.plan_header(plan)
             assert headers.count(headers[-1]) == 1
     finally:
         ce.plan_library.cache_clear()
-    assert all(lib == "plan" for lib, _ in calls)
+    assert all(lib == "plan" for lib, *_ in calls)
     calls.clear()
     for base in (98, 510):
-        assert ce.launch_shape("uniques", get_plan(base), 1 << 18)["tier"] == "generic"
-    assert ce.launch_shape("detailed_megaloop", get_plan(40), 1 << 21)["tier"] == "generic"
-    assert [lib for lib, _ in calls] == ["main"] * 3
+        plan = get_plan(base)
+        assert ce.launch_shape("uniques", plan, 1 << 18)["tier"] == "generic"
+        assert ce.launch_shape("detailed_megaloop", plan,
+                               1 << 21)["tier"] == "generic"
+    assert [lib for lib, *_ in calls] == ["main"] * 4
     assert all(fn.endswith("_launch_shape") and "plan" not in fn
-               for _, fn in calls)
+               for _, fn, _ in calls)
+
+    # The launches, on tensors that say they are on the card.
+    monkeypatch.setattr(ce, "_on_device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(ce, "_stream", lambda device: 0)
+    monkeypatch.setattr(ce, "LAUNCHES", dict.fromkeys(ce.LAUNCHES, 0))
+    monkeypatch.setattr(ce, "DISPATCH_SECONDS",
+                        {k: [] for k in ce.DISPATCH_SECONDS})
+    calls.clear()
+    try:
+        for base in (10, 40, 55, 80, 97):
+            _k1_launch(get_plan(base))
+        _k1_launch(get_plan(40), use_mxu=1)
+        assert calls == [("plan", K1_PLAN, 8)] * 5 + [("plan", K5_PLAN, 9)]
+        assert ce.LAUNCHES["detailed_megaloop"] == 5
+        assert ce.LAUNCHES["detailed_megaloop_plan"] == 5
+        assert ce.LAUNCHES["detailed_megaloop_mma"] == 1
+        calls.clear()
+        for base in (98, 510):
+            _k1_launch(get_plan(base))
+        _k1_launch(get_plan(510), use_mxu=1)
+        assert calls == [("main", K1_MAIN, 9)] * 3
+        assert ce.LAUNCHES["detailed_megaloop"] == 7
+        assert ce.LAUNCHES["detailed_megaloop_plan"] == 5
+        assert ce.LAUNCHES["detailed_megaloop_mma"] == 2
+    finally:
+        ce.plan_library.cache_clear()
 
 
 def test_strided_wrapper_takes_no_plan_above_the_tier():
