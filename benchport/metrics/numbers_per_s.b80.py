@@ -1,5 +1,5 @@
 """numbers_per_s.b80: numbers_per_s in the cells whose card paces the whole
-field (K1's generic tier, about 1 ms a launch), where the host's load moves
+field (K1 on its plan tier, about 0.29 ms a launch), where the host's load moves
 the rate little, so that it takes a bound of its own."""
 
 from benchport import manifest

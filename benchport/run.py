@@ -1,6 +1,6 @@
 """One run of one cell of the port's benchmark.
 
-    python3 -m benchport.run --workload b40.thin --seed 7 --seconds 20 --trace 0
+    python3 -m benchport.run --workload b40.thin --seed 7 --seconds 51 --trace 0
 
 The cell (BENCHMARK.json's `workloads`) names a configuration and a traffic
 mix. The run drives nice_tpu_torch's client entry, client.main.process_field,
