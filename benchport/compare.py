@@ -1,114 +1,45 @@
-"""The comparison that decides `correct`: the program's answers against the
-plain reference (reference.py), on the fields the window completed.
+"""The comparison that decides `correct`, the same for every mode.
 
-Every completed field, on the host with Python ints:
-  * bins_sum_gap: |sum of its bins - its size|, summed over the fields;
-  * near_miss_wrong: its near misses that lie outside the field, repeat,
-    are out of order, are not above the cutoff, or whose num_uniques
-    disagrees with Python ints' (reference.uniques_int);
-  * near_miss_bin_gap: for each bin above the cutoff, |its count - the near
-    misses listed with that num_uniques|.
-The first and the last two are what the server checks of a submission.
-A sample of the fields drawn from the seed, in full by the reference:
-  * hist_gap: sum over the bins of |program - reference|;
-  * near_miss_gap: near misses in one list and not in the other.
-Every limit is 0: the answers are exact, so any gap is a wrong answer.
+The configuration's mode (benchport/modes/<mode>.py, found by manifest)
+knows its answers: its LIMITS, which fields of a window its plain reference
+checks in full (`pick`, from the seed and the configuration's own keys), the
+readings over the window's fields (`readings`) and the control's answer to a
+field (`control`). The reference is the file that the configuration's
+`reference` key names. Here: the seeded draw of a sample, the readings of
+the program's fields and of the control in the program's place on the same
+sample.
 """
 
 from __future__ import annotations
 
 import random
-from typing import NamedTuple
-
-from benchport import reference
-
-LIMITS = {"bins_sum_gap": 0, "near_miss_wrong": 0, "near_miss_bin_gap": 0,
-          "hist_gap": 0, "near_miss_gap": 0}
-
-
-class Bin(NamedTuple):
-    num_uniques: int
-    count: int
-
-
-class Near(NamedTuple):
-    number: int
-    num_uniques: int
-
-
-class Answer(NamedTuple):
-    """A field's answer in the shape of the program's FieldResults."""
-    distribution: tuple
-    nice_numbers: tuple
-
-
-def answer(bins: list[int], near: list[tuple[int, int]]) -> Answer:
-    """An Answer from a histogram over 1..base and (n, uniques) pairs."""
-    return Answer(tuple(Bin(u, c) for u, c in enumerate(bins, 1)),
-                  tuple(Near(n, u) for n, u in near))
+import sys
+import time
 
 
 def sample(n_fields: int, k: int, seed: int) -> list[int]:
-    """Indexes of the k fields (all, where fewer) the reference checks."""
+    """Indexes of k fields (all, where fewer) drawn from the seed."""
     rng = random.Random(f"benchport-check-{int(seed)}")
     return sorted(rng.sample(range(n_fields), min(k, n_fields)))
 
 
-def _bins(results, base: int) -> tuple[list[int], int]:
-    """(counts of num_uniques 1..base, the count put in any other bin)."""
-    counts: dict = {}
-    for d in results.distribution:
-        counts[d.num_uniques] = counts.get(d.num_uniques, 0) + d.count
-    bins = [counts.pop(u, 0) for u in range(1, base + 1)]
-    return bins, sum(abs(c) for c in counts.values())
+def check(cell, fields: list, seed: int, device, control: bool = False
+          ) -> tuple[dict, int, int]:
+    """(the readings, the count of fields read wrong, the fields checked in
+    full) of the window's fields; with control, of the picked fields each
+    answered by the control in the program's place."""
+    import torch
 
-
-def _near(results) -> list[tuple[int, int]]:
-    return [(n.number, n.num_uniques) for n in results.nice_numbers]
-
-
-def field_readings(base: int, start: int, end: int, results) -> dict:
-    """bins_sum_gap, near_miss_wrong and near_miss_bin_gap of one field's
-    answer."""
-    cutoff = reference.near_miss_cutoff(base)
-    bins, stray = _bins(results, base)
-    wrong, prev = 0, None
-    listed = [0] * (base + 1)
-    for n, u in _near(results):
-        if (not start <= n < end or (prev is not None and n <= prev)
-                or u <= cutoff or reference.uniques_int(n, base) != u):
-            wrong += 1
-        if cutoff < u <= base:
-            listed[u] += 1
-        prev = n
-    bin_gap = sum(abs(bins[u - 1] - listed[u])
-                  for u in range(cutoff + 1, base + 1))
-    return {"bins_sum_gap": abs(sum(bins) - (end - start)) + stray,
-            "near_miss_wrong": wrong, "near_miss_bin_gap": bin_gap}
-
-
-def reference_readings(base: int, start: int, end: int, results, device
-                       ) -> dict:
-    """hist_gap and near_miss_gap of one field's answer against the
-    reference's."""
-    ref_bins, ref_near = reference.field_result(base, start, end, device)
-    bins, stray = _bins(results, base)
-    gap = stray + sum(abs(a - b) for a, b in zip(bins, ref_bins))
-    near = set(_near(results))
-    return {"hist_gap": gap, "near_miss_gap": len(near ^ set(ref_near))}
-
-
-def readings(base: int, fields, checked: list[int], device) -> tuple[dict, int]:
-    """(the readings summed over the fields, how many fields read wrong).
-    `fields` are (start, end, results); `checked` the sample's indexes."""
-    total = dict.fromkeys(LIMITS, 0)
-    bad = 0
-    checked = set(checked)
-    for i, (start, end, results) in enumerate(fields):
-        r = field_readings(base, start, end, results)
-        if i in checked:
-            r.update(reference_readings(base, start, end, results, device))
-        for k, v in r.items():
-            total[k] += v
-        bad += any(r.values())
-    return total, bad
+    mode, config, ref = cell.mode, cell.config, cell.reference
+    picked = mode.pick(config, len(fields), seed)
+    t = time.perf_counter()
+    with torch.no_grad():
+        if control:
+            fields = [fields[i]._replace(
+                results=mode.control(config, ref, fields[i], device))
+                for i in picked]
+            picked = range(len(fields))
+        readings, bad = mode.readings(config, ref, fields, picked, device)
+    print(f"reference: {len(picked)} fields in "
+          f"{time.perf_counter() - t:.3f} s", file=sys.stderr)
+    return readings, bad, len(picked)

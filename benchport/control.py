@@ -6,12 +6,13 @@ control's over three or more (the upper ones).
         --control-seeds 3 --seconds 3
 
 One process sets the cell up once. For each seed it runs a short window of
-the seed's traffic at the cell's own load, as a run does, and reads compare.py's numbers over
-the window's fields, with the sample of them that a run checks in full. For
-each control seed it then puts the control, the reference with n^2 and n^3
-taken in float64 (reference.py), in the program's place on that sample and
-reads the same numbers. One JSON line a reading; the last line sums them up
-as {"program": {number: largest}, "control": {number: smallest}}.
+the seed's traffic at the cell's own load, as a run does, and reads the
+mode's numbers (compare.check) over the window's fields, with the sample of
+them that a run checks in full. For each control seed it then puts the
+mode's control (in detailed mode the reference with n^2 and n^3 taken in
+float64) in the program's place on that sample and reads the same numbers.
+One JSON line a reading; the last line sums them up as
+{"program": {number: largest}, "control": {number: smallest}}.
 """
 
 from __future__ import annotations
@@ -23,18 +24,7 @@ import time
 
 import torch
 
-from benchport import compare, manifest, reference, run, traffic
-
-
-def control_answers(base: int, fields, picked, device) -> list:
-    """The control's answers to the sampled fields."""
-    out = []
-    for i in picked:
-        start, end, _ = fields[i]
-        bins, near = reference.field_result(base, start, end, device,
-                                            arithmetic="float64")
-        out.append((start, end, compare.answer(bins, near)))
-    return out
+from benchport import compare, manifest, run, traffic
 
 
 def main(argv=None) -> int:
@@ -49,32 +39,28 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("benchport.control: needs a CUDA card", file=sys.stderr)
         return 2
-    base = int(cell.config["base"])
-    k = int(cell.config["check_fields"])
     session = run.Session(cell)
     session.warm(traffic.warm_field(cell.config), False)
-    worst = dict.fromkeys(compare.LIMITS, 0)
+    worst = dict.fromkeys(cell.mode.LIMITS, 0)
     least: dict = {}
     for i in range(max(args.seeds, args.control_seeds)):
         seed = args.first_seed + i
         r = session.window(traffic.fields(cell.config, cell.mix, seed),
                            args.seconds, False, time.perf_counter())
-        fields = [(f.start, f.end, f.results) for f in r.fields]
-        picked = compare.sample(len(fields), k, seed)
         if i < args.seeds:
-            got, bad = compare.readings(base, fields, picked, "cuda")
+            got, bad, checked = compare.check(cell, r.fields, seed, "cuda")
             for name, v in got.items():
                 worst[name] = max(worst[name], v)
             print(json.dumps({"side": "program", "seed": seed,
-                              "fields": len(fields), "checked": len(picked),
+                              "fields": len(r.fields), "checked": checked,
                               "failed": bad, "readings": got}), flush=True)
         if i < args.control_seeds:
-            ctrl = control_answers(base, fields, picked, "cuda")
-            got, bad = compare.readings(base, ctrl, range(len(ctrl)), "cuda")
+            got, bad, checked = compare.check(cell, r.fields, seed, "cuda",
+                                              control=True)
             for name, v in got.items():
                 least[name] = min(least.get(name, v), v)
             print(json.dumps({"side": "control", "seed": seed,
-                              "checked": len(ctrl), "failed": bad,
+                              "checked": checked, "failed": bad,
                               "readings": got}), flush=True)
     print(json.dumps({"workload": args.workload, "program": worst,
                       "control": least}), flush=True)

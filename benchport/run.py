@@ -7,21 +7,24 @@ mix. The run drives nice_tpu_torch's client entry, client.main.process_field,
 on the first card in the configuration's mode with the client's defaults
 (the device backend, no mesh, no winners table), as one closed-loop client:
 each field (traffic.py, from --seed) is handed over when the previous one
-has returned.
+has returned. What differs by mode is the mode's file,
+benchport/modes/<mode>.py (manifest.MODE_CONTRACT).
 
   * Set-up (setup_s): the process's start, torch's import, the libraries'
-    build or load (engine.warm_detailed) and one warm field of the cell's
-    own shape (the configuration's warm_index on its grid, a field that
-    drives every path the window's fields take), not counted.
+    build or load (the mode's warm) and one warm field of the cell's own
+    shape (the configuration's warm_index on its grid, a field that drives
+    every path the window's fields take), not counted.
   * The window: fields are handed over for --seconds; each is timed from
-    hand-over to return, and the program's counters are read after it.
+    hand-over to return, and the mode's stats and the program's counters
+    are read after it.
   * --trace 1: torch.profiler records a stretch of whole fields from a
     third of the way in, for the configuration's profile_seconds; the
     per-layer metrics are read from it and from the counters.
   * After the window: the card's peak memory is read, the process is
     checked for modules of JAX or of the JAX package (by top-level name,
-    compared whole), the program's state is freed, and the answers are
-    compared with the plain reference (compare.py).
+    compared whole), the program's state is freed, the answers are
+    compared with the configuration's plain reference (compare.py and
+    the mode's readings), and the process is checked again.
 
 The last line of standard output is one JSON object: correct, attempted,
 failed (fields), metrics (the cell's end-to-end metrics, or with --trace 1
@@ -56,8 +59,13 @@ class Field(NamedTuple):
     end: int
     wall_s: float  # hand-over to return
     done_s: float  # its return, from the window's start
-    feed_idle_s: float  # engine.LAST_FEED_STATS["idle_total"] after it
+    stats: dict  # the mode's stats, read right after it returned
     results: object
+
+    @property
+    def feed_idle_s(self) -> float:
+        """engine.LAST_FEED_STATS["idle_total"] after it (detailed mode)."""
+        return self.stats.get("feed_idle_s", 0.0)
 
 
 class Run:
@@ -94,7 +102,8 @@ def _cache_env(root: str) -> None:
 class Session:
     """The program set up for a cell: the client's arguments and entry, the
     counters it is read by. `warm` is the set-up's warm field; `window` runs
-    the measured window."""
+    the measured window. The cell's mode reaches the program through it
+    (`engine`, `args`)."""
 
     def __init__(self, cell, client_argv=()):
         import torch
@@ -133,12 +142,12 @@ class Session:
             self.torch.cuda.synchronize()
 
     def warm(self, field, trace: bool) -> None:
-        """Build or load the libraries and run one field of the cell's
-        shape; with trace, under a first profiler, whose start-up (CUPTI's)
-        is then set-up's and not the stretch's."""
+        """Build or load the libraries (the mode's warm) and run one field
+        of the cell's shape; with trace, under a first profiler, whose
+        start-up (CUPTI's) is then set-up's and not the stretch's."""
         from torch.profiler import profile
 
-        self.engine.warm_detailed(self.base, device=self.args.device)
+        self.cell.mode.warm(self, self.cell.config, field)
         with profile(activities=self.activities) if trace else nullcontext():
             self.handover(*field)
             self.sync()
@@ -149,6 +158,7 @@ class Session:
         from torch.profiler import profile, record_function
 
         ce, run = self.ce, Run(self.cell)
+        field_stats = self.cell.mode.stats(self)
         if self.on_card:
             run.card = peaks.card(0)
         prof = stretch_range = None
@@ -192,9 +202,8 @@ class Session:
                     run.error = f"{type(e).__name__}: {e}"
                     break
                 t_b = time.perf_counter()
-            run.fields.append(Field(
-                start, end, t_b - t_a, t_b - t0,
-                self.engine.LAST_FEED_STATS.get("idle_total", 0.0), results))
+            run.fields.append(Field(start, end, t_b - t_a, t_b - t0,
+                                    field_stats(), results))
             if profiling and t_b >= prof_until:
                 stop_profiler()
         if prof is not None and run.stretch is None:
@@ -237,22 +246,6 @@ def device_info(run: Run, cell, trace: bool) -> dict:
     return info
 
 
-def check(run: Run, seed: int, device: str) -> tuple[dict, int]:
-    """The comparison's readings and the count of fields read wrong."""
-    import torch
-
-    fields = [(f.start, f.end, f.results) for f in run.fields]
-    picked = compare.sample(len(fields), int(run.config["check_fields"]),
-                            seed)
-    t = time.perf_counter()
-    with torch.no_grad():
-        readings, bad = compare.readings(int(run.config["base"]), fields,
-                                         picked, device)
-    print(f"reference: {len(picked)} fields in "
-          f"{time.perf_counter() - t:.3f} s", file=sys.stderr)
-    return readings, bad
-
-
 def result_line(run: Run, cell, seed: int, trace: bool, device: dict,
                 device_kind: str) -> dict:
     """The run's result line. The card's cached blocks are released before
@@ -265,10 +258,10 @@ def result_line(run: Run, cell, seed: int, trace: bool, device: dict,
     gc.collect()
     if device_kind == "cuda":
         torch.cuda.empty_cache()
-    readings, bad = check(run, seed, device_kind)
+    readings, bad, _ = compare.check(cell, run.fields, seed, device_kind)
+    limits = cell.mode.LIMITS
     correct = (run.error is None and bool(run.fields)
-               and all(readings[k] <= lim
-                       for k, lim in compare.LIMITS.items()))
+               and all(readings[k] <= lim for k, lim in limits.items()))
     line = {"correct": correct, "attempted": attempted,
             "failed": bad + (run.error is not None),
             "metrics": metrics, "device": device}
@@ -276,8 +269,39 @@ def result_line(run: Run, cell, seed: int, trace: bool, device: dict,
         line["breakdown"] = {"device_ops": summary["device_ops"],
                              "idle_gaps": summary["idle_gaps"]}
     line["checks"] = {k: {"value": readings[k], "limit": lim}
-                      for k, lim in compare.LIMITS.items()}
+                      for k, lim in limits.items()}
     return line
+
+
+def refused_for_imports() -> bool:
+    """Whether JAX or the JAX package is loaded, named on standard error."""
+    bad = loaded_forbidden()
+    if bad:
+        print(f"benchport: the run loaded {', '.join(bad)}", file=sys.stderr)
+    return bool(bad)
+
+
+def report(run: Run, cell, seed: int, trace: bool, device: dict,
+           device_kind: str) -> int:
+    """Compare and print the result; 3 and no result where JAX or the JAX
+    package is loaded once the window has closed, or once the comparison
+    (the mode's readings, the configuration's reference) has run."""
+    if refused_for_imports():
+        return 3
+    line = result_line(run, cell, seed, trace, device, device_kind)
+    if refused_for_imports():
+        return 3
+    stretch = run.stretch or {}
+    print(json.dumps({"fields": len(run.fields), "setup_s": run.setup_s,
+                      "launches": run.launches,
+                      "stretch_fields": stretch.get("fields"),
+                      "stretch_launches": stretch.get("launches")}),
+          file=sys.stderr)
+    for k, v in line["checks"].items():
+        print(f"check {k} {v['value']} limit {v['limit']}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(line), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -301,23 +325,8 @@ def main(argv=None) -> int:
     run = drive(cell, args.seed, args.seconds, trace)
     if run.error:
         print(f"benchport: a field raised: {run.error}", file=sys.stderr)
-    device = device_info(run, cell, trace)
-    bad = loaded_forbidden()
-    if bad:
-        print(f"benchport: the run loaded {', '.join(bad)}", file=sys.stderr)
-        return 3
-    line = result_line(run, cell, args.seed, trace, device, "cuda")
-    stretch = run.stretch or {}
-    print(json.dumps({"fields": len(run.fields), "setup_s": run.setup_s,
-                      "launches": run.launches,
-                      "stretch_fields": stretch.get("fields"),
-                      "stretch_launches": stretch.get("launches")}),
-          file=sys.stderr)
-    for k, v in line["checks"].items():
-        print(f"check {k} {v['value']} limit {v['limit']}", file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(line), flush=True)
-    return 0
+    return report(run, cell, args.seed, trace,
+                  device_info(run, cell, trace), "cuda")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Fixtures of the benchmark's CPU tests: a root that holds a manifest of
-tiny cells beside copies of the harness's traffic, metric and kernel files."""
+tiny cells beside copies of the harness's traffic, metric, kernel and mode
+files and of its plain reference."""
 
 import json
 import os
@@ -9,11 +10,14 @@ import pytest
 
 from benchport import manifest
 
+REFERENCE = "benchport/reference.py"
 TINY = {
     "tiny-b10": {"base": 10, "mode": "detailed", "field_size": 8,
-                 "check_fields": 6, "warm_index": 2, "profile_seconds": 0.3},
+                 "check_fields": 6, "warm_index": 2, "profile_seconds": 0.3,
+                 "reference": REFERENCE},
     "tiny-b40": {"base": 40, "mode": "detailed", "field_size": 4096,
-                 "check_fields": 2, "warm_index": 0, "profile_seconds": 0.3},
+                 "check_fields": 2, "warm_index": 0, "profile_seconds": 0.3,
+                 "reference": REFERENCE},
 }
 # Plain versions on the CPU, in small batches.
 CPU_ARGV = ("--device", "cpu", "--batch-size", "256")
@@ -25,9 +29,11 @@ def make_root(path, extra_configs=None, extra_cells=()):
     m = manifest.load()
     configs = dict(TINY, **(extra_configs or {}))
     os.makedirs(path / "benchport" / "configs")
-    for sub in ("traffic", "metrics", "kernels"):
+    for sub in ("traffic", "metrics", "kernels", "modes"):
         shutil.copytree(os.path.join(manifest.HERE, sub),
-                        path / "benchport" / sub)
+                        path / "benchport" / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(manifest.ROOT, REFERENCE), path / REFERENCE)
     for name, cfg in configs.items():
         with open(path / "benchport" / "configs" / f"{name}.json", "w") as f:
             json.dump(cfg, f)

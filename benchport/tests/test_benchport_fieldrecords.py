@@ -27,7 +27,7 @@ def run_of(ks):
     run = Run(SimpleNamespace(config=CONFIG, root=manifest.ROOT))
     for i, k in enumerate(ks):
         start, end = grid_field(k)
-        run.fields.append(Field(start, end, 0.06, 0.06 * (i + 1), 0.0, None))
+        run.fields.append(Field(start, end, 0.06, 0.06 * (i + 1), {}, None))
     return run
 
 

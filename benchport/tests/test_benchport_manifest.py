@@ -81,7 +81,8 @@ def read(run):
 
 def test_new_config_mix_and_metric_are_files_alone(tmp_path):
     new_cfg = {"tiny-b12": {"base": 12, "mode": "detailed", "field_size": 64,
-                            "check_fields": 3, "warm_index": 1}}
+                            "check_fields": 3, "warm_index": 1,
+                            "reference": "benchport/reference.py"}}
     cell = {"name": "t12.every", "config": "tiny-b12", "traffic": "every",
             "chips": 1, "why": "test"}
     root = make_root(tmp_path, extra_configs=new_cfg, extra_cells=[cell])

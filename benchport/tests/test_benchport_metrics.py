@@ -21,7 +21,8 @@ def synthetic_run(walls, config=None, size=10**9):
     t = 0.5
     for i, w in enumerate(walls):
         t += w
-        run.fields.append(Field(i * size, (i + 1) * size, w, t, w / 10, None))
+        run.fields.append(Field(i * size, (i + 1) * size, w, t,
+                                {"feed_idle_s": w / 10}, None))
     return run
 
 

@@ -4,7 +4,8 @@ import random
 
 import pytest
 
-from benchport import compare, opcount, reference
+from benchport import manifest, opcount, reference
+from benchport.run import Field
 
 NEAR_MISS_B40 = 3621949312977  # num_uniques 37 at b40
 
@@ -81,15 +82,17 @@ def test_limb_columns_fit_int64(base):
 def test_the_control_fails_the_comparison(base):
     """The reference computed in float64 (the control), put in the
     program's place on small fields, fails the comparison."""
+    detailed = manifest.load_mode("detailed")
+    config = {"base": base}
     lo, hi = reference.base_range(base)
     rng = random.Random(7)
     fields = []
     for _ in range(2):
         start = rng.randrange(lo, hi - 3000)
-        bins, near = reference.field_result(base, start, start + 3000,
-                                            arithmetic="float64")
-        fields.append((start, start + 3000, compare.answer(bins, near)))
-    got, bad = compare.readings(base, fields, [0, 1], "cpu")
+        field = Field(start, start + 3000, 0.0, 0.0, {}, None)
+        fields.append(field._replace(
+            results=detailed.control(config, reference, field, "cpu")))
+    got, bad = detailed.readings(config, reference, fields, [0, 1], "cpu")
     assert got["hist_gap"] > 0 and bad == 2
 
 

@@ -13,7 +13,7 @@ import sys
 import pytest
 import torch
 
-from benchport import compare, manifest, run
+from benchport import manifest, reference, run
 from nice_tpu_torch.core.types import (
     FieldResults,
     FieldSize,
@@ -111,8 +111,6 @@ def test_broken_timed_path_is_not_correct(tiny_root, monkeypatch, fault):
 
 def test_control_in_the_programs_place_is_not_correct(tiny_root, monkeypatch):
     """The control (the reference in float64) put in the program's place."""
-    from benchport import reference
-
     def control(real, range_, base, kw, last):
         bins, near = reference.field_result(base, range_.start(),
                                             range_.end(),
@@ -140,8 +138,9 @@ def test_a_field_that_raises_is_not_correct(tiny_root, monkeypatch):
 
 
 def test_answers_the_server_would_refuse_read_wrong():
-    fields = [(47, 55, compare.answer([0] * 10, []))]
-    got, bad = compare.readings(10, fields, [], "cpu")
+    detailed = manifest.load_mode("detailed")
+    fields = [run.Field(47, 55, 0.0, 0.0, {}, detailed.answer([0] * 10, []))]
+    got, bad = detailed.readings({"base": 10}, reference, fields, [], "cpu")
     assert got["bins_sum_gap"] == 8 and bad == 1
 
 
@@ -196,16 +195,25 @@ def test_a_run_imports_neither_jax_nor_the_jax_package(tiny_root):
 
 def test_harness_sources_import_nothing_of_the_program():
     """The yardstick (the reference, the comparison, the traffic, the
-    counts, the peaks, the trace reading and the metric readers) imports
-    nothing of JAX, the JAX package or the port."""
+    counts, the peaks, the trace reading, the metric readers, the modes and
+    the reference each configuration names) imports nothing of JAX, the JAX package or the port: a mode reaches the
+    program only through the run's session."""
     import ast
 
     files = [os.path.join(manifest.HERE, f) for f in
              ("reference.py", "compare.py", "traffic.py", "opcount.py",
               "peaks.py", "devtrace.py", "manifest.py")]
-    metrics = os.path.join(manifest.HERE, "metrics")
-    files += [os.path.join(metrics, f) for f in os.listdir(metrics)
-              if f.endswith(".py")]
+    for sub in ("metrics", "modes"):
+        d = os.path.join(manifest.HERE, sub)
+        files += [os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".py")]
+    assert any(f.endswith(os.path.join("modes", "detailed.py"))
+               for f in files)
+    m = manifest.load()
+    for entry in m["configs"]:  # each configuration's own reference
+        with open(os.path.join(manifest.ROOT, entry["file"])) as f:
+            files.append(os.path.join(manifest.ROOT,
+                                      json.load(f)["reference"]))
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
